@@ -1,0 +1,57 @@
+"""The port's twin registry, keyed by the JAX package's process functions.
+
+The JAX package hangs its device twins on its process functions
+(``jax_impl``, ``jax_capable``, ``jax_dynamic``;
+dask_geomodeling_tpu/runtime/executor.py).  The port leaves those
+functions as they are and keeps its own table instead: ``register`` maps
+a process function to a torch twin, and the executors look twins up with
+``twin_for``.
+
+A twin takes the process function's arguments, batch-first: every raster
+``values`` is a (B, bands, h, w) tensor, and every literal named by the
+process function's ``jax_dynamic`` arrives as a tensor with a leading B
+axis (runtime/executor.py:batch_literals).  It returns the same
+structure the process function returns, with tensors in place of arrays.
+A twin may also name host work to do per tile before batching (``stage``).
+"""
+
+__all__ = ["register", "twin_for", "is_capable", "stage"]
+
+_TWINS = {}
+
+
+def register(process_fn, twin, capable=None, stage=None):
+    """Serve ``process_fn`` nodes with ``twin``.
+
+    ``capable`` (optional) sees the node's literal args (graph-key args as
+    None) and says whether the twin can serve this node; without it the
+    twin serves every node.  ``stage`` (optional) is host work done per
+    tile before the literals are batched: it takes the node's args and
+    returns them with its literals replaced (the source computes its
+    coarse index grid there).
+    """
+    _TWINS[process_fn] = (twin, capable, stage)
+
+
+def twin_for(process_fn):
+    """The registered twin of ``process_fn``, or None."""
+    entry = _TWINS.get(process_fn)
+    return None if entry is None else entry[0]
+
+
+def stage(process_fn, args):
+    """``args`` of a ``process_fn`` node after its twin's host staging."""
+    entry = _TWINS.get(process_fn)
+    if entry is None or entry[2] is None:
+        return tuple(args)
+    return tuple(entry[2](*args))
+
+
+def is_capable(process_fn, literals):
+    """Whether ``process_fn`` has a twin that can serve a node with these
+    literal args (graph-key args replaced by None)."""
+    entry = _TWINS.get(process_fn)
+    if entry is None:
+        return False
+    capable = entry[1]
+    return capable is None or bool(capable(*literals))

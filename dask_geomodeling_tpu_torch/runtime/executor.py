@@ -1,0 +1,225 @@
+"""The torch executor: walk a compute graph, run each twin on the device.
+
+Counterpart of dask_geomodeling_tpu/runtime/executor.py:compute_jax, and
+it reuses that module's graph walk (``_reachable``, ``_toposort``).
+PyTorch runs eagerly, so there is nothing to stage or compile: nodes run
+one by one in topological order.  A node whose process function has a
+capable twin (registry.py) runs on the device.  A node without one runs
+its numpy process on the host only while all its inputs are still on the
+host, as file reads do in the JAX executor; one that would take a device
+result raises ``NotLowerable``, so device data never goes back to the
+host to be computed on.  A twin that fails raises: no request is quietly
+served from the host instead.
+
+Twins work batch-first (registry.py).  Here the batch is one request,
+B = 1; runtime/tiles.py runs the same twins over B tiles at once.
+"""
+import numpy as np
+import torch
+
+from dask_geomodeling_tpu.config import config
+from dask_geomodeling_tpu.runtime.executor import (
+    _is_task,
+    _map_structure,
+    _reachable,
+    _toposort,
+)
+from dask_geomodeling_tpu_torch import registry
+from dask_geomodeling_tpu_torch.device import resolve_device
+from dask_geomodeling_tpu_torch.raster.sources import to_device
+
+__all__ = [
+    "compute_torch",
+    "plan_graph",
+    "batch_literals",
+    "NotLowerable",
+    "host_node_runs",
+]
+
+
+class NotLowerable(Exception):
+    """The view does not reduce to one chain of twins over a tile batch."""
+
+
+#: nodes compute_torch ran on the host (no capable twin), since import
+host_node_runs = 0
+
+
+def plan_graph(view, request):
+    """``view.get_compute_graph(**request)`` for the port's executors.
+
+    The planner's float32 ``warp_grid`` is switched off: the source twin
+    stages its own float64 grid (raster/sources.py), so the CRS math runs
+    once per tile."""
+    with config.set({"geomodeling.warp-host-grid": False}):
+        return view.get_compute_graph(**request)
+
+
+def literal_args(value, graph):
+    """A node's literal args, graph-key args as None (the ``jax_capable``
+    calling convention)."""
+    return [
+        None if (isinstance(arg, str) and arg in graph) else arg
+        for arg in value[1:]
+    ]
+
+
+def batch_literals(per_tile, dynamic, device):
+    """One literal argument of a twin, batched over tiles.
+
+    ``per_tile`` holds the literal as each tile's plan gives it.  Fields
+    named in ``dynamic`` (the process function's ``jax_dynamic``) vary per
+    tile: each is stacked into a tensor with a leading B axis, numbers as
+    float64 like the JAX executor's ``_dynamicize``; with ``"__scalars__"``
+    a bare number becomes a (B, 1, 1, 1) float64 tensor, one scalar per
+    tile broadcast against (B, bands, h, w).  Every other array (a source
+    payload) must be the same in every tile and becomes one shared resident
+    tensor; the remaining fields are taken from the first tile.
+    """
+    first = per_tile[0]
+    dynamic = dynamic or ()
+    if (
+        "__scalars__" in dynamic
+        and isinstance(first, (int, float))
+        and not isinstance(first, bool)
+    ):
+        stacked = np.asarray(per_tile, dtype=np.float64).reshape(-1, 1, 1, 1)
+        return torch.from_numpy(stacked).to(device)
+    if isinstance(first, dict) and dynamic:
+        varying = {
+            key: torch.from_numpy(
+                np.stack([_as_dynamic(tile[key]) for tile in per_tile])
+            ).to(device)
+            for key in dynamic
+            if key in first and _is_dynamic_value(first[key])
+        }
+        static = {k: v for k, v in first.items() if k not in varying}
+        others = [{k: v for k, v in t.items() if k not in varying} for t in per_tile]
+        return dict(_shared_arrays(static, others, device), **varying)
+    return _shared_arrays(first, per_tile, device)
+
+
+def _is_dynamic_value(value):
+    return isinstance(
+        value, (int, float, tuple, list, np.ndarray)
+    ) and not isinstance(value, bool)
+
+
+def _as_dynamic(value):
+    if isinstance(value, np.ndarray):
+        return value
+    return np.asarray(value, dtype=np.float64)
+
+
+def _arrays_in(obj):
+    found = []
+    _map_structure(
+        lambda leaf: found.append(leaf) if isinstance(leaf, np.ndarray) else None,
+        obj,
+    )
+    return found
+
+
+def _same_array(a, b):
+    # payloads are the same ndarray object in every tile's plan: identity
+    # first, so a large source is never compared element by element
+    return a is b or (
+        a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+    )
+
+
+def _shared_arrays(first, per_tile, device):
+    """``first`` with each array replaced by its resident tensor, after
+    checking that every tile carries the same array there."""
+    arrays = _arrays_in(first)
+    for other in per_tile[1:]:
+        others = _arrays_in(other)
+        if len(others) != len(arrays) or not all(
+            _same_array(a, b) for a, b in zip(arrays, others)
+        ):
+            raise NotLowerable("a literal array varies from tile to tile")
+    return _map_structure(
+        lambda leaf: to_device(leaf, device) if isinstance(leaf, np.ndarray) else leaf,
+        first,
+    )
+
+
+def to_host(obj):
+    """A twin's batch-first result for one request: tensors -> numpy,
+    dropping the batch axis of 1."""
+    return _map_structure(
+        lambda leaf: leaf[0].cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf,
+        obj,
+    )
+
+
+def from_host(obj, device):
+    """A host node's result as a twin input: arrays -> tensors with a
+    batch axis of 1."""
+    return _map_structure(
+        lambda leaf: torch.from_numpy(np.ascontiguousarray(leaf)).to(device)[None]
+        if isinstance(leaf, np.ndarray)
+        else leaf,
+        obj,
+    )
+
+
+def compute_torch(graph, name, device=None):
+    """Evaluate ``name`` in a compute graph; twins run on ``device``."""
+    global host_node_runs
+    device = resolve_device(device)
+    needed, deps = _reachable(graph, name)
+    order = _toposort(needed, deps)
+    remaining = {key: 0 for key in order}
+    for key in order:
+        for dep in deps[key]:
+            remaining[dep] += 1
+
+    cache = {}
+    on_device = set()
+    for key in order:
+        value = graph[key]
+        if not _is_task(value):
+            cache[key] = value
+            continue
+        func = value[0]
+        twin = None
+        if registry.is_capable(func, literal_args(value, graph)):
+            twin = registry.twin_for(func)
+        if twin is None:
+            if any(dep in on_device for dep in deps[key]):
+                raise NotLowerable(
+                    "node %s has no capable torch twin and takes a device result"
+                    % key.split("_")[0]
+                )
+            host_node_runs += 1
+            cache[key] = func(
+                *[
+                    cache[arg] if isinstance(arg, str) and arg in graph else arg
+                    for arg in value[1:]
+                ]
+            )
+        else:
+            args = []
+            for arg in registry.stage(func, value[1:]):
+                if isinstance(arg, str) and arg in graph:
+                    result = cache[arg]
+                    if arg not in on_device:
+                        result = from_host(result, device)
+                    args.append(result)
+                else:
+                    args.append(
+                        batch_literals(
+                            [arg], getattr(func, "jax_dynamic", None), device
+                        )
+                    )
+            cache[key] = twin(*args)
+            on_device.add(key)
+        # release each intermediate after its last consumer
+        for dep in deps[key]:
+            remaining[dep] -= 1
+            if remaining[dep] == 0 and dep != name:
+                cache.pop(dep, None)
+
+    result = cache[name]
+    return to_host(result) if name in on_device else result
