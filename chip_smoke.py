@@ -7,40 +7,157 @@ NVIDIA GPU.
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: csrc/gaussian_blur.cu with nvcc for sm_90a, from this checkout;
-3. kernel check: the CUDA Gaussian against its plain torch version on the
-   card (torch.equal) at the main path's shape (64, 516, 516) and sigma
-   (radius 3), at radius 8 and at a zoom-mode radius 40; one plane against
-   scipy.ndimage.gaussian_filter on the host, bitwise;
-4. main path: bench.py's view (8192^2 EPSG:28992 source) over a 10240^2
-   EPSG:3857 request in 512^2 tiles, batches of 64, through the port's
-   evaluate_tiled and get_data.  The Gaussian launch count must equal the
-   number of batches (all of the fused shape), no node may run on the
-   host, a view with a node that has no twin (MovingMax) must raise, a
-   64^2 corner must equal the numpy executor bit for bit and 16 tiles
-   spread over the request may differ from it in at most 5e-4 of their
+2. build: csrc/gaussian_blur.cu and csrc/moving_max.cu with nvcc for
+   sm_90a, from this checkout, both at once;
+3. kernel checks, on the card against the plain torch versions
+   (torch.equal): the Gaussian at the headline path's shape (64, 516, 516)
+   and sigma (radius 3), at the stencils path's (64, 524, 524) and sigma
+   5/3 (radius 7), at radius 8 and at a zoom-mode radius 40, and one plane
+   against scipy.ndimage.gaussian_filter, bitwise; the moving maximum at
+   the stencils path's shape (64, 526, 526) float32 size 3, also against
+   torch's max_pool2d, at sizes 5, 7 and 15, in every integer and float
+   width, and with NaN in a plane;
+4. headline path: the view of bench.py (8192^2 EPSG:28992 source) over a
+   10240^2 EPSG:3857 request in 512^2 tiles, batches of 64, through the
+   port's evaluate_tiled and get_data.  The Gaussian launches once per
+   batch (fused), no node runs on the host, a view with a node that has
+   no twin raises, a 64^2 corner equals compute_host bit for bit, and 16
+   tiles spread over the request differ from it in at most 5e-4 of their
    cells;
-5. timing: median of 3 evaluate_tiled runs (Mpx/s), the numpy host rate
-   on the sampled tiles, one run's seconds per phase (plan, run, fetch,
-   assemble), one run under torch.profiler for the device's busy time and
-   idle share, and one (64, 516, 516) blur by the kernel and by the plain
-   version (CUDA events).
+5. stencils path: HillShade(Smooth(MovingMax(source, 3), 5)) of
+   benchmarks/run.py over its 8192^2 float32 EPSG:28992 source, requested
+   whole in the same CRS: 256 tiles in 4 batches.  One moving-max and one
+   fused Gaussian launch per batch, no node on the host, a 64^2 corner of
+   the view below HillShade bitwise equal to compute_host and the full
+   view within 1 of it, 16 tiles within 1 of compute_host with at most
+   1e-3 of their cells differing, and get_data equal to evaluate_tiled;
+6. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
+   host rate on the sampled tiles, one run's seconds per phase, one
+   profiled run's device busy time and idle share; per kernel at its
+   path's shape, the kernel, its plain version and one PyTorch call of the
+   same function (CUDA events), and the least time the card could take.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without CUDA the script exits non-zero
-before printing any result.  It imports nothing of JAX, and checks that.
+The views are built with the port's own classes (private copies of
+bench.py's and benchmarks/run.py's builders) and checked against the
+port's compute_host.  The line before the last is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.  Without CUDA the
+script exits non-zero before printing any result.  It imports nothing of
+JAX or of the JAX package, and checks that at the end.
 """
 import json
 import subprocess
 import sys
+import threading
 import time
+from datetime import datetime, timedelta
 
 import numpy as np
 
-MAX_SHARE = 5e-4
-OUT_PX = 10240
+HEADLINE_PX = 10240
+HEADLINE_SHARE = 5e-4
+STENCILS_PX = 8192
+STENCILS_SHARE = 1e-3
 TILE = 512
 BATCH = 64
+# NVIDIA H100 SXM data sheet: HBM3 rate, and the FP32 and FP64 rates
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
+
+
+# --- the views, with the port's own classes ---
+
+
+def build_headline_view(source_px=8192):
+    """bench.py:build_view: Classify(Reclassify(Classify(Smooth(source + 1))))
+    over an 8192^2 float32 EPSG:28992 source."""
+    from dask_geomodeling_tpu_torch.raster import Classify, MemorySource, Reclassify, Smooth
+
+    rng = np.random.RandomState(42)
+    data = (rng.rand(1, source_px, source_px) * 250).astype(np.float32)
+    data[0, :64, :64] = np.float32(np.finfo(np.float32).max)  # nodata patch
+
+    source = MemorySource(
+        data=data,
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(85000, 455000),
+        time_first=datetime(2000, 1, 1),
+        time_delta=timedelta(hours=1),
+    )
+    view = Classify(
+        Reclassify(
+            Classify(Smooth(source + 1, size=3), bins=[50.0, 100.0, 150.0, 200.0]),
+            data=[[0, 1], [1, 5], [2, 9], [3, 13], [4, 17]],
+        ),
+        bins=[4, 8, 12, 16],
+    )
+    return source, view
+
+
+def headline_request(source, out_px):
+    """bench.py:full_request: the source's extent in EPSG:3857."""
+    from dask_geomodeling_tpu_torch.geo import Extent
+
+    bbox = (
+        Extent(
+            source.geo_transform.get_bbox((0, 0), source.data.shape[1:]),
+            source.projection,
+        )
+        .transformed("EPSG:3857")
+        .bbox
+    )
+    return dict(
+        mode="vals",
+        bbox=bbox,
+        projection="EPSG:3857",
+        width=out_px,
+        height=out_px,
+        start=datetime(2000, 1, 1),
+    )
+
+
+def make_source(px, seed=0):
+    """benchmarks/run.py:make_source, one band: float32 uniform [0, 200)."""
+    from dask_geomodeling_tpu_torch.raster import MemorySource
+
+    rng = np.random.RandomState(seed)
+    data = (rng.rand(1, px, px) * 200).astype(np.float32)
+    return MemorySource(
+        data=data,
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(135000.0, 456000.0),
+        time_first=datetime(2000, 1, 1),
+        time_delta=None,
+    )
+
+
+def vals_request(px):
+    """benchmarks/run.py:vals_request: the source's extent at px^2."""
+    return dict(
+        mode="vals",
+        bbox=(135000.0, 456000.0 - px, 135000.0 + px, 456000.0),
+        projection="EPSG:28992",
+        width=px,
+        height=px,
+        start=datetime(2000, 1, 1),
+        stop=datetime(2000, 1, 2),
+    )
+
+
+def build_stencils_view(px=8192):
+    """The "stencils" configuration of benchmarks/run.py."""
+    from dask_geomodeling_tpu_torch.raster import HillShade, MovingMax, Smooth
+
+    source = make_source(px)
+    return source, HillShade(Smooth(MovingMax(source, 3), 5))
+
+
+# --- measurement helpers ---
 
 
 def check(condition, message):
@@ -86,6 +203,15 @@ def device_busy_ms(run):
     return wall_s, (busy_us / 1e3 if busy_us > 0 else None)
 
 
+def bound(bytes_moved, ops, ops_per_s):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take, the larger of the bytes over HBM's rate and the operations over
+    their type's peak."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def card_description():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -97,14 +223,14 @@ def card_description():
     return proc.stdout.strip().splitlines()[0]
 
 
-def main_path_sigma(view, request):
-    """(sigma_y, sigma_x) of the Smooth node in the first tile's plan."""
+def smooth_sigma(view, request):
+    """(sigma_y, sigma_x) of the Smooth node in ``request``'s plan."""
     graph, _ = view.get_compute_graph(**request)
     for value in graph.values():
         if isinstance(value, tuple) and getattr(value[0], "__name__", "") == "_smooth_process":
             size_y, size_x = value[2]["size"]
             return size_y / 3, size_x / 3
-    raise RuntimeError("no Smooth node in the main path")
+    raise RuntimeError("no Smooth node in the plan")
 
 
 def tile_window(index, nx, height, tile):
@@ -115,92 +241,224 @@ def tile_window(index, nx, height, tile):
     return slice(row_end - tile, row_end), slice(i * tile, (i + 1) * tile)
 
 
-def main():
+def same(a, b):
+    """torch.equal, with NaN in the same places counting as equal."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    import bench
-    from dask_geomodeling_tpu import config
-    from dask_geomodeling_tpu.raster import MovingMax
-    from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
-    from dask_geomodeling_tpu_torch.ops import _build, cuda_stencils
-    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
-    from dask_geomodeling_tpu_torch.runtime import executor
-    from dask_geomodeling_tpu_torch.runtime.tiles import NotLowerable, tile_requests
+    if a.dtype.is_floating_point:
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+    return torch.equal(a, b)
+
+
+def build_kernels():
+    """Build both kernel libraries at once (one nvcc each); prints each
+    build's time and ptxas lines."""
+    from dask_geomodeling_tpu_torch.ops import _build
+
+    names = ["gaussian_blur", "moving_max"]
+    errors = []
+
+    def build(name):
+        try:
+            _build.load_library(name)
+        except Exception as exc:  # reported below, then raised
+            errors.append((name, exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(name,)) for name in names]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise RuntimeError("kernel build failed: %s: %s" % errors[0])
+    print("build: %s in %.2f s" % (", ".join(n + ".cu" for n in names), time.perf_counter() - t0))
+    for name in names:
+        log = _build.build_log[name]
+        print("build: %s.cu nvcc %.2f s" % (name, log["seconds"]))
+        for line in log["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip())
+
+
+def host_values(view, request):
+    from dask_geomodeling_tpu_torch import compute_host
+
+    return compute_host(*view.get_compute_graph(**request))["values"]
+
+
+# --- phases ---
+
+
+def check_gaussian(device, headline_sigma, stencils_sigma):
+    """Phase 3a; returns the kernel record's numbers at (64, 516, 516)."""
+    import torch
+    import torch.nn.functional as F
     from scipy import ndimage
 
-    # 1. device
-    card = card_description()
-    device = torch.device("cuda", 0)
-    print(card)
-    print("device: torch %s, CUDA %s, %d card(s)" % (
-        torch.__version__, torch.version.cuda, torch.cuda.device_count()))
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference, gaussian_weights
 
-    # 2. build
-    t0 = time.perf_counter()
-    _build.load_library("gaussian_blur")
-    build_s = time.perf_counter() - t0
-    print("build: gaussian_blur.cu in %.2f s (nvcc %.2f s)" % (
-        build_s, _build.build_log["gaussian_blur"]["seconds"]))
-    for line in _build.build_log["gaussian_blur"]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
-
-    # 3. kernel check
-    source, view = bench.build_view()
-    request = bench.full_request(source, OUT_PX)
-    tiles, nx = tile_requests(request, TILE)
-    sigma = main_path_sigma(view, tiles[0])
     rng = np.random.RandomState(0)
     planes = torch.from_numpy(
         (rng.rand(BATCH, TILE + 4, TILE + 4) * 250).astype(np.float32)
     ).to(device)
-    max_abs_err = None
-    for label, (sy, sx) in [
-        ("main path", sigma),
-        ("radius 8", (2.0, 2.0)),
-        ("radius 40 (zoom mode)", (10.0, 10.0)),
+    stencil_planes = torch.from_numpy(
+        (rng.rand(BATCH, TILE + 12, TILE + 12) * 200).astype(np.float32)
+    ).to(device)
+    max_abs_err = 0.0
+    for label, data, (sy, sx) in [
+        ("headline path", planes, headline_sigma),
+        ("stencils path", stencil_planes, stencils_sigma),
+        ("radius 8", planes, (2.0, 2.0)),
+        ("radius 40 (zoom mode)", planes, (10.0, 10.0)),
     ]:
         before = (cuda_stencils.launches, cuda_stencils.fused_launches)
-        got = cuda_stencils.gaussian_blur(planes, sy, sx, 0)
+        got = cuda_stencils.gaussian_blur(data, sy, sx, 0)
         fused = cuda_stencils.fused_launches - before[1]
         check(cuda_stencils.launches - before[0] == (1 if fused else 2),
               "launch count of the %s check" % label)
-        want = gaussian_blur_reference(planes, sy, sx, 0)
+        want = gaussian_blur_reference(data, sy, sx, 0)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         equal = torch.equal(got, want)
-        print("kernel check: %s sigma=(%.6f, %.6f) shape=%s %s launch equal=%s max_abs_err=%r"
-              % (label, sy, sx, tuple(planes.shape), "fused" if fused else "two-pass",
-                 equal, err))
-        check(equal, "kernel differs from its plain version (%s)" % label)
-        if max_abs_err is None:
-            max_abs_err = err
+        print("kernel check: gaussian_blur %s sigma=(%.6f, %.6f) shape=%s %s launch "
+              "equal=%s max_abs_err=%r" % (label, sy, sx, tuple(data.shape),
+                                           "fused" if fused else "two-pass", equal, err))
+        check(equal, "gaussian_blur differs from its plain version (%s)" % label)
+        max_abs_err = max(max_abs_err, err)
     host_plane = planes[0].cpu().numpy()
-    scipy_plane = ndimage.gaussian_filter(host_plane, sigma, mode="constant", cval=0)
-    kernel_plane = cuda_stencils.gaussian_blur(planes[:1].contiguous(), *sigma, 0)
+    scipy_plane = ndimage.gaussian_filter(host_plane, headline_sigma, mode="constant", cval=0)
+    kernel_plane = cuda_stencils.gaussian_blur(planes[:1].contiguous(), *headline_sigma, 0)
     check(np.array_equal(kernel_plane[0].cpu().numpy(), scipy_plane),
-          "kernel differs from scipy.ndimage.gaussian_filter")
-    print("kernel check: one plane bitwise equal to scipy.ndimage.gaussian_filter")
+          "gaussian_blur differs from scipy.ndimage.gaussian_filter")
+    print("kernel check: gaussian_blur, one plane bitwise equal to scipy.ndimage.gaussian_filter")
 
-    # 4. main path
+    # timing at the headline path's shape; the library yardstick is one
+    # cuDNN convolution with the (2r+1)^2 outer-product weights in full
+    # float32 (not bitwise: it sums in another order)
+    (wy, ry), (wx, rx) = gaussian_weights(headline_sigma[0]), gaussian_weights(headline_sigma[1])
+    weights = torch.from_numpy(np.outer(wy, wx).astype(np.float32)).to(device)[None, None]
+    images = planes[:, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        library_ms = cuda_ms(lambda: F.conv2d(images, weights, padding=(ry, rx)), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    kernel_ms = cuda_ms(lambda: cuda_stencils.gaussian_blur(planes, *headline_sigma, 0), 20)
+    plain_ms = cuda_ms(lambda: gaussian_blur_reference(planes, *headline_sigma, 0), 5)
+    n_bytes = 2 * planes.numel() * planes.element_size()
+    # per output pixel and pass: one multiply, then an add, a multiply and
+    # an add per tap pair, in float64
+    ops = planes.numel() * ((1 + 3 * ry) + (1 + 3 * rx))
+    bound_ms, bound_by = bound(n_bytes, ops, FP64_OPS_PER_S)
+    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=list(planes.shape))
+
+
+def check_moving_max(device):
+    """Phase 3b; returns the kernel record's numbers at (64, 526, 526)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import moving_max_reference
+
+    rng = np.random.RandomState(1)
+    shape = (BATCH, TILE + 14, TILE + 14)
+    planes = torch.from_numpy((rng.rand(*shape) * 200).astype(np.float32)).to(device)
+    small = rng.rand(8, 301, 277) * 120  # in range of every dtype below
+    cases = [("path shape, size 3", planes, 3)]
+    cases += [("size %d" % size, planes[:8].contiguous(), size) for size in (5, 7, 15)]
+    for dtype in (np.float64, np.float16, np.int8, np.int16, np.int32, np.int64,
+                  np.uint8, np.uint16, np.uint32, np.uint64):
+        cases.append(("%s, size 5" % np.dtype(dtype).name,
+                      torch.from_numpy(small.astype(dtype)).to(device), 5))
+    wide = rng.randint(-2**62, 2**62, size=(2, 97, 89), dtype=np.int64)
+    cases.append(("int64 beyond float64's range, size 3", torch.from_numpy(wide).to(device), 3))
+    cases.append(("uint64 high bit, size 3",
+                  torch.from_numpy(wide.view(np.uint64)).to(device), 3))
+    cases.append(("bool, size 3", torch.from_numpy(small[:2] > 100).to(device), 3))
+    with_nan = planes[:4].clone()
+    with_nan[1, 100:103, 200:240] = float("nan")
+    with_nan[2, 0, 0] = float("nan")
+    cases.append(("a plane holding NaN, size 3", with_nan, 3))
+    max_abs_err = 0.0
+    for label, data, size in cases:
+        before = cuda_stencils.moving_max_launches
+        got = cuda_stencils.moving_max(data, size)
+        check(cuda_stencils.moving_max_launches == before + 1, "moving_max launch count (%s)" % label)
+        want = moving_max_reference(data, size)
+        torch.cuda.synchronize()
+        equal = got.dtype == want.dtype and same(got, want)
+        if data is planes:
+            max_abs_err = float((got - want).abs().max())
+        print("kernel check: moving_max %s shape=%s dtype=%s equal=%s"
+              % (label, tuple(data.shape), data.dtype, equal))
+        check(equal, "moving_max differs from its plain version (%s)" % label)
+    nan_out = cuda_stencils.moving_max(with_nan, 3)
+    check(bool(torch.isnan(nan_out[1, 99:104, 199:241]).all())
+          and not bool(torch.isnan(nan_out[0]).any()), "NaN did not spread over its windows")
+
+    def library():
+        return F.max_pool2d(planes[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
+
+    got = cuda_stencils.moving_max(planes, 3)
+    pooled = library()
+    torch.cuda.synchronize()
+    check(torch.equal(got, pooled), "moving_max differs from max_pool2d at size 3")
+    print("kernel check: moving_max (64, 526, 526) size 3 equal to max_pool2d(3, stride 1, padding 1)")
+    kernel_ms = cuda_ms(lambda: cuda_stencils.moving_max(planes, 3), 20)
+    plain_ms = cuda_ms(lambda: moving_max_reference(planes, 3), 5)
+    library_ms = cuda_ms(library, 20)
+    n_bytes = 2 * planes.numel() * planes.element_size()
+    ops = planes.numel() * 8  # a 3x3 window: 8 comparisons per output
+    bound_ms, bound_by = bound(n_bytes, ops, FP32_OPS_PER_S)
+    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=list(planes.shape))
+
+
+def no_twin_view(source):
+    """A view whose root's process has no torch twin.  The class is bound
+    at module level, where its import path (graph keys hash it) resolves."""
+    from dask_geomodeling_tpu_torch.raster import BaseSingle
+
+    class NoTwin(BaseSingle):
+        @staticmethod
+        def process(data):
+            return data
+
+    globals()["NoTwin"] = NoTwin
+    return NoTwin(source)
+
+
+def check_headline(device, source, view, request):
+    """Phase 4; returns (launches, host Mpx/s)."""
+    from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime.tiles import NotLowerable, tile_requests
+
+    tiles, nx = tile_requests(request, TILE)
     n_batches = -(-len(tiles) // BATCH)
-    cuda_stencils.reset_launches()
     host_runs = executor.host_node_runs
+    cuda_stencils.reset_launches()
     t0 = time.perf_counter()
     result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
     first_s = time.perf_counter() - t0
-    main_launches = cuda_stencils.launches
-    main_fused = cuda_stencils.fused_launches
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "gaussian_blur_fused": cuda_stencils.fused_launches,
+                "moving_max": cuda_stencils.moving_max_launches}
     values = result["values"]
-    print("main path: evaluate_tiled %s %s in %.2f s (first run), %d gaussian launches "
-          "(%d fused) for %d batches"
-          % (values.shape, values.dtype, first_s, main_launches, main_fused, n_batches))
-    check(main_launches == n_batches, "gaussian launches != batches")
-    check(main_fused == main_launches, "the main path left the fused launch shape")
-    check(values.shape == (1, OUT_PX, OUT_PX), "output shape")
+    print("headline path: evaluate_tiled %s %s in %.2f s (first run), launches %s for %d batches"
+          % (values.shape, values.dtype, first_s, launches, n_batches))
+    check(launches["gaussian_blur"] == n_batches, "gaussian launches != batches")
+    check(launches["gaussian_blur_fused"] == n_batches, "the headline path left the fused launch shape")
+    check(values.shape == (1, HEADLINE_PX, HEADLINE_PX), "output shape")
     check(set(np.unique(values).tolist()) <= {0, 1, 2, 3, 4, 255}, "output alphabet")
     check((values != 255).mean() > 0.5, "output is mostly fill")
 
@@ -213,52 +471,126 @@ def main():
         (x1 + x2) / 2, (y1 + y2) / 2,
         (x1 + x2) / 2 + (x2 - x1) / 40, (y1 + y2) / 2 + (y2 - y1) / 40))
     cuda_stencils.reset_launches()
-    sub_port = get_data(view, device=device, **sub)
+    sub_port = view.get_data(device=device, **sub)
     check(cuda_stencils.launches == 1, "sub-tile get_data did not launch the kernel")
     check(executor.host_node_runs == host_runs, "a node ran on the host")
-    print("main path: get_data (tiled and a 256^2 sub-tile request) ran every node on the card")
-    no_twin = MovingMax(source, size=3)
+    print("headline path: get_data (tiled and a 256^2 sub-tile request) ran every node on the card")
+    no_twin = no_twin_view(source)
     for label, req in [("sub-tile", sub), ("tiled", request)]:
         try:
             get_data(no_twin, device=device, **req)
         except NotLowerable as exc:
-            print("main path: MovingMax %s request raised NotLowerable (%s)" % (label, exc))
+            print("headline path: a node without a twin, %s request: NotLowerable (%s)" % (label, exc))
         else:
-            raise RuntimeError("check failed: MovingMax %s request did not raise" % label)
+            raise RuntimeError("check failed: a node without a twin did not raise (%s)" % label)
     check(executor.host_node_runs == host_runs, "a node ran on the host")
 
-    with config.set({"geomodeling.executor": "numpy"}):
-        crop = dict(request, width=64, height=64, bbox=(
-            x1, y2 - (y2 - y1) * 64 / OUT_PX, x1 + (x2 - x1) * 64 / OUT_PX, y2))
-        expected_crop = view.get_data(**crop)["values"]
-        check(np.array_equal(values[:, :64, :64], expected_crop), "64^2 crop differs")
-        sub_host = view.get_data(**sub)["values"]
-        sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
-        t0 = time.perf_counter()
-        host_tiles = [view.get_data(**tiles[k])["values"] for k in sampled]
-        host_s = time.perf_counter() - t0
+    crop = dict(request, width=64, height=64, bbox=(
+        x1, y2 - (y2 - y1) * 64 / HEADLINE_PX, x1 + (x2 - x1) * 64 / HEADLINE_PX, y2))
+    check(np.array_equal(values[:, :64, :64], host_values(view, crop)), "64^2 crop differs")
+    sub_host = host_values(view, sub)
+    sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
+    t0 = time.perf_counter()
+    host_tiles = [host_values(view, tiles[k]) for k in sampled]
+    host_s = time.perf_counter() - t0
     differing = 0
     for k, host_tile in zip(sampled, host_tiles):
-        rows, cols = tile_window(k, nx, OUT_PX, TILE)
+        rows, cols = tile_window(k, nx, HEADLINE_PX, TILE)
         differing += int(np.count_nonzero(values[:, rows, cols] != host_tile))
     share = differing / (len(sampled) * TILE * TILE)
     sub_share = np.count_nonzero(sub_port["values"] != sub_host) / sub_host.size
-    print("main path: 64^2 crop bitwise equal; %d tiles: %d of %d cells differ (share %r); "
-          "sub-tile share %r" % (len(sampled), differing, len(sampled) * TILE * TILE,
-                                 share, sub_share))
-    check(share <= MAX_SHARE, "differing share above %g" % MAX_SHARE)
-    check(sub_share <= MAX_SHARE, "sub-tile differing share above %g" % MAX_SHARE)
+    print("headline path: 64^2 crop bitwise equal to compute_host; %d tiles: %d of %d cells "
+          "differ (share %r); sub-tile share %r" % (len(sampled), differing,
+                                                     len(sampled) * TILE * TILE, share, sub_share))
+    check(share <= HEADLINE_SHARE, "differing share above %g" % HEADLINE_SHARE)
+    check(sub_share <= HEADLINE_SHARE, "sub-tile differing share above %g" % HEADLINE_SHARE)
+    return launches, len(sampled) * TILE * TILE / 1e6 / host_s
 
-    # 5. timing
+
+def check_stencils(device, view, request):
+    """Phase 5; returns (launches, host Mpx/s)."""
+    from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    tiles, nx = tile_requests(request, TILE)
+    n_batches = -(-len(tiles) // BATCH)
+    host_runs = executor.host_node_runs
+    cuda_stencils.reset_launches()
+    t0 = time.perf_counter()
+    result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+    first_s = time.perf_counter() - t0
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "gaussian_blur_fused": cuda_stencils.fused_launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    values = result["values"]
+    print("stencils path: evaluate_tiled %s %s in %.2f s (first run), launches %s for %d batches"
+          % (values.shape, values.dtype, first_s, launches, n_batches))
+    check(launches["moving_max"] == n_batches, "moving-max launches != batches")
+    check(launches["gaussian_blur"] == n_batches, "gaussian launches != batches")
+    check(launches["gaussian_blur_fused"] == n_batches, "the stencils path left the fused launch shape")
+    check(executor.host_node_runs == host_runs, "a node ran on the host")
+    check(values.shape == (1, STENCILS_PX, STENCILS_PX) and values.dtype == np.uint8, "output")
+    check(result["no_data_value"] == 256, "no_data_value")
+    check(len(np.unique(values)) > 100, "output is not shaded")
+
+    cuda_stencils.reset_launches()
+    routed = get_data(view, device=device, **request)
+    check(cuda_stencils.moving_max_launches == n_batches, "get_data did not run as tiles")
+    check(np.array_equal(routed["values"], values), "get_data differs from evaluate_tiled")
+    print("stencils path: get_data ran as %d batches and equals evaluate_tiled" % n_batches)
+
+    x1, y1, x2, y2 = request["bbox"]
+    corner = dict(request, width=64, height=64, bbox=(x1, y2 - 64, x1 + 64, y2))
+    below = view.store
+    cuda_stencils.reset_launches()
+    card = get_data(below, device=device, **corner)["values"]
+    check(cuda_stencils.moving_max_launches == 1 and cuda_stencils.launches == 1,
+          "the 64^2 request did not launch both kernels")
+    check(np.array_equal(card, host_values(below, corner)),
+          "64^2 corner of Smooth(MovingMax) differs from compute_host")
+    shaded = get_data(view, device=device, **corner)["values"]
+    corner_diff = np.abs(shaded.astype(int) - host_values(view, corner).astype(int)).max()
+    check(corner_diff <= 1, "64^2 corner of the view differs by more than 1")
+    check(executor.host_node_runs == host_runs, "a node ran on the host")
+    print("stencils path: 64^2 corner below HillShade bitwise equal to compute_host; "
+          "the view's corner within %d" % corner_diff)
+
+    sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
+    t0 = time.perf_counter()
+    host_tiles = [host_values(view, tiles[k]) for k in sampled]
+    host_s = time.perf_counter() - t0
+    differing = 0
+    worst = 0
+    for k, host_tile in zip(sampled, host_tiles):
+        rows, cols = tile_window(k, nx, STENCILS_PX, TILE)
+        diff = np.abs(values[:, rows, cols].astype(int) - host_tile.astype(int))
+        differing += int(np.count_nonzero(diff))
+        worst = max(worst, int(diff.max()))
+    share = differing / (len(sampled) * TILE * TILE)
+    print("stencils path: %d tiles: %d of %d cells differ from compute_host (share %r), "
+          "largest difference %d" % (len(sampled), differing, len(sampled) * TILE * TILE,
+                                     share, worst))
+    check(worst <= 1, "a sampled cell differs by more than 1")
+    check(share <= STENCILS_SHARE, "differing share above %g" % STENCILS_SHARE)
+    return launches, len(sampled) * TILE * TILE / 1e6 / host_s
+
+
+def time_path(label, card, view, request, device, host_rate):
+    """Phase 6 for one path; returns its numbers."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import evaluate_tiled
+
     runs = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
         runs.append(time.perf_counter() - t0)
-    total_mpx = OUT_PX * OUT_PX / 1e6
-    port_rate = total_mpx / sorted(runs)[1]
-    host_rate = len(sampled) * TILE * TILE / 1e6 / host_s
+    mpx = request["width"] * request["height"] / 1e6
+    rate = mpx / sorted(runs)[1]
     phases = {}
     t0 = time.perf_counter()
     evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
@@ -266,31 +598,94 @@ def main():
     phased_s = time.perf_counter() - t0
     profiled_s, busy_ms = device_busy_ms(lambda: evaluate_tiled(
         view, request, tile_size=TILE, batch=BATCH, device=device))
-    kernel_ms = cuda_ms(lambda: cuda_stencils.gaussian_blur(planes, *sigma, 0), 20)
-    plain_ms = cuda_ms(lambda: gaussian_blur_reference(planes, *sigma, 0), 5)
-    print("timing [%s]: port %.3f Mpx/s (median of 3: %s s); numpy host %.3f Mpx/s on %d tiles"
-          % (card, port_rate, ", ".join("%.3f" % r for r in runs), host_rate, len(sampled)))
-    print("timing [%s]: phases of one run (synchronised, %.4f s in all): %s"
-          % (card, phased_s, ", ".join("%s %.4f s" % kv for kv in phases.items())))
-    print("timing [%s]: profiled run %.4f s, device busy %s, idle share %s"
-          % (card, profiled_s,
+    idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
+    print("timing [%s] %s: port %.3f Mpx/s (median of 3: %s s); numpy host %.3f Mpx/s on 16 tiles"
+          % (card, label, rate, ", ".join("%.3f" % r for r in runs), host_rate))
+    print("timing [%s] %s: phases of one run (synchronised, %.4f s in all): %s"
+          % (card, label, phased_s, ", ".join("%s %.4f s" % kv for kv in phases.items())))
+    print("timing [%s] %s: profiled run %.4f s, device busy %s, idle share %s"
+          % (card, label, profiled_s,
              "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
-             "not measured" if busy_ms is None else "%.4f" % (1 - busy_ms / 1e3 / profiled_s)))
-    print("timing [%s]: gaussian_blur (64, 516, 516) kernel %.4f ms, plain torch %.4f ms"
-          % (card, kernel_ms, plain_ms))
-    check("jax" not in sys.modules, "jax was imported")
+             "not measured" if idle is None else "%.4f" % idle))
+    return dict(mpx_per_s=rate, runs_s=runs, host_mpx_per_s=host_rate, phases_s=phases,
+                device_busy_ms=busy_ms, idle_share=idle)
 
-    print(json.dumps({"kernels": [{
-        "name": "gaussian_blur",
-        "route": "cuda",
-        "source": "dask_geomodeling_tpu_torch/csrc/gaussian_blur.cu",
-        "replaces": "dask_geomodeling_tpu/ops/pallas_stencils.py:55",
-        "launches": main_launches,
-        "fused_launches": main_fused,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    # 1. device
+    card = card_description()
+    device = torch.device("cuda", 0)
+    print(card)
+    print("device: torch %s, CUDA %s, %d card(s)" % (
+        torch.__version__, torch.version.cuda, torch.cuda.device_count()))
+
+    # 2. build
+    build_kernels()
+
+    # 3. kernel checks, at the sigmas of the paths' first tiles
+    headline_source, headline_view = build_headline_view()
+    headline_req = headline_request(headline_source, HEADLINE_PX)
+    _, stencils_view = build_stencils_view(STENCILS_PX)
+    stencils_req = vals_request(STENCILS_PX)
+    sigmas = [smooth_sigma(view, tile_requests(req, TILE)[0][0])
+              for view, req in [(headline_view, headline_req), (stencils_view, stencils_req)]]
+    gaussian = check_gaussian(device, *sigmas)
+    moving = check_moving_max(device)
+
+    # 4. and 5. the paths
+    headline_launches, headline_host = check_headline(
+        device, headline_source, headline_view, headline_req)
+    stencils_launches, stencils_host = check_stencils(device, stencils_view, stencils_req)
+
+    # 6. timing
+    headline_time = time_path("headline", card, headline_view, headline_req, device, headline_host)
+    stencils_time = time_path("stencils", card, stencils_view, stencils_req, device, stencils_host)
+    for name, numbers in [("gaussian_blur", gaussian), ("moving_max", moving)]:
+        print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
+              "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
+                                      numbers["plain_ms"], numbers["library_ms"],
+                                      numbers["bound_ms"], numbers["bound_by"]))
+
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                    or m == "dask_geomodeling_tpu" or m.startswith("dask_geomodeling_tpu."))
+    check(not leaked, "modules of JAX or the JAX package were imported: %s" % leaked[:5])
+    print("imports: no module of JAX or of the JAX package was loaded")
+    print("paths: %s" % json.dumps({"headline": headline_time, "stencils": stencils_time}))
+
+    def record(name, source, replaces, numbers, per_path):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(per_path.values()),
+            "launches_per_path": per_path,
+            "max_abs_err": numbers["max_abs_err"],
+            "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"],
+            "library_ms": numbers["library_ms"],
+            "shape": numbers["shape"],
+        }
+
+    print(json.dumps({"kernels": [
+        record("gaussian_blur", "dask_geomodeling_tpu_torch/csrc/gaussian_blur.cu",
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:55", gaussian,
+               {"headline": headline_launches["gaussian_blur"],
+                "stencils": stencils_launches["gaussian_blur"]}),
+        record("moving_max", "dask_geomodeling_tpu_torch/csrc/moving_max.cu",
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:136", moving,
+               {"headline": headline_launches["moving_max"],
+                "stencils": stencils_launches["moving_max"]}),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

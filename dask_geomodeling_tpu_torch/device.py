@@ -8,7 +8,7 @@ the CPU in place of the card.
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu.config import config
+from dask_geomodeling_tpu_torch.config import config
 
 __all__ = ["resolve_device", "torch_dtype", "numpy_dtype", "equal_scalar"]
 

@@ -1,0 +1,16 @@
+"""Geo foundation: dtypes, transforms, the CRS subset, band snapping."""
+from dask_geomodeling_tpu_torch.geo.dtypes import (  # noqa: F401
+    get_dtype_max,
+    get_dtype_min,
+    get_footprint,
+    get_uint_dtype,
+)
+from dask_geomodeling_tpu_torch.geo.geotransform import Extent, GeoTransform  # noqa: F401
+from dask_geomodeling_tpu_torch.geo.crs import (  # noqa: F401
+    get_epsg_or_wkt,
+    get_projection,
+    get_sr,
+    transform_extent,
+    transform_points,
+)
+from dask_geomodeling_tpu_torch.geo.timeutils import dt_to_ms, snap_start_stop  # noqa: F401

@@ -1,15 +1,18 @@
-"""The hand-written CUDA Gaussian (csrc/gaussian_blur.cu) and its wrapper.
+"""The hand-written CUDA stencils and their wrappers.
 
-Replaces the Pallas TPU kernel ``gaussian_blur_pallas``
-(dask_geomodeling_tpu/ops/pallas_stencils.py:55).  The kernel is bitwise
-equal to ``ops/stencils.py:gaussian_blur_reference``; see the source for
-its design and what bounds it on the card.
+- ``gaussian_blur`` (csrc/gaussian_blur.cu) replaces the Pallas TPU
+  kernel ``gaussian_blur_pallas``
+  (dask_geomodeling_tpu/ops/pallas_stencils.py:55);
+- ``moving_max`` (csrc/moving_max.cu) replaces ``moving_max_pallas``
+  (dask_geomodeling_tpu/ops/pallas_stencils.py:136).
 
-``gaussian_blur`` takes the plain version only for a tensor on the CPU.
-For a CUDA tensor it launches the kernel or raises: there is no fallback.
-``launches`` counts kernel launches (every ``<<<>>>``), and
-``fused_launches`` those of the fused shape, so a run can show which path
-and which launch shape it took.
+Each kernel is bitwise equal to its plain version in ops/stencils.py; the
+sources say what bounds them on the card and what their designs do about
+it.  A wrapper takes the plain version only for a tensor on the CPU.  For
+a CUDA tensor it launches the kernel or raises: there is no fallback.
+``launches`` counts Gaussian launches (every ``<<<>>>``) and
+``fused_launches`` those of the fused shape; ``moving_max_launches``
+counts moving-max launches.  ``reset_launches()`` sets all three to 0.
 """
 import ctypes
 
@@ -20,23 +23,47 @@ from dask_geomodeling_tpu_torch.ops import _build
 from dask_geomodeling_tpu_torch.ops.stencils import (
     gaussian_blur_reference,
     gaussian_weights,
+    moving_max_reference,
 )
 
-__all__ = ["gaussian_blur", "launches", "fused_launches", "reset_launches"]
+__all__ = [
+    "gaussian_blur",
+    "moving_max",
+    "launches",
+    "fused_launches",
+    "moving_max_launches",
+    "reset_launches",
+]
 
-#: kernel launches since the last reset_launches(): one per fused call,
-#: two per call of the large-radius shape
+#: Gaussian kernel launches since the last reset_launches(): one per fused
+#: call, two per call of the large-radius shape
 launches = 0
 #: of those, launches of the fused shape (radius <= the fused limit)
 fused_launches = 0
+#: moving-max kernel launches since the last reset_launches()
+moving_max_launches = 0
 
 _ENTRY = {torch.float32: "gaussian_blur_f32", torch.float64: "gaussian_blur_f64"}
 
 
 def reset_launches():
-    global launches, fused_launches
+    global launches, fused_launches, moving_max_launches
     launches = 0
     fused_launches = 0
+    moving_max_launches = 0
+
+
+def _check_planes(name, values):
+    """Raise unless ``values`` is a contiguous (N, h, w) tensor whose
+    plane fits the kernels' int indices."""
+    if values.ndim != 3:
+        raise ValueError(
+            "%s: expected (N, h, w), got shape %s" % (name, tuple(values.shape))
+        )
+    if not values.is_contiguous():
+        raise ValueError("%s: input must be contiguous" % name)
+    if values.shape[1] >= 2**31 or values.shape[2] >= 2**31:
+        raise ValueError("%s: plane too large" % name)
 
 
 def _library():
@@ -85,15 +112,8 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
             "gaussian_blur: CUDA input must be float32 or float64, got %s"
             % values.dtype
         )
-    if values.ndim != 3:
-        raise ValueError(
-            "gaussian_blur: expected (N, h, w), got shape %s" % (tuple(values.shape),)
-        )
-    if not values.is_contiguous():
-        raise ValueError("gaussian_blur: input must be contiguous")
+    _check_planes("gaussian_blur", values)
     n, height, width = values.shape
-    if height >= 2**31 or width >= 2**31:
-        raise ValueError("gaussian_blur: plane too large")
     out = torch.empty_like(values)
     if values.numel() == 0:
         return out
@@ -131,4 +151,85 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
         fused_launches += 1
     else:
         launches += 2
+    return out
+
+
+#: the kernel's type codes (csrc/moving_max.cu)
+_MOVING_MAX_TYPES = {
+    torch.float32: 0,
+    torch.float64: 1,
+    torch.int8: 2,
+    torch.int16: 3,
+    torch.int32: 4,
+    torch.int64: 5,
+    torch.uint8: 6,
+    torch.uint16: 7,
+    torch.uint32: 8,
+    torch.uint64: 9,
+}
+
+
+def _moving_max_library():
+    lib = _build.load_library("moving_max")
+    if not getattr(lib, "_declared", False):
+        lib.moving_max.argtypes = [
+            ctypes.c_void_p,  # in
+            ctypes.c_void_p,  # out
+            ctypes.c_int64,  # planes
+            ctypes.c_int,  # height
+            ctypes.c_int,  # width
+            ctypes.c_int,  # size (odd)
+            ctypes.c_int,  # type code
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.moving_max.restype = ctypes.c_int
+        lib.moving_max_error_string.argtypes = [ctypes.c_int]
+        lib.moving_max_error_string.restype = ctypes.c_char_p
+        lib._declared = True
+    return lib
+
+
+def moving_max(values, size):
+    """Circular-footprint maximum of diameter ``size`` over (N, h, w) data,
+    in the input's dtype and shape, like ``moving_max_reference``.
+
+    CUDA tensors must be contiguous; every integer and float dtype runs
+    natively, float16 through an exact float32 copy and bool as uint8.
+    One call is one kernel launch on the current stream, without a
+    synchronise.
+    """
+    global moving_max_launches
+    if values.device.type == "cpu":
+        return moving_max_reference(values, size)
+    if values.device.type != "cuda":
+        raise ValueError("moving_max: unsupported device %s" % values.device)
+    if values.dtype == torch.float16:
+        return moving_max(values.float(), size).half()
+    if values.dtype == torch.bool:
+        return moving_max(values.view(torch.uint8), size).view(torch.bool)
+    if values.dtype not in _MOVING_MAX_TYPES:
+        raise TypeError("moving_max: unsupported dtype %s" % values.dtype)
+    _check_planes("moving_max", values)
+    n, height, width = values.shape
+    out = torch.empty_like(values)
+    if values.numel() == 0:
+        return out
+    lib = _moving_max_library()
+    with torch.cuda.device(values.device):
+        err = lib.moving_max(
+            values.data_ptr(),
+            out.data_ptr(),
+            n,
+            height,
+            width,
+            int(size) // 2 * 2 + 1,  # get_footprint's odd diameter
+            _MOVING_MAX_TYPES[values.dtype],
+            torch.cuda.current_stream(values.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "moving_max kernel launch failed: %s (CUDA error %d)"
+            % (lib.moving_max_error_string(err).decode(), err)
+        )
+    moving_max_launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain torch stencils: the reference the CUDA kernels are held to.
+"""Plain torch stencils: the references the CUDA kernels are held to.
 
 ``gaussian_blur_reference`` is the counterpart of
 dask_geomodeling_tpu/ops/stencils.py:gaussian_blur_jax, but it follows
@@ -7,12 +7,25 @@ the host's arithmetic instead of the TPU's: scipy.ndimage.gaussian_filter
 and writes it into the frame's own dtype before the next pass.  Doing the
 same here makes the port's Smooth bitwise equal to the host, where the
 JAX twin, which accumulates in float32, is only allclose.
+
+``moving_max_reference`` is the counterpart of
+dask_geomodeling_tpu/ops/pallas_stencils.py:moving_max_pallas: the
+circular footprint's maximum with out-of-plane taps at the dtype's lowest
+value, computed in the input's own dtype.
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gaussian_blur_reference", "gaussian_weights", "blur_dtype"]
+from dask_geomodeling_tpu_torch.geo.dtypes import get_footprint
+
+__all__ = [
+    "gaussian_blur_reference",
+    "gaussian_weights",
+    "blur_dtype",
+    "footprint_runs",
+    "moving_max_reference",
+]
 
 
 def gaussian_weights(sigma, truncate=4.0):
@@ -64,3 +77,59 @@ def gaussian_blur_reference(values, sigma_y, sigma_x, fill):
         out = acc.to(out_dtype)
     return out
 
+
+def footprint_runs(size):
+    """The circular footprint of ``size`` as row runs: (dy, dx_lo, dx_hi)
+    per footprint row that holds a tap."""
+    footprint = get_footprint(size)
+    radius = size // 2
+    runs = []
+    for row in range(footprint.shape[0]):
+        cols = np.nonzero(footprint[row])[0]
+        if len(cols):
+            runs.append((row - radius, int(cols[0] - radius), int(cols[-1] - radius)))
+    return runs
+
+
+#: unsigned dtypes torch has no maximum for, and the signed dtype of the
+#: same width they map onto, order kept, by flipping the sign bit
+_SIGNED_OF = {
+    torch.uint16: torch.int16,
+    torch.uint32: torch.int32,
+    torch.uint64: torch.int64,
+}
+
+
+def moving_max_reference(values, size):
+    """Circular-footprint maximum over (N, h, w) data, in the input's own
+    dtype and shape.
+
+    Taps outside the plane are the dtype's lowest value (-inf for floats),
+    so every window holds at least its centre; a NaN in a window gives NaN
+    (``torch.maximum``, as ``jnp.maximum`` in the Pallas kernel).  The
+    maximum of values of one dtype is one of them, so nothing rounds.
+    """
+    radius = int(size) // 2
+    dtype = values.dtype
+    signed = _SIGNED_OF.get(dtype)
+    if signed is not None:
+        # x ^ sign bit is an order-keeping bijection onto the signed type
+        sign = torch.iinfo(signed).min
+        values = values.view(signed) ^ sign
+    work = values.dtype
+    if work.is_floating_point:
+        lowest = float("-inf")
+    elif work == torch.bool:
+        lowest = False
+    else:
+        lowest = torch.iinfo(work).min
+    height, width = values.shape[-2:]
+    padded = F.pad(values, (radius, radius, radius, radius), value=lowest)
+    out = None
+    for dy, dx_lo, dx_hi in footprint_runs(size):
+        for dx in range(dx_lo, dx_hi + 1):
+            piece = padded[:, radius + dy : radius + dy + height, radius + dx : radius + dx + width]
+            out = piece.clone() if out is None else torch.maximum(out, piece)
+    if signed is not None:
+        out = (out ^ sign).view(dtype)
+    return out

@@ -1,13 +1,16 @@
-"""Nearest-neighbour warp on the device, batch-first.
+"""Nearest-neighbour warp: the host version and the device version.
 
-Counterpart of dask_geomodeling_tpu/ops/warp.py:warp_jax, written for B
-tiles at once: the source ``values`` (bands, H, W) is shared by the
+Counterpart of dask_geomodeling_tpu/ops/warp.py.  The host half
+(``warp_numpy`` with ``warp_indices``/``gather_numpy``) is copied from it:
+for every target pixel centre the source pixel containing its transform,
+per pixel.  The device half (``warp_torch``) is its warp_jax written for
+B tiles at once: the source ``values`` (bands, H, W) is shared by the
 batch, while ``bbox`` (B, 4) and ``coarse_grid`` (B, 2, ch, cw) vary per
 tile.
 
 - cross-CRS: the approximate transformer of warp_jax: the host transforms
-  a coarse grid of target pixel centres (stride
-  ``geomodeling.warp-approx-stride``) into fractional source indices
+  a coarse grid of target pixel centres (stride ``APPROX_STRIDE``) into
+  fractional source indices
   (``coarse_index_grid``), and the device interpolates it bilinearly.
   Unlike warp_jax, which gets the grid in float32 and interpolates in
   float32 (the TPU emulates float64), the port keeps both in float64: at
@@ -18,24 +21,111 @@ tile.
   warp_jax does.
 
 Then the floor, the ``finite``/``inside`` mask, the gather, the fill and
-the source-nodata replacement, in warp_jax's order and dtypes.
+the source-nodata replacement, in warp_jax's order and dtypes.  Bilinear
+resampling is not ported.
 """
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu.geo.crs import get_projection, transform_points
-from dask_geomodeling_tpu.geo.geotransform import GeoTransform
-from dask_geomodeling_tpu.ops.warp import _approx_stride, coarse_grid_shape
 from dask_geomodeling_tpu_torch.device import equal_scalar, torch_dtype
+from dask_geomodeling_tpu_torch.geo.crs import get_projection, transform_points
+from dask_geomodeling_tpu_torch.geo.geotransform import GeoTransform
 
-__all__ = ["warp_torch", "coarse_index_grid", "approx_stride"]
+__all__ = [
+    "warp_numpy",
+    "warp_indices",
+    "gather_numpy",
+    "warp_torch",
+    "coarse_index_grid",
+    "coarse_grid_shape",
+    "APPROX_STRIDE",
+]
 
 
-def approx_stride():
-    """The coarse grid's stride: ``geomodeling.warp-approx-stride``; 1
-    transforms every pixel centre (the interpolation then reproduces the
-    nodes exactly)."""
-    return max(_approx_stride(), 1)
+def _check_interpolation(interpolation):
+    if interpolation != "nearest":
+        raise NotImplementedError(
+            "%r interpolation is not ported yet" % interpolation
+        )
+
+
+#: the coarse grid's stride in target pixels: the JAX package's default
+#: ``geomodeling.warp-approx-stride``
+APPROX_STRIDE = 8
+
+
+def coarse_grid_shape(width, height, stride):
+    """Coarse-node grid shape of the approximate transformer."""
+    return (-(-height // stride) + 1, -(-width // stride) + 1)
+
+
+def warp_indices(src_gt, src_srs, src_shape, bbox, projection, width, height):
+    """Source (row, col) int64 index grids for a target raster, and the
+    mask of target cells whose source index lies inside the source; each
+    (height, width).  Out-of-domain CRS transforms give NaN, which are
+    outside."""
+    p, a, b, q, c, d = GeoTransform.from_bbox(bbox, height, width)
+    xs = p + a * (np.arange(width) + 0.5)
+    ys = q + d * (np.arange(height) + 0.5)
+    tx, ty = np.meshgrid(xs, ys)
+    if get_projection(src_srs).upper() != get_projection(projection).upper():
+        tx, ty = transform_points(tx, ty, projection, src_srs)
+    sp, sa, sb, sq, sc, sd = src_gt
+    frac_cols = (tx - sp) / sa
+    frac_rows = (ty - sq) / sd
+    src_h, src_w = src_shape[-2], src_shape[-1]
+    rows = np.floor(frac_rows)
+    cols = np.floor(frac_cols)
+    inside = (rows >= 0) & (rows < src_h) & (cols >= 0) & (cols < src_w)
+    # (x - 0.5) + 0.5 is the JAX package's rounding, kept for its bits;
+    # NaN floors to INT64_MIN here, which `inside` already excludes
+    with np.errstate(invalid="ignore"):
+        rows = np.floor(frac_rows - 0.5 + 0.5).astype(np.int64)
+        cols = np.floor(frac_cols - 0.5 + 0.5).astype(np.int64)
+    return rows, cols, inside
+
+
+def gather_numpy(values, rows, cols, inside, fillvalue, dtype):
+    """Gather source values at (rows, cols); outside cells get fillvalue."""
+    bands = values.shape[0]
+    out = np.full((bands, rows.shape[0], rows.shape[1]), fillvalue, dtype=dtype)
+    safe_rows = np.where(inside, rows, 0)
+    safe_cols = np.where(inside, cols, 0)
+    gathered = values[:, safe_rows, safe_cols]
+    out[:, inside] = gathered[:, inside]
+    return out
+
+
+def warp_numpy(
+    values,
+    src_gt,
+    src_srs,
+    no_data_value,
+    bbox,
+    projection,
+    width,
+    height,
+    dtype=None,
+    fillvalue=None,
+    interpolation="nearest",
+):
+    """Full host warp of a (bands, h, w) array into the requested grid."""
+    _check_interpolation(interpolation)
+    dtype = np.dtype(dtype) if dtype is not None else values.dtype
+    fillvalue = no_data_value if fillvalue is None else fillvalue
+    rows, cols, inside = warp_indices(
+        src_gt, src_srs, values.shape, bbox, projection, width, height
+    )
+    result = gather_numpy(values, rows, cols, inside, fillvalue, dtype)
+    # replace source nodata with the target fillvalue
+    if no_data_value is not None and no_data_value != fillvalue:
+        src_nodata = (
+            np.isclose(result, no_data_value)
+            if dtype.kind == "f"
+            else result == no_data_value
+        )
+        result[src_nodata] = fillvalue
+    return result
 
 
 def coarse_index_grid(src_gt, src_srs, bbox, projection, width, height, stride):
@@ -109,12 +199,9 @@ def warp_torch(
 
     ``bbox`` is a (B, 4) float64 tensor; a cross-CRS warp needs
     ``coarse_grid``, the (B, 2, ch, cw) stack of the tiles'
-    ``coarse_index_grid`` at ``approx_stride()``.
+    ``coarse_index_grid`` at ``APPROX_STRIDE``.
     """
-    if interpolation != "nearest":
-        raise NotImplementedError(
-            "warp_torch: %r interpolation is not ported yet" % interpolation
-        )
+    _check_interpolation(interpolation)
     dtype = np.dtype(dtype)
     device = values.device
     bands, src_h, src_w = values.shape
@@ -122,14 +209,13 @@ def warp_torch(
     index_dtype = torch.int32 if src_h * src_w < 2**31 else torch.int64
 
     if get_projection(src_srs).upper() != get_projection(projection).upper():
-        stride = approx_stride()
-        expected = (2,) + coarse_grid_shape(width, height, stride)
+        expected = (2,) + coarse_grid_shape(width, height, APPROX_STRIDE)
         if coarse_grid is None or tuple(coarse_grid.shape[1:]) != expected:
             raise ValueError(
                 "warp_torch: a cross-CRS warp needs the coarse grid "
                 "(B, %d, %d, %d) of coarse_index_grid()" % expected
             )
-        frac_cols, frac_rows = _interp_coarse(coarse_grid, width, height, stride)
+        frac_cols, frac_rows = _interp_coarse(coarse_grid, width, height, APPROX_STRIDE)
     else:
         bbox = bbox.to(torch.float64)
         x1, y1, x2, y2 = (bbox[:, k : k + 1] for k in range(4))

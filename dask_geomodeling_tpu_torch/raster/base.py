@@ -1,24 +1,129 @@
-"""``get_data``: the port's entry point for a raster request.
+"""RasterBlock, BaseSingle, and ``get_data``, the port's entry point for a
+raster request.
 
-Counterpart of dask_geomodeling_tpu/raster/base.py:
-RasterBlock._get_data_uncached.  A vals request larger than
-``geomodeling.tile-size`` runs as batched tiles (runtime/tiles.py); any
-other request runs through ``compute_torch``.  There is no router and no
+Counterparts of dask_geomodeling_tpu/raster/base.py (``RasterBlock``,
+``BaseSingle``) and of its ``RasterBlock._get_data_uncached``: a vals
+request larger than
+``geomodeling.tile-size`` runs as batched tiles (runtime/tiles.py), any
+other request through ``compute_torch``.  There is no router and no
 fallback: a failure raises.
 """
-from dask_geomodeling_tpu.config import config
-from dask_geomodeling_tpu_torch.runtime.executor import compute_torch, plan_graph
-from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
+from datetime import datetime as Datetime
 
-__all__ = ["get_data"]
+from dask_geomodeling_tpu_torch.config import config
+from dask_geomodeling_tpu_torch.core import Block, arg, expect_instance
+
+__all__ = ["RasterBlock", "BaseSingle", "get_data"]
 
 
 def get_data(view, *, device=None, **request):
-    """Evaluate ``request`` on ``view`` (a JAX-package Block) with the
-    torch twins on ``device``; returns what ``view.get_data`` returns."""
+    """Evaluate ``request`` on ``view`` with the torch twins on ``device``
+    (``None``: ``geomodeling.torch-device``, the card by default)."""
+    from dask_geomodeling_tpu_torch.runtime.executor import compute_torch
+    from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
+
     tile_size = config.get("geomodeling.tile-size", 512)
     width = request.get("width") or 0
     height = request.get("height") or 0
     if request.get("mode") == "vals" and max(width, height) > tile_size:
         return evaluate_tiled(view, request, tile_size=tile_size, device=device)
-    return compute_torch(*plan_graph(view, request), device=device)
+    return compute_torch(*view.get_compute_graph(**request), device=device)
+
+
+def _operator(block_name, reflected=False, unary=False, const=None):
+    """An operator overload that builds the named elemwise block lazily
+    (the elemwise module imports this one)."""
+    if unary:
+
+        def method(self):
+            import dask_geomodeling_tpu_torch.raster as blocks
+
+            cls = getattr(blocks, block_name)
+            return cls(self) if const is None else cls(self, const)
+
+    elif reflected:
+
+        def method(self, other):
+            import dask_geomodeling_tpu_torch.raster as blocks
+
+            return getattr(blocks, block_name)(other, self)
+
+    else:
+
+        def method(self, other):
+            import dask_geomodeling_tpu_torch.raster as blocks
+
+            return getattr(blocks, block_name)(self, other)
+
+    method.__doc__ = "Build a %s block from this raster." % block_name
+    return method
+
+
+class RasterBlock(Block):
+    """The base block for temporal rasters.
+
+    Attributes (None when empty): ``period``, ``timedelta``, ``extent``
+    (WGS84), ``dtype``, ``fillvalue``, ``projection``, ``geo_transform``,
+    ``temporal``.  Request fields: ``mode`` ('vals'|'time'|'meta'),
+    ``bbox``, ``projection``, ``width``, ``height``, ``start``, ``stop``.
+    Response: None or a dict with ``values`` (bands, height, width) and
+    ``no_data_value``, or ``time``, or ``meta``.
+    """
+
+    DEFAULT_ORIGIN = Datetime(1970, 1, 1, 0, 0)
+
+    def get_data(self, device=None, **request):
+        """Evaluate the request on ``device`` (see ``get_data``)."""
+        return get_data(self, device=device, **request)
+
+    def __len__(self):
+        """Number of temporal bands."""
+        span = self.period
+        if span is None:
+            return 0
+        first, last = span
+        if first == last:
+            return 1
+        step = self.timedelta
+        if step is None:
+            time_axis = self.get_data(mode="time", start=first, stop=last)
+            return len(time_axis["time"])
+        return 1 + int((last - first).total_seconds() // step.total_seconds())
+
+    __add__ = __radd__ = _operator("Add")
+    __mul__ = __rmul__ = _operator("Multiply")
+    __neg__ = _operator("Multiply", unary=True, const=-1)
+    __sub__ = _operator("Subtract")
+
+
+class BaseSingle(RasterBlock):
+    """Base class for raster blocks wrapping a single raster ("store");
+    every raster attribute delegates to the store unless a subclass
+    overrides it."""
+
+    def __init__(self, store, *args):
+        expect_instance(store, RasterBlock, "store")
+        super().__init__(store, *args)
+
+    store = arg(0)
+
+    def __len__(self):
+        return len(self.store)
+
+
+def _delegate(attribute):
+    return property(lambda self: getattr(self.store, attribute))
+
+
+for _attribute in (
+    "extent",
+    "period",
+    "timedelta",
+    "temporal",
+    "dtype",
+    "fillvalue",
+    "projection",
+    "geo_transform",
+):
+    setattr(BaseSingle, _attribute, _delegate(_attribute))
+del _attribute

@@ -1,16 +1,14 @@
-"""The port's twin registry, keyed by the JAX package's process functions.
+"""The port's twin registry, keyed by its own process functions.
 
-The JAX package hangs its device twins on its process functions
-(``jax_impl``, ``jax_capable``, ``jax_dynamic``;
-dask_geomodeling_tpu/runtime/executor.py).  The port leaves those
-functions as they are and keeps its own table instead: ``register`` maps
-a process function to a torch twin, and the executors look twins up with
-``twin_for``.
+``register`` maps a numpy process function (raster/*.py) to its torch
+twin, and the executors look twins up with ``twin_for``.  The JAX package
+hangs its device twins on its process functions as attributes
+(``jax_impl``, ``jax_capable``); the port keeps one table instead.
 
 A twin takes the process function's arguments, batch-first: every raster
 ``values`` is a (B, bands, h, w) tensor, and every literal named by the
-process function's ``jax_dynamic`` arrives as a tensor with a leading B
-axis (runtime/executor.py:batch_literals).  It returns the same
+process function's ``torch_dynamic`` attribute arrives as a tensor with a
+leading B axis (runtime/executor.py:batch_literals).  It returns the same
 structure the process function returns, with tensors in place of arrays.
 A twin may also name host work to do per tile before batching (``stage``).
 """

@@ -1,1 +1,2 @@
-"""The torch executor, the batched tile runtime and the packed fetch."""
+"""The torch executor, the batched tile runtime and the numpy host
+executor."""

@@ -1,36 +1,30 @@
 """The torch executor: walk a compute graph, run each twin on the device.
 
-Counterpart of dask_geomodeling_tpu/runtime/executor.py:compute_jax, and
-it reuses that module's graph walk (``_reachable``, ``_toposort``).
-PyTorch runs eagerly, so there is nothing to stage or compile: nodes run
-one by one in topological order.  A node whose process function has a
-capable twin (registry.py) runs on the device.  A node without one runs
-its numpy process on the host only while all its inputs are still on the
-host, as file reads do in the JAX executor; one that would take a device
-result raises ``NotLowerable``, so device data never goes back to the
-host to be computed on.  A twin that fails raises: no request is quietly
-served from the host instead.
+Counterpart of dask_geomodeling_tpu/runtime/executor.py:compute_jax, with
+that module's graph walk (``_is_task``, ``_reachable``, ``_toposort``,
+``_map_structure``) copied here.  PyTorch runs eagerly, so there is
+nothing to stage or compile: nodes run one by one in topological order.
+A node whose process function has a capable twin (registry.py) runs on
+the device.  A node without one runs its numpy process on the host only
+while all its inputs are still on the host, as file reads do in the JAX
+executor; one that would take a device result raises ``NotLowerable``, so
+device data never goes back to the host to be computed on.  A twin that
+fails raises: no request is quietly served from the host instead.
 
 Twins work batch-first (registry.py).  Here the batch is one request,
 B = 1; runtime/tiles.py runs the same twins over B tiles at once.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu.config import config
-from dask_geomodeling_tpu.runtime.executor import (
-    _is_task,
-    _map_structure,
-    _reachable,
-    _toposort,
-)
 from dask_geomodeling_tpu_torch import registry
 from dask_geomodeling_tpu_torch.device import resolve_device
 from dask_geomodeling_tpu_torch.raster.sources import to_device
 
 __all__ = [
     "compute_torch",
-    "plan_graph",
     "batch_literals",
     "NotLowerable",
     "host_node_runs",
@@ -45,19 +39,85 @@ class NotLowerable(Exception):
 host_node_runs = 0
 
 
-def plan_graph(view, request):
-    """``view.get_compute_graph(**request)`` for the port's executors.
+def _is_task(value):
+    return isinstance(value, tuple) and len(value) >= 1 and callable(value[0])
 
-    The planner's float32 ``warp_grid`` is switched off: the source twin
-    stages its own float64 grid (raster/sources.py), so the CRS math runs
-    once per tile."""
-    with config.set({"geomodeling.warp-host-grid": False}):
-        return view.get_compute_graph(**request)
+
+def _reachable(graph, name):
+    """Keys needed for ``name`` plus the key-dependency map."""
+    needed = []
+    seen = set()
+    stack = [name]
+    while stack:
+        key = stack.pop()
+        if key in seen:
+            continue
+        seen.add(key)
+        needed.append(key)
+        value = graph[key]
+        if _is_task(value):
+            for arg in value[1:]:
+                if isinstance(arg, str) and arg in graph:
+                    stack.append(arg)
+    deps = {
+        key: [
+            arg
+            for arg in (graph[key][1:] if _is_task(graph[key]) else ())
+            if isinstance(arg, str) and arg in graph
+        ]
+        for key in needed
+    }
+    return needed, deps
+
+
+def _toposort(needed, deps):
+    """``needed`` in an order where every key follows its dependencies."""
+    order = []
+    state = {}
+    for root in needed:
+        if state.get(root) == 2:
+            continue
+        stack = [(root, iter(deps[root]))]
+        state[root] = 1
+        while stack:
+            node, it = stack[-1]
+            advanced = False
+            for dep in it:
+                if state.get(dep) == 1:
+                    raise ValueError("Cycle in compute graph")
+                if state.get(dep) != 2:
+                    state[dep] = 1
+                    stack.append((dep, iter(deps[dep])))
+                    advanced = True
+                    break
+            if not advanced:
+                state[node] = 2
+                order.append(node)
+                stack.pop()
+    return order
+
+
+def _map_structure(func, obj):
+    """``func`` applied to every leaf of nested dicts, lists, tuples and
+    dataclasses, keeping the structure."""
+    if isinstance(obj, dict):
+        return {k: _map_structure(func, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_structure(func, v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(
+            obj,
+            **{
+                f.name: _map_structure(func, getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+            },
+        )
+    return func(obj)
 
 
 def literal_args(value, graph):
-    """A node's literal args, graph-key args as None (the ``jax_capable``
-    calling convention)."""
+    """A node's literal args, graph-key args as None (what a twin's
+    ``capable`` sees)."""
     return [
         None if (isinstance(arg, str) and arg in graph) else arg
         for arg in value[1:]
@@ -68,7 +128,7 @@ def batch_literals(per_tile, dynamic, device):
     """One literal argument of a twin, batched over tiles.
 
     ``per_tile`` holds the literal as each tile's plan gives it.  Fields
-    named in ``dynamic`` (the process function's ``jax_dynamic``) vary per
+    named in ``dynamic`` (the process function's ``torch_dynamic``) vary per
     tile: each is stacked into a tensor with a leading B axis, numbers as
     float64 like the JAX executor's ``_dynamicize``; with ``"__scalars__"``
     a bare number becomes a (B, 1, 1, 1) float64 tensor, one scalar per
@@ -210,7 +270,7 @@ def compute_torch(graph, name, device=None):
                 else:
                     args.append(
                         batch_literals(
-                            [arg], getattr(func, "jax_dynamic", None), device
+                            [arg], getattr(func, "torch_dynamic", None), device
                         )
                     )
             cache[key] = twin(*args)

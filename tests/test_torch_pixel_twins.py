@@ -1,17 +1,20 @@
-"""Add, Classify and Reclassify twins against their numpy processes.
+"""Add, Classify and Reclassify: the port's numpy processes and twins
+against the JAX package's numpy processes.
 
 Each case is a two-node compute graph: a host literal holding the input
-raster and the process node.  ``compute_torch`` moves the raster to the
-device, runs the twin batch-first and brings the result back, so the
-executor's host/device handoff is exercised too.  All bitwise.
+raster and the port's process node.  ``compute_torch`` moves the raster to
+the device, runs the twin batch-first and brings the result back, so the
+executor's host/device handoff is exercised too.  The port's copy of the
+numpy process is held to the JAX package's as well.  All bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
-from dask_geomodeling_tpu.raster.elemwise import Add, Multiply, Subtract
-from dask_geomodeling_tpu.raster.misc import _classify_process, _reclassify_process
+from dask_geomodeling_tpu.raster import elemwise as jax_elemwise
+from dask_geomodeling_tpu.raster import misc as jax_misc
 from dask_geomodeling_tpu_torch.device import equal_scalar
+from dask_geomodeling_tpu_torch.raster import elemwise, misc
 from dask_geomodeling_tpu_torch.runtime import executor
 from dask_geomodeling_tpu_torch.runtime.executor import compute_torch
 
@@ -25,9 +28,21 @@ def _raster(seed, dtype=np.float32, nodata=F32_NODATA, scale=250):
     return {"values": values, "no_data_value": nodata}
 
 
-def _compare(process, *args):
-    """Run process(*args) on the host and through compute_torch; the
-    raster args are graph keys of host literals."""
+def _copy(arg):
+    if isinstance(arg, dict) and "values" in arg:
+        return dict(arg, values=arg["values"].copy())
+    return arg
+
+
+def _compare(reference, process, *args):
+    """Run the JAX package's ``reference(*args)``, the port's numpy
+    ``process(*args)`` and ``process`` through compute_torch; the raster
+    args are graph keys of host literals."""
+    expected = reference(*[_copy(a) for a in args])
+    host = process(*[_copy(a) for a in args])
+    assert host["no_data_value"] == expected["no_data_value"]
+    assert host["values"].dtype == expected["values"].dtype
+    np.testing.assert_array_equal(host["values"], expected["values"])
     graph = {}
     node = [process]
     host_args = []
@@ -40,7 +55,6 @@ def _compare(process, *args):
             node.append(arg)
         host_args.append(arg)
     graph["out"] = tuple(node)
-    expected = process(*host_args)
     before = executor.host_node_runs
     actual = compute_torch(graph, "out", device="cpu")
     assert executor.host_node_runs == before  # the twin served the node
@@ -50,32 +64,45 @@ def _compare(process, *args):
     return actual
 
 
-@pytest.mark.parametrize("block", [Add, Subtract, Multiply])
+@pytest.mark.parametrize("block", ["Add", "Subtract", "Multiply"])
 @pytest.mark.parametrize("operand", [1, 2.5, "raster"])
 def test_math_twins(block, operand):
     a = _raster(0)
     b = _raster(1) if operand == "raster" else operand
     kwargs = {"dtype": "float32", "fillvalue": F32_NODATA}
-    _compare(block.process, kwargs, a, b)
+    _compare(
+        getattr(jax_elemwise, block).process,
+        getattr(elemwise, block).process,
+        kwargs,
+        a,
+        b,
+    )
 
 
 def test_add_int_promotes_before_the_op():
     a = _raster(2, dtype=np.uint8, nodata=255, scale=255)
     kwargs = {"dtype": "int32", "fillvalue": int(np.iinfo(np.int32).max)}
-    _compare(Add.process, kwargs, a, 200)  # uint8 + 200 must not wrap
+    # uint8 + 200 must not wrap
+    _compare(jax_elemwise.Add.process, elemwise.Add.process, kwargs, a, 200)
 
 
 @pytest.mark.parametrize("right", [False, True])
 def test_classify(right):
     data = _raster(3)
     data["values"][0, 0, :4] = [50.0, 100.0, 150.0, 200.0]  # on the edges
-    out = _compare(_classify_process, data, [50.0, 100.0, 150.0, 200.0], right)
+    out = _compare(
+        jax_misc._classify_process,
+        misc._classify_process,
+        data,
+        [50.0, 100.0, 150.0, 200.0],
+        right,
+    )
     assert out["values"].dtype == np.uint8
 
 
 def test_classify_int_values():
     data = _raster(4, dtype=np.int64, nodata=int(np.iinfo(np.int64).max), scale=20)
-    _compare(_classify_process, data, [4, 8, 12, 16], False)
+    _compare(jax_misc._classify_process, misc._classify_process, data, [4, 8, 12, 16], False)
 
 
 @pytest.mark.parametrize("select", [False, True])
@@ -87,7 +114,7 @@ def test_reclassify_int64_output(select):
         "data": [[0, 1], [1, 5], [2, 9], [3, 13], [4, 17]],
         "select": select,
     }
-    out = _compare(_reclassify_process, data, kwargs)
+    out = _compare(jax_misc._reclassify_process, misc._reclassify_process, data, kwargs)
     assert out["values"].dtype == np.int64
 
 

@@ -2,15 +2,13 @@
 package.
 
 The view is bench.py's: Classify(Reclassify(Classify(Smooth(source + 1))))
-over an EPSG:28992 source requested in EPSG:3857.  Both device paths
+over an EPSG:28992 source requested in EPSG:3857, built by the JAX package
+and carried across with ``from_reference``.  Both device paths
 interpolate a coarse transformer grid where the numpy executor transforms
 every pixel (the JAX package in float32, the port in float64), so across
 a CRS boundary a few cells may differ: the share is held to 5e-4 and to
 no more than the JAX package's own share.  A same-CRS request is bitwise.
 """
-import os
-import subprocess
-import sys
 from datetime import datetime
 
 import numpy as np
@@ -19,24 +17,34 @@ import torch
 
 import bench
 from dask_geomodeling_tpu import config
-from dask_geomodeling_tpu.raster import MovingMax
 from dask_geomodeling_tpu.runtime.tiles import evaluate_tiled as jax_evaluate_tiled
-from dask_geomodeling_tpu_torch import compute_torch, evaluate_tiled, get_data
+from dask_geomodeling_tpu_torch import compute_torch, evaluate_tiled, from_reference, get_data
+from dask_geomodeling_tpu_torch.config import config as port_config
 from dask_geomodeling_tpu_torch.ops import cuda_stencils
+from dask_geomodeling_tpu_torch.raster import BaseSingle
 from dask_geomodeling_tpu_torch.runtime import executor
 from dask_geomodeling_tpu_torch.runtime.tiles import NotLowerable
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_SHARE = 5e-4
+
+
+class NoTwin(BaseSingle):
+    """A block whose process has no torch twin."""
+
+    @staticmethod
+    def process(data):
+        return data
 
 
 @pytest.fixture(scope="module")
 def main_path():
-    source, view = bench.build_view(512)
+    """(JAX source, JAX view, port view, request, numpy executor result)."""
+    source, jax_view = bench.build_view(512)
     request = bench.full_request(source, 1024)
     with config.set({"geomodeling.executor": "numpy"}):
-        expected = view.get_data(**request)
-    return source, view, request, expected
+        expected = jax_view.get_data(**request)
+    view = from_reference(jax_view.serialize())
+    return source, jax_view, view, request, expected
 
 
 def _share(actual, expected):
@@ -45,10 +53,10 @@ def _share(actual, expected):
 
 
 def test_main_path_share(main_path):
-    _, view, request, expected = main_path
+    _, jax_view, view, request, expected = main_path
     port = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")
     assert port["no_data_value"] == expected["no_data_value"]
-    jax_result = jax_evaluate_tiled(view, request, tile_size=256, batch=4)
+    jax_result = jax_evaluate_tiled(jax_view, request, tile_size=256, batch=4)
     port_share = _share(port["values"], expected["values"])
     jax_share = _share(jax_result["values"], expected["values"])
     assert port_share <= MAX_SHARE
@@ -61,7 +69,7 @@ def test_main_path_share(main_path):
 def test_main_path_on_card_equals_cpu(main_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    _, view, request, _ = main_path
+    _, _, view, request, _ = main_path
     cpu = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")
     before = cuda_stencils.launches
     card = evaluate_tiled(view, request, tile_size=256, batch=4, device="cuda")
@@ -70,7 +78,7 @@ def test_main_path_on_card_equals_cpu(main_path):
 
 
 def test_ragged_request_and_padded_batch(main_path):
-    source, view, _, _ = main_path
+    source, jax_view, view, _, _ = main_path
     request = bench.full_request(source, 1024)
     x1, y1, x2, y2 = request["bbox"]
     # 700 x 600 px over the lower-left part: edge tiles cropped on
@@ -81,7 +89,7 @@ def test_ragged_request_and_padded_batch(main_path):
         height=600,
     )
     with config.set({"geomodeling.executor": "numpy"}):
-        expected = view.get_data(**request)
+        expected = jax_view.get_data(**request)
     phases = {}
     port = evaluate_tiled(
         view, request, tile_size=256, batch=4, device="cpu", phase_seconds=phases
@@ -92,7 +100,7 @@ def test_ragged_request_and_padded_batch(main_path):
 
 
 def test_get_data_sub_tile_same_crs_bitwise(main_path):
-    _, view, _, _ = main_path
+    _, jax_view, view, _, _ = main_path
     request = dict(
         mode="vals",
         bbox=(85100.0, 454700.0, 85300.0, 454900.0),
@@ -102,7 +110,7 @@ def test_get_data_sub_tile_same_crs_bitwise(main_path):
         start=datetime(2000, 1, 1),
     )
     with config.set({"geomodeling.executor": "numpy"}):
-        expected = view.get_data(**request)
+        expected = jax_view.get_data(**request)
     before = executor.host_node_runs
     actual = get_data(view, device="cpu", **request)
     assert executor.host_node_runs == before
@@ -111,17 +119,17 @@ def test_get_data_sub_tile_same_crs_bitwise(main_path):
 
 
 def test_get_data_tiles_a_large_request(main_path):
-    source, view, _, _ = main_path
+    source, _, view, _, _ = main_path
     request = bench.full_request(source, 512)
-    with config.set({"geomodeling.tile-size": 256, "geomodeling.tile-batch": 4}):
-        routed = get_data(view, device="cpu", **request)
+    with port_config.set({"geomodeling.tile-size": 256, "geomodeling.tile-batch": 4}):
+        routed = view.get_data(device="cpu", **request)
     direct = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")
     np.testing.assert_array_equal(routed["values"], direct["values"])
 
 
 def test_node_without_twin(main_path):
-    source, _, _, _ = main_path
-    view = MovingMax(source, size=3)
+    jax_source, _, _, _, _ = main_path
+    view = NoTwin(from_reference(jax_source.serialize()))
     request = dict(
         mode="vals",
         bbox=(85000.0, 454900.0, 85100.0, 455000.0),
@@ -132,7 +140,7 @@ def test_node_without_twin(main_path):
     )
     with pytest.raises(NotLowerable):
         evaluate_tiled(view, request, tile_size=64, batch=2, device="cpu")
-    # the source warps on the device; MovingMax has no twin, so its input
+    # the source warps on the device; NoTwin has no twin, so its input
     # would have to come back to the host: the staged executor refuses
     before = executor.host_node_runs
     with pytest.raises(NotLowerable):
@@ -145,8 +153,9 @@ def test_node_without_twin(main_path):
 def test_host_node_feeds_a_twin(main_path):
     """A point request is read on the host (the source twin serves only
     areas); the Add twin then takes the host result onto the device."""
-    source, _, _, _ = main_path
-    view = source + 1
+    source, _, _, _, _ = main_path
+    jax_view = source + 1
+    view = from_reference(jax_view.serialize())
     x1, y1, x2, y2 = source.geo_transform.get_bbox((0, 0), source.data.shape[1:])
     x, y = (x1 + x2) / 2 + 0.5, (y1 + y2) / 2 + 0.5
     request = dict(
@@ -158,7 +167,7 @@ def test_host_node_feeds_a_twin(main_path):
         start=datetime(2000, 1, 1),
     )
     with config.set({"geomodeling.executor": "numpy"}):
-        expected = view.get_data(**request)
+        expected = jax_view.get_data(**request)
     before = executor.host_node_runs
     actual = get_data(view, device="cpu", **request)
     assert executor.host_node_runs == before + 1
@@ -171,38 +180,12 @@ def test_host_node_feeds_a_twin(main_path):
 def test_cuda_without_a_card_raises(main_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    _, view, request, _ = main_path
+    _, _, view, request, _ = main_path
     with pytest.raises(RuntimeError, match="cuda"):
         evaluate_tiled(view, request, tile_size=256, batch=4, device="cuda")
-    with config.set({"geomodeling.torch-device": "cuda"}):
+    with port_config.set({"geomodeling.torch-device": "cuda"}):
         with pytest.raises(RuntimeError, match="cuda"):
             get_data(view, **request)
-
-
-def test_port_never_imports_jax():
-    script = "\n".join(
-        [
-            "import sys",
-            "import bench",
-            "from dask_geomodeling_tpu_torch import evaluate_tiled, get_data",
-            "source, view = bench.build_view(128)",
-            "request = bench.full_request(source, 256)",
-            "out = evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
-            "assert out['values'].shape == (1, 256, 256)",
-            "request.update(width=64, height=64)",
-            "get_data(view, device='cpu', **request)",
-            "assert 'jax' not in sys.modules, 'jax was imported'",
-            "print('no jax')",
-        ]
-    )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run(
-        [sys.executable, "-c", script],
-        cwd=REPO,
-        env=env,
-        capture_output=True,
-        text=True,
-        timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "no jax"
+    # a Block's own get_data runs on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        view.get_data(**request)

@@ -1,0 +1,315 @@
+"""The port stands on its own and agrees with the JAX package.
+
+- no module of the port, and not chip_smoke.py, imports the JAX package,
+  jax, bench or benchmarks (an AST scan), and running both of the port's
+  paths loads none of them (a subprocess);
+- the port's CRS subset gives the JAX package's float64 bits;
+- a JAX-package view carried across by ``from_reference`` plans the same
+  graph: the same process functions (by name) with equal literals;
+- each copied numpy process gives the JAX package's result bit for bit on
+  the inputs the JAX package's own executor hands it;
+- ``compute_host`` equals the JAX package's numpy executor bitwise.
+
+The views are the headline view (bench.py) and the stencils view
+(benchmarks/run.py), at small sizes.
+"""
+import ast
+import dataclasses
+import datetime
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import bench
+import chip_smoke
+from dask_geomodeling_tpu import config as jax_config
+from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_points
+from dask_geomodeling_tpu.raster import MaskBelow, Snap
+from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
+from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
+from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
+from dask_geomodeling_tpu.raster import Smooth as JaxSmooth
+from dask_geomodeling_tpu.runtime.executor import _reachable as jax_reachable
+from dask_geomodeling_tpu.runtime.executor import _toposort as jax_toposort
+from dask_geomodeling_tpu_torch import compute_host, from_reference
+from dask_geomodeling_tpu_torch.geo.crs import transform_points
+from dask_geomodeling_tpu_torch.runtime.executor import _reachable, _toposort
+from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("dask_geomodeling_tpu", "jax", "bench", "benchmarks")
+
+
+def _port_files():
+    root = os.path.join(REPO, "dask_geomodeling_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for folder, _, names in os.walk(root):
+        files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(module):
+    return any(module == name or module.startswith(name + ".") for name in FORBIDDEN)
+
+
+def test_no_module_of_the_port_imports_the_jax_package():
+    found = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                modules = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                modules = [node.module]
+            else:
+                continue
+            found += [
+                "%s:%d %s" % (os.path.relpath(path, REPO), node.lineno, m)
+                for m in modules
+                if _forbidden(m)
+            ]
+    assert len(_port_files()) > 20
+    assert not found, found
+
+
+def test_port_never_imports_jax():
+    """Both paths at a small size, on the CPU, through the port alone."""
+    script = "\n".join(
+        [
+            "import sys",
+            "import chip_smoke as cs",
+            "from dask_geomodeling_tpu_torch import evaluate_tiled, get_data",
+            "source, view = cs.build_headline_view(128)",
+            "request = cs.headline_request(source, 256)",
+            "out = evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
+            "assert out['values'].shape == (1, 256, 256)",
+            "request.update(width=64, height=64)",
+            "get_data(view, device='cpu', **request)",
+            "_, view = cs.build_stencils_view(256)",
+            "out = evaluate_tiled(view, cs.vals_request(256), tile_size=128, batch=4, device='cpu')",
+            "assert out['values'].shape == (1, 256, 256)",
+            "view.get_data(device='cpu', **cs.vals_request(64))",
+            "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
+            "assert not bad, bad",
+            "print('standalone')",
+        ]
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "standalone"
+
+
+# --- the CRS subset ---
+
+CRSES = ["EPSG:28992", "EPSG:3857", "EPSG:4326"]
+
+
+def _points_in(srs):
+    """A grid over the Netherlands in ``srs`` plus out-of-domain points."""
+    x, y = np.meshgrid(np.linspace(0, 300000, 41), np.linspace(290000, 630000, 37))
+    x, y = jax_transform_points(x.ravel(), y.ravel(), "EPSG:28992", srs)
+    if srs == "EPSG:4326":
+        far = ([0.0, 179.9, -180.0, 5.0, 5.0, np.nan], [89.99, -89.0, 0.0, 90.0, -90.0, 1.0])
+    else:
+        far = ([1e12, -1e12, 0.0, 3e7, np.nan, 5e6], [1e12, 0.0, -1e12, 3e7, 0.0, np.nan])
+    return np.concatenate([x, far[0]]), np.concatenate([y, far[1]])
+
+
+@pytest.mark.parametrize("src", CRSES)
+@pytest.mark.parametrize("dst", CRSES)
+def test_transform_points_bitwise(src, dst):
+    x, y = _points_in(src)
+    expected = jax_transform_points(x, y, src, dst)
+    actual = transform_points(x, y, src, dst)
+    for a, e in zip(actual, expected):
+        assert a.dtype == e.dtype
+        np.testing.assert_array_equal(a, e)  # NaN in the same places
+
+
+def test_other_crs_is_not_ported():
+    with pytest.raises(NotImplementedError, match="EPSG:32631"):
+        transform_points([500000.0], [0.0], "EPSG:32631", "EPSG:4326")
+
+
+# --- views carried across ---
+
+
+def _headline():
+    source, view = bench.build_view(128)
+    return view, bench.full_request(source, 512)
+
+
+def _stencils():
+    source = JaxMemorySource(
+        data=(np.random.RandomState(0).rand(1, 256, 256) * 200).astype(np.float32),
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(135000.0, 456000.0),
+        time_first=datetime.datetime(2000, 1, 1),
+    )
+    view = JaxHillShade(JaxSmooth(JaxMovingMax(source, 3), 5))
+    return view, chip_smoke.vals_request(256)
+
+
+VIEWS = {"headline": _headline, "stencils": _stencils}
+
+
+@pytest.fixture(scope="module", params=sorted(VIEWS))
+def views(request):
+    """(name, JAX view, port view, three tile requests)."""
+    jax_view, full = VIEWS[request.param]()
+    tiles, _ = tile_requests(full, 128)
+    picked = [tiles[0], tiles[len(tiles) // 2], tiles[-1]]
+    return request.param, jax_view, from_reference(jax_view.serialize()), picked
+
+
+def _plan(reachable, toposort, view, request):
+    graph, name = view.get_compute_graph(**request)
+    return graph, toposort(*reachable(graph, name))
+
+
+def _jax_plan(view, request):
+    # the port stages its coarse warp grid per tile; the JAX planner's
+    # own grid is switched off to compare the rest of the plan
+    with jax_config.set({"geomodeling.warp-host-grid": False}):
+        return _plan(jax_reachable, jax_toposort, view, request)
+
+
+def _assert_same(port, ref, where):
+    if dataclasses.is_dataclass(ref):
+        assert type(port).__name__ == type(ref).__name__, where
+        for field in dataclasses.fields(ref):
+            _assert_same(getattr(port, field.name), getattr(ref, field.name), where + "." + field.name)
+    elif isinstance(ref, np.ndarray):
+        assert isinstance(port, np.ndarray) and port.dtype == ref.dtype, where
+        np.testing.assert_array_equal(port, ref, err_msg=where)
+    elif isinstance(ref, dict):
+        assert sorted(port) == sorted(ref), where
+        for key in ref:
+            _assert_same(port[key], ref[key], "%s[%r]" % (where, key))
+    elif isinstance(ref, (list, tuple)):
+        assert type(port) is type(ref) and len(port) == len(ref), where
+        for i, (p, r) in enumerate(zip(port, ref)):
+            _assert_same(p, r, "%s[%d]" % (where, i))
+    else:
+        assert type(port) is type(ref) and port == ref, (where, port, ref)
+
+
+def test_from_reference_plans_the_same_graph(views):
+    name, jax_view, view, tiles = views
+    assert type(view).__module__.startswith("dask_geomodeling_tpu_torch.")
+    for tile in tiles:
+        jax_graph, jax_order = _jax_plan(jax_view, tile)
+        graph, order = _plan(_reachable, _toposort, view, tile)
+        assert len(order) == len(jax_order)
+        for key, jax_key in zip(order, jax_order):
+            node, jax_node = graph[key], jax_graph[jax_key]
+            assert node[0].__name__ == jax_node[0].__name__
+            assert node[0] is not jax_node[0]
+            assert len(node) == len(jax_node)
+            for arg, jax_arg in zip(node[1:], jax_node[1:]):
+                if isinstance(jax_arg, str) and jax_arg in jax_graph:
+                    assert arg in graph  # a graph key in both
+                else:
+                    _assert_same(arg, jax_arg, "%s %s" % (name, node[0].__name__))
+
+
+def test_chip_smoke_builds_the_reference_views():
+    """chip_smoke.py's private builders give the views bench.py and
+    benchmarks/run.py build, carried across."""
+    source, view = bench.build_view(64)
+    port_source, port_view = chip_smoke.build_headline_view(64)
+    assert from_reference(view.serialize()).token == port_view.token
+    assert bench.full_request(source, 100) == chip_smoke.headline_request(port_source, 100)
+    jax_source = JaxMemorySource(
+        data=(np.random.RandomState(0).rand(1, 64, 64) * 200).astype(np.float32),
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(135000.0, 456000.0),
+        time_first=datetime.datetime(2000, 1, 1),
+        time_delta=None,
+    )
+    jax_view = JaxHillShade(JaxSmooth(JaxMovingMax(jax_source, 3), 5))
+    assert from_reference(jax_view.serialize()).token == chip_smoke.build_stencils_view(64)[1].token
+
+
+@pytest.mark.parametrize(
+    "make, name",
+    [
+        (lambda source: MaskBelow(source, 10.0), "misc.MaskBelow"),  # module ported
+        (lambda source: Snap(source, source), "temporal.Snap"),  # module not
+    ],
+)
+def test_from_reference_names_what_is_not_ported(make, name):
+    source, _ = bench.build_view(32)
+    with pytest.raises(NotImplementedError, match=name):
+        from_reference(make(source).serialize())
+
+
+# --- the numpy processes and compute_host ---
+
+PROCESSES = {
+    "headline": ["process", "add", "_smooth_process", "_classify_process", "_reclassify_process"],
+    "stencils": ["process", "_moving_max_process", "_smooth_process", "_hillshade_process"],
+}
+
+
+def _copy(arg):
+    if isinstance(arg, dict) and isinstance(arg.get("values"), np.ndarray):
+        return dict(arg, values=arg["values"].copy())
+    return arg
+
+
+def test_copied_processes_bitwise(views):
+    """Every node of the plan, in order: the port's numpy process on the
+    inputs the JAX package's processes produced equals the JAX process."""
+    name, jax_view, view, tiles = views
+    seen = []
+    for tile in tiles:
+        jax_graph, jax_order = _jax_plan(jax_view, tile)
+        graph, order = _plan(_reachable, _toposort, view, tile)
+        results = {}
+        for key, jax_key in zip(order, jax_order):
+            jax_node = jax_graph[jax_key]
+            inputs = [
+                results[a] if isinstance(a, str) and a in jax_graph else a
+                for a in jax_node[1:]
+            ]
+            expected = jax_node[0](*[_copy(a) for a in inputs])
+            # the port's own literals (its source plan holds its RasterData)
+            port_inputs = [
+                inp if isinstance(a, str) and a in jax_graph else port_arg
+                for a, inp, port_arg in zip(jax_node[1:], inputs, graph[key][1:])
+            ]
+            actual = graph[key][0](*[_copy(a) for a in port_inputs])
+            assert actual["no_data_value"] == expected["no_data_value"]
+            assert actual["values"].dtype == expected["values"].dtype
+            np.testing.assert_array_equal(actual["values"], expected["values"])
+            results[jax_key] = expected
+            seen.append(graph[key][0].__name__)
+    assert sorted(set(seen)) == sorted(PROCESSES[name])
+
+
+def test_compute_host_equals_the_numpy_executor(views):
+    _, jax_view, view, tiles = views
+    for tile in tiles + [dict(tiles[0], width=97, height=61)]:
+        with jax_config.set({"geomodeling.executor": "numpy"}):
+            expected = jax_view.get_data(**tile)
+        actual = compute_host(*view.get_compute_graph(**tile))
+        assert actual["no_data_value"] == expected["no_data_value"]
+        assert actual["values"].dtype == expected["values"].dtype
+        np.testing.assert_array_equal(actual["values"], expected["values"])

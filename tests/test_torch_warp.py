@@ -18,6 +18,7 @@ import torch
 from dask_geomodeling_tpu.geo import Extent
 from dask_geomodeling_tpu.ops.warp import host_coarse_grid, warp_jax, warp_numpy
 from dask_geomodeling_tpu.runtime.executor import _ensure_x64
+from dask_geomodeling_tpu_torch.ops import warp as port_warp
 from dask_geomodeling_tpu_torch.ops.warp import coarse_index_grid, warp_torch
 
 SRC_GT = (85000.0, 1.0, 0, 455000.0, 0, -1.0)
@@ -212,4 +213,20 @@ def test_bilinear_not_ported_yet():
             torch.from_numpy(values), SRC_GT, SRC_SRS, nodata,
             torch.from_numpy(bboxes), "EPSG:3857", WIDTH, HEIGHT, np.float32, 0.0,
             interpolation="bilinear", coarse_grid=torch.from_numpy(grids),
+        )
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+@pytest.mark.parametrize("projection", ["EPSG:3857", SRC_SRS])
+def test_port_warp_numpy_is_the_jax_packages(dtype, projection):
+    values, nodata = _source(dtype)
+    if projection == SRC_SRS:
+        bboxes = [(85000.3, 454900.1, 85000.3 + WIDTH * 0.7, 454900.1 + HEIGHT * 0.7)]
+    else:
+        bboxes = [tuple(b) for b in _cross_tiles()[0]]
+    for bbox in bboxes:
+        args = (values, SRC_GT, SRC_SRS, nodata, bbox, projection, WIDTH, HEIGHT)
+        kwargs = dict(dtype=dtype, fillvalue=_fill(dtype))
+        np.testing.assert_array_equal(
+            port_warp.warp_numpy(*args, **kwargs), warp_numpy(*args, **kwargs)
         )
