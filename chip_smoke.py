@@ -15,8 +15,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    5/3 (radius 7), at radius 8 and at a zoom-mode radius 40, and one plane
    against scipy.ndimage.gaussian_filter, bitwise; the moving maximum at
    the stencils path's shape (64, 526, 526) float32 size 3, also against
-   torch's max_pool2d, at sizes 5, 7 and 15, in every integer and float
-   width, and with NaN in a plane;
+   torch's max_pool2d, at sizes 5, 7 and 15, at sizes 3, 5 and 7 in every
+   integer and float width, and with NaN in a plane; each kernel's static
+   SASS opcode counts (cuobjdump) are printed after its build;
 4. headline path: the view of bench.py (8192^2 EPSG:28992 source) over a
    10240^2 EPSG:3857 request in 512^2 tiles, batches of 64, through the
    port's evaluate_tiled and get_data.  The Gaussian launches once per
@@ -35,7 +36,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    host rate on the sampled tiles, one run's seconds per phase, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
-   same function (CUDA events), and the least time the card could take.
+   same function (CUDA events), and the least time the card could take;
+   the Gaussian is timed at both paths' shapes, one kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -60,10 +62,13 @@ STENCILS_SHARE = 1e-3
 TILE = 512
 BATCH = 64
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the FP32 and FP64 rates
-# outside the tensor cores
+# outside the tensor cores.  The data sheet's 34 TFLOP/s of FP64 counts a
+# fused multiply-add as two operations; the kernels are built with
+# -fmad=false, so each multiply and each add is an instruction of its own,
+# and 17e12 of them a second is the rate they can reach.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-FP64_OPS_PER_S = 34e12
+FP64_OPS_PER_S = 17e12
 
 
 # --- the views, with the port's own classes ---
@@ -278,8 +283,72 @@ def build_kernels():
         log = _build.build_log[name]
         print("build: %s.cu nvcc %.2f s" % (name, log["seconds"]))
         for line in log["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas: " + line.strip())
+            if "Function properties for" in line:
+                print("  ptxas: " + kernel_name(line.split()[-1]))
+            elif "registers" in line or "spill" in line:
+                print("  ptxas:   " + line.replace("ptxas info    :", "").strip())
+        print_sass_counts(name)
+
+
+#: SASS opcodes counted per kernel: conversions, float64 arithmetic, the
+#: reciprocal that starts an integer division by a runtime value, shared
+#: and global memory traffic, branches and barriers
+SASS_COUNTED = ("F2F", "DADD", "DMUL", "DFMA", "I2F", "MUFU", "LDS", "STS", "LDG", "STG",
+                "BRA", "BAR")
+
+
+def kernel_name(mangled):
+    """A kernel's mangled name without its namespace: the function and its
+    template arguments (f float, d double, a-m the integer types, then any
+    integer constant)."""
+    import re
+
+    found = re.search(r"\d+((?:blur|moving_max)_\w+?)I(\w*?)E?Ev", mangled)
+    if not found:
+        return mangled
+    args = re.sub(r"L[ib](\d+)E", r",\1", found.group(2))
+    return "%s<%s>" % (found.group(1), args)
+
+
+def print_sass_counts(name):
+    """Static SASS opcode counts of each kernel in csrc/<name>.cu's
+    library, from cuobjdump where the toolkit has it."""
+    import os
+    import re
+    import shutil
+
+    from dask_geomodeling_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump")
+    if not cuobjdump:
+        print("  sass: not measured (no cuobjdump)")
+        return
+    library = _build.library_path(name)
+    proc = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != 0:
+        print("  sass: not measured (cuobjdump exit %d)" % proc.returncode)
+        return
+    counts = {}
+    function = None
+    for line in proc.stdout.splitlines():
+        found = re.match(r"\s*Function : (\S+)", line)
+        if found:
+            function = found.group(1)
+            counts[function] = {"all": 0}
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if function and op:
+            base = op.group(1).split(".")[0]
+            tally = counts[function]
+            tally["all"] += 1
+            if base in SASS_COUNTED:
+                tally[base] = tally.get(base, 0) + 1
+    for function, tally in counts.items():
+        print("  sass: %s %s" % (kernel_name(function), " ".join(
+            "%s=%d" % (op, tally.get(op, 0)) for op in ("all",) + SASS_COUNTED)))
 
 
 def host_values(view, request):
@@ -292,13 +361,13 @@ def host_values(view, request):
 
 
 def check_gaussian(device, headline_sigma, stencils_sigma):
-    """Phase 3a; returns the kernel record's numbers at (64, 516, 516)."""
+    """Phase 3a; returns the kernel records' numbers at the headline
+    path's (64, 516, 516) and the stencils path's (64, 524, 524)."""
     import torch
-    import torch.nn.functional as F
     from scipy import ndimage
 
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
-    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference, gaussian_weights
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
 
     rng = np.random.RandomState(0)
     planes = torch.from_numpy(
@@ -334,12 +403,24 @@ def check_gaussian(device, headline_sigma, stencils_sigma):
     check(np.array_equal(kernel_plane[0].cpu().numpy(), scipy_plane),
           "gaussian_blur differs from scipy.ndimage.gaussian_filter")
     print("kernel check: gaussian_blur, one plane bitwise equal to scipy.ndimage.gaussian_filter")
+    return [dict(time_gaussian(data, sigma), max_abs_err=max_abs_err, path=path)
+            for path, data, sigma in [("headline", planes, headline_sigma),
+                                      ("stencils", stencil_planes, stencils_sigma)]]
 
-    # timing at the headline path's shape; the library yardstick is one
-    # cuDNN convolution with the (2r+1)^2 outer-product weights in full
-    # float32 (not bitwise: it sums in another order)
-    (wy, ry), (wx, rx) = gaussian_weights(headline_sigma[0]), gaussian_weights(headline_sigma[1])
-    weights = torch.from_numpy(np.outer(wy, wx).astype(np.float32)).to(device)[None, None]
+
+def time_gaussian(planes, sigma):
+    """The kernel, its plain version and the library yardstick on
+    ``planes`` (CUDA events), and the bound.  The yardstick is one cuDNN
+    convolution with the (2r+1)^2 outer-product weights in full float32
+    (not bitwise: it sums in another order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference, gaussian_weights
+
+    (wy, ry), (wx, rx) = gaussian_weights(sigma[0]), gaussian_weights(sigma[1])
+    weights = torch.from_numpy(np.outer(wy, wx).astype(np.float32)).to(planes.device)[None, None]
     images = planes[:, None]
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -347,16 +428,15 @@ def check_gaussian(device, headline_sigma, stencils_sigma):
         library_ms = cuda_ms(lambda: F.conv2d(images, weights, padding=(ry, rx)), 20)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    kernel_ms = cuda_ms(lambda: cuda_stencils.gaussian_blur(planes, *headline_sigma, 0), 20)
-    plain_ms = cuda_ms(lambda: gaussian_blur_reference(planes, *headline_sigma, 0), 5)
+    kernel_ms = cuda_ms(lambda: cuda_stencils.gaussian_blur(planes, *sigma, 0), 20)
+    plain_ms = cuda_ms(lambda: gaussian_blur_reference(planes, *sigma, 0), 5)
     n_bytes = 2 * planes.numel() * planes.element_size()
     # per output pixel and pass: one multiply, then an add, a multiply and
-    # an add per tap pair, in float64
+    # an add per tap pair, each its own float64 instruction (no FMA)
     ops = planes.numel() * ((1 + 3 * ry) + (1 + 3 * rx))
     bound_ms, bound_by = bound(n_bytes, ops, FP64_OPS_PER_S)
-    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=list(planes.shape))
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, shape=list(planes.shape), radius=[ry, rx])
 
 
 def check_moving_max(device):
@@ -375,8 +455,9 @@ def check_moving_max(device):
     cases += [("size %d" % size, planes[:8].contiguous(), size) for size in (5, 7, 15)]
     for dtype in (np.float64, np.float16, np.int8, np.int16, np.int32, np.int64,
                   np.uint8, np.uint16, np.uint32, np.uint64):
-        cases.append(("%s, size 5" % np.dtype(dtype).name,
-                      torch.from_numpy(small.astype(dtype)).to(device), 5))
+        for size in (3, 5, 7):
+            cases.append(("%s, size %d" % (np.dtype(dtype).name, size),
+                          torch.from_numpy(small.astype(dtype)).to(device), size))
     wide = rng.randint(-2**62, 2**62, size=(2, 97, 89), dtype=np.int64)
     cases.append(("int64 beyond float64's range, size 3", torch.from_numpy(wide).to(device), 3))
     cases.append(("uint64 high bit, size 3",
@@ -419,7 +500,7 @@ def check_moving_max(device):
     bound_ms, bound_by = bound(n_bytes, ops, FP32_OPS_PER_S)
     return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=list(planes.shape))
+                shape=list(planes.shape), path="stencils")
 
 
 def no_twin_view(source):
@@ -647,7 +728,7 @@ def main():
     # 6. timing
     headline_time = time_path("headline", card, headline_view, headline_req, device, headline_host)
     stencils_time = time_path("stencils", card, stencils_view, stencils_req, device, stencils_host)
-    for name, numbers in [("gaussian_blur", gaussian), ("moving_max", moving)]:
+    for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", moving)]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
                                       numbers["plain_ms"], numbers["library_ms"],
@@ -674,13 +755,16 @@ def main():
             "bound_by": numbers["bound_by"],
             "library_ms": numbers["library_ms"],
             "shape": numbers["shape"],
+            "timed_at": numbers["path"],
         }
 
     print(json.dumps({"kernels": [
         record("gaussian_blur", "dask_geomodeling_tpu_torch/csrc/gaussian_blur.cu",
-               "dask_geomodeling_tpu/ops/pallas_stencils.py:55", gaussian,
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:55", numbers,
                {"headline": headline_launches["gaussian_blur"],
-                "stencils": stencils_launches["gaussian_blur"]}),
+                "stencils": stencils_launches["gaussian_blur"]})
+        for numbers in gaussian
+    ] + [
         record("moving_max", "dask_geomodeling_tpu_torch/csrc/moving_max.cu",
                "dask_geomodeling_tpu/ops/pallas_stencils.py:136", moving,
                {"headline": headline_launches["moving_max"],

@@ -16,7 +16,7 @@ import tempfile
 import threading
 import time
 
-__all__ = ["load_library", "build_log", "nvcc_path"]
+__all__ = ["load_library", "library_path", "build_log", "nvcc_path"]
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")
@@ -61,18 +61,20 @@ def load_library(name):
     with _LOCK:
         lib = _LIBRARIES.get(name)
         if lib is None:
-            lib = _LIBRARIES[name] = ctypes.CDLL(_build(name))
+            lib = _LIBRARIES[name] = ctypes.CDLL(library_path(name))
         return lib
 
 
-def _build(name):
+def library_path(name):
+    """The path of the library built from ``csrc/<name>.cu`` (built if
+    needed)."""
     source = os.path.join(SOURCE_DIR, name + ".cu")
     with open(source, "rb") as f:
         text = f.read()
     digest = hashlib.sha256(text + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
     target = os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
     if os.path.exists(target):
-        build_log[name] = {"seconds": 0.0, "log": "reused " + target}
+        build_log.setdefault(name, {"seconds": 0.0, "log": "reused " + target})
         return target
     os.makedirs(BUILD_DIR, exist_ok=True)
     # compile to a private name, then rename: a concurrent build or a

@@ -15,6 +15,7 @@ a CUDA tensor it launches the kernel or raises: there is no fallback.
 counts moving-max launches.  ``reset_launches()`` sets all three to 0.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -75,7 +76,8 @@ def _library():
                 ctypes.c_void_p,  # in
                 ctypes.c_void_p,  # out
                 ctypes.c_void_p,  # scratch (NULL for the fused launch)
-                ctypes.c_void_p,  # weights, float64 [wy, wx]
+                ctypes.c_void_p,  # host weights, float64 [wy, wx] (fused launch)
+                ctypes.c_void_p,  # the same on the device (two-pass launch)
                 ctypes.c_int64,  # planes
                 ctypes.c_int,  # height
                 ctypes.c_int,  # width
@@ -91,6 +93,26 @@ def _library():
         lib.gaussian_blur_error_string.restype = ctypes.c_char_p
         lib._declared = True
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _half_weights(sigma_y, sigma_x):
+    """(host array, radius y, radius x) of the kernel's weights for one
+    pair of sigmas: w[0..r] of each axis (scipy's kernel is symmetric),
+    [wy, wx], as float64 in host memory the kernel launch reads."""
+    weights_y, radius_y = gaussian_weights(sigma_y)
+    weights_x, radius_x = gaussian_weights(sigma_x)
+    half = np.ascontiguousarray(
+        np.concatenate([weights_y[radius_y:], weights_x[radius_x:]]), dtype=np.float64
+    )
+    return half, radius_y, radius_x
+
+
+@functools.lru_cache(maxsize=64)
+def _device_weights(sigma_y, sigma_x, device):
+    """The same weights on ``device``, which the two-pass launch reads;
+    copied there once per pair of sigmas."""
+    return torch.from_numpy(_half_weights(sigma_y, sigma_x)[0]).to(device)
 
 
 def gaussian_blur(values, sigma_y, sigma_x, fill):
@@ -118,21 +140,20 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
     if values.numel() == 0:
         return out
 
-    weights_y, radius_y = gaussian_weights(sigma_y)
-    weights_x, radius_x = gaussian_weights(sigma_x)
-    weights = torch.from_numpy(
-        np.concatenate([weights_y, weights_x]).astype(np.float64)
-    ).to(values.device)
+    sigma_y, sigma_x = float(sigma_y), float(sigma_x)
+    host_weights, radius_y, radius_x = _half_weights(sigma_y, sigma_x)
     lib = _library()
-    scratch = None
+    scratch = device_weights = None
     if max(radius_y, radius_x) > lib.gaussian_blur_fused_max_radius():
         scratch = torch.empty_like(values)
+        device_weights = _device_weights(sigma_y, sigma_x, values.device)
     with torch.cuda.device(values.device):
         err = getattr(lib, _ENTRY[values.dtype])(
             values.data_ptr(),
             out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            weights.data_ptr(),
+            host_weights.ctypes.data,
+            None if device_weights is None else device_weights.data_ptr(),
             n,
             height,
             width,

@@ -181,3 +181,153 @@ def test_kernel_rejects_what_it_does_not_take():
         cuda_stencils.moving_max(data[:, :, ::2], 3)
     with pytest.raises(ValueError):
         cuda_stencils.moving_max(data[0], 3)
+
+
+def _half_width(size, dy):
+    """csrc/moving_max.cu:half_width: the largest dx with
+    4 (dx^2 + dy^2) < size^2."""
+    k = size // 2
+    while k > 0 and 4 * (k * k + dy * dy) >= size * size:
+        k -= 1
+    return k
+
+
+@pytest.mark.parametrize("size", range(1, 16))
+def test_kernel_half_widths_are_the_footprint_runs(size):
+    odd = size // 2 * 2 + 1  # what the wrapper passes the kernel
+    radius = odd // 2
+    runs = [(dy, -_half_width(odd, abs(dy)), _half_width(odd, abs(dy)))
+            for dy in range(-radius, radius + 1)]
+    assert runs == footprint_runs(size)
+
+
+def _separable_model(values, size):
+    """The kernel's decomposition in torch: pad with the lowest value,
+    horizontal maxima over [-k, k] grown one pair at a time, then one of
+    them per footprint row down each column."""
+    odd = size // 2 * 2 + 1
+    radius = odd // 2
+    dtype = values.dtype
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}.get(dtype)
+    if signed is not None:
+        sign = torch.iinfo(signed).min
+        values = values.view(signed) ^ sign
+    if values.dtype.is_floating_point:
+        lowest = float("-inf")
+    elif values.dtype == torch.bool:
+        lowest = False
+    else:
+        lowest = torch.iinfo(values.dtype).min
+    height, width = values.shape[-2:]
+    padded = torch.nn.functional.pad(values, (radius,) * 4, value=lowest)
+
+    def cols(dx):
+        return padded[:, :, radius + dx : radius + dx + width]
+
+    hmax = [cols(0)]
+    for k in range(1, radius + 1):
+        hmax.append(torch.maximum(torch.maximum(hmax[-1], cols(-k)), cols(k)))
+
+    def rows(dy):
+        return hmax[_half_width(odd, abs(dy))][:, radius + dy : radius + dy + height]
+
+    out = rows(0)
+    for dy in range(1, radius + 1):
+        out = torch.maximum(torch.maximum(out, rows(-dy)), rows(dy))
+    if signed is not None:
+        out = (out ^ sign).view(dtype)
+    return out
+
+
+MODEL_DTYPES = [torch.float32, torch.float64, torch.float16, torch.int8, torch.int16,
+                torch.int32, torch.int64, torch.uint8, torch.uint16, torch.uint32,
+                torch.uint64, torch.bool]
+
+
+def _extreme_planes(seed, shape, dtype):
+    """Random planes of ``dtype`` holding its lowest and highest values,
+    and NaN and +-inf where it is a float type."""
+    rng = np.random.RandomState(seed)
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.rand(*shape) > 0.7)
+    if dtype.is_floating_point:
+        data = torch.from_numpy(rng.randn(*shape) * 100).to(dtype)
+        data[0, 1, 2] = float("nan")
+        data[-1, -1, -1] = float("nan")
+        data[0, -2, 0] = float("inf")
+        data[-1, 0, 1] = float("-inf")
+        return data
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    raw = rng.randint(0, 256, size=tuple(shape) + (np_dtype.itemsize,), dtype=np.uint8)
+    data = raw.view(np_dtype)[..., 0].copy()
+    data[0, 1, 2] = np.iinfo(np_dtype).max
+    data[-1, -1, -1] = np.iinfo(np_dtype).min
+    return torch.from_numpy(data)
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES, ids=str)
+@pytest.mark.parametrize("size", range(1, 16))
+def test_kernel_decomposition_equals_reference(size, dtype):
+    data = _extreme_planes(size, (2, 13, 17), dtype)
+    model = _separable_model(data, size)
+    want = moving_max_reference(data, size)
+    assert model.dtype == want.dtype == dtype
+    assert _same(model, want)
+
+
+def _card_equal(data, size):
+    before = cuda_stencils.moving_max_launches
+    out = cuda_stencils.moving_max(data, size)
+    want = moving_max_reference(data, size)
+    torch.cuda.synchronize()
+    assert cuda_stencils.moving_max_launches == before + 1
+    assert out.dtype == want.dtype and out.shape == want.shape
+    assert _same(out, want)
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", range(1, 16))
+def test_kernel_every_size_float32(size):
+    _on_card()
+    _card_equal(_extreme_planes(20 + size, (3, 67, 131), torch.float32).cuda(), size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MODEL_DTYPES, ids=str)
+@pytest.mark.parametrize("size", [3, 5, 7])
+def test_kernel_every_width(size, dtype):
+    _on_card()
+    _card_equal(_extreme_planes(40 + size, (3, 45, 133), dtype).cuda(), size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [3, 5, 7, 9])
+@pytest.mark.parametrize("shape", [(3, 1, 1), (2, 2, 3), (2, 3, 40), (2, 40, 3)])
+def test_kernel_planes_smaller_than_the_halo(shape, size):
+    _on_card()
+    data = torch.from_numpy(np.random.RandomState(6).rand(*shape).astype(np.float32))
+    _card_equal(data.cuda(), size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [3, 5, 7, 11])
+@pytest.mark.parametrize("width", [127, 128, 129, 130, 257, 526])
+def test_kernel_widths(width, size):
+    """Widths around one tile (128) and rows that are not a multiple of 16
+    bytes (526 float32, the stencils path's)."""
+    _on_card()
+    _card_equal(_extreme_planes(60, (2, 50, width), torch.float32).cuda(), size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [3, 9])
+def test_kernel_more_planes_than_the_grid_takes(size):
+    """65,537 planes: more than a launch's 65,535 grid rows of planes."""
+    _on_card()
+    _card_equal(_extreme_planes(61, (65537, 4, 5), torch.float32).cuda(), size)

@@ -121,6 +121,12 @@ def test_cuda_tensor_without_kernel_raises():
         ((4, 200, 180), (10.0, 9.8), np.float32),  # radius 40, zoom mode
         ((4, 100, 90), (1.2, 0.8), np.float64),
         ((2, 100, 90), (12.0, 3.0), np.float64),
+        # radius 440: the staged y window shrinks its chunk to fit
+        ((2, 1000, 64), (110.0, 0.5), np.float32),
+        # radius 504: too large a y window to stage (taps read device
+        # memory); the x pass stages above 48 KB of shared memory
+        ((2, 600, 300), (126.0, 0.5), np.float32),
+        ((2, 300, 600), (0.5, 126.0), np.float32),
     ],
 )
 def test_kernel_equals_reference_on_card(shape, sigma, dtype):
@@ -148,3 +154,91 @@ def test_kernel_rejects_what_it_does_not_take():
         cuda_stencils.gaussian_blur(data[:, :, ::2], 1.0, 1.0, 0)
     with pytest.raises(ValueError):
         cuda_stencils.gaussian_blur(data[0], 1.0, 1.0, 0)
+
+
+def test_kernel_weights_are_the_references_half():
+    """The kernel takes w[0..r] of each axis; scipy's kernel is symmetric,
+    so the taps at -j read the same weight as those at +j."""
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_weights
+
+    for sigma_y, sigma_x in SIGMAS + [(5 / 3, 5 / 3), (2.0, 1.9), (10.0, 9.8), (0.1, 1.0)]:
+        half, radius_y, radius_x = cuda_stencils._half_weights(sigma_y, sigma_x)
+        assert half.dtype == np.float64 and half.flags["C_CONTIGUOUS"]
+        for sigma, radius, part in [
+            (sigma_y, radius_y, half[: radius_y + 1]),
+            (sigma_x, radius_x, half[radius_y + 1 :]),
+        ]:
+            weights, r = gaussian_weights(sigma)
+            assert r == radius and len(part) == r + 1
+            np.testing.assert_array_equal(part, weights[r:])
+            np.testing.assert_array_equal(weights[r::-1], weights[r:])
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+def _card_equal(data, sigma, fill):
+    """The kernel on ``data`` (a CUDA tensor) against the plain version:
+    torch.equal, with NaN in the same places."""
+    out = cuda_stencils.gaussian_blur(data, *sigma, fill)
+    want = gaussian_blur_reference(data, *sigma, fill)
+    torch.cuda.synchronize()
+    assert out.dtype == want.dtype and out.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], want[~nan])
+
+
+# radius 3 (the headline path), 7 (the stencils path), 8 (the fused
+# limit), 40 (two passes), and a radius of 0 on one axis
+EDGE_SIGMAS = [(0.759, 0.760), (5 / 3, 5 / 3), (2.0, 2.0), (10.0, 10.0), (0.1, 1.0), (1.5, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", EDGE_SIGMAS)
+@pytest.mark.parametrize("shape", [(3, 1, 1), (2, 2, 3), (2, 3, 40), (2, 40, 3), (2, 7, 9)])
+def test_kernel_planes_smaller_than_the_halo(shape, sigma):
+    _on_card()
+    _card_equal(torch.from_numpy(_planes(7, shape)).cuda(), sigma, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fill", [2.5, -3.75])
+@pytest.mark.parametrize("sigma", EDGE_SIGMAS)
+def test_kernel_nonzero_fill(sigma, fill, dtype):
+    _on_card()
+    _card_equal(torch.from_numpy(_planes(8, (3, 75, 131)).astype(dtype)).cuda(), sigma, fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", EDGE_SIGMAS)
+def test_kernel_nan_and_infinities(sigma):
+    _on_card()
+    data = _planes(9, (2, 90, 140))
+    data[0, 10, 20] = np.nan
+    data[0, 50, 0] = np.inf
+    data[1, 0, 70] = -np.inf
+    data[1, 89, 139] = np.nan
+    data[1, 40:42, 60:62] = np.inf
+    _card_equal(torch.from_numpy(data).cuda(), sigma, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", EDGE_SIGMAS)
+@pytest.mark.parametrize("width", [121, 122, 123, 129, 250, 257, 526])
+def test_kernel_widths(width, sigma):
+    """Odd widths, widths around one tile (122 at radius 3) and rows that
+    are not a multiple of 16 bytes."""
+    _on_card()
+    _card_equal(torch.from_numpy(_planes(10, (2, 70, width))).cuda(), sigma, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [(0.759, 0.760), (0.1, 1.0), (3.0, 3.0)])
+def test_kernel_more_planes_than_the_grid_takes(sigma):
+    """65,537 planes: more than a launch's 65,535 grid rows of planes."""
+    _on_card()
+    _card_equal(torch.from_numpy(_planes(11, (65537, 5, 6))).cuda(), sigma, 0.0)
