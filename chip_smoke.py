@@ -32,7 +32,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the view below HillShade bitwise equal to compute_host and the full
    view within 1 of it, 16 tiles within 1 of compute_host with at most
    1e-3 of their cells differing, and get_data equal to evaluate_tiled;
-6. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
+6. the raster-algebra paths (build_algebra_paths): elemwise,
+   reclassify-chain, combine, place and reproject-bilinear at 8192^2 in
+   512^2 tiles, batches of 64.  Every node that returns pixels runs on
+   the card; a 64^2 crop and 16 sampled tiles equal compute_host bit for
+   bit, but for the cross-CRS bilinear path, whose blends differ in the
+   last bits (within BILINEAR_ATOL, and nodata in the same cells);
+7. the executor fuzz on the card: the 55 random trees of
+   tests/test_executor_fuzz.py (random_view, with the port's classes)
+   against compute_host; and float64 comparisons, MaskBelow, Step and
+   Classify at and beside their thresholds, bitwise;
+8. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
    host rate on the sampled tiles, one run's seconds per phase, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
@@ -44,7 +54,7 @@ bench.py's and benchmarks/run.py's builders) and checked against the
 port's compute_host.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Without CUDA the
 script exits non-zero before printing any result.  It imports nothing of
-JAX or of the JAX package, and checks that at the end.
+JAX, pandas or the JAX package, and checks that at the end.
 """
 import json
 import subprocess
@@ -59,6 +69,18 @@ HEADLINE_PX = 10240
 HEADLINE_SHARE = 5e-4
 STENCILS_PX = 8192
 STENCILS_SHARE = 1e-3
+# the raster-algebra paths: 8192^2 same-CRS (and one EPSG:3857) requests
+ALGEBRA_PX = 8192
+# the cross-CRS bilinear path interpolates the approximate transformer's
+# coarse grid where the host transforms every pixel, so its blends differ
+# from the host's in the last bits; its limits are the JAX package's own
+# bilinear tolerance (tests/test_warp_bilinear.py) on the largest
+# difference, and the headline's share on cells that are nodata in one
+# and data in the other
+BILINEAR_ATOL = 1e-3
+BILINEAR_FILL_SHARE = 5e-4
+FUZZ_SEEDS = range(40)
+FUZZ_TILED_SEEDS = range(40, 55)
 TILE = 512
 BATCH = 64
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the FP32 and FP64 rates
@@ -160,6 +182,184 @@ def build_stencils_view(px=8192):
 
     source = make_source(px)
     return source, HillShade(Smooth(MovingMax(source, 3), 5))
+
+
+def warp_request(px):
+    """benchmarks/run.py's cross-CRS request: vals_request(px)'s bbox in
+    EPSG:3857, at px^2."""
+    from dask_geomodeling_tpu_torch.geo import Extent
+
+    request = vals_request(px)
+    return dict(
+        request,
+        projection="EPSG:3857",
+        bbox=Extent(request["bbox"], "EPSG:28992").transformed("EPSG:3857").bbox,
+    )
+
+
+def build_algebra_paths(px=8192):
+    """The raster-algebra paths: {name: (view, request, interpolation,
+    corner)} over sources a and b (make_source with seeds 0 and 2), where
+    ``corner`` is the top-left point of the 64^2 crop held to compute_host
+    (the request's own, but for place the first placement's centre).
+
+    - elemwise and reclassify-chain: benchmarks/run.py's views;
+    - combine: Group, Max, Dilate, Clip, FillNoData, Power, Divide, Step
+      and a comparison in one view.  Max always holds data, so it is the
+      Group's first member and the dilated classes, which hold data only
+      where the Clip kept a, show over it;
+    - place: a's top-left 256 m square, as a source of its own, placed at
+      the 4x4 grid of the request's cell centres with the maximum over
+      overlaps.  A store no larger than a tile makes the Place plan its
+      warp mode (one fetch of the store, pasted per coordinate); a's
+      whole 8192^2 would plan per-coordinate requests, which differ from
+      tile to tile;
+    - reproject-bilinear: Add(a, 1) over the cross-CRS request, with
+      bilinear resampling.
+    """
+    from dask_geomodeling_tpu_torch.raster import (
+        Add, Classify, Clip, Dilate, FillNoData, Greater, Group, Mask, MaskBelow, Max,
+        MemorySource, Multiply, Place, Power, Reclassify, Step,
+    )
+
+    a = make_source(px, seed=0)
+    b = make_source(px, seed=2)
+    request = vals_request(px)
+    square = MemorySource(
+        data=a.data[:, :256, :256],
+        no_data_value=a.no_data_value,
+        projection=a.projection,
+        pixel_size=a.pixel_size,
+        pixel_origin=a.pixel_origin,
+        time_first=a.time_first,
+    )
+    x0, y0 = a.pixel_origin
+    cell = px / 4
+    place = Place(
+        square,
+        "EPSG:28992",
+        anchor=[x0 + 128.0, y0 - 128.0],
+        coordinates=[[x0 + cell * (i + 0.5), y0 - cell * (j + 0.5)]
+                     for j in range(4) for i in range(4)],
+        statistic="max",
+    )
+    combine = Group(
+        Max(FillNoData(MaskBelow(a, 10.0), b), Power(b / 10.0, 2), Step(b, left=0, right=1, value=100.0)),
+        Dilate(Classify(Clip(a, Greater(b, 100.0)), bins=[50.0, 100.0, 150.0]), values=[1, 3]),
+    )
+    bilinear = warp_request(px)
+    corner = (request["bbox"][0], request["bbox"][3])
+    return {
+        "elemwise": (Mask(Multiply(Add(a, 1.0), 2.0), 7.0), request, "nearest", corner),
+        "reclassify-chain": (
+            Reclassify(
+                Classify(MaskBelow(a, 10.0), bins=[50.0, 100.0, 150.0]),
+                data=[[0, 1], [1, 5], [2, 9], [3, 13]],
+            ),
+            request,
+            "nearest",
+            corner,
+        ),
+        "combine": (combine, request, "nearest", corner),
+        "place": (place, request, "nearest", (x0 + cell / 2 - 32, y0 - cell / 2 + 32)),
+        "reproject-bilinear": (
+            Add(a, 1.0), bilinear, "bilinear", (bilinear["bbox"][0], bilinear["bbox"][3])),
+    }
+
+
+def fuzz_sources():
+    """tests/test_executor_fuzz.py's sources, with the port's MemorySource."""
+    from dask_geomodeling_tpu_torch.raster import MemorySource
+
+    rng = np.random.RandomState(7)
+    common = dict(projection="EPSG:28992", pixel_size=0.5, pixel_origin=(135000, 456000),
+                  time_first=datetime(2000, 1, 1), time_delta=timedelta(hours=1))
+    uint8 = MemorySource(data=(rng.rand(2, 12, 12) * 250).astype(np.uint8),
+                         no_data_value=255, **common)
+    f32_data = (rng.rand(2, 12, 12) * 100).astype(np.float32)
+    f32_data[0, :3, :3] = np.float32(np.finfo(np.float32).max)  # nodata
+    f32 = MemorySource(data=f32_data, no_data_value=float(np.finfo(np.float32).max), **common)
+    return [uint8, f32]
+
+
+def random_view(rng, sources, depth):
+    """tests/test_executor_fuzz.py:random_view with the port's classes:
+    the same tree for the same random state."""
+    from dask_geomodeling_tpu_torch import raster as R
+
+    if depth == 0:
+        return sources[rng.randint(len(sources))]
+
+    def sub():
+        return random_view(rng, sources, depth - 1)
+
+    choice = rng.randint(16)
+    const = float(np.round(rng.rand() * 20 + 1, 2))
+    if choice == 0:
+        return R.Add(sub(), const)
+    if choice == 1:
+        return R.Multiply(sub(), const)
+    if choice == 2:
+        return R.Subtract(sub(), const)
+    if choice == 3:
+        return R.Add(sub(), sub())
+    if choice == 4:
+        return R.Greater(sub(), const)
+    if choice == 5:
+        return R.Mask(sub(), value=int(const))
+    if choice == 6:
+        return R.MaskBelow(sub(), int(const))
+    if choice == 7:
+        return R.Classify(sub(), bins=[10.0, 50.0, 120.0])
+    if choice == 8:
+        return R.FillNoData(sub(), sub())
+    if choice == 9:
+        return R.Step(sub(), left=1, right=2, value=int(const), at=3)
+    if choice == 10:
+        return R.Reclassify(R.Classify(sub(), bins=[10.0, 50.0, 120.0]), data=[[1, 7.0], [2, 3.5]])
+    if choice == 11:
+        return R.Power(sub(), 2)
+    if choice == 12:
+        inner = sub()
+        if inner.dtype == np.dtype("bool"):
+            return inner  # IsData/IsNoData reject boolean inputs
+        return R.IsData(inner) if rng.rand() < 0.5 else R.IsNoData(inner)
+    if choice == 13:
+        return R.Max(sub(), sub())
+    if choice == 14:
+        first, second = sub(), sub()
+        if np.result_type(first.dtype, second.dtype) == np.dtype(bool):
+            first = R.Add(first, 1)  # promotes to an integer raster
+        return R.Group(first, second)
+    return R.Clip(sub(), R.Greater(sub(), const))
+
+
+FUZZ_REQUEST = dict(mode="vals", start=datetime(2000, 1, 1), stop=datetime(2000, 1, 1, 1),
+                    width=12, height=12, bbox=(135000, 455994, 135006, 456000),
+                    projection="EPSG:28992")
+
+
+def fuzz_view(seed, sources):
+    """The fuzz's tree and request for ``seed`` (seeds from 40 on are its
+    tiled ones: shallower, one frame)."""
+    rng = np.random.RandomState(seed)
+    if seed < 40:
+        return random_view(rng, sources, depth=rng.randint(2, 5)), dict(FUZZ_REQUEST)
+    view = random_view(rng, sources, depth=rng.randint(2, 4))
+    return view, dict(FUZZ_REQUEST, stop=datetime(2000, 1, 1))
+
+
+def same_as_host(actual, expected):
+    """The fuzz's rule: bitwise for integer and boolean values, rtol 1e-6
+    for floats; the dtype and no_data_value equal."""
+    if expected is None or actual is None:
+        return actual is None and expected is None
+    a, e = actual["values"], expected["values"]
+    if a.dtype != e.dtype or actual["no_data_value"] != expected["no_data_value"]:
+        return False
+    if e.dtype.kind == "f":
+        return bool(np.allclose(a, e, rtol=1e-6, atol=0, equal_nan=True))
+    return bool(np.array_equal(a, e))
 
 
 # --- measurement helpers ---
@@ -658,8 +858,154 @@ def check_stencils(device, view, request):
     return launches, len(sampled) * TILE * TILE / 1e6 / host_s
 
 
+def interpolation_set(interpolation):
+    from dask_geomodeling_tpu_torch.config import config
+
+    return config.set({"geomodeling.warp-interpolation": interpolation})
+
+
+def compare_cells(port, host, no_data_value):
+    """(differing cells, largest difference, cells nodata in one and data
+    in the other)."""
+    differ = port != host
+    if port.dtype.kind == "f":
+        differ &= ~(np.isnan(port) & np.isnan(host))
+    worst = float(np.abs(port[differ].astype(np.float64) - host[differ]).max()) if differ.any() else 0.0
+    fill_mismatch = int(np.count_nonzero((port == no_data_value) != (host == no_data_value)))
+    return int(np.count_nonzero(differ)), worst, fill_mismatch
+
+
+def check_algebra_path(label, device, view, request, interpolation, corner):
+    """One raster-algebra path at full size; returns host Mpx/s.  Every
+    node that returns pixels runs on the card (the Group's time
+    subrequests, which return none, run on the host while planning); a
+    64^2 corner and 16 sampled tiles are held to compute_host: bitwise,
+    or for the cross-CRS bilinear path within BILINEAR_ATOL with at most
+    BILINEAR_FILL_SHARE of the cells nodata in one and data in the
+    other."""
+    from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime.tiles import TileProgram, tile_requests
+
+    exact = interpolation == "nearest"
+    tiles, nx = tile_requests(request, TILE)
+    px = request["width"]
+    with interpolation_set(interpolation):
+        program = TileProgram(view, tiles[0], device)
+        host_runs = executor.host_node_runs
+        t0 = time.perf_counter()
+        result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+        first_s = time.perf_counter() - t0
+        values = result["values"]
+        check(executor.host_node_runs == host_runs, "%s: a node ran on the host" % label)
+        check(values.shape[1:] == (px, px), "%s: output shape" % label)
+        data_share = float((values != result["no_data_value"]).mean())
+        print("%s path: evaluate_tiled %s %s in %.2f s (first run); %d device nodes, %d host "
+              "nodes (time requests); data in %.4f of the cells"
+              % (label, values.shape, values.dtype, first_s, program.on_host.count(False),
+                 program.on_host.count(True), data_share))
+        check(data_share > 0.01, "%s: output is all nodata" % label)
+
+        routed = get_data(view, device=device, **request)
+        check(np.array_equal(routed["values"], values), "%s: get_data differs from evaluate_tiled" % label)
+        x1, y1, x2, y2 = request["bbox"]
+        cx, cy = corner
+        crop = dict(request, width=64, height=64, bbox=(
+            cx, cy - (y2 - y1) * 64 / px, cx + (x2 - x1) * 64 / px, cy))
+        card_crop = get_data(view, device=device, **crop)["values"]
+        check(executor.host_node_runs == host_runs, "%s: a node ran on the host" % label)
+        crop_cells = compare_cells(card_crop, host_values(view, crop), result["no_data_value"])
+
+        sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
+        t0 = time.perf_counter()
+        host_tiles = [host_values(view, tiles[k]) for k in sampled]
+        host_s = time.perf_counter() - t0
+    differing, worst, fill_mismatch = 0, 0.0, 0
+    for k, host_tile in zip(sampled, host_tiles):
+        rows, cols = tile_window(k, nx, px, TILE)
+        d, w, f = compare_cells(values[:, rows, cols], host_tile, result["no_data_value"])
+        differing, worst, fill_mismatch = differing + d, max(worst, w), fill_mismatch + f
+    n_cells = len(sampled) * TILE * TILE * values.shape[0]
+    print("%s path: 64^2 corner: %d of %d cells differ from compute_host (largest %r); %d "
+          "tiles: %d of %d cells differ (share %r), largest difference %r, %d cells nodata "
+          "in one only" % (label, crop_cells[0], card_crop.size, crop_cells[1], len(sampled),
+                           differing, n_cells, differing / n_cells, worst, fill_mismatch))
+    if exact:
+        check(crop_cells[0] == 0, "%s: 64^2 corner differs from compute_host" % label)
+        check(differing == 0, "%s: sampled tiles differ from compute_host" % label)
+    else:
+        check(max(worst, crop_cells[1]) <= BILINEAR_ATOL, "%s: difference above %g" % (label, BILINEAR_ATOL))
+        check(fill_mismatch / n_cells <= BILINEAR_FILL_SHARE
+              and crop_cells[2] / card_crop.size <= BILINEAR_FILL_SHARE,
+              "%s: nodata cells differ in more than %g" % (label, BILINEAR_FILL_SHARE))
+    return n_cells / 1e6 / host_s
+
+
+def check_fuzz(device):
+    """The executor fuzz on the card: the reference's random trees (seeds
+    0-39 at 12^2, 40-54 as 6^2 tiles in batches of 2) against compute_host
+    with the fuzz's rule; returns the number of trees checked."""
+    from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled
+    from dask_geomodeling_tpu_torch.runtime import executor
+
+    sources = fuzz_sources()
+    host_runs = executor.host_node_runs
+    failed = []
+    exact_floats = 0
+    for seed in list(FUZZ_SEEDS) + list(FUZZ_TILED_SEEDS):
+        view, request = fuzz_view(seed, sources)
+        expected = compute_host(*view.get_compute_graph(**request))
+        if seed in FUZZ_TILED_SEEDS:
+            actual = evaluate_tiled(view, request, tile_size=6, batch=2, device=device)
+            actual = dict(actual, no_data_value=expected["no_data_value"])
+        else:
+            actual = view.get_data(device=device, **request)
+        if not same_as_host(actual, expected):
+            failed.append(seed)
+        elif expected is not None and expected["values"].dtype.kind == "f":
+            exact_floats += int(np.array_equal(actual["values"], expected["values"]))
+    check(executor.host_node_runs == host_runs, "fuzz: a node ran on the host")
+    n = len(FUZZ_SEEDS) + len(FUZZ_TILED_SEEDS)
+    print("fuzz: %d random trees on the card against compute_host, %d failed %s; %d float "
+          "results bitwise" % (n, len(failed), failed, exact_floats))
+    check(not failed, "fuzz: seeds %s differ from compute_host" % failed)
+    return n
+
+
+def check_f64_discrete(device):
+    """The float64 discrete ops on the card, bitwise against compute_host:
+    comparisons, MaskBelow, Step and Classify on a float64 source whose
+    values sit on and one float64 step beside each threshold."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch import raster as R
+
+    thresholds = [0.1, 1 / 3, 12.34, 100.0, 2.0 ** 40 + 0.5, -7.7]
+    near = np.array([np.nextafter(t, d) for t in thresholds for d in (-np.inf, 0.0, np.inf)]
+                    + [t for t in thresholds])
+    rng = np.random.RandomState(3)
+    values = rng.choice(near, size=(64, 64))
+    source = R.MemorySource(data=values, no_data_value=-9999.0, projection="EPSG:28992",
+                            pixel_size=1.0, pixel_origin=(0.0, 64.0))
+    request = dict(mode="vals", bbox=(0.0, 0.0, 64.0, 64.0), projection="EPSG:28992",
+                   width=64, height=64, start=datetime(1970, 1, 1))
+    views = []
+    for t in thresholds:
+        views += [cls(source, t) for cls in (R.Greater, R.GreaterEqual, R.Less, R.LessEqual,
+                                             R.Equal, R.NotEqual, R.MaskBelow)]
+        views.append(R.Step(source, left=0, right=2, value=t, at=1))
+    views.append(R.Classify(source, bins=sorted(thresholds)))
+    differing = [repr(v)[:40] for v in views
+                 if not np.array_equal(v.get_data(device=device, **request)["values"],
+                                       compute_host(*v.get_compute_graph(**request))["values"])]
+    print("f64 discrete: %d float64 views (comparisons, MaskBelow, Step, Classify) at and "
+          "beside %d thresholds: %d differ from compute_host" % (len(views), len(thresholds),
+                                                                  len(differing)))
+    check(not differing, "f64 discrete ops differ: %s" % differing[:3])
+    return len(views)
+
+
 def time_path(label, card, view, request, device, host_rate):
-    """Phase 6 for one path; returns its numbers."""
+    """Phase 8 for one path; returns its numbers."""
     import torch
 
     from dask_geomodeling_tpu_torch import evaluate_tiled
@@ -698,6 +1044,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
     # 1. device
@@ -720,14 +1067,30 @@ def main():
     gaussian = check_gaussian(device, *sigmas)
     moving = check_moving_max(device)
 
-    # 4. and 5. the paths
+    # 4. to 7. the paths, the fuzz and the float64 discrete ops
     headline_launches, headline_host = check_headline(
         device, headline_source, headline_view, headline_req)
     stencils_launches, stencils_host = check_stencils(device, stencils_view, stencils_req)
+    launches = {"headline": headline_launches, "stencils": stencils_launches}
+    algebra = build_algebra_paths(ALGEBRA_PX)
+    algebra_host = {}
+    for label, (view, request, interpolation, corner) in algebra.items():
+        cuda_stencils.reset_launches()
+        algebra_host[label] = check_algebra_path(
+            label, device, view, request, interpolation, corner)
+        launches[label] = {"gaussian_blur": cuda_stencils.launches,
+                           "moving_max": cuda_stencils.moving_max_launches}
+    check_fuzz(device)
+    check_f64_discrete(device)
 
-    # 6. timing
-    headline_time = time_path("headline", card, headline_view, headline_req, device, headline_host)
-    stencils_time = time_path("stencils", card, stencils_view, stencils_req, device, stencils_host)
+    # 8. timing
+    timings = {
+        "headline": time_path("headline", card, headline_view, headline_req, device, headline_host),
+        "stencils": time_path("stencils", card, stencils_view, stencils_req, device, stencils_host),
+    }
+    for label, (view, request, interpolation, _) in algebra.items():
+        with interpolation_set(interpolation):
+            timings[label] = time_path(label, card, view, request, device, algebra_host[label])
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", moving)]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
@@ -735,12 +1098,14 @@ def main():
                                       numbers["bound_ms"], numbers["bound_by"]))
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                    or m == "dask_geomodeling_tpu" or m.startswith("dask_geomodeling_tpu."))
-    check(not leaked, "modules of JAX or the JAX package were imported: %s" % leaked[:5])
-    print("imports: no module of JAX or of the JAX package was loaded")
-    print("paths: %s" % json.dumps({"headline": headline_time, "stencils": stencils_time}))
+                    or m == "dask_geomodeling_tpu" or m.startswith("dask_geomodeling_tpu.")
+                    or m == "pandas" or m.startswith("pandas."))
+    check(not leaked, "modules of JAX, pandas or the JAX package were imported: %s" % leaked[:5])
+    print("imports: no module of JAX, pandas or the JAX package was loaded")
+    print("paths: %s" % json.dumps(timings))
 
-    def record(name, source, replaces, numbers, per_path):
+    def record(name, source, replaces, numbers, kernel):
+        per_path = {label: counts[kernel] for label, counts in launches.items()}
         return {
             "name": name,
             "route": "cuda",
@@ -760,15 +1125,11 @@ def main():
 
     print(json.dumps({"kernels": [
         record("gaussian_blur", "dask_geomodeling_tpu_torch/csrc/gaussian_blur.cu",
-               "dask_geomodeling_tpu/ops/pallas_stencils.py:55", numbers,
-               {"headline": headline_launches["gaussian_blur"],
-                "stencils": stencils_launches["gaussian_blur"]})
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:55", numbers, "gaussian_blur")
         for numbers in gaussian
     ] + [
         record("moving_max", "dask_geomodeling_tpu_torch/csrc/moving_max.cu",
-               "dask_geomodeling_tpu/ops/pallas_stencils.py:136", moving,
-               {"headline": headline_launches["moving_max"],
-                "stencils": stencils_launches["moving_max"]}),
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:136", moving, "moving_max"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

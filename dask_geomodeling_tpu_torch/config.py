@@ -24,6 +24,9 @@ defaults = {
     "geomodeling.tile-size": 512,
     # tiles per batch of the tile runtime
     "geomodeling.tile-batch": 64,
+    # warp resampling of the sources: "nearest" (GDAL's
+    # GRA_NearestNeighbour, the reference's choice) or "bilinear"
+    "geomodeling.warp-interpolation": "nearest",
 }
 
 _MISSING = object()

@@ -3,7 +3,10 @@ from dask_geomodeling_tpu_torch.geo.dtypes import (  # noqa: F401
     get_dtype_max,
     get_dtype_min,
     get_footprint,
+    get_index,
+    get_int_dtype,
     get_uint_dtype,
+    parse_percentile_statistic,
 )
 from dask_geomodeling_tpu_torch.geo.geotransform import Extent, GeoTransform  # noqa: F401
 from dask_geomodeling_tpu_torch.geo.crs import (  # noqa: F401
@@ -13,4 +16,8 @@ from dask_geomodeling_tpu_torch.geo.crs import (  # noqa: F401
     transform_extent,
     transform_points,
 )
-from dask_geomodeling_tpu_torch.geo.timeutils import dt_to_ms, snap_start_stop  # noqa: F401
+from dask_geomodeling_tpu_torch.geo.timeutils import (  # noqa: F401
+    dt_to_ms,
+    filter_none,
+    snap_start_stop,
+)

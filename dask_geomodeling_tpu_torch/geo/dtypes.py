@@ -1,8 +1,27 @@
-"""Dtype and footprint rules (counterparts of
-dask_geomodeling_tpu/geo/dtypes.py)."""
+"""Dtype, nodata and footprint rules (counterparts of
+dask_geomodeling_tpu/geo/dtypes.py): data cells are ``values !=
+no_data_value``, floats compared with ``np.isclose``."""
+import re
+
 import numpy as np
 
-__all__ = ["get_dtype_max", "get_dtype_min", "get_uint_dtype", "get_footprint"]
+__all__ = [
+    "get_index",
+    "get_dtype_max",
+    "get_dtype_min",
+    "get_int_dtype",
+    "get_uint_dtype",
+    "get_footprint",
+    "parse_percentile_statistic",
+]
+
+PERCENTILE_REGEX = re.compile(r"^p([\d.]+)$")
+
+
+def get_index(values, no_data_value):
+    """Return a boolean index selecting the *data* cells in ``values``."""
+    equal = np.isclose if values.dtype.kind == "f" else np.equal
+    return np.logical_not(equal(values, no_data_value))
 
 
 def get_dtype_max(dtype):
@@ -19,6 +38,14 @@ def get_dtype_min(dtype):
     if d.kind == "f":
         return np.finfo(d).min.item()
     return np.iinfo(d).min
+
+
+def get_int_dtype(n):
+    """Smallest signed int dtype that holds ``n`` values plus a nodata slot."""
+    for dtype in ("i1", "i2", "i4", "i8"):
+        if (n - 1 <= np.iinfo(dtype).max) and (n >= np.iinfo(dtype).min):
+            return np.dtype(dtype)
+    raise ValueError("Value does not fit in int dtype ({})".format(n))
 
 
 def get_uint_dtype(n):
@@ -38,3 +65,14 @@ def get_footprint(size):
     r = s / 2
     x, y = np.indices((s, s)) - o
     return (x**2 + y**2) < (r**2)
+
+
+def parse_percentile_statistic(statistic):
+    """Parse ``'p<float>'``; returns ``(statistic, percentile_or_None)``."""
+    match = PERCENTILE_REGEX.findall(statistic)
+    if match:
+        percentile = float(match[0])
+        if not 0 <= percentile <= 100:
+            raise ValueError("Percentiles must be in the range [0, 100]")
+        return "percentile", percentile
+    return statistic, None

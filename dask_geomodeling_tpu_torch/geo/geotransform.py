@@ -97,3 +97,32 @@ class Extent:
         if self.srs.upper() == srs.upper():
             return self
         return Extent(bbox=transform_extent(self.bbox, self.srs, srs), sr=srs)
+
+    @property
+    def width(self):
+        return self.bbox[2] - self.bbox[0]
+
+    @property
+    def height(self):
+        return self.bbox[3] - self.bbox[1]
+
+    def union(self, other):
+        """Union of self and other, in the SRS of self."""
+        a = self.bbox
+        b = other.transformed(self.srs).bbox
+        return Extent(
+            (min(a[0], b[0]), min(a[1], b[1]), max(a[2], b[2]), max(a[3], b[3])),
+            self.srs,
+        )
+
+    def intersection(self, other):
+        """Intersection in the SRS of self, or None if it has no area."""
+        a = self.bbox
+        b = other.transformed(self.srs).bbox
+        result = Extent(
+            (max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])),
+            self.srs,
+        )
+        if result.width > 0 and result.height > 0:
+            return result
+        return None

@@ -1,10 +1,11 @@
 """Band snapping of a request's time window (counterparts of
-dask_geomodeling_tpu/geo/timeutils.py:snap_start_stop and dt_to_ms)."""
+dask_geomodeling_tpu/geo/timeutils.py:snap_start_stop, dt_to_ms and
+filter_none)."""
 from datetime import timezone
 
 import numpy as np
 
-__all__ = ["snap_start_stop", "dt_to_ms"]
+__all__ = ["snap_start_stop", "dt_to_ms", "filter_none"]
 
 
 def snap_start_stop(start, stop, time_first, time_delta, length):
@@ -58,3 +59,8 @@ def dt_to_ms(dt):
     if dt.tzinfo is None:
         dt = dt.replace(tzinfo=timezone.utc)
     return int(dt.timestamp() * 1000)
+
+
+def filter_none(lst):
+    """Drop None entries from a list."""
+    return [x for x in lst if x is not None]

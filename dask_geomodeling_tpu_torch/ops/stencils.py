@@ -8,6 +8,11 @@ and writes it into the frame's own dtype before the next pass.  Doing the
 same here makes the port's Smooth bitwise equal to the host, where the
 JAX twin, which accumulates in float32, is only allclose.
 
+``binary_dilation`` is the counterpart of binary_dilation_jax with
+``connectivity=1, rank3=True``: scipy's default structure on a
+(bands, h, w) array, the rank-3 cross, which dilates across the band axis
+as well.
+
 ``moving_max_reference`` is the counterpart of
 dask_geomodeling_tpu/ops/pallas_stencils.py:moving_max_pallas: the
 circular footprint's maximum with out-of-plane taps at the dtype's lowest
@@ -20,12 +25,28 @@ import torch.nn.functional as F
 from dask_geomodeling_tpu_torch.geo.dtypes import get_footprint
 
 __all__ = [
+    "binary_dilation",
     "gaussian_blur_reference",
     "gaussian_weights",
     "blur_dtype",
     "footprint_runs",
     "moving_max_reference",
 ]
+
+
+def binary_dilation(mask):
+    """``scipy.ndimage.binary_dilation`` of each (bands, h, w) item of a
+    (B, bands, h, w) boolean tensor with the rank-3 cross: a cell is set
+    when it or one of its six neighbours along the last three axes is set;
+    cells past the edges count as unset."""
+    out = mask.clone()
+    for axis in (-3, -2, -1):
+        n = mask.shape[axis]
+        if n < 2:
+            continue
+        out.narrow(axis, 1, n - 1).logical_or_(mask.narrow(axis, 0, n - 1))
+        out.narrow(axis, 0, n - 1).logical_or_(mask.narrow(axis, 1, n - 1))
+    return out
 
 
 def gaussian_weights(sigma, truncate=4.0):

@@ -1,12 +1,13 @@
-"""Nearest-neighbour warp: the host version and the device version.
+"""The warp, nearest or bilinear: the host version and the device version.
 
 Counterpart of dask_geomodeling_tpu/ops/warp.py.  The host half
-(``warp_numpy`` with ``warp_indices``/``gather_numpy``) is copied from it:
-for every target pixel centre the source pixel containing its transform,
-per pixel.  The device half (``warp_torch``) is its warp_jax written for
-B tiles at once: the source ``values`` (bands, H, W) is shared by the
-batch, while ``bbox`` (B, 4) and ``coarse_grid`` (B, 2, ch, cw) vary per
-tile.
+(``warp_numpy`` with ``warp_indices``/``gather_numpy`` and the bilinear
+``_bilinear_sample``) is copied from it: for every target pixel centre
+the source pixel containing its transform, per pixel, or the blend of the
+four source pixels around it.  The device half (``warp_torch``) is its
+warp_jax written for B tiles at once: the source ``values`` (bands, H, W)
+is shared by the batch, while ``bbox`` (B, 4) and ``coarse_grid``
+(B, 2, ch, cw) vary per tile.
 
 - cross-CRS: the approximate transformer of warp_jax: the host transforms
   a coarse grid of target pixel centres (stride ``APPROX_STRIDE``) into
@@ -22,12 +23,14 @@ tile.
 
 Then the floor, the ``finite``/``inside`` mask, the gather, the fill and
 the source-nodata replacement, in warp_jax's order and dtypes.  Bilinear
-resampling is not ported.
+resampling (``_bilinear_sample_torch``) blends in float64 as the host
+does, so a same-CRS bilinear warp is bitwise the host's; a neighbour that
+is nodata makes the cell nodata.
 """
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu_torch.device import equal_scalar, torch_dtype
+from dask_geomodeling_tpu_torch.device import equal_scalar, isclose_scalar, torch_dtype
 from dask_geomodeling_tpu_torch.geo.crs import get_projection, transform_points
 from dask_geomodeling_tpu_torch.geo.geotransform import GeoTransform
 
@@ -39,13 +42,18 @@ __all__ = [
     "coarse_index_grid",
     "coarse_grid_shape",
     "APPROX_STRIDE",
+    "INTERPOLATIONS",
 ]
 
 
+#: the resamplings ``geomodeling.warp-interpolation`` may name
+INTERPOLATIONS = ("nearest", "bilinear")
+
+
 def _check_interpolation(interpolation):
-    if interpolation != "nearest":
-        raise NotImplementedError(
-            "%r interpolation is not ported yet" % interpolation
+    if interpolation not in INTERPOLATIONS:
+        raise ValueError(
+            "warp interpolation %r is not one of %s" % (interpolation, INTERPOLATIONS)
         )
 
 
@@ -59,11 +67,11 @@ def coarse_grid_shape(width, height, stride):
     return (-(-height // stride) + 1, -(-width // stride) + 1)
 
 
-def warp_indices(src_gt, src_srs, src_shape, bbox, projection, width, height):
-    """Source (row, col) int64 index grids for a target raster, and the
-    mask of target cells whose source index lies inside the source; each
-    (height, width).  Out-of-domain CRS transforms give NaN, which are
-    outside."""
+def _fractional_indices(src_gt, src_srs, src_shape, bbox, projection, width, height):
+    """Fractional source (row, col) grids at target pixel centres, shifted
+    by half a pixel to the pixel-centre frame, and the nearest-containment
+    inside mask; each (height, width).  Out-of-domain CRS transforms give
+    NaN, which are outside."""
     p, a, b, q, c, d = GeoTransform.from_bbox(bbox, height, width)
     xs = p + a * (np.arange(width) + 0.5)
     ys = q + d * (np.arange(height) + 0.5)
@@ -77,11 +85,21 @@ def warp_indices(src_gt, src_srs, src_shape, bbox, projection, width, height):
     rows = np.floor(frac_rows)
     cols = np.floor(frac_cols)
     inside = (rows >= 0) & (rows < src_h) & (cols >= 0) & (cols < src_w)
+    return frac_rows - 0.5, frac_cols - 0.5, inside
+
+
+def warp_indices(src_gt, src_srs, src_shape, bbox, projection, width, height):
+    """Source (row, col) int64 index grids for a target raster, and the
+    mask of target cells whose source index lies inside the source; each
+    (height, width)."""
+    fr, fc, inside = _fractional_indices(
+        src_gt, src_srs, src_shape, bbox, projection, width, height
+    )
     # (x - 0.5) + 0.5 is the JAX package's rounding, kept for its bits;
     # NaN floors to INT64_MIN here, which `inside` already excludes
     with np.errstate(invalid="ignore"):
-        rows = np.floor(frac_rows - 0.5 + 0.5).astype(np.int64)
-        cols = np.floor(frac_cols - 0.5 + 0.5).astype(np.int64)
+        rows = np.floor(fr + 0.5).astype(np.int64)
+        cols = np.floor(fc + 0.5).astype(np.int64)
     return rows, cols, inside
 
 
@@ -94,6 +112,48 @@ def gather_numpy(values, rows, cols, inside, fillvalue, dtype):
     gathered = values[:, safe_rows, safe_cols]
     out[:, inside] = gathered[:, inside]
     return out
+
+
+def _bilinear_sample(values, fr, fc, inside, no_data_value, fillvalue, dtype):
+    """Bilinear sample of (bands, h, w) at fractional indices (fr, fc).
+
+    Edge neighbours clamp; a cell is nodata when it falls outside the
+    source or when ANY participating neighbour is nodata (never
+    interpolate across the nodata boundary).  The blend is float64;
+    integer results round half to even.
+    """
+    src_h, src_w = values.shape[-2], values.shape[-1]
+    fr = np.where(np.isfinite(fr), fr, 0.0)
+    fc = np.where(np.isfinite(fc), fc, 0.0)
+    r0 = np.clip(np.floor(fr), 0, src_h - 1).astype(np.int32)
+    c0 = np.clip(np.floor(fc), 0, src_w - 1).astype(np.int32)
+    r1 = np.clip(r0 + 1, 0, src_h - 1)
+    c1 = np.clip(c0 + 1, 0, src_w - 1)
+    wr = np.clip(fr - r0, 0.0, 1.0)
+    wc = np.clip(fc - c0, 0.0, 1.0)
+
+    v00 = values[:, r0, c0].astype(np.float64)
+    v01 = values[:, r0, c1].astype(np.float64)
+    v10 = values[:, r1, c0].astype(np.float64)
+    v11 = values[:, r1, c1].astype(np.float64)
+
+    top = v00 + (v01 - v00) * wc
+    bottom = v10 + (v11 - v10) * wc
+    blended = top + (bottom - top) * wr
+
+    valid = inside[None]
+    if no_data_value is not None:
+        def is_nodata(v):
+            if values.dtype.kind == "f":
+                return np.isclose(v, no_data_value)
+            return v == no_data_value
+
+        touched = is_nodata(v00) | is_nodata(v01) | is_nodata(v10) | is_nodata(v11)
+        valid = valid & ~touched
+    dtype = np.dtype(dtype)
+    if dtype.kind in "iub":
+        blended = np.rint(blended)
+    return np.where(valid, blended.astype(dtype), dtype.type(fillvalue))
 
 
 def warp_numpy(
@@ -113,6 +173,11 @@ def warp_numpy(
     _check_interpolation(interpolation)
     dtype = np.dtype(dtype) if dtype is not None else values.dtype
     fillvalue = no_data_value if fillvalue is None else fillvalue
+    if interpolation == "bilinear":
+        fr, fc, inside = _fractional_indices(
+            src_gt, src_srs, values.shape, bbox, projection, width, height
+        )
+        return _bilinear_sample(values, fr, fc, inside, no_data_value, fillvalue, dtype)
     rows, cols, inside = warp_indices(
         src_gt, src_srs, values.shape, bbox, projection, width, height
     )
@@ -181,6 +246,57 @@ def _floor_index(frac, size, index_dtype):
     return index, finite & (index >= 0) & (index < size)
 
 
+def _gather(values, rows, cols):
+    """values[:, rows, cols] for (B, h, w) index tensors: (B, bands, h, w)."""
+    bands, src_h, src_w = values.shape
+    flat_index = rows * src_w + cols
+    gathered = torch.index_select(
+        values.reshape(bands, src_h * src_w), 1, flat_index.reshape(-1)
+    )
+    return gathered.reshape((bands,) + tuple(flat_index.shape)).movedim(0, 1)
+
+
+def _bilinear_sample_torch(values, fr, fc, inside, no_data_value, fillvalue, dtype):
+    """``_bilinear_sample`` for B tiles: ``fr`` and ``fc`` broadcast to
+    (B, h, w), ``inside`` is (B, h, w); returns (B, bands, h, w).  Index
+    arithmetic, blend and nodata test follow the host's, in float64."""
+    src_h, src_w = values.shape[-2], values.shape[-1]
+    fr, fc = torch.broadcast_tensors(fr, fc)
+    fr = torch.where(torch.isfinite(fr), fr, 0.0)
+    fc = torch.where(torch.isfinite(fc), fc, 0.0)
+    r0 = torch.clamp(torch.floor(fr), 0, src_h - 1).to(torch.int64)
+    c0 = torch.clamp(torch.floor(fc), 0, src_w - 1).to(torch.int64)
+    r1 = torch.clamp(r0 + 1, 0, src_h - 1)
+    c1 = torch.clamp(c0 + 1, 0, src_w - 1)
+    wr = torch.clamp(fr - r0, 0.0, 1.0)[:, None]
+    wc = torch.clamp(fc - c0, 0.0, 1.0)[:, None]
+
+    v00 = _gather(values, r0, c0).to(torch.float64)
+    v01 = _gather(values, r0, c1).to(torch.float64)
+    v10 = _gather(values, r1, c0).to(torch.float64)
+    v11 = _gather(values, r1, c1).to(torch.float64)
+
+    top = v00 + (v01 - v00) * wc
+    bottom = v10 + (v11 - v10) * wc
+    blended = top + (bottom - top) * wr
+
+    valid = inside[:, None]
+    if no_data_value is not None:
+        def is_nodata(v):
+            if values.dtype.is_floating_point:
+                return isclose_scalar(v, no_data_value)
+            return equal_scalar(v, no_data_value)
+
+        touched = is_nodata(v00) | is_nodata(v01) | is_nodata(v10) | is_nodata(v11)
+        valid = valid & ~touched
+    dtype = np.dtype(dtype)
+    if dtype.kind in "iub":
+        blended = torch.round(blended)
+    return torch.where(
+        valid, blended.to(torch_dtype(dtype)), dtype.type(fillvalue).item()
+    )
+
+
 def warp_torch(
     values,
     src_gt,
@@ -199,7 +315,8 @@ def warp_torch(
 
     ``bbox`` is a (B, 4) float64 tensor; a cross-CRS warp needs
     ``coarse_grid``, the (B, 2, ch, cw) stack of the tiles'
-    ``coarse_index_grid`` at ``APPROX_STRIDE``.
+    ``coarse_index_grid`` at ``APPROX_STRIDE``.  ``interpolation`` is
+    "nearest" or "bilinear".
     """
     _check_interpolation(interpolation)
     dtype = np.dtype(dtype)
@@ -234,6 +351,10 @@ def warp_torch(
     rows, in_r = _floor_index(frac_rows, src_h, index_dtype)
     cols, in_c = _floor_index(frac_cols, src_w, index_dtype)
     inside = in_r & in_c  # (B, h, w)
+    if interpolation == "bilinear":
+        return _bilinear_sample_torch(
+            values, frac_rows - 0.5, frac_cols - 0.5, inside, no_data_value, fillvalue, dtype
+        )
     flat_index = torch.where(inside, rows * src_w + cols, 0)
     n_batch = inside.shape[0]
     gathered = torch.index_select(

@@ -63,7 +63,9 @@ class RasterBlock(Block):
     """The base block for temporal rasters.
 
     Attributes (None when empty): ``period``, ``timedelta``, ``extent``
-    (WGS84), ``dtype``, ``fillvalue``, ``projection``, ``geo_transform``,
+    (WGS84), ``footprint`` (the data's box as an ``Extent`` in its own
+    projection: the JAX package's ``geometry``, which the port keeps as a
+    box), ``dtype``, ``fillvalue``, ``projection``, ``geo_transform``,
     ``temporal``.  Request fields: ``mode`` ('vals'|'time'|'meta'),
     ``bbox``, ``projection``, ``width``, ``height``, ``start``, ``stop``.
     Response: None or a dict with ``values`` (bands, height, width) and
@@ -94,6 +96,21 @@ class RasterBlock(Block):
     __mul__ = __rmul__ = _operator("Multiply")
     __neg__ = _operator("Multiply", unary=True, const=-1)
     __sub__ = _operator("Subtract")
+    __truediv__ = _operator("Divide")
+    __pow__ = _operator("Power")
+    __eq__ = _operator("Equal")
+    __ne__ = _operator("NotEqual")
+    __gt__ = _operator("Greater")
+    __ge__ = _operator("GreaterEqual")
+    __lt__ = _operator("Less")
+    __le__ = _operator("LessEqual")
+    __invert__ = _operator("Invert", unary=True)
+    __and__ = _operator("And")
+    __or__ = _operator("Or")
+    __xor__ = _operator("Xor")
+
+    # Equal/NotEqual overload __eq__; Blocks stay hashable by identity
+    __hash__ = Block.__hash__
 
 
 class BaseSingle(RasterBlock):
@@ -122,6 +139,7 @@ for _attribute in (
     "temporal",
     "dtype",
     "fillvalue",
+    "footprint",
     "projection",
     "geo_transform",
 ):

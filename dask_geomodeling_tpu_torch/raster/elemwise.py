@@ -1,23 +1,55 @@
-"""Elementwise math blocks: Add, Subtract, Multiply.
+"""Elementwise blocks: math, comparisons, logic, FillNoData, Exp/Log.
 
-Counterparts of dask_geomodeling_tpu/raster/elemwise.py: ``BaseElementwise``
-and ``BaseMath`` with the numpy process generator
-(``wrap_math_process_func``), and the torch twin of each process (its
-``jax_impl``).  Nodata propagates from any raster operand, the operands
-are cast to the block's dtype before the op (numpy's ``ufunc(...,
-dtype=)``), and non-finite results become the fill.  Dtypes promote
-bool/int to at least int32 and float to at least float32.
+Counterparts of dask_geomodeling_tpu/raster/elemwise.py: the blocks, the
+numpy process generator (``wrap_math_process_func``) and the torch twin of
+each process (its ``jax_impl``).  Nodata propagates from any raster
+operand; math casts the operands to the block's dtype before the op
+(numpy's ``ufunc(..., dtype=)``) and non-finite results become the fill;
+comparisons and logic give booleans without nodata (a nodata cell
+compares False, or True for NotEqual), computed in numpy's common dtype
+of the operands.  Dtypes promote bool/int to at least int32 and float to
+at least float32; Divide, Exp and Log to at least float32.
 """
 import numpy as np
 import torch
 
 from dask_geomodeling_tpu_torch.core import expect_instance
-from dask_geomodeling_tpu_torch.device import equal_scalar, torch_dtype
-from dask_geomodeling_tpu_torch.geo import GeoTransform, get_dtype_max
-from dask_geomodeling_tpu_torch.raster.base import RasterBlock
+from dask_geomodeling_tpu_torch.device import (
+    COMPARISONS,
+    as_operand,
+    common_dtype,
+    compare,
+    data_mask,
+    equal_scalar,
+    torch_dtype,
+)
+from dask_geomodeling_tpu_torch.geo import GeoTransform, get_dtype_max, get_index
+from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock
 from dask_geomodeling_tpu_torch.registry import register
 
-__all__ = ["Add", "Subtract", "Multiply"]
+__all__ = [
+    "Add",
+    "Subtract",
+    "Multiply",
+    "Divide",
+    "Power",
+    "FillNoData",
+    "Equal",
+    "NotEqual",
+    "Greater",
+    "GreaterEqual",
+    "Less",
+    "LessEqual",
+    "Invert",
+    "And",
+    "Or",
+    "Xor",
+    "IsData",
+    "IsNoData",
+    "Exp",
+    "Log",
+    "Log10",
+]
 
 
 class _combined:
@@ -69,6 +101,15 @@ def _box_overlap(extents):
     if x_hi <= x_lo or y_hi <= y_lo:
         return None
     return (x_lo, y_lo, x_hi, y_hi)
+
+
+def _footprint_overlap(footprints):
+    overlap = footprints[0]
+    for footprint in footprints[1:]:
+        overlap = overlap.intersection(footprint)
+        if overlap is None:
+            return None
+    return overlap
 
 
 def _common_value(values):
@@ -133,6 +174,10 @@ class BaseElementwise(RasterBlock):
     extent = _combined(
         _when_all(_box_overlap), doc="intersection of the sources' extents"
     )
+    footprint = _combined(
+        _when_all(_footprint_overlap),
+        doc="intersection of the sources' native footprints",
+    )
     projection = _combined(
         _common_value, doc="the shared native projection, if any"
     )
@@ -167,6 +212,35 @@ class BaseMath(BaseElementwise):
         for operand in (a, b):
             expect_instance(operand, self.OPERAND_TYPES, "operand")
         super().__init__(a, b)
+
+
+class BaseComparison(BaseMath):
+    """Base for raster-vs-raster/constant comparisons (bool results)."""
+
+    @property
+    def dtype(self):
+        return np.dtype("bool")
+
+
+class BaseLogic(BaseElementwise):
+    """Elementwise logic on two boolean operands."""
+
+    def __init__(self, a, b):
+        for operand in (a, b):
+            if isinstance(operand, (RasterBlock, np.ndarray)):
+                if operand.dtype != np.dtype("bool"):
+                    raise TypeError("inputs must have boolean dtypes")
+            else:
+                expect_instance(operand, bool, "operand")
+        super().__init__(a, b)
+
+    @property
+    def dtype(self):
+        return np.dtype("bool")
+
+    @property
+    def fillvalue(self):
+        return None
 
 
 def _unpack_math_args(args):
@@ -207,10 +281,14 @@ class _FunctionNamespace:
 elemwise = _FunctionNamespace()
 
 
+#: numpy ufunc name -> torch function, where the names differ
+_TORCH_FUNCS = {"power": torch.pow, "equal": torch.eq}
+
+
 def wrap_math_process_func(func):
     """Build a process function applying numpy ``func`` to the data values
-    only (nodata propagates), and register its torch twin.  The port's
-    three ops (add, subtract, multiply) never give a boolean result."""
+    only (nodata propagates; a boolean result maps nodata to False, to
+    True for ``np.not_equal``), and register its torch twin."""
 
     def math_process_func(process_kwargs, *args):
         if not args:
@@ -227,17 +305,27 @@ def wrap_math_process_func(func):
 
         dtype = np.dtype(process_kwargs["dtype"])
         fillvalue = process_kwargs["fillvalue"]
+
+        if dtype == np.dtype("bool"):
+            no_data_value = None
+            fillvalue = func is np.not_equal
+            func_kwargs = {}
+        else:
+            func_kwargs = {"dtype": dtype}
+            no_data_value = fillvalue
+
         with np.errstate(all="ignore"):
-            result_values = func(*compute_args, dtype=dtype)
+            result_values = func(*compute_args, **func_kwargs)
 
         # one combined fill write: non-finite results and input-nodata cells
         bad = ~np.isfinite(result_values)
         if nodata_mask is not None:
             bad |= nodata_mask
         result_values[bad] = fillvalue
-        return {"no_data_value": fillvalue, "values": result_values}
+        return {"no_data_value": no_data_value, "values": result_values}
 
-    torch_func = getattr(torch, func.__name__)
+    name = func.__name__
+    torch_func = _TORCH_FUNCS.get(name) or getattr(torch, name)
 
     def math_twin(process_kwargs, *args):
         if not args:
@@ -255,29 +343,29 @@ def wrap_math_process_func(func):
         dtype = np.dtype(process_kwargs["dtype"])
         fillvalue = process_kwargs["fillvalue"]
         device = next(a.device for a in compute_args if isinstance(a, torch.Tensor))
-        result = torch_func(*[_operand(a, dtype, device) for a in compute_args])
-        if dtype.kind == "f":
-            result = torch.where(torch.isfinite(result), result, fillvalue)
+        if dtype == np.dtype("bool"):
+            no_data_value = None
+            fillvalue = func is np.not_equal
+            if len(compute_args) == 2 and name in COMPARISONS:
+                result = compare(name, *compute_args)
+            else:  # logic: numpy computes in the operands' common dtype
+                common = common_dtype(*compute_args)
+                result = torch_func(*[as_operand(a, common, device) for a in compute_args])
+        else:
+            no_data_value = fillvalue
+            result = torch_func(*[as_operand(a, dtype, device) for a in compute_args])
+            if dtype.kind == "f":
+                result = torch.where(torch.isfinite(result), result, fillvalue)
         if nodata_mask is not None:
             result = torch.where(nodata_mask, fillvalue, result)
-        return {"no_data_value": fillvalue, "values": result}
+        return {"no_data_value": no_data_value, "values": result}
 
-    math_process_func.__name__ = func.__name__
-    math_process_func.__qualname__ = "elemwise." + func.__name__
-    math_twin.__qualname__ = "math_twin." + func.__name__
-    setattr(elemwise, func.__name__, math_process_func)
-    # numeric operands are stacked per tile, one scalar a tile
-    math_process_func.torch_dynamic = {"__scalars__"}
+    math_process_func.__name__ = name
+    math_process_func.__qualname__ = "elemwise." + name
+    math_twin.__qualname__ = "math_twin." + name
+    setattr(elemwise, name, math_process_func)
     register(math_process_func, math_twin)
     return math_process_func
-
-
-def _operand(arg, dtype, device):
-    """A compute operand cast to the block's ``dtype`` (numpy's
-    ``ufunc(..., dtype=)`` promotes before computing)."""
-    if isinstance(arg, torch.Tensor):
-        return arg.to(torch_dtype(dtype))
-    return torch.tensor(np.asarray(arg).astype(dtype), device=device)
 
 
 class Add(BaseMath):
@@ -296,3 +384,268 @@ class Multiply(BaseMath):
     """Multiply two rasters or a raster by a constant."""
 
     process = staticmethod(wrap_math_process_func(np.multiply))
+
+
+class Divide(BaseMath):
+    """Divide two rasters or a raster by a constant; result >= float32."""
+
+    process = staticmethod(wrap_math_process_func(np.divide))
+
+    @property
+    def dtype(self):
+        return np.result_type(np.float32, *self.args)
+
+
+class Power(BaseMath):
+    """Raise a raster to a power (or a power raster)."""
+
+    process = staticmethod(wrap_math_process_func(np.power))
+
+    def __init__(self, a, b):
+        # negative integer exponents fail for integer bases; cast to float
+        if isinstance(b, int) and b < 0:
+            b = float(b)
+        super().__init__(a, b)
+
+
+class Equal(BaseComparison):
+    """a == b; nodata compares as False."""
+
+    process = staticmethod(wrap_math_process_func(np.equal))
+
+
+class NotEqual(BaseComparison):
+    """a != b; nodata compares as True."""
+
+    process = staticmethod(wrap_math_process_func(np.not_equal))
+
+
+class Greater(BaseComparison):
+    """a > b; nodata compares as False."""
+
+    process = staticmethod(wrap_math_process_func(np.greater))
+
+
+class GreaterEqual(BaseComparison):
+    """a >= b; nodata compares as False."""
+
+    process = staticmethod(wrap_math_process_func(np.greater_equal))
+
+
+class Less(BaseComparison):
+    """a < b; nodata compares as False."""
+
+    process = staticmethod(wrap_math_process_func(np.less))
+
+
+class LessEqual(BaseComparison):
+    """a <= b; nodata compares as False."""
+
+    process = staticmethod(wrap_math_process_func(np.less_equal))
+
+
+def _invert_process(data):
+    if "values" in data:
+        return {"values": ~data["values"], "no_data_value": None}
+    return data
+
+
+class Invert(BaseSingle):
+    """Logically invert a boolean raster (swap True and False)."""
+
+    def __init__(self, x):
+        super().__init__(x)
+        if x.dtype != np.dtype("bool"):
+            raise TypeError("input block must have boolean dtype")
+
+    process = staticmethod(_invert_process)
+
+    @property
+    def dtype(self):
+        return np.dtype("bool")
+
+
+def _is_data_process(data):
+    if data is None or "values" not in data:
+        return data
+    return {
+        "values": data["values"] != data["no_data_value"],
+        "no_data_value": None,
+    }
+
+
+def _is_no_data_process(data):
+    if data is None or "values" not in data:
+        return data
+    return {
+        "values": data["values"] == data["no_data_value"],
+        "no_data_value": None,
+    }
+
+
+def _is_data_torch(data):
+    if data is None or "values" not in data:
+        return data
+    return {
+        "values": compare("not_equal", data["values"], data["no_data_value"]),
+        "no_data_value": None,
+    }
+
+
+def _is_no_data_torch(data):
+    if data is None or "values" not in data:
+        return data
+    return {
+        "values": equal_scalar(data["values"], data["no_data_value"]),
+        "no_data_value": None,
+    }
+
+
+class IsData(BaseSingle):
+    """True where the raster has data."""
+
+    def __init__(self, store):
+        if store.dtype == np.dtype("bool"):
+            raise TypeError("input block must not have boolean dtype")
+        super().__init__(store)
+
+    process = staticmethod(_is_data_process)
+
+    @property
+    def dtype(self):
+        return np.dtype("bool")
+
+    @property
+    def fillvalue(self):
+        return None
+
+
+class IsNoData(IsData):
+    """True where the raster has no data."""
+
+    process = staticmethod(_is_no_data_process)
+
+
+class And(BaseLogic):
+    """Boolean AND of two boolean rasters/constants."""
+
+    process = staticmethod(wrap_math_process_func(np.logical_and))
+
+
+class Or(BaseLogic):
+    """Boolean OR of two boolean rasters/constants."""
+
+    process = staticmethod(wrap_math_process_func(np.logical_or))
+
+
+class Xor(BaseLogic):
+    """Boolean XOR of two boolean rasters/constants."""
+
+    process = staticmethod(wrap_math_process_func(np.logical_xor))
+
+
+def _frame_stack(args):
+    """Collect (values, no_data_value) pairs from frame dicts.
+
+    A time/meta response short-circuits (returned as-is); missing frames
+    are dropped; an all-missing stack collapses to an empty list.
+    """
+    stack = []
+    for data in args:
+        if data is None:
+            continue
+        if "time" in data or "meta" in data:
+            return data
+        if "values" in data and "no_data_value" in data:
+            stack.append((data["values"], data["no_data_value"]))
+    return stack
+
+
+def _fill_no_data_process(process_kwargs, *args):
+    stack = _frame_stack(args)
+    if isinstance(stack, dict):
+        return stack
+    if not stack:
+        return None
+    dtype = process_kwargs["dtype"]
+    fillvalue = get_dtype_max(dtype)
+
+    values = np.full(stack[0][0].shape, fillvalue, dtype=dtype)
+    for frame, no_data_value in stack:
+        index = get_index(frame, no_data_value)
+        values[index] = frame[index]
+    return {"values": values, "no_data_value": fillvalue}
+
+
+def _fill_no_data_torch(process_kwargs, *args):
+    stack = _frame_stack(args)
+    if isinstance(stack, dict):
+        return stack
+    if not stack:
+        return None
+    dtype = np.dtype(process_kwargs["dtype"])
+    fillvalue = get_dtype_max(dtype)
+
+    first = stack[0][0]
+    values = torch.full(first.shape, fillvalue, dtype=torch_dtype(dtype), device=first.device)
+    for frame, no_data_value in stack:
+        values = torch.where(
+            data_mask(frame, no_data_value), frame.to(torch_dtype(dtype)), values
+        )
+    return {"values": values, "no_data_value": fillvalue}
+
+
+class FillNoData(BaseElementwise):
+    """Combine rasters, filling nodata from left to right (rightmost wins)."""
+
+    def __init__(self, *args):
+        for arg in args:
+            expect_instance(arg, RasterBlock, "arg")
+        super().__init__(*args)
+
+    process = staticmethod(_fill_no_data_process)
+
+
+class BaseLogExp(BaseSingle):
+    """Base for Exp / Log / Log10."""
+
+    def __init__(self, x):
+        if x.dtype == np.dtype("bool"):
+            raise TypeError("input block must not have boolean dtype")
+        super().__init__(x)
+
+    def get_sources_and_requests(self, **request):
+        process_kwargs = {"dtype": self.dtype.name, "fillvalue": self.fillvalue}
+        return [(process_kwargs, None), (self.args[0], request)]
+
+    @property
+    def dtype(self):
+        return np.result_type(np.float32, *self.args)
+
+    @property
+    def fillvalue(self):
+        return get_dtype_max(self.dtype)
+
+
+class Exp(BaseLogExp):
+    """e ** x; out-of-range results become nodata."""
+
+    process = staticmethod(wrap_math_process_func(np.exp))
+
+
+class Log(BaseLogExp):
+    """Natural logarithm; results of x < 0 become nodata."""
+
+    process = staticmethod(wrap_math_process_func(np.log))
+
+
+class Log10(BaseLogExp):
+    """Base-10 logarithm; results of x < 0 become nodata."""
+
+    process = staticmethod(wrap_math_process_func(np.log10))
+
+
+register(_invert_process, _invert_process)  # ``~`` is the same on a tensor
+register(_is_data_process, _is_data_torch)
+register(_is_no_data_process, _is_no_data_torch)
+register(_fill_no_data_process, _fill_no_data_torch)

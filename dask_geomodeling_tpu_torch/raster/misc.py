@@ -1,8 +1,10 @@
-"""Classify and Reclassify: blocks, numpy processes and torch twins.
+"""Clip, Mask, MaskBelow, Step, Classify and Reclassify: blocks, numpy
+processes and torch twins.
 
-Counterparts of dask_geomodeling_tpu/raster/misc.py (``Classify``,
-``Reclassify``, ``_classify_process``, ``_reclassify_lookup``,
-``_reclassify_process`` and their twins).  ``torch.searchsorted`` wants
+Counterparts of dask_geomodeling_tpu/raster/misc.py (the pixel-wise
+blocks; Rasterize and RasterizeWKT are not ported).  The twins compare in
+numpy's promoted dtypes (device.py:compare), so float64 thresholds stay
+float64 on the card.  ``torch.searchsorted`` wants
 the boundaries and the values in one dtype, so the twins cast both to
 numpy's common type first, the type numpy's own searchsorted compares in:
 float32 values against float bins compare in float64, int64 values
@@ -12,12 +14,287 @@ import numpy as np
 import torch
 
 from dask_geomodeling_tpu_torch.core import arg, expect_instance
-from dask_geomodeling_tpu_torch.device import equal_scalar, numpy_dtype, torch_dtype
-from dask_geomodeling_tpu_torch.geo import get_dtype_max, get_uint_dtype
+from dask_geomodeling_tpu_torch.device import (
+    as_operand,
+    compare,
+    data_mask,
+    equal_scalar,
+    numpy_dtype,
+    torch_dtype,
+)
+from dask_geomodeling_tpu_torch.geo import (
+    get_dtype_max,
+    get_index,
+    get_int_dtype,
+    get_uint_dtype,
+)
 from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock
 from dask_geomodeling_tpu_torch.registry import register
 
-__all__ = ["Classify", "Reclassify"]
+__all__ = ["Clip", "Mask", "MaskBelow", "Step", "Classify", "Reclassify"]
+
+
+def _data_cells(frame):
+    """Boolean index of a frame's data-carrying cells (boolean frames:
+    the True cells); numpy arrays and tensors alike."""
+    values = frame["values"]
+    if isinstance(values, torch.Tensor):
+        if values.dtype == torch.bool:
+            return values
+        return compare("not_equal", values, frame["no_data_value"])
+    if values.dtype == np.dtype("bool"):
+        return values
+    return values != frame["no_data_value"]
+
+
+def _clip_process(data, source_data):
+    """Keep store cells only where the clip source has data (or True).
+
+    Pass-throughs first: empty stores, time/meta responses, and frames
+    that are already all-nodata (nothing left to clip away)."""
+    if data is None or "values" not in data:
+        return data
+    fill = data["no_data_value"]
+    if not (data["values"] != fill).any():
+        return data
+    if source_data is None:
+        return None
+    clipped = data["values"].copy()
+    clipped[~_data_cells(source_data)] = fill
+    return {"values": clipped, "no_data_value": fill}
+
+
+def _clip_torch(data, source_data):
+    """Twin of ``_clip_process``, which it follows where the JAX twin does
+    not: an all-nodata store comes back as it is even without a clip
+    source.  Over a batch that test covers every tile at once."""
+    if data is None or "values" not in data:
+        return data
+    fill = data["no_data_value"]
+    values = data["values"]
+    if source_data is None:
+        has_data = bool(compare("not_equal", values, fill).any())
+        return None if has_data else data
+    clipped = torch.where(
+        _data_cells(source_data),
+        values,
+        # boolean stores have no nodata sentinel; numpy casts None to False
+        as_operand(False if fill is None else fill, numpy_dtype(values.dtype), values.device),
+    )
+    return {"values": clipped, "no_data_value": fill}
+
+
+class Clip(BaseSingle):
+    """Clip one raster ('store') to the data/True extent of another
+    ('source'); inputs must share time resolution."""
+
+    def __init__(self, store, source):
+        expect_instance(source, RasterBlock, "source")
+        if store.temporal and not source.temporal:
+            raise ValueError(
+                "The values raster is temporal while the clipping mask is "
+                "not. Consider using Snap."
+            )
+        if not store.temporal and source.temporal:
+            raise ValueError(
+                "The clipping mask is temporal while the values raster is "
+                "not. Consider using Snap."
+            )
+        if store.temporal and (store.timedelta != source.timedelta):
+            raise ValueError(
+                "Time resolution of the clipping mask does not match that "
+                "of the values raster. Consider using Snap."
+            )
+        super().__init__(store, source)
+
+    source = arg(1)
+
+    def get_sources_and_requests(self, **request):
+        # clamp start/stop into the common period so frames align
+        period = self.period
+        if period is None:
+            return [(None, None), (None, None)]
+        lo, hi = period
+
+        def clamp(instant):
+            return min(max(instant, lo), hi)
+
+        start = request.get("start")
+        if start is None:
+            start = hi
+        stop = request.get("stop")
+        if stop is not None:
+            if stop < lo or start > hi:
+                return [(None, None), (None, None)]  # no overlap at all
+            request["stop"] = clamp(stop)
+        request["start"] = clamp(start)
+        return [(source, request) for source in self.args]
+
+    process = staticmethod(_clip_process)
+
+    @property
+    def extent(self):
+        boxes = [s.extent for s in self.args]
+        if any(b is None for b in boxes):
+            return None
+        # the clipped extent is the overlap of store and mask
+        x1, y1 = (max(b[axis] for b in boxes) for axis in (0, 1))
+        x2, y2 = (min(b[axis] for b in boxes) for axis in (2, 3))
+        if x2 <= x1 or y2 <= y1:
+            return None
+        return x1, y1, x2, y2
+
+    @property
+    def footprint(self):
+        result, mask = [x.footprint for x in self.args]
+        if result is None or mask is None:
+            return None
+        return result.intersection(mask)
+
+    @property
+    def period(self):
+        periods = [x.period for x in self.args]
+        if any(period is None for period in periods):
+            return None
+        start = max(p[0] for p in periods)
+        stop = min(p[1] for p in periods)
+        if stop < start:
+            return None
+        return start, stop
+
+
+def _mask_dtype_from_value(value):
+    if isinstance(value, float):
+        return np.dtype("float32")
+    if value >= 0:
+        return get_uint_dtype(value)
+    return get_int_dtype(value)
+
+
+def _mask_process(data, value):
+    if data is None or "values" not in data:
+        return data
+    index = get_index(data["values"], data["no_data_value"])
+    fillvalue = 1 if value == 0 else 0
+    dtype = _mask_dtype_from_value(value)
+    values = np.full_like(data["values"], fillvalue, dtype=dtype)
+    values[index] = value
+    return {"values": values, "no_data_value": fillvalue}
+
+
+def _mask_torch(data, value):
+    if data is None or "values" not in data:
+        return data
+    fillvalue = 1 if value == 0 else 0
+    dtype = _mask_dtype_from_value(value)
+    values = data["values"]
+    values = torch.where(
+        data_mask(values, data["no_data_value"]),
+        as_operand(value, dtype, values.device),
+        as_operand(fillvalue, dtype, values.device),
+    )
+    return {"values": values, "no_data_value": fillvalue}
+
+
+class Mask(BaseSingle):
+    """Replace data values with a constant; nodata is preserved."""
+
+    def __init__(self, store, value):
+        expect_instance(value, (float, int), "value")
+        super().__init__(store, value)
+
+    value = arg(1)
+
+    @property
+    def fillvalue(self):
+        return 1 if self.value == 0 else 0
+
+    @property
+    def dtype(self):
+        return _mask_dtype_from_value(self.value)
+
+    process = staticmethod(_mask_process)
+
+
+def _mask_below_process(data, value):
+    if data is None or "values" not in data:
+        return data
+    values, no_data_value = data["values"].copy(), data["no_data_value"]
+    values[values < value] = no_data_value
+    return {"values": values, "no_data_value": no_data_value}
+
+
+def _mask_below_torch(data, value):
+    if data is None or "values" not in data:
+        return data
+    values, no_data_value = data["values"], data["no_data_value"]
+    values = torch.where(
+        compare("less", values, value),
+        as_operand(no_data_value, numpy_dtype(values.dtype), values.device),
+        values,
+    )
+    return {"values": values, "no_data_value": no_data_value}
+
+
+class MaskBelow(BaseSingle):
+    """Convert cells below a value to 'no data'."""
+
+    def __init__(self, store, value):
+        expect_instance(value, (float, int), "value")
+        super().__init__(store, value)
+
+    process = staticmethod(_mask_below_process)
+
+
+def _step_process(data, left, right, location, at):
+    """Three-way threshold as a where-ladder; nodata cells are re-stamped
+    last so a sentinel that happens to compare against ``location`` cannot
+    leak through."""
+    if data is None or "values" not in data:
+        return data
+    values = data["values"]
+    fill = data["no_data_value"]
+    dtype = values.dtype
+    out = np.where(values < location, dtype.type(left), values)
+    out = np.where(values == location, dtype.type(at), out)
+    out = np.where(values > location, dtype.type(right), out)
+    out = np.where(values == fill, dtype.type(fill), out)
+    return {"values": out, "no_data_value": fill}
+
+
+def _step_torch(data, left, right, location, at):
+    if data is None or "values" not in data:
+        return data
+    values = data["values"]
+    fill = data["no_data_value"]
+    dtype = numpy_dtype(values.dtype)
+
+    def constant(x):
+        return as_operand(dtype.type(x), dtype, values.device)
+
+    out = torch.where(compare("less", values, location), constant(left), values)
+    out = torch.where(compare("equal", values, location), constant(at), out)
+    out = torch.where(compare("greater", values, location), constant(right), out)
+    out = torch.where(compare("equal", values, fill), constant(fill), out)
+    return {"values": out, "no_data_value": fill}
+
+
+class Step(BaseSingle):
+    """Three-way step function: left if x < value, at if x == value, right
+    if x > value."""
+
+    def __init__(self, store, left=0, right=1, value=0, at=None):
+        at = (left + right) / 2 if at is None else at
+        for x in left, right, value, at:
+            expect_instance(x, (float, int), "x")
+        super().__init__(store, left, right, value, at)
+
+    left = arg(1)
+    right = arg(2)
+    value = arg(3)
+    at = arg(4)
+
+    process = staticmethod(_step_process)
 
 
 def _classify_process(data, bins, right):
@@ -210,5 +487,9 @@ def _reclassify_torch(store_data, process_kwargs):
     return {"values": torch.where(hit, target_t[slots], base), "no_data_value": fillvalue}
 
 
+register(_clip_process, _clip_torch)
+register(_mask_process, _mask_torch)
+register(_mask_below_process, _mask_below_torch)
+register(_step_process, _step_torch)
 register(_classify_process, _classify_torch)
 register(_reclassify_process, _reclassify_torch)

@@ -7,7 +7,8 @@ pixel, an area request warps into the requested grid), ``MemorySource``,
 and the twin of ``_source_process_jax``.  A MemorySource payload is moved
 to the device once (``to_device``) and stays resident across tiles and
 batches, as the JAX executor keeps it in HBM.  File sources are not
-ported.
+ported.  Both the process and the twin resample as
+``geomodeling.warp-interpolation`` says ("nearest" or "bilinear").
 """
 import weakref
 from dataclasses import dataclass
@@ -16,6 +17,7 @@ from datetime import datetime, timedelta, timezone
 import numpy as np
 import torch
 
+from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core import arg
 from dask_geomodeling_tpu_torch.geo import (
     Extent,
@@ -71,6 +73,11 @@ def _as_ms(value, default=None):
     if value is None:
         return default
     return int(value)
+
+
+def warp_interpolation():
+    """The sources' resampling, ``geomodeling.warp-interpolation``."""
+    return config.get("geomodeling.warp-interpolation", "nearest")
 
 
 class RasterSourceBase(RasterBlock):
@@ -131,6 +138,7 @@ class RasterSourceBase(RasterBlock):
                 height,
                 dtype=dtype,
                 fillvalue=fill,
+                interpolation=warp_interpolation(),
             )
         if result.dtype.kind == "f":
             result[~np.isfinite(result)] = fill
@@ -211,6 +219,10 @@ class RasterSourceBase(RasterBlock):
     def extent(self):
         extent = self._get_extent()
         return None if extent is None else extent.transformed("EPSG:4326").bbox
+
+    @property
+    def footprint(self):
+        return self._get_extent()
 
 
 class MemorySource(RasterSourceBase):
@@ -422,6 +434,7 @@ def _source_process_torch(process_kwargs):
         process_kwargs["height"],
         dtype,
         fillvalue,
+        interpolation=warp_interpolation(),
         coarse_grid=process_kwargs.get("warp_grid"),
     )
     if dtype.kind == "f":

@@ -26,6 +26,7 @@ from dask_geomodeling_tpu_torch.raster.sources import to_device
 __all__ = [
     "compute_torch",
     "batch_literals",
+    "stack_host_results",
     "NotLowerable",
     "host_node_runs",
 ]
@@ -35,8 +36,20 @@ class NotLowerable(Exception):
     """The view does not reduce to one chain of twins over a tile batch."""
 
 
-#: nodes compute_torch ran on the host (no capable twin), since import
+#: nodes that ran their numpy process on the host (no capable twin) and
+#: returned pixel arrays, since import: compute_torch's and the tile
+#: runtime's; a time or meta answer, which holds none, is not counted
 host_node_runs = 0
+
+
+def run_on_host(func, args):
+    """``func(*args)`` on the host, counted in ``host_node_runs`` when the
+    result holds pixel arrays."""
+    global host_node_runs
+    result = func(*args)
+    if _arrays_in(result):
+        host_node_runs += 1
+    return result
 
 
 def _is_task(value):
@@ -130,21 +143,12 @@ def batch_literals(per_tile, dynamic, device):
     ``per_tile`` holds the literal as each tile's plan gives it.  Fields
     named in ``dynamic`` (the process function's ``torch_dynamic``) vary per
     tile: each is stacked into a tensor with a leading B axis, numbers as
-    float64 like the JAX executor's ``_dynamicize``; with ``"__scalars__"``
-    a bare number becomes a (B, 1, 1, 1) float64 tensor, one scalar per
-    tile broadcast against (B, bands, h, w).  Every other array (a source
-    payload) must be the same in every tile and becomes one shared resident
-    tensor; the remaining fields are taken from the first tile.
+    float64 like the JAX executor's ``_dynamicize``.  Every other array (a
+    source payload) must be the same in every tile and becomes one shared
+    resident tensor; the remaining fields and bare literals (a block's
+    constants) are taken from the first tile.
     """
     first = per_tile[0]
-    dynamic = dynamic or ()
-    if (
-        "__scalars__" in dynamic
-        and isinstance(first, (int, float))
-        and not isinstance(first, bool)
-    ):
-        stacked = np.asarray(per_tile, dtype=np.float64).reshape(-1, 1, 1, 1)
-        return torch.from_numpy(stacked).to(device)
     if isinstance(first, dict) and dynamic:
         varying = {
             key: torch.from_numpy(
@@ -204,6 +208,22 @@ def _shared_arrays(first, per_tile, device):
     )
 
 
+def stack_host_results(per_tile, device):
+    """A host node's per-tile results as one twin input: each array
+    stacked over the tiles into a tensor with a leading B axis; every
+    other leaf from the first tile."""
+    stacked = iter(
+        [
+            torch.from_numpy(np.stack(arrays)).to(device)
+            for arrays in zip(*[_arrays_in(result) for result in per_tile])
+        ]
+    )
+    return _map_structure(
+        lambda leaf: next(stacked) if isinstance(leaf, np.ndarray) else leaf,
+        per_tile[0],
+    )
+
+
 def to_host(obj):
     """A twin's batch-first result for one request: tensors -> numpy,
     dropping the batch axis of 1."""
@@ -226,7 +246,6 @@ def from_host(obj, device):
 
 def compute_torch(graph, name, device=None):
     """Evaluate ``name`` in a compute graph; twins run on ``device``."""
-    global host_node_runs
     device = resolve_device(device)
     needed, deps = _reachable(graph, name)
     order = _toposort(needed, deps)
@@ -252,12 +271,12 @@ def compute_torch(graph, name, device=None):
                     "node %s has no capable torch twin and takes a device result"
                     % key.split("_")[0]
                 )
-            host_node_runs += 1
-            cache[key] = func(
-                *[
+            cache[key] = run_on_host(
+                func,
+                [
                     cache[arg] if isinstance(arg, str) and arg in graph else arg
                     for arg in value[1:]
-                ]
+                ],
             )
         else:
             args = []

@@ -3,14 +3,19 @@
 The port's ``Config`` behaves as the JAX package's on the same sequence of
 ``set``/``get`` calls; its defaults hold only the keys the port reads, at
 the JAX package's values; the coarse warp stride is the JAX package's
-default; and a resampling other than nearest raises.
+default; and ``geomodeling.warp-interpolation`` selects nearest or
+bilinear resampling, while any other value raises.
 """
 import importlib
 
 import numpy as np
 import pytest
 
+from datetime import datetime
+
+from dask_geomodeling_tpu.ops.warp import warp_numpy as jax_warp_numpy
 from dask_geomodeling_tpu_torch.ops.warp import APPROX_STRIDE, warp_numpy
+from dask_geomodeling_tpu_torch.raster import MemorySource
 
 # the modules, not the ``config`` instances the packages may export
 jax_config_module = importlib.import_module("dask_geomodeling_tpu.config")
@@ -58,9 +63,14 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.torch-device",
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
+        "geomodeling.warp-interpolation",
     }
     assert defaults["geomodeling.torch-device"] == "cuda"
-    for key in ("geomodeling.tile-size", "geomodeling.tile-batch"):
+    for key in (
+        "geomodeling.tile-size",
+        "geomodeling.tile-batch",
+        "geomodeling.warp-interpolation",
+    ):
         assert defaults[key] == jax_config_module.defaults[key], key
 
 
@@ -69,9 +79,30 @@ def test_approx_stride_is_the_jax_default():
 
 
 def test_warp_numpy_refuses_other_resampling():
-    values = np.arange(16, dtype=np.float32).reshape(1, 4, 4)
+    """Nearest and bilinear are both selected (each equal to the JAX
+    package's warp_numpy, and different from each other on a half-pixel
+    shift); any other resampling raises, in warp_numpy and through the
+    config key."""
+    values = np.arange(16, dtype=np.float32).reshape(1, 4, 4) * 3
     args = (values, (0.0, 1.0, 0.0, 4.0, 0.0, -1.0), "EPSG:28992", -1.0,
-            (0.0, 0.0, 4.0, 4.0), "EPSG:28992", 4, 4)
-    np.testing.assert_array_equal(warp_numpy(*args), values)
-    with pytest.raises(NotImplementedError, match="bilinear"):
-        warp_numpy(*args, interpolation="bilinear")
+            (0.5, 0.0, 3.5, 3.0), "EPSG:28992", 3, 3)
+    results = {}
+    for interpolation in ("nearest", "bilinear"):
+        results[interpolation] = warp_numpy(*args, interpolation=interpolation)
+        np.testing.assert_array_equal(
+            results[interpolation], jax_warp_numpy(*args, interpolation=interpolation)
+        )
+    assert not np.array_equal(results["nearest"], results["bilinear"])
+    with pytest.raises(ValueError, match="cubic"):
+        warp_numpy(*args, interpolation="cubic")
+
+    source = MemorySource(values, -1.0, "EPSG:28992", 1.0, (0.0, 4.0))
+    request = dict(mode="vals", bbox=args[4], projection="EPSG:28992", width=3,
+                   height=3, start=datetime(1970, 1, 1))
+    for interpolation, expected in results.items():
+        with port_config_module.config.set({"geomodeling.warp-interpolation": interpolation}):
+            out = source.get_data(device="cpu", **request)
+        np.testing.assert_array_equal(out["values"], expected)
+    with port_config_module.config.set({"geomodeling.warp-interpolation": "cubic"}):
+        with pytest.raises(ValueError, match="cubic"):
+            source.get_data(device="cpu", **request)

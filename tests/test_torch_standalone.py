@@ -1,7 +1,7 @@
 """The port stands on its own and agrees with the JAX package.
 
 - no module of the port, and not chip_smoke.py, imports the JAX package,
-  jax, bench or benchmarks (an AST scan), and running both of the port's
+  jax, pandas, bench or benchmarks (an AST scan), and running the port's
   paths loads none of them (a subprocess);
 - the port's CRS subset gives the JAX package's float64 bits;
 - a JAX-package view carried across by ``from_reference`` plans the same
@@ -10,8 +10,9 @@
   the inputs the JAX package's own executor hands it;
 - ``compute_host`` equals the JAX package's numpy executor bitwise.
 
-The views are the headline view (bench.py) and the stencils view
-(benchmarks/run.py), at small sizes.
+The views are the headline view (bench.py), the stencils view
+(benchmarks/run.py) and a view holding every other ported block, at small
+sizes.
 """
 import ast
 import dataclasses
@@ -27,7 +28,7 @@ import bench
 import chip_smoke
 from dask_geomodeling_tpu import config as jax_config
 from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_points
-from dask_geomodeling_tpu.raster import MaskBelow, Snap
+from dask_geomodeling_tpu.raster import RasterizeWKT, Snap
 from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
@@ -40,7 +41,7 @@ from dask_geomodeling_tpu_torch.runtime.executor import _reachable, _toposort
 from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("dask_geomodeling_tpu", "jax", "bench", "benchmarks")
+FORBIDDEN = ("dask_geomodeling_tpu", "jax", "pandas", "bench", "benchmarks")
 
 
 def _port_files():
@@ -93,6 +94,15 @@ def test_port_never_imports_jax():
             "out = evaluate_tiled(view, cs.vals_request(256), tile_size=128, batch=4, device='cpu')",
             "assert out['values'].shape == (1, 256, 256)",
             "view.get_data(device='cpu', **cs.vals_request(64))",
+            "paths = cs.build_algebra_paths(512)",
+            "from dask_geomodeling_tpu_torch.config import config",
+            "for view, request, interpolation, _ in paths.values():",
+            "    with config.set({'geomodeling.warp-interpolation': interpolation}):",
+            "        evaluate_tiled(view, request, tile_size=256, batch=2, device='cpu')",
+            "sources = cs.fuzz_sources()",
+            "for seed in (0, 45):",
+            "    view, request = cs.fuzz_view(seed, sources)",
+            "    view.get_data(device='cpu', **request)",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -164,7 +174,41 @@ def _stencils():
     return view, chip_smoke.vals_request(256)
 
 
-VIEWS = {"headline": _headline, "stencils": _stencils}
+def _algebra():
+    """Every other ported block in one view over float32 sources."""
+    from dask_geomodeling_tpu import raster as R
+
+    def source(seed, px=256):
+        return JaxMemorySource(
+            data=(np.random.RandomState(seed).rand(1, px, px) * 200).astype(np.float32),
+            no_data_value=float(np.finfo(np.float32).max),
+            projection="EPSG:28992",
+            pixel_size=1.0,
+            pixel_origin=(135000.0, 456000.0),
+            time_first=datetime.datetime(2000, 1, 1),
+        )
+
+    a, b, small = source(0), source(2), source(3, px=32)
+    flags = R.And(R.IsData(a), R.Invert(R.Less(b, 50.0)))
+    flags = R.Xor(R.Or(flags, R.Equal(a, b)), R.IsNoData(R.NotEqual(a, 7.0) * 1))
+    view = R.Group(
+        R.Max(
+            R.FillNoData(R.MaskBelow(a, 10.0), b),
+            R.Power(b / 10.0, 2),
+            R.Step(b, left=0, right=1, value=100.0),
+            R.Exp(a / 100.0),
+            R.Log(b) - R.Log10(a),
+        ),
+        R.Dilate(R.Classify(R.Clip(a, R.Greater(b, 100.0)), bins=[50.0, 100.0, 150.0]), values=[1, 3]),
+        R.Mask(flags, 3),
+        R.Clip(R.GreaterEqual(a, 20.0) * 2, R.LessEqual(b, 180.0)),
+        R.Place(small, "EPSG:28992", [135016.0, 455984.0],
+                [[135040.0 + 60 * i, 455900.0 - 50 * i] for i in range(4)], statistic="mean"),
+    )
+    return view, chip_smoke.vals_request(256)
+
+
+VIEWS = {"headline": _headline, "stencils": _stencils, "algebra": _algebra}
 
 
 @pytest.fixture(scope="module", params=sorted(VIEWS))
@@ -250,7 +294,7 @@ def test_chip_smoke_builds_the_reference_views():
 @pytest.mark.parametrize(
     "make, name",
     [
-        (lambda source: MaskBelow(source, 10.0), "misc.MaskBelow"),  # module ported
+        (lambda source: RasterizeWKT("POINT (1 1)", "EPSG:28992"), "misc.RasterizeWKT"),  # module ported
         (lambda source: Snap(source, source), "temporal.Snap"),  # module not
     ],
 )
@@ -265,6 +309,13 @@ def test_from_reference_names_what_is_not_ported(make, name):
 PROCESSES = {
     "headline": ["process", "add", "_smooth_process", "_classify_process", "_reclassify_process"],
     "stencils": ["process", "_moving_max_process", "_smooth_process", "_hillshade_process"],
+    "algebra": [
+        "_classify_process", "_clip_process", "_dilate_process", "_fill_no_data_process",
+        "_invert_process", "_is_data_process", "_is_no_data_process", "_mask_below_process",
+        "_mask_process", "_step_process", "divide", "equal", "exp", "greater", "greater_equal",
+        "less", "less_equal", "log", "log10", "logical_and", "logical_or", "logical_xor",
+        "multiply", "not_equal", "power", "process", "reduce_max", "subtract",
+    ],
 }
 
 
@@ -296,9 +347,12 @@ def test_copied_processes_bitwise(views):
                 for a, inp, port_arg in zip(jax_node[1:], inputs, graph[key][1:])
             ]
             actual = graph[key][0](*[_copy(a) for a in port_inputs])
-            assert actual["no_data_value"] == expected["no_data_value"]
-            assert actual["values"].dtype == expected["values"].dtype
-            np.testing.assert_array_equal(actual["values"], expected["values"])
+            if "values" in expected:
+                assert actual["no_data_value"] == expected["no_data_value"]
+                assert actual["values"].dtype == expected["values"].dtype
+                np.testing.assert_array_equal(actual["values"], expected["values"])
+            else:  # the time answers of a Group's time subrequests
+                assert actual == expected
             results[jax_key] = expected
             seen.append(graph[key][0].__name__)
     assert sorted(set(seen)) == sorted(PROCESSES[name])

@@ -206,13 +206,24 @@ def test_cross_crs_needs_the_grid():
 
 
 def test_bilinear_not_ported_yet():
+    """Bilinear is ported: the cross-CRS bilinear warp runs on the coarse
+    grid and its cells inside the source lie within the source's range,
+    while an unknown resampling raises."""
     values, nodata = _source(np.float32)
     bboxes, grids = _cross_tiles()
-    with pytest.raises(NotImplementedError):
+    out = warp_torch(
+        torch.from_numpy(values), SRC_GT, SRC_SRS, nodata,
+        torch.from_numpy(bboxes), "EPSG:3857", WIDTH, HEIGHT, np.float32, 0.0,
+        interpolation="bilinear", coarse_grid=torch.from_numpy(grids),
+    ).numpy()
+    assert (out[4:] == 0.0).all()
+    data = out[1:4][(out[1:4] != 0.0) & np.isfinite(out[1:4])]
+    assert data.size and (data >= 0).all() and (data < 250).all()
+    with pytest.raises(ValueError):
         warp_torch(
             torch.from_numpy(values), SRC_GT, SRC_SRS, nodata,
             torch.from_numpy(bboxes), "EPSG:3857", WIDTH, HEIGHT, np.float32, 0.0,
-            interpolation="bilinear", coarse_grid=torch.from_numpy(grids),
+            interpolation="cubic", coarse_grid=torch.from_numpy(grids),
         )
 
 
@@ -230,3 +241,132 @@ def test_port_warp_numpy_is_the_jax_packages(dtype, projection):
         np.testing.assert_array_equal(
             port_warp.warp_numpy(*args, **kwargs), warp_numpy(*args, **kwargs)
         )
+
+
+# --- bilinear (the cases of tests/test_warp_bilinear.py, and the twin) ---
+
+BILINEAR_GT = (135000.0, 2.0, 0.0, 456000.0, 0.0, -2.0)
+
+
+def _bilinear_source(bands=1, seed=0, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(bands, 30, 30) * 200).astype(dtype)
+
+
+def _bilinear_kwargs(**overrides):
+    kwargs = dict(
+        src_gt=BILINEAR_GT, src_srs="EPSG:28992", no_data_value=None,
+        bbox=(135010.0, 455930.0, 135050.0, 455990.0), projection="EPSG:28992",
+        width=20, height=30, dtype=np.float32, fillvalue=-9999.0,
+    )
+    kwargs.update(overrides)
+    return kwargs
+
+
+def _bilinear_torch(values, bboxes, coarse_grid=None, **kwargs):
+    kwargs = dict(kwargs)
+    kwargs.pop("bbox", None)
+    return warp_torch(
+        torch.from_numpy(values), kwargs.pop("src_gt"), kwargs.pop("src_srs"),
+        kwargs.pop("no_data_value"), torch.from_numpy(np.asarray(bboxes, np.float64)),
+        kwargs.pop("projection"), kwargs.pop("width"), kwargs.pop("height"),
+        np.dtype(kwargs.pop("dtype")), kwargs.pop("fillvalue"), interpolation="bilinear",
+        coarse_grid=None if coarse_grid is None else torch.from_numpy(coarse_grid),
+    ).numpy()
+
+
+def test_bilinear_matches_scipy_affine():
+    """Same-CRS bilinear equals scipy's map_coordinates(order=1) inside
+    the source, on the host and on the device."""
+    from scipy import ndimage
+
+    values = _bilinear_source()
+    kwargs = _bilinear_kwargs(bbox=(135010.0, 455945.0, 135050.0, 455985.0), height=20)
+    host = port_warp.warp_numpy(values, interpolation="bilinear", **kwargs)
+    x1, y1, x2, y2 = kwargs["bbox"]
+    tx, ty = np.meshgrid(x1 + (np.arange(20) + 0.5) * (x2 - x1) / 20,
+                         y2 - (np.arange(20) + 0.5) * (y2 - y1) / 20)
+    fc = (tx - BILINEAR_GT[0]) / BILINEAR_GT[1] - 0.5
+    fr = (ty - BILINEAR_GT[3]) / BILINEAR_GT[5] - 0.5
+    expected = ndimage.map_coordinates(values[0].astype(np.float64), [fr, fc], order=1,
+                                       mode="nearest").astype(np.float32)
+    np.testing.assert_allclose(host[0], expected, rtol=1e-6)
+    np.testing.assert_array_equal(_bilinear_torch(values, [kwargs["bbox"]], **kwargs)[0], host)
+
+
+@pytest.mark.parametrize("dtype, fill", [(np.float32, -9999.0), (np.int16, -1), (np.uint8, 255)])
+def test_bilinear_same_crs_device_is_the_hosts_bitwise(dtype, fill):
+    """Several tiles, partly outside the source, with a nodata patch: the
+    device's float64 blend, rounding and nodata test are the host's."""
+    values = _bilinear_source(bands=2, seed=1, dtype=dtype)
+    values[0, :5, :5] = 250
+    bboxes = [(135010.3 + 7 * i, 455930.1 - 5 * i, 135050.3 + 7 * i, 455990.1 - 5 * i)
+              for i in range(-2, 4)]
+    kwargs = _bilinear_kwargs(no_data_value=250, dtype=dtype, fillvalue=fill)
+    actual = _bilinear_torch(values, bboxes, **kwargs)
+    for bbox, tile in zip(bboxes, actual):
+        host = port_warp.warp_numpy(values, interpolation="bilinear", **dict(kwargs, bbox=bbox))
+        np.testing.assert_array_equal(
+            host, warp_numpy(values, interpolation="bilinear", **dict(kwargs, bbox=bbox)))
+        np.testing.assert_array_equal(tile, host)
+        assert (tile == fill).any() and (tile != fill).any()
+
+
+def test_bilinear_cross_crs_against_the_host():
+    """Cross-CRS the device interpolates the coarse transformer grid, the
+    host transforms every pixel: the blends agree within the JAX
+    package's bilinear tolerance (atol 1e-3), and the nodata cells are
+    the same."""
+    values, nodata = _source(np.float32)
+    values = np.where(np.isnan(values), 7.0, values).astype(np.float32)
+    bboxes, grids = _cross_tiles()
+    actual = _bilinear_torch(values, bboxes, grids, **dict(
+        src_gt=SRC_GT, src_srs=SRC_SRS, no_data_value=nodata, projection="EPSG:3857",
+        width=WIDTH, height=HEIGHT, dtype=np.float32, fillvalue=nodata))
+    for tile in (1, 2, 3):
+        host = warp_numpy(values, SRC_GT, SRC_SRS, nodata, tuple(bboxes[tile]), "EPSG:3857",
+                          WIDTH, HEIGHT, dtype=np.float32, fillvalue=nodata,
+                          interpolation="bilinear")
+        np.testing.assert_array_equal(actual[tile] == nodata, host == nodata)
+        np.testing.assert_allclose(actual[tile], host, rtol=0, atol=1e-3)
+    # out-of-domain and far-away tiles are all fill
+    assert (actual[4] == nodata).all() and (actual[5] == nodata).all()
+
+
+def test_bilinear_nodata_never_interpolated():
+    values = _bilinear_source()
+    values[0, 10:15, 10:15] = 255.0
+    kwargs = _bilinear_kwargs(no_data_value=255.0)
+    result = _bilinear_torch(values, [kwargs["bbox"]], **kwargs)[0]
+    assert ((result == -9999.0) | (result < 250.0)).all()
+    assert (result == -9999.0).any()
+
+
+def test_bilinear_source_config_knob():
+    """geomodeling.warp-interpolation routes MemorySource reads through
+    the bilinear warp on the device, bitwise to compute_host."""
+    from datetime import datetime
+
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.raster import MemorySource
+
+    source = MemorySource(_bilinear_source(seed=2), float(np.finfo(np.float32).max),
+                          "EPSG:28992", 2.0, (135000, 456000))
+    request = dict(mode="vals", bbox=(135001.0, 455941.0, 135041.0, 455981.0),
+                   projection="EPSG:28992", width=40, height=40, start=datetime(1970, 1, 1))
+    nearest = source.get_data(device="cpu", **request)
+    with config.set({"geomodeling.warp-interpolation": "bilinear"}):
+        host = compute_host(*source.get_compute_graph(**request))
+        device = source.get_data(device="cpu", **request)
+    assert not np.array_equal(host["values"], nearest["values"])
+    np.testing.assert_array_equal(device["values"], host["values"])
+
+
+def test_bilinear_integer_rounds():
+    values = np.arange(100, dtype=np.uint8).reshape(1, 10, 10) * 2
+    kwargs = _bilinear_kwargs(src_gt=(0.0, 1.0, 0.0, 10.0, 0.0, -1.0), bbox=(0.5, 0.5, 8.5, 8.5),
+                              width=8, height=8, dtype=np.uint8, fillvalue=255)
+    host = port_warp.warp_numpy(values, interpolation="bilinear", **kwargs)
+    assert host.dtype == np.uint8
+    np.testing.assert_array_equal(_bilinear_torch(values, [kwargs["bbox"]], **kwargs)[0], host)
