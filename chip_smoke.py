@@ -38,11 +38,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the card; a 64^2 crop and 16 sampled tiles equal compute_host bit for
    bit, but for the cross-CRS bilinear path, whose blends differ in the
    last bits (within BILINEAR_ATOL, and nodata in the same cells);
-7. the executor fuzz on the card: the 55 random trees of
+7. the temporal paths (build_temporal_paths), with the checks of 6 and
+   bitwise: temporal-mean (benchmarks/run.py's "temporal+zonal" view over
+   8192^2 x 8 hourly frames), temporal-median (MovingMax over 6-hourly
+   medians in Amsterdam across the switch to summer time, 4096^2 x 48
+   frames; the moving-max kernel launches on it) and temporal-cumulative
+   (Snap, Cumulative with a daily reset in Amsterdam, Resample, Shift);
+   sources with 5% nodata; and the 90th percentile on a 64^2 crop within
+   rtol 1e-6, its differing cells counted.  A zone the system zone
+   database lacks fails the run;
+8. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
    Classify at and beside their thresholds, bitwise;
-8. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
+9. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
    host rate on the sampled tiles, one run's seconds per phase, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
@@ -79,6 +88,17 @@ ALGEBRA_PX = 8192
 # and data in the other
 BILINEAR_ATOL = 1e-3
 BILINEAR_FILL_SHARE = 5e-4
+# the temporal paths: an 8192^2 source of 8 hourly frames, and a 4096^2
+# source of 48 hourly frames across the switch to summer time in
+# Amsterdam; 5% of their cells hold nodata, and so does a top-left
+# 600^2 square (the 64^2 corner and one sampled tile) in the frames of
+# the first 4h bin of the one and the first four 6h bins of the other,
+# so that those bins hold no data there
+TEMPORAL_MEAN_PX = 8192
+TEMPORAL_PX = 4096
+NODATA_SHARE = 0.05
+NODATA_SQUARE = 600
+DST_WINDOW = (datetime(2000, 3, 25), datetime(2000, 3, 27))
 FUZZ_SEEDS = range(40)
 FUZZ_TILED_SEEDS = range(40, 55)
 TILE = 512
@@ -146,20 +166,36 @@ def headline_request(source, out_px):
     )
 
 
-def make_source(px, seed=0):
-    """benchmarks/run.py:make_source, one band: float32 uniform [0, 200)."""
+def make_source(px, seed=0, bands=1, time_first=datetime(2000, 1, 1), nodata_share=0.0,
+                nodata_block=(0, 0)):
+    """benchmarks/run.py:make_source: float32 uniform [0, 200), hourly
+    frames when bands > 1.  With ``nodata_share``, that share of the cells,
+    drawn by a PCG64 generator of the same seed, holds nodata.  Drawn band
+    by band (the same numbers as one (bands, px, px) draw) to keep the
+    host's transient memory to one band.  With ``nodata_block`` = (frames,
+    size), the first ``frames`` frames hold nodata in the top-left size^2
+    square as well."""
     from dask_geomodeling_tpu_torch.raster import MemorySource
 
     rng = np.random.RandomState(seed)
-    data = (rng.rand(1, px, px) * 200).astype(np.float32)
+    nodata = np.finfo(np.float32).max
+    data = np.empty((bands, px, px), np.float32)
+    for band in range(bands):
+        data[band] = rng.rand(px, px) * 200
+    if nodata_share:
+        cells = np.random.default_rng(seed)
+        for band in range(bands):
+            data[band][cells.random((px, px), dtype=np.float32) < nodata_share] = nodata
+    frames, size = nodata_block
+    data[:frames, :size, :size] = nodata
     return MemorySource(
         data=data,
-        no_data_value=float(np.finfo(np.float32).max),
+        no_data_value=float(nodata),
         projection="EPSG:28992",
         pixel_size=1.0,
         pixel_origin=(135000.0, 456000.0),
-        time_first=datetime(2000, 1, 1),
-        time_delta=None,
+        time_first=time_first,
+        time_delta=timedelta(hours=1) if bands > 1 else None,
     )
 
 
@@ -265,6 +301,54 @@ def build_algebra_paths(px=8192):
         "reproject-bilinear": (
             Add(a, 1.0), bilinear, "bilinear", (bilinear["bbox"][0], bilinear["bbox"][3])),
     }
+
+
+def build_temporal_paths(mean_px=TEMPORAL_MEAN_PX, px=TEMPORAL_PX, nodata_share=NODATA_SHARE):
+    """The temporal paths, as build_algebra_paths gives them, and the
+    48-frame source they share; sources from make_source with
+    ``nodata_share`` of their cells nodata and, where that is not 0, a
+    NODATA_SQUARE square of nodata in the frames of their first bins
+    (4 of 8 frames; the 23 frames before local midnight of 2000-03-26).
+
+    - temporal-mean: benchmarks/run.py's "temporal+zonal" view,
+      TemporalAggregate(source, "4h", statistic="mean") over 8 hourly
+      frames from 2000-01-01 (seed 1), requested from 2000-01-01 to
+      2000-01-02: two bands;
+    - temporal-median: MovingMax(TemporalAggregate(source, "6h",
+      statistic="median", timezone="Europe/Amsterdam"), 3) over 48 hourly
+      frames from 2000-03-25 00:00 UTC (seed 4), across the switch to
+      summer time of 2000-03-26, requested from 2000-03-25 to 2000-03-27:
+      bins of 5 and 6 frames, seven bands;
+    - temporal-cumulative: Snap(Cumulative(Resample(Shift(source, 30
+      min), "2h", direction="backward"), statistic="sum", frequency="D",
+      timezone="Europe/Amsterdam"), Resample(source, "6h")) over the same
+      source and window: nine bands.
+    """
+    from dask_geomodeling_tpu_torch.raster import (
+        Cumulative, MovingMax, Resample, Shift, Snap, TemporalAggregate,
+    )
+
+    square = NODATA_SQUARE if nodata_share else 0
+    hourly8 = make_source(mean_px, seed=1, bands=8, nodata_share=nodata_share,
+                          nodata_block=(4, square))
+    hourly48 = make_source(px, seed=4, bands=48, time_first=DST_WINDOW[0],
+                           nodata_share=nodata_share, nodata_block=(23, square))
+    request = dict(vals_request(px), start=DST_WINDOW[0], stop=DST_WINDOW[1])
+    corner = (request["bbox"][0], request["bbox"][3])
+    median = MovingMax(TemporalAggregate(hourly48, "6h", statistic="median",
+                                         timezone="Europe/Amsterdam"), 3)
+    cumulative = Snap(
+        Cumulative(Resample(Shift(hourly48, 1800000), "2h", direction="backward"),
+                   statistic="sum", frequency="D", timezone="Europe/Amsterdam"),
+        Resample(hourly48, "6h"),
+    )
+    paths = {
+        "temporal-mean": (TemporalAggregate(hourly8, "4h", statistic="mean"),
+                          vals_request(mean_px), "nearest", corner),
+        "temporal-median": (median, request, "nearest", corner),
+        "temporal-cumulative": (cumulative, request, "nearest", corner),
+    }
+    return paths, hourly48
 
 
 def fuzz_sources():
@@ -640,7 +724,9 @@ def time_gaussian(planes, sigma):
 
 
 def check_moving_max(device):
-    """Phase 3b; returns the kernel record's numbers at (64, 526, 526)."""
+    """Phase 3b; returns the kernel records' numbers at the stencils
+    path's (64, 526, 526) and the temporal-median path's (448, 514, 514):
+    64 tiles of 7 bands, a margin of 1, float32 nodata in some cells."""
     import torch
     import torch.nn.functional as F
 
@@ -651,7 +737,15 @@ def check_moving_max(device):
     shape = (BATCH, TILE + 14, TILE + 14)
     planes = torch.from_numpy((rng.rand(*shape) * 200).astype(np.float32)).to(device)
     small = rng.rand(8, 301, 277) * 120  # in range of every dtype below
-    cases = [("path shape, size 3", planes, 3)]
+    bands = np.empty((BATCH * 7, TILE + 2, TILE + 2), np.float32)
+    for plane in bands:
+        plane[...] = rng.rand(TILE + 2, TILE + 2) * 200
+        plane[rng.rand(TILE + 2, TILE + 2) < NODATA_SHARE] = np.finfo(np.float32).max
+    temporal_planes = torch.from_numpy(bands).to(device)
+    del bands
+    path_planes = {"stencils": planes, "temporal-median": temporal_planes}
+    cases = [("path shape, size 3", planes, 3),
+             ("temporal-median path shape, size 3", temporal_planes, 3)]
     cases += [("size %d" % size, planes[:8].contiguous(), size) for size in (5, 7, 15)]
     for dtype in (np.float64, np.float16, np.int8, np.int16, np.int32, np.int64,
                   np.uint8, np.uint16, np.uint32, np.uint64):
@@ -667,7 +761,7 @@ def check_moving_max(device):
     with_nan[1, 100:103, 200:240] = float("nan")
     with_nan[2, 0, 0] = float("nan")
     cases.append(("a plane holding NaN, size 3", with_nan, 3))
-    max_abs_err = 0.0
+    max_abs_err = {}
     for label, data, size in cases:
         before = cuda_stencils.moving_max_launches
         got = cuda_stencils.moving_max(data, size)
@@ -675,14 +769,30 @@ def check_moving_max(device):
         want = moving_max_reference(data, size)
         torch.cuda.synchronize()
         equal = got.dtype == want.dtype and same(got, want)
-        if data is planes:
-            max_abs_err = float((got - want).abs().max())
+        for path, path_data in path_planes.items():
+            if data is path_data:
+                equal = equal and torch.equal(got, want)
+                max_abs_err[path] = float((got - want).abs().max())
         print("kernel check: moving_max %s shape=%s dtype=%s equal=%s"
               % (label, tuple(data.shape), data.dtype, equal))
         check(equal, "moving_max differs from its plain version (%s)" % label)
+        del got, want
     nan_out = cuda_stencils.moving_max(with_nan, 3)
     check(bool(torch.isnan(nan_out[1, 99:104, 199:241]).all())
           and not bool(torch.isnan(nan_out[0]).any()), "NaN did not spread over its windows")
+    return [dict(time_moving_max(data), max_abs_err=max_abs_err[path], path=path)
+            for path, data in path_planes.items()]
+
+
+def time_moving_max(planes):
+    """The kernel at size 3, its plain version and the library yardstick
+    (max_pool2d, bitwise equal at size 3) on ``planes`` (CUDA events), and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import moving_max_reference
 
     def library():
         return F.max_pool2d(planes[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
@@ -691,16 +801,17 @@ def check_moving_max(device):
     pooled = library()
     torch.cuda.synchronize()
     check(torch.equal(got, pooled), "moving_max differs from max_pool2d at size 3")
-    print("kernel check: moving_max (64, 526, 526) size 3 equal to max_pool2d(3, stride 1, padding 1)")
+    print("kernel check: moving_max %s size 3 equal to max_pool2d(3, stride 1, padding 1)"
+          % (tuple(planes.shape),))
+    del got, pooled
     kernel_ms = cuda_ms(lambda: cuda_stencils.moving_max(planes, 3), 20)
     plain_ms = cuda_ms(lambda: moving_max_reference(planes, 3), 5)
     library_ms = cuda_ms(library, 20)
     n_bytes = 2 * planes.numel() * planes.element_size()
     ops = planes.numel() * 8  # a 3x3 window: 8 comparisons per output
     bound_ms, bound_by = bound(n_bytes, ops, FP32_OPS_PER_S)
-    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=list(planes.shape), path="stencils")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, shape=list(planes.shape))
 
 
 def no_twin_view(source):
@@ -876,9 +987,10 @@ def compare_cells(port, host, no_data_value):
 
 
 def check_algebra_path(label, device, view, request, interpolation, corner):
-    """One raster-algebra path at full size; returns host Mpx/s.  Every
-    node that returns pixels runs on the card (the Group's time
-    subrequests, which return none, run on the host while planning); a
+    """One raster-algebra or temporal path at full size; returns host
+    Mpx/s.  Every node that returns pixels runs on the card (the time
+    subrequests of a Group or a temporal block, which return none, run
+    on the host while planning); a
     64^2 corner and 16 sampled tiles are held to compute_host: bitwise,
     or for the cross-CRS bilinear path within BILINEAR_ATOL with at most
     BILINEAR_FILL_SHARE of the cells nodata in one and data in the
@@ -920,16 +1032,19 @@ def check_algebra_path(label, device, view, request, interpolation, corner):
         t0 = time.perf_counter()
         host_tiles = [host_values(view, tiles[k]) for k in sampled]
         host_s = time.perf_counter() - t0
-    differing, worst, fill_mismatch = 0, 0.0, 0
+    differing, worst, fill_mismatch, filled = 0, 0.0, 0, 0
     for k, host_tile in zip(sampled, host_tiles):
         rows, cols = tile_window(k, nx, px, TILE)
         d, w, f = compare_cells(values[:, rows, cols], host_tile, result["no_data_value"])
         differing, worst, fill_mismatch = differing + d, max(worst, w), fill_mismatch + f
+        filled += int(np.count_nonzero(host_tile == result["no_data_value"]))
     n_cells = len(sampled) * TILE * TILE * values.shape[0]
-    print("%s path: 64^2 corner: %d of %d cells differ from compute_host (largest %r); %d "
-          "tiles: %d of %d cells differ (share %r), largest difference %r, %d cells nodata "
-          "in one only" % (label, crop_cells[0], card_crop.size, crop_cells[1], len(sampled),
-                           differing, n_cells, differing / n_cells, worst, fill_mismatch))
+    print("%s path: 64^2 corner: %d of %d cells differ from compute_host (largest %r, %d "
+          "cells nodata on the card); %d tiles: %d of %d cells differ (share %r), largest "
+          "difference %r, %d cells nodata in one only, nodata in %r of compute_host's cells"
+          % (label, crop_cells[0], card_crop.size, crop_cells[1],
+             np.count_nonzero(card_crop == result["no_data_value"]), len(sampled), differing,
+             n_cells, differing / n_cells, worst, fill_mismatch, filled / n_cells))
     if exact:
         check(crop_cells[0] == 0, "%s: 64^2 corner differs from compute_host" % label)
         check(differing == 0, "%s: sampled tiles differ from compute_host" % label)
@@ -938,7 +1053,36 @@ def check_algebra_path(label, device, view, request, interpolation, corner):
         check(fill_mismatch / n_cells <= BILINEAR_FILL_SHARE
               and crop_cells[2] / card_crop.size <= BILINEAR_FILL_SHARE,
               "%s: nodata cells differ in more than %g" % (label, BILINEAR_FILL_SHARE))
-    return n_cells / 1e6 / host_s
+    # request pixels, all bands of one counted once, as the port's Mpx/s counts them
+    return len(sampled) * TILE * TILE / 1e6 / host_s
+
+
+def check_temporal_p90(device, source, request):
+    """The 90th percentile over the temporal-median path's source, on a
+    64^2 crop, on the card against compute_host: numpy's linear method
+    with its _lerp, so bitwise; checked within rtol 1e-6, with the
+    differing cells counted."""
+    from dask_geomodeling_tpu_torch.raster import TemporalAggregate
+    from dask_geomodeling_tpu_torch.runtime import executor
+
+    view = TemporalAggregate(source, "6h", statistic="p90", timezone="Europe/Amsterdam")
+    x1, _, _, y2 = request["bbox"]
+    crop = dict(request, width=64, height=64, bbox=(x1, y2 - 64, x1 + 64, y2))
+    host_runs = executor.host_node_runs
+    card = view.get_data(device=device, **crop)["values"]
+    check(executor.host_node_runs == host_runs, "p90 crop: a node ran on the host")
+    t0 = time.perf_counter()
+    host = host_values(view, crop)
+    host_s = time.perf_counter() - t0
+    check(card.dtype == host.dtype and card.shape == host.shape, "p90 crop: dtype or shape")
+    differing = int(np.count_nonzero(card != host))
+    print("temporal p90: 64^2 crop %s %s on the card, %d of %d cells differ from compute_host "
+          "(largest relative %r; host %.2f s)" % (
+              card.shape, card.dtype, differing, card.size,
+              float(np.max(np.abs(card.astype(np.float64) - host) / np.maximum(np.abs(host), 1e-30))),
+              host_s))
+    check(np.allclose(card, host, rtol=1e-6, atol=0), "p90 crop beyond rtol 1e-6")
+    return differing
 
 
 def check_fuzz(device):
@@ -1005,7 +1149,7 @@ def check_f64_discrete(device):
 
 
 def time_path(label, card, view, request, device, host_rate):
-    """Phase 8 for one path; returns its numbers."""
+    """Phase 9 for one path; returns its numbers."""
     import torch
 
     from dask_geomodeling_tpu_torch import evaluate_tiled
@@ -1047,6 +1191,11 @@ def main():
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
+    started = time.perf_counter()
+
+    def mark(phase):
+        print("elapsed: %.1f s after %s" % (time.perf_counter() - started, phase))
+
     # 1. device
     card = card_description()
     device = torch.device("cuda", 0)
@@ -1056,6 +1205,7 @@ def main():
 
     # 2. build
     build_kernels()
+    mark("the build")
 
     # 3. kernel checks, at the sigmas of the paths' first tiles
     headline_source, headline_view = build_headline_view()
@@ -1066,12 +1216,14 @@ def main():
               for view, req in [(headline_view, headline_req), (stencils_view, stencils_req)]]
     gaussian = check_gaussian(device, *sigmas)
     moving = check_moving_max(device)
+    mark("the kernel checks")
 
-    # 4. to 7. the paths, the fuzz and the float64 discrete ops
+    # 4. to 8. the paths, the fuzz and the float64 discrete ops
     headline_launches, headline_host = check_headline(
         device, headline_source, headline_view, headline_req)
     stencils_launches, stencils_host = check_stencils(device, stencils_view, stencils_req)
     launches = {"headline": headline_launches, "stencils": stencils_launches}
+    mark("the headline and stencils paths")
     algebra = build_algebra_paths(ALGEBRA_PX)
     algebra_host = {}
     for label, (view, request, interpolation, corner) in algebra.items():
@@ -1080,23 +1232,38 @@ def main():
             label, device, view, request, interpolation, corner)
         launches[label] = {"gaussian_blur": cuda_stencils.launches,
                            "moving_max": cuda_stencils.moving_max_launches}
+    mark("the algebra paths")
+    temporal, hourly48 = build_temporal_paths()
+    mark("building the temporal sources")
+    for label, (view, request, interpolation, corner) in temporal.items():
+        cuda_stencils.reset_launches()
+        algebra_host[label] = check_algebra_path(
+            label, device, view, request, interpolation, corner)
+        launches[label] = {"gaussian_blur": cuda_stencils.launches,
+                           "moving_max": cuda_stencils.moving_max_launches}
+    check(launches["temporal-median"]["moving_max"] > 0,
+          "temporal-median: the moving-max kernel did not launch")
+    check_temporal_p90(device, hourly48, temporal["temporal-median"][1])
+    mark("the temporal paths")
     check_fuzz(device)
     check_f64_discrete(device)
+    mark("the fuzz and the float64 discrete ops")
 
-    # 8. timing
+    # 9. timing
     timings = {
         "headline": time_path("headline", card, headline_view, headline_req, device, headline_host),
         "stencils": time_path("stencils", card, stencils_view, stencils_req, device, stencils_host),
     }
-    for label, (view, request, interpolation, _) in algebra.items():
+    for label, (view, request, interpolation, _) in list(algebra.items()) + list(temporal.items()):
         with interpolation_set(interpolation):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
-    for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", moving)]:
+    for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
                                       numbers["plain_ms"], numbers["library_ms"],
                                       numbers["bound_ms"], numbers["bound_by"]))
 
+    mark("the timing")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "dask_geomodeling_tpu" or m.startswith("dask_geomodeling_tpu.")
                     or m == "pandas" or m.startswith("pandas."))
@@ -1129,7 +1296,8 @@ def main():
         for numbers in gaussian
     ] + [
         record("moving_max", "dask_geomodeling_tpu_torch/csrc/moving_max.cu",
-               "dask_geomodeling_tpu/ops/pallas_stencils.py:136", moving, "moving_max"),
+               "dask_geomodeling_tpu/ops/pallas_stencils.py:136", numbers, "moving_max")
+        for numbers in moving
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

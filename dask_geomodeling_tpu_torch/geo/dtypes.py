@@ -13,6 +13,7 @@ __all__ = [
     "get_uint_dtype",
     "get_footprint",
     "parse_percentile_statistic",
+    "dtype_for_statistic",
 ]
 
 PERCENTILE_REGEX = re.compile(r"^p([\d.]+)$")
@@ -76,3 +77,19 @@ def parse_percentile_statistic(statistic):
             raise ValueError("Percentiles must be in the range [0, 100]")
         return "percentile", percentile
     return statistic, None
+
+
+def dtype_for_statistic(dtype, statistic):
+    """Result dtype of a statistic: min/max keep dtype, sum promotes like
+    Add, count is int32, everything else promotes like Divide."""
+    if statistic in ("min", "max"):
+        return dtype
+    if statistic == "sum":
+        if np.issubdtype(dtype, np.integer) or dtype == bool:
+            return np.result_type(dtype, np.int32)
+        if np.issubdtype(dtype, np.floating):
+            return np.result_type(dtype, np.float32)
+        return dtype
+    if statistic == "count":
+        return np.dtype(np.int32)
+    return np.result_type(np.float32, dtype)

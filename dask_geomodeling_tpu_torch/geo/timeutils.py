@@ -1,11 +1,37 @@
-"""Band snapping of a request's time window (counterparts of
-dask_geomodeling_tpu/geo/timeutils.py:snap_start_stop, dt_to_ms and
-filter_none)."""
-from datetime import timezone
+"""Band snapping, neighbour search and offset strings (counterparts of
+dask_geomodeling_tpu/geo/timeutils.py).
+
+``normalize_offset`` and ``offset_to_timedelta`` read offsets with the
+port's own calendar (geo/calendar.py) in place of pandas; the normalized
+string is a Block argument, so it enters the token, and it is pandas
+3.0.3's ``freqstr`` exactly.
+"""
+import re
+from datetime import datetime, timedelta, timezone
 
 import numpy as np
 
-__all__ = ["snap_start_stop", "dt_to_ms", "filter_none"]
+from dask_geomodeling_tpu_torch.geo.calendar import to_offset
+
+__all__ = [
+    "snap_start_stop",
+    "find_neigbours",
+    "dt_to_ms",
+    "ms_to_dt",
+    "filter_none",
+    "offset_to_timedelta",
+    "normalize_offset",
+]
+
+# aliases removed in pandas 3.0 (kept for user-facing compatibility with
+# views serialized by older pandas-based deployments)
+_REMOVED_ALIASES = {
+    "M": "ME", "BM": "BME", "SM": "SME", "CBM": "CBME",
+    "Q": "QE", "BQ": "BQE", "Y": "YE", "BY": "BYE",
+    "A": "YE", "BA": "BYE", "AS": "YS", "BAS": "BYS",
+    "H": "h", "BH": "bh", "CBH": "cbh",
+    "T": "min", "S": "s", "L": "ms", "U": "us", "N": "ns",
+}
 
 
 def snap_start_stop(start, stop, time_first, time_delta, length):
@@ -54,6 +80,26 @@ def snap_start_stop(start, stop, time_first, time_delta, length):
     return frame(first_i), frame(last_i), first_i, last_i
 
 
+def find_neigbours(array, value, direction="nearest"):
+    """Indices of the nearest/forward/backward neighbours of ``value`` in a
+    sorted 1-D ``array``; never out of bounds."""
+    array = np.asarray(array)
+    value = np.asarray(value)
+    if array.size == 1:
+        return np.zeros(value.shape, dtype=int)
+    if direction == "forward":
+        raw = np.searchsorted(array, value, side="left")
+    elif direction == "backward":
+        raw = np.searchsorted(array, value, side="right") - 1
+    elif direction == "nearest":
+        # bisect against the midpoints: which side of a midpoint a value
+        # falls on decides which element is nearest
+        raw = np.searchsorted(array[:-1] + (array[1:] - array[:-1]) / 2, value)
+    else:
+        raise ValueError("Unknown direction: {}".format(direction))
+    return np.clip(raw, 0, array.size - 1)
+
+
 def dt_to_ms(dt):
     """Naive-UTC datetime -> POSIX milliseconds."""
     if dt.tzinfo is None:
@@ -61,6 +107,36 @@ def dt_to_ms(dt):
     return int(dt.timestamp() * 1000)
 
 
+def ms_to_dt(ms):
+    """POSIX milliseconds -> naive-UTC datetime."""
+    return datetime(1970, 1, 1) + timedelta(milliseconds=ms)
+
+
 def filter_none(lst):
     """Drop None entries from a list."""
     return [x for x in lst if x is not None]
+
+
+def offset_to_timedelta(freq):
+    """Frequency string -> timedelta for the fixed offsets (the ticks and
+    ``D``), None for the others (e.g. month ends) and for strings that are
+    no offset."""
+    try:
+        step = to_offset(normalize_offset(freq)).step_us
+    except (TypeError, ValueError, NotImplementedError):
+        return None
+    return None if step is None else timedelta(microseconds=step)
+
+
+def normalize_offset(freq):
+    """Normalize a frequency string to pandas 3's ``freqstr`` (pre-3.0
+    aliases like 'M', 'H', 'S' are translated, including anchored forms
+    like 'Q-DEC' or 'A-JAN')."""
+    if freq is None:
+        return None
+    match = re.match(r"^(\d*)([^-]+)(-.+)?$", freq)
+    if match:
+        prefix, alias, anchor = match.groups()
+        if alias in _REMOVED_ALIASES:
+            freq = prefix + _REMOVED_ALIASES[alias] + (anchor or "")
+    return to_offset(freq).freqstr

@@ -44,3 +44,11 @@ from dask_geomodeling_tpu_torch.raster.spatial import (  # noqa: F401
     Place,
     Smooth,
 )
+from dask_geomodeling_tpu_torch.raster.temporal import (  # noqa: F401
+    Cumulative,
+    Resample,
+    Shift,
+    Snap,
+    TemporalAggregate,
+    TemporalSum,
+)

@@ -5,7 +5,8 @@ Counterparts of dask_geomodeling_tpu/raster/base.py (``RasterBlock``,
 ``BaseSingle``) and of its ``RasterBlock._get_data_uncached``: a vals
 request larger than
 ``geomodeling.tile-size`` runs as batched tiles (runtime/tiles.py), any
-other request through ``compute_torch``.  There is no router and no
+other vals request through ``compute_torch``, and a time or meta request
+through ``compute_metadata`` on the host.  There is no router and no
 fallback: a failure raises.
 """
 from datetime import datetime as Datetime
@@ -18,10 +19,16 @@ __all__ = ["RasterBlock", "BaseSingle", "get_data"]
 
 def get_data(view, *, device=None, **request):
     """Evaluate ``request`` on ``view`` with the torch twins on ``device``
-    (``None``: ``geomodeling.torch-device``, the card by default)."""
+    (``None``: ``geomodeling.torch-device``, the card by default).  A time
+    or meta request holds no pixels: it runs the numpy processes on the
+    host and resolves no device, so the blocks that ask their sources for
+    times while planning (the temporal ones) can do so on any machine."""
     from dask_geomodeling_tpu_torch.runtime.executor import compute_torch
+    from dask_geomodeling_tpu_torch.runtime.host import compute_metadata
     from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
 
+    if request.get("mode") in ("time", "meta"):
+        return compute_metadata(*view.get_compute_graph(**request))
     tile_size = config.get("geomodeling.tile-size", 512)
     width = request.get("width") or 0
     height = request.get("height") or 0

@@ -255,13 +255,13 @@ def _percentile(stacked, percentile):
     return torch.where(gamma >= 0.5, b - diff * (1 - gamma), result)
 
 
-def _variance(stacked):
+def _variance(stacked, add=_sum):
     data = ~torch.isnan(stacked)
     count = data.sum(0)
     layers = torch.where(data, stacked, 0).unbind(0)
-    mean = _divide_by_count(_sum(layers), count)
+    mean = _divide_by_count(add(layers), count)
     deviations = [torch.where(d, layer - mean, 0) for d, layer in zip(data.unbind(0), layers)]
-    return _divide_by_count(_sum([d * d for d in deviations]), count)
+    return _divide_by_count(add([d * d for d in deviations]), count)
 
 
 def _arg_extreme(stacked, largest):
@@ -269,27 +269,28 @@ def _arg_extreme(stacked, largest):
     return replaced.argmax(0) if largest else replaced.argmin(0)
 
 
-def _nan_reduce(stacked, statistic, percentile):
+def _nan_reduce(stacked, statistic, percentile, add=_sum):
     """The statistic over the layer axis of ``stacked`` (NaN = no data),
-    in the stack's dtype; only cells with data are used."""
+    in the stack's dtype; only cells with data are used.  ``add`` sums a
+    list of layers (numpy's pairwise order by default)."""
     nan = torch.isnan(stacked)
     if statistic == "sum":
-        return _sum(torch.where(nan, 0, stacked).unbind(0))
+        return add(torch.where(nan, 0, stacked).unbind(0))
     if statistic == "product":
         return _product(torch.where(nan, 1, stacked).unbind(0))
     if statistic == "mean":
-        return _divide_by_count(_sum(torch.where(nan, 0, stacked).unbind(0)), (~nan).sum(0))
+        return _divide_by_count(add(torch.where(nan, 0, stacked).unbind(0)), (~nan).sum(0))
     if statistic in ("min", "max"):
         return functools.reduce(torch.fmin if statistic == "min" else torch.fmax, stacked.unbind(0))
     if statistic in ("argmin", "argmax"):
         return _arg_extreme(stacked, statistic == "argmax")
     if statistic == "var":
-        return _variance(stacked)
+        return _variance(stacked, add)
     if statistic == "std":
         # numpy's sqrt is correctly rounded, torch's on the CPU is not
         # always; float64 holds a float32 or float16 square root exactly
         # enough to round it right
-        variance = _variance(stacked)
+        variance = _variance(stacked, add)
         return torch.sqrt(variance.to(torch.float64)).to(variance.dtype)
     if statistic == "median":
         return _median(stacked)

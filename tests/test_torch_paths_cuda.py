@@ -1,12 +1,16 @@
-"""The raster-algebra paths and the executor fuzz on the card.
+"""The raster-algebra and temporal paths and the executor fuzz on the card.
 
 Card-only (``cuda``-marked; they skip without a card): chip_smoke.py's
-five raster-algebra paths at 1024^2 in 256^2 tiles, on the card against
-the same run on the CPU (bitwise, or within the bilinear path's
-tolerance) and against compute_host on sampled tiles; the fuzz's trees on
-the card against compute_host; the float64 discrete ops.  This file
-imports nothing of JAX, so it runs where JAX is not installed.
+five raster-algebra paths and three temporal paths at 1024^2 in 256^2
+tiles, on the card against the same run on the CPU (bitwise, or within
+the bilinear path's tolerance) and against compute_host on sampled tiles;
+every TemporalAggregate statistic, TemporalSum and Cumulative over a small
+source on the card against compute_host; the fuzz's trees on the card
+against compute_host; the float64 discrete ops.  This file imports nothing
+of JAX or pandas, so it runs where neither is installed.
 """
+from datetime import datetime, timedelta
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +18,10 @@ import torch
 import chip_smoke
 from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled
 from dask_geomodeling_tpu_torch.config import config
+from dask_geomodeling_tpu_torch import raster as R
 
 PATHS = ["elemwise", "reclassify-chain", "combine", "place", "reproject-bilinear"]
+TEMPORAL_PATHS = ["temporal-mean", "temporal-median", "temporal-cumulative"]
 
 
 def _card():
@@ -26,11 +32,12 @@ def _card():
 
 @pytest.fixture(scope="module")
 def paths():
-    return chip_smoke.build_algebra_paths(1024)
+    return dict(chip_smoke.build_algebra_paths(1024),
+                **chip_smoke.build_temporal_paths(mean_px=1024, px=1024)[0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("label", PATHS)
+@pytest.mark.parametrize("label", PATHS + TEMPORAL_PATHS)
 def test_path_on_card_equals_cpu_and_host(paths, label):
     device = _card()
     view, request, interpolation, _ = paths[label]
@@ -66,3 +73,51 @@ def test_fuzz_on_card(seed):
 @pytest.mark.cuda
 def test_float64_discrete_ops_on_card():
     assert chip_smoke.check_f64_discrete(_card()) > 40
+
+
+def _hourly(dtype, frames=30, seed=6):
+    """A small hourly source of ``dtype`` from 2000-03-25, a third of its
+    cells nodata."""
+    nodata = {"uint8": 255, "int32": -2147483648, "float32": float(np.finfo(np.float32).max)}
+    rng = np.random.RandomState(seed)
+    data = np.round(rng.rand(frames, 24, 20) * 200).astype(dtype)
+    data[rng.rand(*data.shape) < 0.3] = nodata[dtype]
+    return R.MemorySource(data=data, no_data_value=nodata[dtype], projection="EPSG:28992",
+                          pixel_size=1.0, pixel_origin=(135000.0, 456000.0),
+                          time_first=datetime(2000, 3, 25), time_delta=timedelta(hours=1))
+
+
+SMALL = dict(mode="vals", bbox=(135000.0, 455976.0, 135020.0, 456000.0), projection="EPSG:28992",
+             width=20, height=24, start=datetime(2000, 3, 25), stop=datetime(2000, 3, 27))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("statistic", ["sum", "count", "min", "max", "mean", "median", "std",
+                                       "var", "p0", "p50", "p90", "p100"])
+def test_temporal_aggregate_on_card(dtype, statistic):
+    """Bitwise: the card's float64 square root is correctly rounded."""
+    device = _card()
+    view = R.TemporalAggregate(_hourly(dtype), "6h", statistic=statistic,
+                               timezone="Europe/Amsterdam")
+    expected = compute_host(*view.get_compute_graph(**SMALL))
+    actual = view.get_data(device=device, **SMALL)
+    assert actual["values"].dtype == expected["values"].dtype
+    np.testing.assert_array_equal(actual["values"], expected["values"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("make", [
+    lambda s: R.TemporalSum(s),
+    lambda s: R.Cumulative(s, statistic="sum", frequency="D", timezone="Europe/Amsterdam"),
+    lambda s: R.Cumulative(s, statistic="count", frequency="3h"),
+    lambda s: R.Cumulative(s, statistic="sum"),
+])
+def test_temporal_sum_and_cumulative_on_card(dtype, make):
+    device = _card()
+    view = make(_hourly(dtype))
+    expected = compute_host(*view.get_compute_graph(**SMALL))
+    actual = view.get_data(device=device, **SMALL)
+    assert actual["values"].dtype == expected["values"].dtype
+    np.testing.assert_array_equal(actual["values"], expected["values"])

@@ -11,8 +11,9 @@
 - ``compute_host`` equals the JAX package's numpy executor bitwise.
 
 The views are the headline view (bench.py), the stencils view
-(benchmarks/run.py) and a view holding every other ported block, at small
-sizes.
+(benchmarks/run.py), a view holding every other ported pixel-wise block,
+and three views holding the temporal blocks (chip_smoke.py's temporal
+paths), at small sizes.
 """
 import ast
 import dataclasses
@@ -28,7 +29,7 @@ import bench
 import chip_smoke
 from dask_geomodeling_tpu import config as jax_config
 from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_points
-from dask_geomodeling_tpu.raster import RasterizeWKT, Snap
+from dask_geomodeling_tpu.raster import RasterizeWKT, RasterTiler
 from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
@@ -103,6 +104,9 @@ def test_port_never_imports_jax():
             "for seed in (0, 45):",
             "    view, request = cs.fuzz_view(seed, sources)",
             "    view.get_data(device='cpu', **request)",
+            "paths, _ = cs.build_temporal_paths(mean_px=256, px=256)",
+            "for view, request, _, _ in paths.values():",
+            "    evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -208,7 +212,62 @@ def _algebra():
     return view, chip_smoke.vals_request(256)
 
 
-VIEWS = {"headline": _headline, "stencils": _stencils, "algebra": _algebra}
+def _hourly48(px=256):
+    """48 hourly frames across the switch to summer time in Amsterdam,
+    with 5% nodata: chip_smoke.py's temporal source at a small size."""
+    rng = np.random.RandomState(4)
+    data = (rng.rand(48, px, px) * 200).astype(np.float32)
+    data[np.random.default_rng(4).random((48, px, px), dtype=np.float32) < 0.05] = (
+        np.finfo(np.float32).max)
+    return JaxMemorySource(
+        data=data,
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(135000.0, 456000.0),
+        time_first=datetime.datetime(2000, 3, 25),
+        time_delta=datetime.timedelta(hours=1),
+    )
+
+
+def _temporal_request(px=256):
+    return dict(chip_smoke.vals_request(px), start=datetime.datetime(2000, 3, 25),
+                stop=datetime.datetime(2000, 3, 27))
+
+
+def _temporal():
+    """Snap, Cumulative, Resample and Shift: chip_smoke.py's
+    temporal-cumulative view."""
+    from dask_geomodeling_tpu import raster as R
+
+    source = _hourly48()
+    view = R.Snap(
+        R.Cumulative(R.Resample(R.Shift(source, 1800000), "2h", direction="backward"),
+                     statistic="sum", frequency="D", timezone="Europe/Amsterdam"),
+        R.Resample(source, "6h"),
+    )
+    return view, _temporal_request()
+
+
+def _aggregate():
+    """TemporalAggregate below MovingMax: chip_smoke.py's temporal-median
+    view (the percentiles, whose numpy process is slow, are held to it at
+    a smaller size in tests/test_torch_temporal.py)."""
+    from dask_geomodeling_tpu import raster as R
+
+    view = JaxMovingMax(R.TemporalAggregate(_hourly48(), "6h", statistic="median",
+                                            timezone="Europe/Amsterdam"), 3)
+    return view, _temporal_request()
+
+
+def _temporal_sum():
+    from dask_geomodeling_tpu import raster as R
+
+    return R.TemporalSum(R.Shift(_hourly48(), -3600000)), _temporal_request()
+
+
+VIEWS = {"headline": _headline, "stencils": _stencils, "algebra": _algebra,
+         "temporal": _temporal, "aggregate": _aggregate, "temporal-sum": _temporal_sum}
 
 
 @pytest.fixture(scope="module", params=sorted(VIEWS))
@@ -289,13 +348,20 @@ def test_chip_smoke_builds_the_reference_views():
     )
     jax_view = JaxHillShade(JaxSmooth(JaxMovingMax(jax_source, 3), 5))
     assert from_reference(jax_view.serialize()).token == chip_smoke.build_stencils_view(64)[1].token
+    from benchmarks.run import configs
+
+    (_, jax_view, request), = [c for c in configs(256) if c[0] == "temporal+zonal"]
+    paths, _ = chip_smoke.build_temporal_paths(mean_px=64, px=64, nodata_share=0.0)
+    view, port_request, _, _ = paths["temporal-mean"]
+    assert from_reference(jax_view.serialize()).token == view.token
+    assert port_request == request
 
 
 @pytest.mark.parametrize(
     "make, name",
     [
         (lambda source: RasterizeWKT("POINT (1 1)", "EPSG:28992"), "misc.RasterizeWKT"),  # module ported
-        (lambda source: Snap(source, source), "temporal.Snap"),  # module not
+        (lambda source: RasterTiler(source, 64), "parallelize.RasterTiler"),  # module not
     ],
 )
 def test_from_reference_names_what_is_not_ported(make, name):
@@ -316,6 +382,10 @@ PROCESSES = {
         "less", "less_equal", "log", "log10", "logical_and", "logical_or", "logical_xor",
         "multiply", "not_equal", "power", "process", "reduce_max", "subtract",
     ],
+    "temporal": ["_cumulative_process", "_resample_process", "_shift_process", "_snap_process",
+                 "process"],
+    "aggregate": ["_aggregate_process", "_moving_max_process", "process"],
+    "temporal-sum": ["_shift_process", "_temporal_sum_process", "process"],
 }
 
 
