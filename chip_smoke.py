@@ -19,9 +19,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    integer and float width, and with NaN in a plane; each kernel's static
    SASS opcode counts (cuobjdump) are printed after its build;
 4. headline path: the view of bench.py (8192^2 EPSG:28992 source) over a
-   10240^2 EPSG:3857 request in 512^2 tiles, batches of 64, through the
-   port's evaluate_tiled and get_data.  The Gaussian launches once per
-   batch (fused), no node runs on the host, a view with a node that has
+   10240^2 EPSG:3857 request in 512^2 tiles, batches of 64 (of tiles
+   whose Smooth sigma agrees), through the port's evaluate_tiled and
+   get_data.  The Gaussian launches once per batch (fused), no node runs
+   on the host, a view with a node that has
    no twin raises, a 64^2 corner equals compute_host bit for bit, and 16
    tiles spread over the request differ from it in at most 5e-4 of their
    cells;
@@ -47,12 +48,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sources with 5% nodata; and the 90th percentile on a 64^2 crop within
    rtol 1e-6, its differing cells counted.  A zone the system zone
    database lacks fails the run;
-8. the executor fuzz on the card: the 55 random trees of
+8. the tiled geometry paths (build_geometry_paths), with the checks of
+   6 and bitwise: rasterize-wkt (Clip of an 8192^2 source by RasterizeWKT
+   of a 600-vertex polygon with a hole, both static at 1970-01-01; the
+   parity twin timed over one batch) and rasterize (Add(Rasterize(256
+   parcels, "code"), 1) at 2048^2: a host node per tile, its results
+   stacked into the Add twin);
+9. zonal: the zonal half of benchmarks/run.py's temporal+zonal config
+   (build_zonal_views: 4096 star-shaped parcels and 16 smaller than a
+   cell over the temporal-mean view, MockGeometry's copy as the source):
+   AggregateRaster's mean, median, p90 and max, a coarsened sum, the
+   threshold variant's count and the mean requested in EPSG:3857, on the
+   card against compute_host (count, max, median and p90 bitwise, sum
+   and mean within one float32 ulp, the uncovered sets equal; the mean's
+   label planes bitwise to the host scanline's), seconds per request,
+   the phases of one run, the device plane's CUDA-event times, the idle
+   share and the peak memory;
+10. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
    Classify at and beside their thresholds, bitwise;
-9. timing, per path: median of 3 evaluate_tiled runs (Mpx/s), the numpy
-   host rate on the sampled tiles, one run's seconds per phase, one
+11. timing, per tiled path: median of 3 evaluate_tiled runs (Mpx/s), the
+   numpy host rate on the sampled tiles, one run's seconds per phase, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
    same function (CUDA events), and the least time the card could take;
@@ -349,6 +366,216 @@ def build_temporal_paths(mean_px=TEMPORAL_MEAN_PX, px=TEMPORAL_PX, nodata_share=
         "temporal-cumulative": (cumulative, request, "nearest", corner),
     }
     return paths, hourly48
+
+
+def mock_geometry_class():
+    """tests/factories.py:MockGeometry with the port's classes: an
+    in-memory geometry source that ignores the request's bbox and answers
+    in the requested projection.  A class of this module, so that its
+    import path resolves (graph keys hash it)."""
+    global MockGeometry
+    if "MockGeometry" in globals():
+        return MockGeometry
+    from dask_geomodeling_tpu_torch.geo import get_epsg_or_wkt, shapely_transform
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame, GeoSeries
+    from dask_geomodeling_tpu_torch.geo.geometry import Polygon
+    from dask_geomodeling_tpu_torch.geometry import GeometryBlock
+
+    class MockGeometry(GeometryBlock):
+        """An in-memory geometry source: all polygons, whatever the
+        request's bbox; the projection of the answer is the request's."""
+
+        def __init__(self, polygons, properties=None, projection="EPSG:3857"):
+            super().__init__(polygons, properties, projection)
+
+        @property
+        def polygons(self):
+            return self.args[0]
+
+        @property
+        def properties(self):
+            return self.args[1]
+
+        @property
+        def projection(self):
+            return self.args[2]
+
+        @property
+        def columns(self):
+            result = {"geometry"}
+            if self.properties:
+                result |= set(self.properties[0].keys())
+            result.discard("id")  # 'id' is reserved for the index
+            return result
+
+        def get_sources_and_requests(self, **request):
+            return [(self.polygons, None), (self.properties, None),
+                    (self.projection, None), (request, None)]
+
+        @staticmethod
+        def process(polygons, properties, projection, request):
+            if request.get("limit") is not None:
+                polygons = polygons[: request["limit"]]
+                if properties is not None:
+                    properties = properties[: request["limit"]]
+            mode = request.get("mode", "intersects")
+            geometries = [Polygon(x) for x in polygons]
+            if get_epsg_or_wkt(projection) != get_epsg_or_wkt(request["projection"]):
+                geometries = [shapely_transform(g, projection, request["projection"])
+                              for g in geometries]
+            geoseries = GeoSeries(geometries, crs=request["projection"])
+            if mode == "extent":
+                extent = tuple(geoseries.total_bounds) if len(geoseries) else None
+                return {"extent": extent, "projection": request["projection"]}
+            if len(geoseries) == 0:
+                return {"features": GeoDataFrame([]), "projection": request["projection"]}
+            if properties is not None:
+                df = GeoDataFrame.from_records(properties)
+                df = df.set_geometry(geoseries, crs=request["projection"])
+                if "id" in df.columns:
+                    df.set_index("id", inplace=True)
+            else:
+                df = GeoDataFrame(geometry=geoseries, crs=request["projection"])
+                df.index.name = "id"
+            if mode == "centroid":
+                df = df[df.geometry.centroid.within(request["geometry"])]
+            elif mode == "intersects":
+                df = df[df.geometry.intersects(request["geometry"])]
+            return {"features": df, "projection": request["projection"]}
+
+    MockGeometry.__module__ = __name__
+    MockGeometry.__qualname__ = "MockGeometry"
+    globals()["MockGeometry"] = MockGeometry
+    return MockGeometry
+
+
+# the zonal path: 4096 star-shaped parcels on a 64 x 64 grid of 48 m cells
+# (radii 20-30 m, so neighbours' bboxes touch or overlap and bucketize
+# makes several groups) and 16 smaller than a cell, centred on cell
+# corners (centroid sampling), inside the temporal-mean source
+PARCEL_GRID = 64
+PARCEL_CELL = 48.0
+PARCEL_ORIGIN = (137000.0, 454000.0)  # top-left corner, EPSG:28992
+SMALL_PARCELS = 16
+
+
+def make_parcels(grid=PARCEL_GRID, small=SMALL_PARCELS, seed=5):
+    """(polygons, properties): grid^2 star-shaped parcels of 8-64
+    vertices, then ``small`` parcels of radius 0.3 m around 1 m cell
+    corners; properties id, code (1-99) and threshold (float, 50-150)."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = PARCEL_ORIGIN
+    polygons = []
+    for j in range(grid):
+        for i in range(grid):
+            n = int(rng.integers(8, 65))
+            angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+            radii = rng.uniform(20.0, 30.0, n)
+            cx = x0 + PARCEL_CELL * (i + 0.5) + rng.uniform(-2, 2)
+            cy = y0 - PARCEL_CELL * (j + 0.5) + rng.uniform(-2, 2)
+            polygons.append([(float(cx + r * np.cos(t)), float(cy + r * np.sin(t)))
+                             for t, r in zip(angles, radii)])
+    for k in range(small):
+        cx = x0 + 100.0 + 150.0 * k
+        cy = y0 - 100.0 - 120.0 * k
+        polygons.append([(cx - 0.3, cy - 0.3), (cx + 0.3, cy - 0.3), (cx + 0.3, cy + 0.3),
+                         (cx - 0.3, cy + 0.3)])
+    properties = [{"id": k, "code": int(rng.integers(1, 100)),
+                   "threshold": float(rng.uniform(50.0, 150.0))} for k in range(len(polygons))]
+    return polygons, properties
+
+
+def zonal_request(grid=PARCEL_GRID, projection="EPSG:28992"):
+    """mode "intersects" over the parcels' box, 2000-01-01 to 2000-01-02."""
+    from dask_geomodeling_tpu_torch.geo import Extent
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+
+    x0, y0 = PARCEL_ORIGIN
+    bbox = (x0, y0 - PARCEL_CELL * grid, x0 + PARCEL_CELL * grid, y0)
+    bbox = Extent(bbox, "EPSG:28992").transformed(projection).bbox
+    return dict(mode="intersects", geometry=box(*bbox), projection=projection,
+                start=datetime(2000, 1, 1), stop=datetime(2000, 1, 2))
+
+
+def build_zonal_views(raster, grid=PARCEL_GRID, small=SMALL_PARCELS):
+    """The zonal half of benchmarks/run.py's temporal+zonal config:
+    {name: (view, request)} over the parcels and ``raster``: AggregateRaster
+    with mean, median, p90 and max; sum with a 2^22 pixel budget and auto
+    coarsening (the cell doubles); AggregateRasterAboveThreshold counting
+    cells at or above each parcel's threshold; and the mean requested in
+    EPSG:3857."""
+    from dask_geomodeling_tpu_torch.geometry import AggregateRaster, AggregateRasterAboveThreshold
+
+    polygons, properties = make_parcels(grid, small)
+    parcels = mock_geometry_class()(polygons, properties, projection="EPSG:28992")
+    request = zonal_request(grid)
+    views = {s: (AggregateRaster(parcels, raster, s), request)
+             for s in ("mean", "median", "p90", "max")}
+    views["sum"] = (AggregateRaster(parcels, raster, "sum", max_pixels=2**22,
+                                    auto_pixel_size=True), request)
+    views["count-above"] = (AggregateRasterAboveThreshold(
+        parcels, raster, "count", threshold_name="threshold"), request)
+    views["mean-3857"] = (views["mean"][0], zonal_request(grid, "EPSG:3857"))
+    return views
+
+
+def wkt_polygon(px, vertices=600, seed=6):
+    """A polygon of ``vertices`` vertices with one hole over a px^2 square
+    at the source's origin: a star (radius 0.25-0.45 px) around a point
+    0.3 px from the west edge, its edges crossing tile borders and the
+    request's west edge (so the westmost tiles, which chip_smoke samples,
+    hold its boundary), and a 100-vertex hole (radius 0.05-0.1 px) around
+    the same point."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = 135000.0, 456000.0
+    cx, cy = x0 + 0.3 * px, y0 - px / 2
+
+    def ring(n, lo, hi):
+        angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+        radii = rng.uniform(lo, hi, n) * px
+        points = ["%r %r" % (float(cx + r * np.cos(t)), float(cy + r * np.sin(t)))
+                  for t, r in zip(angles, radii)]
+        return "(" + ", ".join(points + points[:1]) + ")"
+
+    return "POLYGON (%s, %s)" % (ring(vertices - 100, 0.25, 0.45), ring(100, 0.05, 0.1))
+
+
+def build_geometry_paths(px=ALGEBRA_PX, rasterize_px=2048, parcels_grid=16):
+    """The tiled geometry paths, as build_algebra_paths gives them:
+
+    - rasterize-wkt: Clip(a, RasterizeWKT(polygon, "EPSG:28992")) with
+      wkt_polygon (600 vertices, one hole) at px^2.  RasterizeWKT is static
+      at 1970-01-01 (its period) and Clip keeps the frames the two share,
+      so a is make_source's source with its one frame at 1970-01-01 and
+      the request asks for that instant;
+    - rasterize: Add(Rasterize(parcels, column_name="code", dtype="int32"), 1)
+      over 256 parcels (a 16 x 16 grid) at rasterize_px^2, from the
+      parcels' top-left corner: a host node whose per-tile results are
+      stacked into the Add twin.
+    """
+    from dask_geomodeling_tpu_torch.geo import shapely_from_wkt
+    from dask_geomodeling_tpu_torch.raster import Add, Clip, Rasterize, RasterizeWKT
+
+    static = datetime(1970, 1, 1)
+    a = make_source(px, seed=0, time_first=static)
+    request = dict(vals_request(px), start=static, stop=None)
+    wkt = wkt_polygon(px)
+    hole_x, hole_y = (round(float(c)) for c in shapely_from_wkt(wkt).holes[0][0])
+    polygons, properties = make_parcels(parcels_grid, 0)
+    parcels = mock_geometry_class()(polygons, properties, projection="EPSG:28992")
+    x0, y0 = PARCEL_ORIGIN
+    size = PARCEL_CELL * parcels_grid
+    rasterize_request = dict(mode="vals", bbox=(x0, y0 - size, x0 + size, y0),
+                             projection="EPSG:28992", width=rasterize_px, height=rasterize_px,
+                             start=datetime(2000, 1, 1))
+    return {
+        # the crop is centred on a vertex of the hole: it holds the hole's
+        # boundary, data on one side and nodata on the other
+        "rasterize-wkt": (Clip(a, RasterizeWKT(wkt, "EPSG:28992")), request, "nearest",
+                          (hole_x - 32, hole_y + 32)),
+        "rasterize": (Add(Rasterize(parcels, column_name="code", dtype="int32"), 1),
+                      rasterize_request, "nearest", (x0, y0)),
+    }
 
 
 def fuzz_sources():
@@ -833,15 +1060,19 @@ def check_headline(device, source, view, request):
     from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
     from dask_geomodeling_tpu_torch.runtime.tiles import NotLowerable, tile_requests
 
     tiles, nx = tile_requests(request, TILE)
-    n_batches = -(-len(tiles) // BATCH)
     host_runs = executor.host_node_runs
     cuda_stencils.reset_launches()
+    before = tile_runtime.batches_run
     t0 = time.perf_counter()
     result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
     first_s = time.perf_counter() - t0
+    # batches of tiles whose plans agree (a cross-CRS Smooth's sigma
+    # differs between tile rows in its last digits)
+    n_batches = tile_runtime.batches_run - before
     launches = {"gaussian_blur": cuda_stencils.launches,
                 "gaussian_blur_fused": cuda_stencils.fused_launches,
                 "moving_max": cuda_stencils.moving_max_launches}
@@ -904,15 +1135,19 @@ def check_stencils(device, view, request):
     from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
     tiles, nx = tile_requests(request, TILE)
-    n_batches = -(-len(tiles) // BATCH)
     host_runs = executor.host_node_runs
     cuda_stencils.reset_launches()
+    before = tile_runtime.batches_run
     t0 = time.perf_counter()
     result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
     first_s = time.perf_counter() - t0
+    # batches of tiles whose plans agree (a cross-CRS Smooth's sigma
+    # differs between tile rows in its last digits)
+    n_batches = tile_runtime.batches_run - before
     launches = {"gaussian_blur": cuda_stencils.launches,
                 "gaussian_blur_fused": cuda_stencils.fused_launches,
                 "moving_max": cuda_stencils.moving_max_launches}
@@ -986,17 +1221,19 @@ def compare_cells(port, host, no_data_value):
     return int(np.count_nonzero(differ)), worst, fill_mismatch
 
 
-def check_algebra_path(label, device, view, request, interpolation, corner):
-    """One raster-algebra or temporal path at full size; returns host
-    Mpx/s.  Every node that returns pixels runs on the card (the time
-    subrequests of a Group or a temporal block, which return none, run
-    on the host while planning); a
+def check_algebra_path(label, device, view, request, interpolation, corner, host_nodes=0):
+    """One raster-algebra, temporal or tiled geometry path at full size;
+    returns host Mpx/s.  Every node that returns pixels runs on the card
+    but ``host_nodes`` per tile (Rasterize's, which has no twin): the time
+    subrequests of a Group or a temporal block, which return none, run on
+    the host while planning; a
     64^2 corner and 16 sampled tiles are held to compute_host: bitwise,
     or for the cross-CRS bilinear path within BILINEAR_ATOL with at most
     BILINEAR_FILL_SHARE of the cells nodata in one and data in the
     other."""
     from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
     from dask_geomodeling_tpu_torch.runtime import executor
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
     from dask_geomodeling_tpu_torch.runtime.tiles import TileProgram, tile_requests
 
     exact = interpolation == "nearest"
@@ -1005,17 +1242,22 @@ def check_algebra_path(label, device, view, request, interpolation, corner):
     with interpolation_set(interpolation):
         program = TileProgram(view, tiles[0], device)
         host_runs = executor.host_node_runs
+        batches = tile_runtime.batches_run
         t0 = time.perf_counter()
         result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
         first_s = time.perf_counter() - t0
+        batches = tile_runtime.batches_run - batches
         values = result["values"]
-        check(executor.host_node_runs == host_runs, "%s: a node ran on the host" % label)
+        check(executor.host_node_runs - host_runs == host_nodes * len(tiles),
+              "%s: a node ran on the host" % label)
+        host_runs = executor.host_node_runs
         check(values.shape[1:] == (px, px), "%s: output shape" % label)
         data_share = float((values != result["no_data_value"]).mean())
-        print("%s path: evaluate_tiled %s %s in %.2f s (first run); %d device nodes, %d host "
-              "nodes (time requests); data in %.4f of the cells"
-              % (label, values.shape, values.dtype, first_s, program.on_host.count(False),
-                 program.on_host.count(True), data_share))
+        print("%s path: evaluate_tiled %s %s in %.2f s (first run), %d tiles in %d batches; %d "
+              "device nodes, %d host nodes; data in %.4f of the cells"
+              % (label, values.shape, values.dtype, first_s, len(tiles), batches,
+                 program.on_host.count(False), program.on_host.count(True), data_share))
+        check(batches == -(-len(tiles) // BATCH), "%s: tiles split into more batches" % label)
         check(data_share > 0.01, "%s: output is all nodata" % label)
 
         routed = get_data(view, device=device, **request)
@@ -1024,8 +1266,10 @@ def check_algebra_path(label, device, view, request, interpolation, corner):
         cx, cy = corner
         crop = dict(request, width=64, height=64, bbox=(
             cx, cy - (y2 - y1) * 64 / px, cx + (x2 - x1) * 64 / px, cy))
+        host_runs = executor.host_node_runs
         card_crop = get_data(view, device=device, **crop)["values"]
-        check(executor.host_node_runs == host_runs, "%s: a node ran on the host" % label)
+        check(executor.host_node_runs - host_runs == host_nodes,
+              "%s: a node ran on the host" % label)
         crop_cells = compare_cells(card_crop, host_values(view, crop), result["no_data_value"])
 
         sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
@@ -1083,6 +1327,251 @@ def check_temporal_p90(device, source, request):
               host_s))
     check(np.allclose(card, host, rtol=1e-6, atol=0), "p90 crop beyond rtol 1e-6")
     return differing
+
+
+def agg_matrix(frame, column="agg"):
+    """A frame's aggregate column as a (features, frames) float64 array
+    (multiband cells are one list each)."""
+    cells = frame[column].tolist()
+    return np.array([np.asarray(c[0] if isinstance(c, list) else [c], np.float64)
+                     for c in cells]).reshape(len(cells), -1)
+
+
+#: zonal statistics held bitwise to compute_host; sum and mean accumulate
+#: in float64 with atomics on the card, so they stay within one float32
+#: ulp of the host's sequential sums after the rounding to float32
+ZONAL_EXACT = ("median", "p90", "max", "count-above")
+ZONAL_HOST_BUDGET_S = 90.0
+
+
+def compare_zonal(name, port, host):
+    """(cells differing, cells beyond one float32 ulp, cells): the port's
+    features against compute_host's, index and columns equal."""
+    p, h = port["features"], host["features"]
+    check(len(p) == len(h) and np.array_equal(p.index.values, h.index.values),
+          "zonal %s: features differ" % name)
+    check(sorted(p.columns) == sorted(h.columns), "zonal %s: columns differ" % name)
+    a, b = agg_matrix(p), agg_matrix(h)
+    differ = ~((a == b) | (np.isnan(a) & np.isnan(b)))
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32)).astype(np.float64)
+    beyond = differ & ~(np.abs(a - b) <= ulp)
+    return int(differ.sum()), int(beyond.sum()), a.size
+
+
+def _keep_on_device(data):
+    """A node that takes its input as the device tensor it is and hands
+    it to check_zonal (compute_torch drops the batch axis)."""
+    _kept.append(data)
+    return None
+
+
+_keep_on_device.torch_accepts_device_tensors = True
+_kept = []
+
+
+def zonal_phases(view, request, device):
+    """One zonal request split into its phases (synchronised): the host
+    planning and features, the raster run on the card, the host work of
+    the features (to_crs, bucketize), the label planes and the
+    statistics; returns (seconds per phase, label planes, covered, grid
+    shape, features, groups)."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host, compute_torch
+    from dask_geomodeling_tpu_torch.geo import parse_percentile_statistic
+    from dask_geomodeling_tpu_torch.geometry.aggregate import _device_labels, bucketize
+    from dask_geomodeling_tpu_torch.ops.segment import labeled_statistics
+
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(phase):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[phase] = seconds.get(phase, 0.0) + now - t0
+        t0 = now
+
+    graph, name = view.get_compute_graph(**request)
+    _, source_key, raster_key, plan = graph[name]
+    features = compute_host(graph, source_key)["features"]
+    lap("host planning and features")
+    graph = dict(graph, kept=(_keep_on_device, raster_key))
+    _kept.clear()
+    compute_torch(graph, "kept", device=device)
+    raster = _kept.pop()
+    values = raster["values"]
+    lap("raster run")
+    geometry = features.geometry
+    geometry.crs = plan["req_srs"]
+    agg_geometries = geometry.to_crs(plan["agg_srs"])
+    groups = bucketize(agg_geometries.bounds.values)
+    lap("host work (to_crs, bucketize)")
+    depth, height, width = values.shape
+    fill = int(np.iinfo(np.int32).max)
+    labels = _device_labels(agg_geometries, groups, plan["agg_bbox"], plan["agg_srs"],
+                            height, width, fill, values.device)
+    lap("label rasterization")
+    statistic, percentile = parse_percentile_statistic(plan["statistic"])
+    q = 50.0 if statistic == "median" or percentile is None else float(percentile)
+    _, covered = labeled_statistics(values, labels, fill, raster["no_data_value"], None,
+                                    len(agg_geometries), statistic, q)
+    lap("statistics")
+    return seconds, labels, covered.cpu().numpy(), values.shape, agg_geometries, groups, plan, raster
+
+
+def time_zonal_plane(labels, raster, geometries, groups, plan):
+    """CUDA-event ms of the zonal device plane at the path's shapes: the
+    label planes from the groups' edges, and the statistics of mean,
+    median and p90 over them."""
+    from dask_geomodeling_tpu_torch.geometry.aggregate import _device_labels
+    from dask_geomodeling_tpu_torch.ops.segment import labeled_statistics
+
+    values, nodata = raster["values"], raster["no_data_value"]
+    _, height, width = values.shape
+    fill = int(np.iinfo(np.int32).max)
+    n = len(geometries)
+    plane_ms = {"label planes": cuda_ms(lambda: _device_labels(
+        geometries, groups, plan["agg_bbox"], plan["agg_srs"], height, width, fill,
+        values.device), 3)}
+    for name, statistic, q in [("mean", "mean", 50.0), ("median", "median", 50.0),
+                               ("p90", "percentile", 90.0)]:
+        plane_ms["statistics " + name] = cuda_ms(lambda: labeled_statistics(
+            values, labels, fill, nodata, None, n, statistic, q), 5)
+    return plane_ms
+
+
+def time_rasterize_wkt(device, view, request):
+    """CUDA-event ms of RasterizeWKT's twin over the first batch of the
+    rasterize-wkt path's tiles (the Clip's second source)."""
+    import torch
+
+    from dask_geomodeling_tpu_torch.raster.misc import _rasterize_wkt_torch
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    wkt_view = view.args[1]
+    tiles, _ = tile_requests(request, TILE)
+    bbox = torch.tensor([t["bbox"] for t in tiles[:BATCH]], dtype=torch.float64, device=device)
+    data = {"wkt": wkt_view.wkt, "projection": wkt_view.projection}
+    return cuda_ms(lambda: _rasterize_wkt_torch(data, dict(tiles[0], bbox=bbox)), 5)
+
+
+def check_zonal(device, card, raster):
+    """The zonal phase: build_zonal_views over ``raster`` on the card,
+    each request against compute_host (count, max, median and p90
+    bitwise, sum and mean within one float32 ulp), the label planes of
+    the mean request bitwise to the host scanline's and its covered set
+    equal; seconds per request, the phases of one run, the device's busy
+    time and idle share and the peak memory.  Returns the numbers."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.geo import rasterize_geoseries
+    from dask_geomodeling_tpu_torch.runtime import executor
+
+    views = build_zonal_views(raster)
+    numbers = {}
+    port = {}
+    host_runs = executor.host_node_runs
+    for name, (view, request) in views.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        port[name] = view.get_data(device=device, **request)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        numbers[name] = dict(first_s=seconds, peak_gib=peak)
+        print("zonal %s: %d features on the card in %.3f s (first run), peak memory %.3f GiB"
+              % (name, len(port[name]["features"]), seconds, peak))
+    check(executor.host_node_runs == host_runs, "zonal: a node returning pixels ran on the host")
+
+    # the phases, the label planes and the covered set of the mean request
+    view, request = views["mean"]
+    phases, labels, covered, shape, geometries, groups, plan, raster = zonal_phases(
+        view, request, device)
+    depth, height, width = shape
+    t0 = time.perf_counter()
+    host_covered = np.zeros(len(geometries), bool)
+    differing_labels = 0
+    for plane, group in enumerate(groups):
+        burned = rasterize_geoseries(geometries.iloc[group], plan["agg_bbox"], plan["agg_srs"],
+                                     height, width, values=np.asarray(group, dtype=np.int32))
+        host_labels = burned["values"][0]
+        differing_labels += int(np.count_nonzero(labels[plane].cpu().numpy() != host_labels))
+        host_covered[np.unique(host_labels[host_labels != burned["no_data_value"]])] = True
+    label_host_s = time.perf_counter() - t0
+    print("zonal mean: grid %dx%d x %d frames (%.3f Mpx), %d groups; label planes: %d cells "
+          "differ from the host scanline's (host %.2f s); covered %d of %d features, "
+          "uncovered sets equal: %s"
+          % (width, height, depth, width * height / 1e6, len(groups), differing_labels,
+             label_host_s, int(covered.sum()), len(covered),
+             bool(np.array_equal(covered, host_covered))))
+    check(differing_labels == 0, "zonal: label planes differ from the host scanline's")
+    check(np.array_equal(covered, host_covered), "zonal: covered sets differ")
+    print("zonal mean: phases of one run (synchronised): %s"
+          % ", ".join("%s %.4f s" % kv for kv in phases.items()))
+    plane_ms = time_zonal_plane(labels, raster, geometries, groups, plan)
+    print("timing [%s] zonal device plane (CUDA events, %d planes of %dx%d, %d frames): %s"
+          % (card, len(groups), width, height, depth,
+             ", ".join("%s %.4f ms" % kv for kv in plane_ms.items())))
+    del raster, labels
+
+    # against compute_host: the whole request for mean and median, the
+    # others whole while the host's time allows, else over a sub-area
+    host_s = {}
+    spent = 0.0
+    for name in ["mean", "median", "p90", "max", "sum", "count-above", "mean-3857"]:
+        view, request = views[name]
+        sub = spent > ZONAL_HOST_BUDGET_S / 3 and name not in ("mean", "median")
+        if sub:
+            request = zonal_request(16, request["projection"])  # 16 x 16 cells, top left
+            port_result = view.get_data(device=device, **request)
+        else:
+            port_result = port[name]
+        t0 = time.perf_counter()
+        host = compute_host(*view.get_compute_graph(**request))
+        host_s[name] = time.perf_counter() - t0
+        spent += host_s[name]
+        differing, beyond, cells = compare_zonal(name, port_result, host)
+        exact = name in ZONAL_EXACT
+        print("zonal %s: %s%d features x frames: %d differ from compute_host, %d beyond one "
+              "float32 ulp (%s; host %.2f s)"
+              % (name, "sub-area of 16 x 16 cells, " if sub else "whole request, ", cells,
+                 differing, beyond, "bitwise" if exact else "within one float32 ulp",
+                 host_s[name]))
+        check(beyond == 0 and (differing == 0 or not exact),
+              "zonal %s differs from compute_host" % name)
+
+    # timing: median of 3 runs of mean and median, device busy time
+    for name in ("mean", "median"):
+        view, request = views[name]
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            view.get_data(device=device, **request)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        median_s = sorted(runs)[1]
+        profiled_s, busy_ms = device_busy_ms(lambda: view.get_data(device=device, **request))
+        idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
+        rate = width * height * depth / 1e6 / median_s
+        host_rate = width * height * depth / 1e6 / host_s[name]
+        numbers[name].update(runs_s=runs, s_per_request=median_s, mpx_frames_per_s=rate,
+                             host_s=host_s[name], host_mpx_frames_per_s=host_rate,
+                             device_busy_ms=busy_ms, idle_share=idle)
+        print("timing [%s] zonal %s: %.4f s per request (median of 3: %s), %.3f Mpx x frames/s; "
+              "compute_host %.3f s, %.3f Mpx x frames/s; profiled run %.4f s, device busy %s, "
+              "idle share %s"
+              % (card, name, median_s, ", ".join("%.4f" % r for r in runs), rate, host_s[name],
+                 host_rate, profiled_s,
+                 "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
+                 "not measured" if idle is None else "%.4f" % idle))
+    numbers["phases_s"] = phases
+    numbers["device_plane_ms"] = plane_ms
+    numbers["grid"] = [width, height, depth]
+    return numbers
 
 
 def check_fuzz(device):
@@ -1245,6 +1734,24 @@ def main():
           "temporal-median: the moving-max kernel did not launch")
     check_temporal_p90(device, hourly48, temporal["temporal-median"][1])
     mark("the temporal paths")
+    geometry = build_geometry_paths()
+    for label, (view, request, interpolation, corner) in geometry.items():
+        cuda_stencils.reset_launches()
+        algebra_host[label] = check_algebra_path(
+            label, device, view, request, interpolation, corner,
+            host_nodes=1 if label == "rasterize" else 0)
+        launches[label] = {"gaussian_blur": cuda_stencils.launches,
+                           "moving_max": cuda_stencils.moving_max_launches}
+    view, request, _, _ = geometry["rasterize-wkt"]
+    wkt_ms = time_rasterize_wkt(device, view, request)
+    print("timing [%s] rasterize-wkt: the parity twin over one batch of %d 512^2 tiles "
+          "(CUDA events): %.4f ms" % (card, BATCH, wkt_ms))
+    mark("the tiled geometry paths")
+    cuda_stencils.reset_launches()
+    zonal = check_zonal(device, card, temporal["temporal-mean"][0])
+    launches["zonal"] = {"gaussian_blur": cuda_stencils.launches,
+                         "moving_max": cuda_stencils.moving_max_launches}
+    mark("the zonal path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -1254,7 +1761,8 @@ def main():
         "headline": time_path("headline", card, headline_view, headline_req, device, headline_host),
         "stencils": time_path("stencils", card, stencils_view, stencils_req, device, stencils_host),
     }
-    for label, (view, request, interpolation, _) in list(algebra.items()) + list(temporal.items()):
+    for label, (view, request, interpolation, _) in (
+            list(algebra.items()) + list(temporal.items()) + list(geometry.items())):
         with interpolation_set(interpolation):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
@@ -1269,6 +1777,8 @@ def main():
                     or m == "pandas" or m.startswith("pandas."))
     check(not leaked, "modules of JAX, pandas or the JAX package were imported: %s" % leaked[:5])
     print("imports: no module of JAX, pandas or the JAX package was loaded")
+    timings["zonal"] = zonal
+    timings["rasterize-wkt"]["parity_twin_ms"] = wkt_ms
     print("paths: %s" % json.dumps(timings))
 
     def record(name, source, replaces, numbers, kernel):

@@ -28,6 +28,7 @@ __all__ = [
     "get_epsg_or_wkt",
     "transform_points",
     "transform_extent",
+    "get_transform_func",
 ]
 
 
@@ -360,6 +361,19 @@ def transform_points(x, y, src_srs, dst_srs):
         if not _same_datum(src, dst):
             lon, lat = _datum_shift(src, dst, lon, lat)
         return dst.projection.forward(lon, lat)
+
+
+@lru_cache(maxsize=100)
+def get_transform_func(src_srs, dst_srs):
+    """Cached point-transform callable ``f(x, y) -> (x, y)`` between two
+    CRSes of the subset."""
+    src = get_sr(src_srs)
+    dst = get_sr(dst_srs)
+
+    def func(x, y):
+        return transform_points(x, y, src, dst)
+
+    return func
 
 
 def transform_extent(bbox, src_srs, dst_srs):

@@ -32,6 +32,8 @@ from dask_geomodeling_tpu_torch.raster.misc import (  # noqa: F401
     Clip,
     Mask,
     MaskBelow,
+    Rasterize,
+    RasterizeWKT,
     Reclassify,
     Step,
 )

@@ -22,8 +22,12 @@ def get_data(view, *, device=None, **request):
     (``None``: ``geomodeling.torch-device``, the card by default).  A time
     or meta request holds no pixels: it runs the numpy processes on the
     host and resolves no device, so the blocks that ask their sources for
-    times while planning (the temporal ones) can do so on any machine."""
-    from dask_geomodeling_tpu_torch.runtime.executor import compute_torch
+    times while planning (the temporal ones) can do so on any machine.  A
+    tiled request whose tiles plan differently (``NotLowerable`` from
+    ``evaluate_tiled``) runs whole through ``compute_torch`` on the same
+    device, as the JAX package's ``get_data`` falls back to its staged
+    executor."""
+    from dask_geomodeling_tpu_torch.runtime.executor import NotLowerable, compute_torch
     from dask_geomodeling_tpu_torch.runtime.host import compute_metadata
     from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
 
@@ -33,7 +37,10 @@ def get_data(view, *, device=None, **request):
     width = request.get("width") or 0
     height = request.get("height") or 0
     if request.get("mode") == "vals" and max(width, height) > tile_size:
-        return evaluate_tiled(view, request, tile_size=tile_size, device=device)
+        try:
+            return evaluate_tiled(view, request, tile_size=tile_size, device=device)
+        except NotLowerable:
+            pass  # the whole request, on the same device
     return compute_torch(*view.get_compute_graph(**request), device=device)
 
 

@@ -1,8 +1,11 @@
-"""Clip, Mask, MaskBelow, Step, Classify and Reclassify: blocks, numpy
-processes and torch twins.
+"""Clip, Mask, MaskBelow, Step, Classify, Reclassify, Rasterize and
+RasterizeWKT: blocks, numpy processes and torch twins.
 
-Counterparts of dask_geomodeling_tpu/raster/misc.py (the pixel-wise
-blocks; Rasterize and RasterizeWKT are not ported).  The twins compare in
+Counterparts of dask_geomodeling_tpu/raster/misc.py.  RasterizeWKT's twin
+burns by crossing parity (ops/segment.py:rasterize_parity), bitwise to
+the numpy scanline; Rasterize has no twin, as in the JAX package: it is a
+host node, which the tile runtime runs per tile while planning and whose
+results it stacks into the twins that take them.  The twins compare in
 numpy's promoted dtypes (device.py:compare), so float64 thresholds stay
 float64 on the card.  ``torch.searchsorted`` wants
 the boundaries and the values in one dtype, so the twins cast both to
@@ -10,6 +13,8 @@ numpy's common type first, the type numpy's own searchsorted compares in:
 float32 values against float bins compare in float64, int64 values
 against int bins stay int64.
 """
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -23,15 +28,37 @@ from dask_geomodeling_tpu_torch.device import (
     torch_dtype,
 )
 from dask_geomodeling_tpu_torch.geo import (
+    Extent,
+    GeoSeries,
+    WKTReadingError,
     get_dtype_max,
     get_index,
     get_int_dtype,
+    get_sr,
     get_uint_dtype,
+    rasterize_geoseries,
+    shapely_from_wkt,
+    shapely_transform,
 )
+from dask_geomodeling_tpu_torch.geo.geometry import MultiPolygon, Point, Polygon, box
+from dask_geomodeling_tpu_torch.ops.segment import centres, polygon_edges, rasterize_parity
 from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock
 from dask_geomodeling_tpu_torch.registry import register
 
-__all__ = ["Clip", "Mask", "MaskBelow", "Step", "Classify", "Reclassify"]
+__all__ = [
+    "Clip",
+    "Mask",
+    "MaskBelow",
+    "Step",
+    "Classify",
+    "Reclassify",
+    "Rasterize",
+    "RasterizeWKT",
+]
+
+#: the features a Rasterize asks its source for, unless it sets a limit:
+#: the JAX package's default ``geomodeling.geometry-limit``
+GEOMETRY_LIMIT = 10000
 
 
 def _data_cells(frame):
@@ -493,3 +520,260 @@ register(_mask_below_process, _mask_below_torch)
 register(_step_process, _step_torch)
 register(_classify_process, _classify_torch)
 register(_reclassify_process, _reclassify_torch)
+
+
+class _GeometryRaster(RasterBlock):
+    """Base for rasters burned from vector data: static in time, with no
+    intrinsic grid, projection, or extent of their own."""
+
+    @property
+    def period(self):
+        return (self.DEFAULT_ORIGIN,) * 2
+
+    extent = None
+    timedelta = None
+    temporal = False
+    footprint = None
+    projection = None
+    geo_transform = None
+
+    @staticmethod
+    def _static_answer(mode, instant):
+        """The time/meta response of a single static frame."""
+        if mode == "time":
+            return {"time": [instant]}
+        return {"meta": [None]}
+
+
+class Rasterize(_GeometryRaster):
+    """Rasterize a GeometryBlock, burning values from ``column_name`` (or a
+    boolean presence raster when no column is given)."""
+
+    def __init__(self, source, column_name=None, dtype=None, limit=None):
+        from dask_geomodeling_tpu_torch.geometry.base import GeometryBlock
+
+        expect_instance(source, GeometryBlock, "source")
+        if column_name is not None:
+            expect_instance(column_name, str, "column_name")
+        if dtype is None:
+            dtype = "bool" if column_name is None else "int32"
+        else:
+            dtype = str(np.dtype(dtype))
+        if limit:
+            expect_instance(limit, int, "limit")
+        if limit and limit < 1:
+            raise ValueError("Limit should be greater than 1")
+        super().__init__(source, column_name, dtype, limit)
+
+    source = arg(0)
+    column_name = arg(1)
+    limit = arg(3)
+
+    @property
+    def dtype(self):
+        return np.dtype(self.args[2])
+
+    @property
+    def fillvalue(self):
+        return None if self.dtype == bool else get_dtype_max(self.dtype)
+
+    @staticmethod
+    def _cell_floor(bbox, width, height):
+        """The smallest cell edge of the target grid; None for points."""
+        x1, y1, x2, y2 = bbox
+        if x2 == x1 and y2 == y1:
+            return None
+        if not (x1 < x2 and y1 < y2):
+            raise ValueError("Invalid bbox ({})".format(bbox))
+        return min((x2 - x1) / width, (y2 - y1) / height)
+
+    def get_sources_and_requests(self, **request):
+        mode = request["mode"]
+        if mode in ("time", "meta"):
+            instant = self.period[-1] if mode == "time" else None
+            return [(instant, None), ({"mode": mode}, None)]
+        if mode != "vals":
+            raise ValueError("Unknown mode '{}'".format(mode))
+
+        width, height = request["width"], request["height"]
+        geom_request = {
+            "mode": "intersects",
+            "geometry": box(*request["bbox"]),
+            "projection": request["projection"],
+            "min_size": self._cell_floor(request["bbox"], width, height),
+            "limit": self.limit if self.limit is not None else GEOMETRY_LIMIT,
+            "start": request.get("start"),
+            "stop": request.get("stop"),
+        }
+        burn_kwargs = {
+            "mode": "vals",
+            "column_name": self.column_name,
+            "dtype": self.dtype,
+            "no_data_value": self.fillvalue,
+            "width": width,
+            "height": height,
+            "bbox": request["bbox"],
+        }
+        return [(self.source, geom_request), (burn_kwargs, None)]
+
+    @staticmethod
+    def _burn_values(features, column_name):
+        """The per-feature burn values, None (presence mask), or False
+        (missing column)."""
+        if column_name is None:
+            return None
+        if column_name in features:
+            return features[column_name]
+        if features.index.name == column_name:
+            return features.index.to_series()
+        return False
+
+    @staticmethod
+    def process(data, burn_kwargs):
+        mode = burn_kwargs["mode"]
+        if mode in ("time", "meta"):
+            return _GeometryRaster._static_answer(mode, data)
+
+        dtype = burn_kwargs["dtype"]
+        fill = burn_kwargs["no_data_value"]
+        shape = (1, burn_kwargs["height"], burn_kwargs["width"])
+        features = data["features"]
+        burn = Rasterize._burn_values(features, burn_kwargs["column_name"])
+        if len(features) == 0 or burn is False:
+            return {
+                "values": np.full(shape, fill, dtype=dtype),
+                "no_data_value": fill,
+            }
+
+        burned = rasterize_geoseries(
+            geoseries=features["geometry"] if "geometry" in features else None,
+            values=burn,
+            bbox=burn_kwargs["bbox"],
+            projection=data["projection"],
+            height=shape[1],
+            width=shape[2],
+        )
+        raw = burned["values"]
+        with np.errstate(over="ignore", under="ignore"):
+            values = raw.astype(dtype)
+        if burned["no_data_value"] != fill:
+            values[raw == burned["no_data_value"]] = fill
+        return {"values": values, "no_data_value": fill}
+
+
+class RasterizeWKT(_GeometryRaster):
+    """Rasterize a single WKT geometry into a boolean mask."""
+
+    def __init__(self, wkt, projection):
+        expect_instance(wkt, str, "wkt")
+        expect_instance(projection, str, "projection")
+        try:
+            shapely_from_wkt(wkt)
+        except WKTReadingError:
+            raise ValueError("The provided geometry is not a valid WKT")
+        try:
+            get_sr(projection)
+        except (TypeError, ValueError):
+            raise ValueError("The provided projection is not valid")
+        super().__init__(wkt, projection)
+
+    wkt = arg(0)
+    projection = arg(1)
+    dtype = np.dtype("bool")
+    fillvalue = None
+
+    @property
+    def extent(self):
+        return tuple(
+            shapely_transform(shapely_from_wkt(self.wkt), self.projection, "EPSG:4326").bounds
+        )
+
+    @property
+    def geometry(self):
+        geom = shapely_from_wkt(self.wkt)
+        geom.srs = self.projection
+        return geom
+
+    @property
+    def footprint(self):
+        """The geometry's box, as the port's footprints are."""
+        return Extent(shapely_from_wkt(self.wkt).bounds, self.projection)
+
+    def get_sources_and_requests(self, **request):
+        mode = request["mode"]
+        if mode not in ("time", "meta", "vals"):
+            raise ValueError("Unknown mode '{}'".format(mode))
+        if mode == "vals":
+            data = {"wkt": self.wkt, "projection": self.projection}
+        else:
+            data = self.period[-1] if mode == "time" else None
+        return [(data, None), (request, None)]
+
+    @staticmethod
+    def process(data, request):
+        mode = request["mode"]
+        if mode in ("time", "meta"):
+            return _GeometryRaster._static_answer(mode, data)
+
+        geometry = shapely_from_wkt(data["wkt"])
+        if data["projection"] != request["projection"]:
+            geometry = shapely_transform(geometry, data["projection"], request["projection"])
+
+        x1, y1, x2, y2 = request["bbox"]
+        probe = Point(x1, y1) if (x1 == x2 and y1 == y2) else box(x1, y1, x2, y2)
+        if not geometry.intersects(probe):
+            empty = np.full((1, request["height"], request["width"]), False, dtype=bool)
+            return {"values": empty, "no_data_value": None}
+
+        return rasterize_geoseries(
+            geoseries=GeoSeries([geometry]) if not geometry.is_empty else None,
+            bbox=request["bbox"],
+            projection=request["projection"],
+            height=request["height"],
+            width=request["width"],
+        )
+
+
+@lru_cache(maxsize=16)
+def _wkt_geometry(wkt, src, dst):
+    """The geometry of a WKT in ``dst``, parsed and transformed once."""
+    geometry = shapely_from_wkt(wkt)
+    return geometry if src == dst else shapely_transform(geometry, src, dst)
+
+
+def _rasterize_wkt_capable(data, request):
+    """Polygons and multipolygons over an area; a point request, another
+    geometry type or an empty one runs the numpy process on the host."""
+    if not isinstance(request, dict) or request.get("mode") != "vals":
+        return False
+    x1, y1, x2, y2 = request["bbox"]
+    if x1 == x2 or y1 == y2:
+        return False  # a point request
+    geometry = _wkt_geometry(data["wkt"], data["projection"], data["projection"])
+    return not geometry.is_empty and isinstance(geometry, (Polygon, MultiPolygon))
+
+
+def _rasterize_wkt_torch(data, request):
+    """RasterizeWKT's twin over B tiles: the host scanline's pixel centres
+    (``p + a * (i + 0.5)`` of GeoTransform.from_bbox) per tile from the
+    (B, 4) float64 bbox, and the parity of the crossings strictly right of
+    each centre (ops/segment.py:rasterize_parity)."""
+    bbox = request["bbox"]
+    device = bbox.device
+    width, height = request["width"], request["height"]
+    geometry = _wkt_geometry(data["wkt"], data["projection"], request["projection"])
+    starts, ends, _ = polygon_edges([geometry])
+    x1, y1, x2, y2 = bbox.unbind(1)
+    x_centres = centres(x1, (x2 - x1) / width, width, device)  # (B, w)
+    y_centres = centres(y2, (y1 - y2) / height, height, device)  # (B, h)
+    inside = rasterize_parity(
+        torch.as_tensor(starts, device=device),
+        torch.as_tensor(ends, device=device),
+        y_centres.reshape(-1),
+        x_centres.repeat_interleave(height, dim=0),
+    )
+    return {"values": inside.view(len(bbox), 1, height, width), "no_data_value": None}
+
+
+RasterizeWKT.process.torch_dynamic = {"bbox"}
+register(RasterizeWKT.process, _rasterize_wkt_torch, capable=_rasterize_wkt_capable)

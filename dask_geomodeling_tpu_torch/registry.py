@@ -11,6 +11,13 @@ process function's ``torch_dynamic`` attribute arrives as a tensor with a
 leading B axis (runtime/executor.py:batch_literals).  It returns the same
 structure the process function returns, with tensors in place of arrays.
 A twin may also name host work to do per tile before batching (``stage``).
+
+A process function without a twin may carry ``torch_accepts_device_tensors
+= True`` (AggregateRaster's, the counterpart of the JAX package's
+``jax_accepts_device_arrays``): ``compute_torch`` then hands it its device
+inputs as they are, with the batch axis of 1 dropped, and runs it on the
+host, where it reduces them on the device itself.  Any other process
+without a twin refuses a device input (``NotLowerable``).
 """
 
 __all__ = ["register", "twin_for", "is_capable", "stage"]

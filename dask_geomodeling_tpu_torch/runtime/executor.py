@@ -8,7 +8,10 @@ A node whose process function has a capable twin (registry.py) runs on
 the device.  A node without one runs its numpy process on the host only
 while all its inputs are still on the host, as file reads do in the JAX
 executor; one that would take a device result raises ``NotLowerable``, so
-device data never goes back to the host to be computed on.  A twin that
+device data never goes back to the host to be computed on.  The exception
+is a process that accepts device tensors (``torch_accepts_device_tensors``,
+AggregateRaster's): it gets its device inputs as they are and reduces
+them on the device.  A twin that
 fails raises: no request is quietly served from the host instead.
 
 Twins work batch-first (registry.py).  Here the batch is one request,
@@ -27,6 +30,7 @@ __all__ = [
     "compute_torch",
     "batch_literals",
     "stack_host_results",
+    "static_key",
     "NotLowerable",
     "host_node_runs",
 ]
@@ -143,10 +147,10 @@ def batch_literals(per_tile, dynamic, device):
     ``per_tile`` holds the literal as each tile's plan gives it.  Fields
     named in ``dynamic`` (the process function's ``torch_dynamic``) vary per
     tile: each is stacked into a tensor with a leading B axis, numbers as
-    float64 like the JAX executor's ``_dynamicize``.  Every other array (a
-    source payload) must be the same in every tile and becomes one shared
-    resident tensor; the remaining fields and bare literals (a block's
-    constants) are taken from the first tile.
+    float64 like the JAX executor's ``_dynamicize``.  Everything else must
+    be the same in every tile, or NotLowerable is raised: each array (a
+    source payload) becomes one shared resident tensor, and the remaining
+    fields and bare literals (a block's constants) are the first tile's.
     """
     first = per_tile[0]
     if isinstance(first, dict) and dynamic:
@@ -184,6 +188,53 @@ def _arrays_in(obj):
     return found
 
 
+#: arrays up to this many elements are keyed by their bytes in
+#: ``static_key``, larger ones (source payloads) by their identity
+_KEYED_BY_VALUE = 4096
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, np.ndarray):
+        if leaf.size <= _KEYED_BY_VALUE:
+            return ("array", leaf.dtype.str, leaf.shape, np.ascontiguousarray(leaf).tobytes())
+        return ("array", id(leaf))
+    if isinstance(leaf, (float, np.floating)) and np.isnan(leaf):
+        return ("nan", type(leaf))
+    try:
+        hash(leaf)
+    except TypeError:
+        return (type(leaf), repr(leaf))
+    return (type(leaf), leaf)
+
+
+def static_key(literal, dynamic, arrays=True):
+    """A hashable key of what ``batch_literals`` requires to be the same in
+    every tile: the literal but the fields ``dynamic`` names, its nesting
+    and each leaf (without arrays when ``arrays`` is False)."""
+    if isinstance(literal, dict) and dynamic:
+        literal = {
+            k: v for k, v in literal.items() if not (k in dynamic and _is_dynamic_value(v))
+        }
+    leaves = _leaves(literal)
+    if not arrays:
+        leaves = [leaf for leaf in leaves if not isinstance(leaf, np.ndarray)]
+    return _skeleton(literal), tuple(_leaf_key(leaf) for leaf in leaves)
+
+
+def _skeleton(obj):
+    """The nesting ``_map_structure`` walks: containers, keys and fields,
+    in its order, with None for each leaf."""
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((k, _skeleton(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__,) + tuple(_skeleton(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__qualname__,) + tuple(
+            (f.name, _skeleton(getattr(obj, f.name))) for f in dataclasses.fields(obj)
+        )
+    return None
+
+
 def _same_array(a, b):
     # payloads are the same ndarray object in every tile's plan: identity
     # first, so a large source is never compared element by element
@@ -192,16 +243,40 @@ def _same_array(a, b):
     )
 
 
+def _leaves(obj):
+    found = []
+    _map_structure(found.append, obj)
+    return found
+
+
+def _same_leaf(a, b):
+    """Whether two leaves of a literal are the same value: arrays element
+    by element, NaN equal to NaN."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and isinstance(b, np.ndarray) and _same_array(a, b)
+    if a is b:
+        return True
+    if type(a) is not type(b):
+        return False
+    try:
+        if bool(a == b):
+            return True
+    except (TypeError, ValueError):
+        return False
+    return isinstance(a, (float, np.floating)) and np.isnan(a) and np.isnan(b)
+
+
 def _shared_arrays(first, per_tile, device):
     """``first`` with each array replaced by its resident tensor, after
-    checking that every tile carries the same array there."""
-    arrays = _arrays_in(first)
+    checking that every tile carries the same literal: the same arrays and
+    the same other leaves."""
+    leaves = _leaves(first)
     for other in per_tile[1:]:
-        others = _arrays_in(other)
-        if len(others) != len(arrays) or not all(
-            _same_array(a, b) for a, b in zip(arrays, others)
+        others = _leaves(other)
+        if len(others) != len(leaves) or not all(
+            _same_leaf(a, b) for a, b in zip(leaves, others)
         ):
-            raise NotLowerable("a literal array varies from tile to tile")
+            raise NotLowerable("a literal varies from tile to tile")
     return _map_structure(
         lambda leaf: to_device(leaf, device) if isinstance(leaf, np.ndarray) else leaf,
         first,
@@ -230,6 +305,14 @@ def to_host(obj):
     return _map_structure(
         lambda leaf: leaf[0].cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf,
         obj,
+    )
+
+
+def without_batch(obj):
+    """A twin's batch-first result for one request, left on the device:
+    each tensor without its batch axis of 1."""
+    return _map_structure(
+        lambda leaf: leaf[0] if isinstance(leaf, torch.Tensor) else leaf, obj
     )
 
 
@@ -266,7 +349,8 @@ def compute_torch(graph, name, device=None):
         if registry.is_capable(func, literal_args(value, graph)):
             twin = registry.twin_for(func)
         if twin is None:
-            if any(dep in on_device for dep in deps[key]):
+            takes_tensors = getattr(func, "torch_accepts_device_tensors", False)
+            if not takes_tensors and any(dep in on_device for dep in deps[key]):
                 raise NotLowerable(
                     "node %s has no capable torch twin and takes a device result"
                     % key.split("_")[0]
@@ -274,7 +358,9 @@ def compute_torch(graph, name, device=None):
             cache[key] = run_on_host(
                 func,
                 [
-                    cache[arg] if isinstance(arg, str) and arg in graph else arg
+                    (without_batch(cache[arg]) if arg in on_device else cache[arg])
+                    if isinstance(arg, str) and arg in graph
+                    else arg
                     for arg in value[1:]
                 ],
             )

@@ -1,12 +1,14 @@
 """``compute_host``: the numpy ground truth of a compute graph, and
-``compute_metadata``, which answers time and meta requests.
+``compute_metadata``, which answers time, meta and extent requests.
 
 ``compute_host`` evaluates a port graph with the port's numpy process
 functions in topological order, on the host, as the JAX package's numpy
-executor does (its synchronous scheduler).  It is what chip_smoke.py and
-the card tests check the torch executors against; it is called
-explicitly and never reached from ``get_data``.  ``compute_metadata`` is
-the same walk for a time or meta request, which holds no pixels: it is
+executor does (its synchronous scheduler): raster graphs and geometry
+graphs alike (features, AggregateRaster's scipy.ndimage path).  It is
+what chip_smoke.py and the card tests check the torch executors against;
+it is called explicitly and never reached from ``get_data``.
+``compute_metadata`` is the same walk for a request that holds no pixels
+(a raster's time or meta request, a geometry's extent request): it is
 what ``get_data`` runs for one, with no device resolved, and it counts a
 node that did return pixels in ``executor.host_node_runs``.
 """
@@ -42,6 +44,6 @@ def compute_host(graph, name, run=_call):
 
 
 def compute_metadata(graph, name):
-    """A time or meta request's graph on the host, each node through
-    ``run_on_host``."""
+    """A time, meta or extent request's graph on the host, each node
+    through ``run_on_host``."""
     return compute_host(graph, name, run=run_on_host)

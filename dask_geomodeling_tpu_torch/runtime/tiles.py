@@ -6,10 +6,21 @@ squares at the request's cell size; B tiles run at once through the chain
 of twins over (B, bands, h, w) tensors.  Each tile is planned with
 ``get_compute_graph`` and staged (registry.py); the literals named by
 ``torch_dynamic`` (the bbox and the warp's coarse grid) are
-stacked per tile, every other literal comes from the batch's first tile,
-and the source payload stays resident on the device
-(runtime/executor.py:batch_literals).  The root's values are copied to
-the host as they are and assembled with the edge crop.
+stacked per tile, every other literal must be the same in every tile of
+the batch, and the source payload stays resident on the device
+(runtime/executor.py:batch_literals).  Every tile is planned first; tiles
+whose other literals differ (``TileProgram.static_key``) go to separate
+batches, so each tile runs with its own plan.  The root's values are
+copied to the host as they are and assembled with the edge crop; the
+last batch of a group runs at its own size.
+
+Every tile's plan is held to the template's: the same nodes with the
+same arguments in the same places, each device node capable of its
+tile's literals.  A tile that plans otherwise (a Place tile that no
+placement reaches plans its source as a time request) raises
+``NotLowerable``, and ``get_data`` then runs the whole request through
+``compute_torch`` on the same device.  An empty time window answers
+None, as the executors do.
 
 A node without a capable twin runs its numpy process on the host, per
 tile while planning, as long as all its inputs are host nodes too (the
@@ -43,15 +54,40 @@ from dask_geomodeling_tpu_torch.runtime.executor import (
     literal_args,
     run_on_host,
     stack_host_results,
+    static_key,
 )
 
-__all__ = ["evaluate_tiled", "tile_requests", "TileProgram", "NotLowerable"]
+__all__ = ["evaluate_tiled", "tile_requests", "TileProgram", "NotLowerable", "batches_run"]
+
+#: batches run by evaluate_tiled since import
+batches_run = 0
 
 
 def _plan(view, request):
     """A tile's compute graph and its keys in topological order."""
     graph, name = view.get_compute_graph(**request)
     return graph, _toposort(*_reachable(graph, name))
+
+
+def _literal_kind(arg):
+    """What a plan's structure holds of a literal: its type, and a dict's
+    keys (the values are batch_literals' to compare)."""
+    if isinstance(arg, dict):
+        return dict, tuple(sorted(arg, key=repr))
+    return type(arg)
+
+
+def _structure(graph, order):
+    """Each node's process function and, per argument, the position of
+    the node it names or the kind of its literal."""
+    position = {key: i for i, key in enumerate(order)}
+    return [
+        (graph[key][0],) + tuple(
+            ("node", position[a]) if isinstance(a, str) and a in graph else _literal_kind(a)
+            for a in graph[key][1:]
+        )
+        for key in order
+    ]
 
 
 class TileProgram:
@@ -93,17 +129,30 @@ class TileProgram:
             None if host else registry.twin_for(func)
             for func, host in zip(self.funcs, self.on_host)
         ]
+        self.structure = _structure(graph, order)
+        # host nodes whose results are stacked into a twin's input
+        self.feeds_twin = [False] * len(order)
+        for spec, host in zip(self.args, self.on_host):
+            for kind, ref in spec:
+                if kind == "node" and not host:
+                    self.feeds_twin[ref] = True
 
     def plan(self, view, request):
         """One tile's plan: each device node's args, staged, and each host
-        node's result, in program order (None where the other applies)."""
+        node's result, in program order (None where the other applies).
+        Raises NotLowerable when the tile plans otherwise than the
+        template or a device node's twin cannot serve its literals."""
         graph, order = _plan(view, request)
-        if [graph[key][0] for key in order] != self.funcs:
+        if _structure(graph, order) != self.structure:
             raise NotLowerable("tile plans differ in structure")
         position = {key: i for i, key in enumerate(order)}
         staged, host_results = [], []
         for key, host in zip(order, self.on_host):
             func, *args = graph[key]
+            if not host and not registry.is_capable(func, literal_args(graph[key], graph)):
+                raise NotLowerable(
+                    "node %s has no capable torch twin in every tile" % key.split("_")[0]
+                )
             if host:
                 host_results.append(run_on_host(func, [
                     host_results[position[a]] if isinstance(a, str) and a in graph else a
@@ -115,9 +164,29 @@ class TileProgram:
                 staged.append(registry.stage(func, args))
         return staged, host_results
 
+    def static_key(self, plan):
+        """What must be the same in every tile of a batch, as one hashable
+        key: each device node's literals but the fields its twin takes per
+        tile, and the leaves but the arrays of each host result that a
+        twin takes (stack_host_results takes them from the first tile)."""
+        staged, host_results = plan
+        key = []
+        for i, (func, host) in enumerate(zip(self.funcs, self.on_host)):
+            if host:
+                if self.feeds_twin[i]:
+                    key.append(static_key(host_results[i], None, arrays=False))
+            else:
+                dynamic = getattr(func, "torch_dynamic", None)
+                key.append(tuple(
+                    static_key(staged[i][ref], dynamic)
+                    for kind, ref in self.args[i] if kind == "literal"
+                ))
+        return tuple(key)
+
     def run(self, plans):
         """Run B planned tiles; returns the root's (B, bands, h, w) values,
-        on the device."""
+        on the device, or None where the root answers None (an empty time
+        window)."""
         results = [None] * len(self.funcs)
         left = list(self.consumers)
         for i, (func, twin, spec) in enumerate(zip(self.funcs, self.twins, self.args)):
@@ -138,7 +207,7 @@ class TileProgram:
             for kind, ref in spec:
                 if kind == "node" and left[ref] == 0:
                     results[ref] = None  # release after the last consumer
-        return results[-1]["values"]
+        return None if results[-1] is None else results[-1]["values"]
 
 
 def tile_requests(request, tile_size):
@@ -190,7 +259,9 @@ def evaluate_tiled(
 
     ``batch`` defaults to ``geomodeling.tile-batch``.  Edge tiles extend
     past the request (out-of-extent pixels come back as fill) and are
-    cropped on assembly, as in the JAX package.  Given a dict as
+    cropped on assembly, as in the JAX package.  Returns None when every
+    tile answers None (an empty time window); raises NotLowerable when
+    some do and others do not.  Given a dict as
     ``phase_seconds``, the run adds its seconds in "plan" (the program and
     each tile's plan), "run" (the twins, to the device's end), "fetch"
     (the copy to the host) and "assemble" to it; it then
@@ -207,26 +278,39 @@ def evaluate_tiled(
         raise ValueError("width/height must be positive")
     requests, nx = tile_requests(request, tile_size)
 
+    global batches_run
     clock = _PhaseClock(phase_seconds, device)
     program = TileProgram(view, requests[0], device)
+    plans = [program.plan(view, r) for r in requests]
+    # tiles whose static literals agree share batches (a cross-CRS Smooth's
+    # sigma differs from tile row to tile row in its last digits); within
+    # a group, batches of ``batch`` tiles, the last at its own size
+    groups = {}
+    for index, plan in enumerate(plans):
+        groups.setdefault(program.static_key(plan), []).append(index)
+    batches = [
+        members[lo : lo + batch]
+        for members in groups.values()
+        for lo in range(0, len(members), batch)
+    ]
+    clock.lap("plan")
     out = None
-    for lo in range(0, len(requests), batch):
-        plans = [program.plan(view, r) for r in requests[lo : lo + batch]]
-        if lo and len(plans) < batch:
-            # pad the last batch to the full size, as the JAX package does
-            plans = plans + [plans[-1]] * (batch - len(plans))
-        clock.lap("plan")
-        device_result = program.run(plans)
+    empty = 0  # batches whose root answered None
+    for indices in batches:
+        device_result = program.run([plans[k] for k in indices])
+        for k in indices:
+            plans[k] = None  # release the tile's host results
+        batches_run += 1
         clock.lap("run")
+        if device_result is None:
+            empty += 1
+            continue
         result = device_result.cpu().numpy()
         clock.lap("fetch")
         if out is None:
             out = np.empty((result.shape[1], height, width), result.dtype)
-        for offset, tile_result in enumerate(result):
-            idx = lo + offset
-            if idx >= len(requests):
-                break  # padding of the last batch
-            j, i = divmod(idx, nx)
+        for index, tile_result in zip(indices, result):
+            j, i = divmod(index, nx)
             # the valid part of an edge tile; world y grows upward while
             # rows run downward, so the valid rows are the tile's bottom vh
             vw = min(tile_size, width - i * tile_size)
@@ -237,4 +321,8 @@ def evaluate_tiled(
                 :, tile_size - vh :, :vw
             ]
         clock.lap("assemble")
+    if empty:
+        if out is not None:
+            raise NotLowerable("some tiles answer None and others do not")
+        return None
     return {"values": out, "no_data_value": view.fillvalue}

@@ -12,8 +12,10 @@
 
 The views are the headline view (bench.py), the stencils view
 (benchmarks/run.py), a view holding every other ported pixel-wise block,
-and three views holding the temporal blocks (chip_smoke.py's temporal
-paths), at small sizes.
+three views holding the temporal blocks (chip_smoke.py's temporal
+paths), RasterizeWKT below a Clip and Rasterize of a GeometryWKTSource,
+at small sizes; AggregateRaster over a GeometryWKTSource is held to the
+same plan, processes and numpy executor on a zonal request.
 """
 import ast
 import dataclasses
@@ -29,7 +31,10 @@ import bench
 import chip_smoke
 from dask_geomodeling_tpu import config as jax_config
 from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_points
-from dask_geomodeling_tpu.raster import RasterizeWKT, RasterTiler
+from dask_geomodeling_tpu.geometry import GeometryWKTSource as JaxGeometryWKTSource
+from dask_geomodeling_tpu.geometry.parallelize import GeometryTiler
+from dask_geomodeling_tpu.geometry.sources import GeometryFileSource
+from dask_geomodeling_tpu.raster import RasterTiler
 from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
@@ -107,6 +112,13 @@ def test_port_never_imports_jax():
             "paths, _ = cs.build_temporal_paths(mean_px=256, px=256)",
             "for view, request, _, _ in paths.values():",
             "    evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
+            "mean = paths['temporal-mean'][0]",
+            "geometry = cs.build_geometry_paths(px=256, rasterize_px=256, parcels_grid=2)",
+            "for view, request, _, _ in geometry.values():",
+            "    evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
+            "cs.PARCEL_ORIGIN = (135010.0, 455990.0)",
+            "for view, request in cs.build_zonal_views(mean, grid=3, small=1).values():",
+            "    assert len(view.get_data(device='cpu', **request)['features']) == 10",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -266,8 +278,41 @@ def _temporal_sum():
     return R.TemporalSum(R.Shift(_hourly48(), -3600000)), _temporal_request()
 
 
+#: a polygon with a hole and a second part, over chip_smoke's 256^2
+#: requests at (135000, 456000)
+MULTIPOLYGON = (
+    "MULTIPOLYGON (((135010.5 455990.5, 135200 455980, 135180 455800.25, 135020 455810, "
+    "135010.5 455990.5), (135050 455950, 135100 455950, 135100 455900, 135050 455950)), "
+    "((135210 455790, 135250 455790, 135250 455750, 135210 455790)))"
+)
+
+
+def _rasterize_wkt():
+    """Clip(source, RasterizeWKT): both static at 1970-01-01."""
+    from dask_geomodeling_tpu import raster as R
+
+    source = JaxMemorySource(
+        data=(np.random.RandomState(5).rand(1, 256, 256) * 200).astype(np.float32),
+        no_data_value=float(np.finfo(np.float32).max),
+        projection="EPSG:28992",
+        pixel_size=1.0,
+        pixel_origin=(135000.0, 456000.0),
+        time_first=datetime.datetime(1970, 1, 1),
+    )
+    view = R.Clip(source, R.RasterizeWKT(MULTIPOLYGON, "EPSG:28992"))
+    return view, dict(chip_smoke.vals_request(256), start=datetime.datetime(1970, 1, 1), stop=None)
+
+
+def _rasterize():
+    from dask_geomodeling_tpu import raster as R
+
+    view = R.Add(R.Rasterize(JaxGeometryWKTSource(MULTIPOLYGON, "EPSG:28992")), 1)
+    return view, dict(chip_smoke.vals_request(256), start=datetime.datetime(1970, 1, 1), stop=None)
+
+
 VIEWS = {"headline": _headline, "stencils": _stencils, "algebra": _algebra,
-         "temporal": _temporal, "aggregate": _aggregate, "temporal-sum": _temporal_sum}
+         "temporal": _temporal, "aggregate": _aggregate, "temporal-sum": _temporal_sum,
+         "rasterize-wkt": _rasterize_wkt, "rasterize": _rasterize}
 
 
 @pytest.fixture(scope="module", params=sorted(VIEWS))
@@ -292,7 +337,17 @@ def _jax_plan(view, request):
 
 
 def _assert_same(port, ref, where):
-    if dataclasses.is_dataclass(ref):
+    if hasattr(ref, "wkt") and hasattr(ref, "bounds"):  # a geometry
+        assert type(port).__name__ == type(ref).__name__ and port.wkt == ref.wkt, where
+    elif hasattr(ref, "geometry") and hasattr(ref, "columns"):  # a feature frame
+        assert sorted(port.columns) == sorted(ref.columns), where
+        np.testing.assert_array_equal(port.index.values, ref.index.values)
+        for column in ref.columns:
+            if column == "geometry":
+                assert [g.wkt for g in port[column]] == [g.wkt for g in ref[column]], where
+            else:
+                assert repr(port[column].tolist()) == repr(ref[column].tolist()), where
+    elif dataclasses.is_dataclass(ref):
         assert type(port).__name__ == type(ref).__name__, where
         for field in dataclasses.fields(ref):
             _assert_same(getattr(port, field.name), getattr(ref, field.name), where + "." + field.name)
@@ -360,8 +415,11 @@ def test_chip_smoke_builds_the_reference_views():
 @pytest.mark.parametrize(
     "make, name",
     [
-        (lambda source: RasterizeWKT("POINT (1 1)", "EPSG:28992"), "misc.RasterizeWKT"),  # module ported
+        (lambda source: GeometryFileSource("/nonexistent/parcels.gpkg"),
+         "sources.GeometryFileSource"),  # module ported
         (lambda source: RasterTiler(source, 64), "parallelize.RasterTiler"),  # module not
+        (lambda source: GeometryTiler(JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), 10.0,
+                                      "EPSG:28992"), "parallelize.GeometryTiler"),  # module not
     ],
 )
 def test_from_reference_names_what_is_not_ported(make, name):
@@ -386,6 +444,8 @@ PROCESSES = {
                  "process"],
     "aggregate": ["_aggregate_process", "_moving_max_process", "process"],
     "temporal-sum": ["_shift_process", "_temporal_sum_process", "process"],
+    "rasterize-wkt": ["_clip_process", "process"],
+    "rasterize": ["add", "process"],
 }
 
 
@@ -403,7 +463,7 @@ def test_copied_processes_bitwise(views):
     for tile in tiles:
         jax_graph, jax_order = _jax_plan(jax_view, tile)
         graph, order = _plan(_reachable, _toposort, view, tile)
-        results = {}
+        results, port_results = {}, {}
         for key, jax_key in zip(order, jax_order):
             jax_node = jax_graph[jax_key]
             inputs = [
@@ -412,20 +472,33 @@ def test_copied_processes_bitwise(views):
             ]
             expected = jax_node[0](*[_copy(a) for a in inputs])
             # the port's own literals (its source plan holds its RasterData)
+            # and, for features, the port's own frames
             port_inputs = [
-                inp if isinstance(a, str) and a in jax_graph else port_arg
+                port_results[a] if isinstance(a, str) and a in port_results
+                else inp if isinstance(a, str) and a in jax_graph else port_arg
                 for a, inp, port_arg in zip(jax_node[1:], inputs, graph[key][1:])
             ]
             actual = graph[key][0](*[_copy(a) for a in port_inputs])
-            if "values" in expected:
-                assert actual["no_data_value"] == expected["no_data_value"]
-                assert actual["values"].dtype == expected["values"].dtype
-                np.testing.assert_array_equal(actual["values"], expected["values"])
-            else:  # the time answers of a Group's time subrequests
-                assert actual == expected
+            _assert_result(actual, expected, name)
             results[jax_key] = expected
+            if isinstance(expected, dict) and "features" in expected:
+                port_results[jax_key] = actual
             seen.append(graph[key][0].__name__)
     assert sorted(set(seen)) == sorted(PROCESSES[name])
+
+
+def _assert_result(actual, expected, where):
+    """A process's answer equal to the JAX process's: pixels bitwise,
+    features by _assert_same, time answers equal."""
+    if isinstance(expected, dict) and "values" in expected:
+        assert actual["no_data_value"] == expected["no_data_value"]
+        assert actual["values"].dtype == expected["values"].dtype
+        np.testing.assert_array_equal(actual["values"], expected["values"])
+    elif isinstance(expected, dict) and "features" in expected:
+        assert actual["projection"] == expected["projection"]
+        _assert_same(actual["features"], expected["features"], where)
+    else:  # the time answers of a Group's time subrequests
+        assert actual == expected
 
 
 def test_compute_host_equals_the_numpy_executor(views):
@@ -437,3 +510,60 @@ def test_compute_host_equals_the_numpy_executor(views):
         assert actual["no_data_value"] == expected["no_data_value"]
         assert actual["values"].dtype == expected["values"].dtype
         np.testing.assert_array_equal(actual["values"], expected["values"])
+
+
+def _zonal_views(statistic):
+    """AggregateRaster of a GeometryWKTSource over a 3-frame float32
+    source with nodata and NaN, and a zonal request over it."""
+    from dask_geomodeling_tpu.geo.geometry import box
+    from dask_geomodeling_tpu.geometry import AggregateRaster
+
+    rng = np.random.RandomState(6)
+    data = (rng.rand(3, 256, 256) * 200).astype(np.float32)
+    data[rng.rand(3, 256, 256) < 0.05] = np.nan
+    data[rng.rand(3, 256, 256) < 0.05] = np.finfo(np.float32).max
+    source = JaxMemorySource(data=data, no_data_value=float(np.finfo(np.float32).max),
+                             projection="EPSG:28992", pixel_size=1.0,
+                             pixel_origin=(135000.0, 456000.0),
+                             time_first=datetime.datetime(2000, 1, 1),
+                             time_delta=datetime.timedelta(hours=1))
+    jax_view = AggregateRaster(JaxGeometryWKTSource(MULTIPOLYGON, "EPSG:28992"), source, statistic)
+    request = dict(mode="intersects", geometry=box(135000, 455744, 135256, 456000),
+                   projection="EPSG:28992", start=datetime.datetime(2000, 1, 1),
+                   stop=datetime.datetime(2000, 1, 1, 2))
+    return jax_view, from_reference(jax_view.serialize()), request
+
+
+@pytest.mark.parametrize("statistic", ["mean", "median", "p90"])
+def test_zonal_plans_and_processes(statistic):
+    """AggregateRaster carried across: the same plan (its pre-flight
+    extent request answered on the host), each process equal on the JAX
+    package's inputs, compute_host and the device plane equal to the
+    numpy executor."""
+    from dask_geomodeling_tpu_torch.geo import geometry as port_geometry
+
+    jax_view, view, request = _zonal_views(statistic)
+    port_request = dict(request, geometry=port_geometry.from_wkt(request["geometry"].wkt))
+    with jax_config.set({"geomodeling.executor": "numpy"}):
+        jax_graph, jax_order = _plan(jax_reachable, jax_toposort, jax_view, request)
+        expected = jax_view.get_data(**request)
+    graph, order = _plan(_reachable, _toposort, view, port_request)
+    assert [graph[k][0].__name__ for k in order] == [jax_graph[k][0].__name__ for k in jax_order]
+    results, port_results = {}, {}
+    for key, jax_key in zip(order, jax_order):
+        jax_node, node = jax_graph[jax_key], graph[key]
+        for arg, jax_arg in zip(node[1:], jax_node[1:]):
+            if not (isinstance(jax_arg, str) and jax_arg in jax_graph):
+                _assert_same(arg, jax_arg, node[0].__name__)
+        inputs = [results[a] if isinstance(a, str) and a in jax_graph else a for a in jax_node[1:]]
+        results[jax_key] = jax_node[0](*[_copy(a) for a in inputs])
+        port_inputs = [
+            port_results[a] if isinstance(a, str) and a in port_results
+            else inp if isinstance(a, str) and a in jax_graph else port_arg
+            for a, inp, port_arg in zip(jax_node[1:], inputs, node[1:])
+        ]
+        port_results[jax_key] = node[0](*[_copy(a) for a in port_inputs])
+        _assert_result(port_results[jax_key], results[jax_key], node[0].__name__)
+    for actual in (compute_host(*view.get_compute_graph(**port_request)),
+                   view.get_data(device="cpu", **port_request)):
+        _assert_result(actual, expected, statistic)
