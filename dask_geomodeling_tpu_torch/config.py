@@ -1,7 +1,8 @@
 """The port's configuration: a thread-safe key/value store.
 
 Counterpart of dask_geomodeling_tpu/config.py (``Config``), holding only
-the keys the port reads.  There is no executor switch: the port always
+the keys the port reads, with the JAX package's defaults where it has the
+key.  There is no executor switch: the port always
 runs its torch twins, on the device ``geomodeling.torch-device`` names
 unless the caller passes one.
 
@@ -27,6 +28,18 @@ defaults = {
     # warp resampling of the sources: "nearest" (GDAL's
     # GRA_NearestNeighbour, the reference's choice) or "bilinear"
     "geomodeling.warp-interpolation": "nearest",
+    # the file sandbox (geo/safefiles.py): relative paths resolve against
+    # the root; with strict paths, a path must stay inside it
+    "geomodeling.root": "/",
+    "geomodeling.strict-file-paths": False,
+    # GeoTIFFs and VRTs above this pixel count are read window by window
+    # (only the blocks a request touches decode); smaller files decode
+    # whole into the read cache (runtime/pipeline.py)
+    "geomodeling.windowed-read-limit": 64 * (1024**2),
+    # requests at 2x or more coarser resolution read the best overview
+    # level of a pyramided GeoTIFF (off: the reference reads full
+    # resolution)
+    "geomodeling.use-overviews": False,
 }
 
 _MISSING = object()

@@ -12,9 +12,12 @@ ground truth both rest on them):
   Helmert shift to WGS84 (EPSG transformation 15934) through geocentric
   coordinates.
 
+Each writes and reads the WKT the JAX package's ``ExportToWkt`` gives for
+it (a GeoTIFF's PAM sidecar and a VRT carry one); a WKT is read by the
+EPSG authority that closes it, the JAX package's shortcut for such text.
 Any other CRS raises NotImplementedError naming it.  The JAX package's
-other projection families, its WKT/proj4 parsing and its NTv2 grid shifts
-are not ported.
+other projection families, its general WKT/proj4 parsing and its NTv2
+grid shifts are not ported.
 """
 import re
 from functools import lru_cache
@@ -257,6 +260,10 @@ class SpatialReference:
     def IsGeographic(self):
         return self.is_geographic
 
+    def ExportToWkt(self):
+        """The JAX package's WKT of this CRS."""
+        return _WKT[self.code]
+
     def __repr__(self):
         return "<SpatialReference EPSG:{} {}>".format(self.code, self.name)
 
@@ -296,11 +303,30 @@ def _registry_get(code):
 
 
 _EPSG_RE = re.compile(r"^(?:EPSG|epsg):(\d+)$")
+#: the EPSG authority closing a WKT text
+_WKT_AUTH_RE = re.compile(r'AUTHORITY\[\"EPSG\",\s*\"?(\d+)\"?\]\s*\]\s*$')
+
+#: dask_geomodeling_tpu.geo.crs's ExportToWkt() of each CRS of the subset
+_WKT = {
+    4326: 'GEOGCS["WGS 84",DATUM["WGS84",SPHEROID["WGS84",6378137.0,298.257223563]],'
+    'PRIMEM["Greenwich",0],UNIT["degree",0.0174532925199433],AUTHORITY["EPSG","4326"]]',
+    3857: 'PROJCS["WGS 84 / Pseudo-Mercator",GEOGCS["WGS84",DATUM["WGS84",SPHEROID['
+    '"WGS84",6378137.0,298.257223563]],PRIMEM["Greenwich",0],UNIT["degree",'
+    '0.0174532925199433]],UNIT["metre",1],AUTHORITY["EPSG","3857"]]',
+    28992: 'PROJCS["Amersfoort / RD New",GEOGCS["Amersfoort",DATUM["Amersfoort",SPHEROID['
+    '"Amersfoort",6377397.155,299.1528128],TOWGS84[565.417,50.3319,465.552,-0.398957,'
+    '0.343988,-1.8774,4.0725]],PRIMEM["Greenwich",0],UNIT["degree",0.0174532925199433]],'
+    'PROJECTION["Oblique_Stereographic"],PARAMETER["latitude_of_origin",52.156160555555552],'
+    'PARAMETER["central_meridian",5.3876388888888895],PARAMETER["scale_factor",'
+    '0.99990789999999996],PARAMETER["false_easting",155000],PARAMETER["false_northing",'
+    '463000],UNIT["metre",1],AUTHORITY["EPSG","28992"]]',
+}
 
 
 @lru_cache(maxsize=32)
 def get_sr(user_input):
-    """The SpatialReference of an 'EPSG:xxxx' string or an EPSG integer.
+    """The SpatialReference of an 'EPSG:xxxx' string, an EPSG integer or a
+    WKT closed by an EPSG authority.
     Axis order is traditional GIS (x = lon first)."""
     if isinstance(user_input, SpatialReference):
         return user_input
@@ -312,6 +338,9 @@ def get_sr(user_input):
         return _registry_get(int(match.group(1)))
     if text.isdigit():
         return _registry_get(int(text))
+    match = _WKT_AUTH_RE.search(text)
+    if match and "[" in text:
+        return _registry_get(int(match.group(1)))
     raise NotImplementedError(
         "spatial reference %r is not ported; the port knows EPSG:4326, "
         "EPSG:3857 and EPSG:28992" % text[:80]

@@ -50,17 +50,31 @@ class GeoTransform(tuple):
         i, j = origin
         return type(self)([p + a * j + b * i, a, b, q + c * j + d * i, c, d])
 
-    def get_indices(self, points):
-        """Pixel indices (i, j) for N x 2 world points, as linear arrays."""
-        x, y = np.asarray(points).transpose()
+    def _pixel_coords(self, x, y):
+        """Fractional (col, row) pixel coordinates of world (x, y)."""
         p, _, _, q, _, _ = self
         e, f, g, h = self.get_inverse()
         dx, dy = x - p, y - q
-        col, row = e * dx + f * dy, g * dx + h * dy
+        return e * dx + f * dy, g * dx + h * dy
+
+    def get_indices(self, points):
+        """Pixel indices (i, j) for N x 2 world points, as linear arrays."""
+        x, y = np.asarray(points).transpose()
+        col, row = self._pixel_coords(x, y)
         return (
             np.floor(row).astype(np.int64),
             np.floor(col).astype(np.int64),
         )
+
+    def get_indices_for_bbox(self, bbox):
+        """((i1, i2), (j1, j2)) array index ranges covering ``bbox``."""
+        x1, y1, x2, y2 = bbox
+        # the NW and SE bbox corners in fractional pixel space
+        col_nw, row_nw = self._pixel_coords(x1, y2)
+        col_se, row_se = self._pixel_coords(x2, y1)
+        cols = sorted((int(math.floor(col_nw)), int(math.floor(col_se))))
+        rows = sorted((int(math.floor(row_nw)), int(math.floor(row_se))))
+        return tuple(rows), tuple(cols)
 
     def get_bbox(self, offset, shape):
         """Bbox covered by a subarray at ``offset`` with ``shape``."""

@@ -1,0 +1,2 @@
+"""File I/O: the GeoTIFF codec and VRT mosaics (copies of the JAX
+package's ``io/geotiff.py`` and ``io/vrt.py``)."""

@@ -6,8 +6,9 @@ Counterpart of dask_geomodeling_tpu/ops/warp.py.  The host half
 the source pixel containing its transform, per pixel, or the blend of the
 four source pixels around it.  The device half (``warp_torch``) is its
 warp_jax written for B tiles at once: the source ``values`` (bands, H, W)
-is shared by the batch, while ``bbox`` (B, 4) and ``coarse_grid``
-(B, 2, ch, cw) vary per tile.
+is shared by the batch, or one window per tile (a large file read window
+by window), while ``bbox`` (B, 4) and ``coarse_grid`` (B, 2, ch, cw) vary
+per tile.
 
 - cross-CRS: the approximate transformer of warp_jax: the host transforms
   a coarse grid of target pixel centres (stride ``APPROX_STRIDE``) into
@@ -234,7 +235,8 @@ def _interp_coarse(grid, width, height, stride):
 
 
 def _floor_index(frac, size, index_dtype):
-    """floor(frac) as an index, and whether it lies in [0, size).
+    """floor(frac) as an index, and whether it lies in [0, size); ``size``
+    is an int or a per-tile tensor that broadcasts against ``frac``.
 
     Non-finite positions (out-of-domain CRS transforms) are masked BEFORE
     the cast: NaN casts differently on the host and on the card.  The
@@ -242,12 +244,38 @@ def _floor_index(frac, size, index_dtype):
     outside [0, size)."""
     finite = torch.isfinite(frac)
     floored = torch.floor(torch.where(finite, frac, torch.zeros_like(frac)))
-    index = torch.clamp(floored, -1, size).to(index_dtype)
+    if torch.is_tensor(size):
+        floored = torch.minimum(torch.clamp(floored, min=-1), size.to(floored.dtype))
+    else:
+        floored = torch.clamp(floored, -1, size)
+    index = floored.to(index_dtype)
     return index, finite & (index >= 0) & (index < size)
 
 
+def _clamp_index(floored, size):
+    """clamp(floored, 0, size - 1) as int64; ``size`` an int or a per-tile
+    tensor."""
+    if torch.is_tensor(size):
+        return torch.minimum(torch.clamp(floored, min=0), (size - 1).to(floored.dtype)).to(
+            torch.int64
+        )
+    return torch.clamp(floored, 0, size - 1).to(torch.int64)
+
+
 def _gather(values, rows, cols):
-    """values[:, rows, cols] for (B, h, w) index tensors: (B, bands, h, w)."""
+    """values[:, rows, cols] for (B, h, w) index tensors: (B, bands, h, w).
+    ``values`` is (bands, H, W), shared by the batch, or (B, bands, H, W),
+    one source per tile."""
+    if values.dim() == 4:
+        # one flat axis over the tiles' sources (index_select takes every
+        # dtype, torch.gather no unsigned ones)
+        n, bands, src_h, src_w = values.shape
+        offset = torch.arange(n, device=rows.device).view((n,) + (1,) * (rows.dim() - 1))
+        flat_index = offset * (src_h * src_w) + rows.to(torch.int64) * src_w + cols
+        gathered = torch.index_select(
+            values.movedim(1, 0).reshape(bands, n * src_h * src_w), 1, flat_index.reshape(-1)
+        )
+        return gathered.reshape((bands,) + tuple(flat_index.shape)).movedim(0, 1)
     bands, src_h, src_w = values.shape
     flat_index = rows * src_w + cols
     gathered = torch.index_select(
@@ -256,18 +284,21 @@ def _gather(values, rows, cols):
     return gathered.reshape((bands,) + tuple(flat_index.shape)).movedim(0, 1)
 
 
-def _bilinear_sample_torch(values, fr, fc, inside, no_data_value, fillvalue, dtype):
+def _bilinear_sample_torch(
+    values, fr, fc, inside, no_data_value, fillvalue, dtype, src_h, src_w
+):
     """``_bilinear_sample`` for B tiles: ``fr`` and ``fc`` broadcast to
     (B, h, w), ``inside`` is (B, h, w); returns (B, bands, h, w).  Index
-    arithmetic, blend and nodata test follow the host's, in float64."""
-    src_h, src_w = values.shape[-2], values.shape[-1]
+    arithmetic, blend and nodata test follow the host's, in float64.
+    ``src_h`` and ``src_w`` are the source's size (per tile, for sources
+    padded to a batch's largest)."""
     fr, fc = torch.broadcast_tensors(fr, fc)
     fr = torch.where(torch.isfinite(fr), fr, 0.0)
     fc = torch.where(torch.isfinite(fc), fc, 0.0)
-    r0 = torch.clamp(torch.floor(fr), 0, src_h - 1).to(torch.int64)
-    c0 = torch.clamp(torch.floor(fc), 0, src_w - 1).to(torch.int64)
-    r1 = torch.clamp(r0 + 1, 0, src_h - 1)
-    c1 = torch.clamp(c0 + 1, 0, src_w - 1)
+    r0 = _clamp_index(torch.floor(fr), src_h)
+    c0 = _clamp_index(torch.floor(fc), src_w)
+    r1 = _clamp_index(r0 + 1, src_h)
+    c1 = _clamp_index(c0 + 1, src_w)
     wr = torch.clamp(fr - r0, 0.0, 1.0)[:, None]
     wc = torch.clamp(fc - c0, 0.0, 1.0)[:, None]
 
@@ -310,9 +341,15 @@ def warp_torch(
     fillvalue,
     interpolation="nearest",
     coarse_grid=None,
+    src_size=None,
 ):
-    """Warp a (bands, H, W) source into B target grids: (B, bands, h, w).
+    """Warp a source into B target grids: (B, bands, h, w).
 
+    The source is either one (bands, H, W) tensor shared by the batch with
+    its ``src_gt`` 6-tuple, or one window per tile: (B, bands, H, W)
+    padded to the batch's largest, a (B, 6) float64 ``src_gt`` and the
+    windows' (height, width) as a (B, 2) ``src_size``; each tile then
+    reads only its own window, as the host warps that window alone.
     ``bbox`` is a (B, 4) float64 tensor; a cross-CRS warp needs
     ``coarse_grid``, the (B, 2, ch, cw) stack of the tiles'
     ``coarse_index_grid`` at ``APPROX_STRIDE``.  ``interpolation`` is
@@ -321,7 +358,12 @@ def warp_torch(
     _check_interpolation(interpolation)
     dtype = np.dtype(dtype)
     device = values.device
-    bands, src_h, src_w = values.shape
+    src_h, src_w = values.shape[-2:]
+    if values.dim() == 4:
+        size = src_size.to(device=device, dtype=torch.int64)
+        limit_h, limit_w = size[:, 0].view(-1, 1, 1), size[:, 1].view(-1, 1, 1)
+    else:
+        limit_h, limit_w = src_h, src_w
     # flat source index: int32 holds it below 2**31 elements
     index_dtype = torch.int32 if src_h * src_w < 2**31 else torch.int64
 
@@ -344,24 +386,25 @@ def warp_torch(
         ys = y2 + pixel_h * (
             torch.arange(height, dtype=torch.float64, device=device) + 0.5
         )
-        sp, sa, sb, sq, sc, sd = src_gt
+        if torch.is_tensor(src_gt):
+            gt = src_gt.to(device=device, dtype=torch.float64)
+            sp, sa, sq, sd = (gt[:, k : k + 1] for k in (0, 1, 3, 5))
+        else:
+            sp, sa, sb, sq, sc, sd = src_gt
         frac_cols = ((xs - sp) / sa)[:, None, :]
         frac_rows = ((ys - sq) / sd)[:, :, None]
 
-    rows, in_r = _floor_index(frac_rows, src_h, index_dtype)
-    cols, in_c = _floor_index(frac_cols, src_w, index_dtype)
+    rows, in_r = _floor_index(frac_rows, limit_h, index_dtype)
+    cols, in_c = _floor_index(frac_cols, limit_w, index_dtype)
     inside = in_r & in_c  # (B, h, w)
     if interpolation == "bilinear":
         return _bilinear_sample_torch(
-            values, frac_rows - 0.5, frac_cols - 0.5, inside, no_data_value, fillvalue, dtype
+            values, frac_rows - 0.5, frac_cols - 0.5, inside, no_data_value, fillvalue, dtype,
+            limit_h, limit_w,
         )
-    flat_index = torch.where(inside, rows * src_w + cols, 0)
-    n_batch = inside.shape[0]
-    gathered = torch.index_select(
-        values.reshape(bands, src_h * src_w), 1, flat_index.reshape(-1)
-    )
-    gathered = gathered.reshape(bands, n_batch, height, width).movedim(0, 1)
-    gathered = gathered.to(torch_dtype(dtype))
+    zero = torch.zeros((), dtype=index_dtype, device=device)
+    rows, cols = torch.broadcast_tensors(torch.where(inside, rows, zero), torch.where(inside, cols, zero))
+    gathered = _gather(values, rows, cols).to(torch_dtype(dtype))
     out = torch.where(inside[:, None], gathered, dtype.type(fillvalue).item())
     if no_data_value is not None and no_data_value != fillvalue:
         if dtype.kind == "f":

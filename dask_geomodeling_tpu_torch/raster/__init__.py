@@ -3,7 +3,7 @@
 Importing this package registers every twin (registry.py).
 """
 from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock, get_data  # noqa: F401
-from dask_geomodeling_tpu_torch.raster.sources import MemorySource  # noqa: F401
+from dask_geomodeling_tpu_torch.raster.sources import MemorySource, RasterFileSource  # noqa: F401
 from dask_geomodeling_tpu_torch.raster.elemwise import (  # noqa: F401
     Add,
     And,
@@ -54,3 +54,5 @@ from dask_geomodeling_tpu_torch.raster.temporal import (  # noqa: F401
     TemporalAggregate,
     TemporalSum,
 )
+from dask_geomodeling_tpu_torch.raster.parallelize import RasterTiler  # noqa: F401
+from dask_geomodeling_tpu_torch.raster.sinks import RasterFileSink, to_cog, to_file  # noqa: F401

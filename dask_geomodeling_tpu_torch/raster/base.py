@@ -36,7 +36,8 @@ def get_data(view, *, device=None, **request):
     tile_size = config.get("geomodeling.tile-size", 512)
     width = request.get("width") or 0
     height = request.get("height") or 0
-    if request.get("mode") == "vals" and max(width, height) > tile_size:
+    fetches = getattr(type(view).process, "torch_fetch_inputs", False)
+    if request.get("mode") == "vals" and max(width, height) > tile_size and not fetches:
         try:
             return evaluate_tiled(view, request, tile_size=tile_size, device=device)
         except NotLowerable:
@@ -91,6 +92,13 @@ class RasterBlock(Block):
     def get_data(self, device=None, **request):
         """Evaluate the request on ``device`` (see ``get_data``)."""
         return get_data(self, device=device, **request)
+
+    def to_file(self, *args, **kwargs):
+        """Export data from this block to a file on disk; see
+        :func:`dask_geomodeling_tpu_torch.raster.sinks.to_file`."""
+        from dask_geomodeling_tpu_torch.raster.sinks import to_file
+
+        return to_file(self, *args, **kwargs)
 
     def __len__(self):
         """Number of temporal bands."""

@@ -11,7 +11,10 @@ executor; one that would take a device result raises ``NotLowerable``, so
 device data never goes back to the host to be computed on.  The exception
 is a process that accepts device tensors (``torch_accepts_device_tensors``,
 AggregateRaster's): it gets its device inputs as they are and reduces
-them on the device.  A twin that
+them on the device.  A process that writes or assembles host arrays
+(``torch_fetch_inputs``: RasterFileSink's, RasterTiler's) gets each device
+input copied to the host once, and computes nothing on the device.  A
+twin that
 fails raises: no request is quietly served from the host instead.
 
 Twins work batch-first (registry.py).  Here the batch is one request,
@@ -147,7 +150,9 @@ def batch_literals(per_tile, dynamic, device):
     ``per_tile`` holds the literal as each tile's plan gives it.  Fields
     named in ``dynamic`` (the process function's ``torch_dynamic``) vary per
     tile: each is stacked into a tensor with a leading B axis, numbers as
-    float64 like the JAX executor's ``_dynamicize``.  Everything else must
+    float64 like the JAX executor's ``_dynamicize``, arrays of differing
+    shapes padded with zeros to the largest (the windows of a large file,
+    which come with their sizes).  Everything else must
     be the same in every tile, or NotLowerable is raised: each array (a
     source payload) becomes one shared resident tensor, and the remaining
     fields and bare literals (a block's constants) are the first tile's.
@@ -156,7 +161,7 @@ def batch_literals(per_tile, dynamic, device):
     if isinstance(first, dict) and dynamic:
         varying = {
             key: torch.from_numpy(
-                np.stack([_as_dynamic(tile[key]) for tile in per_tile])
+                _stack_padded([_as_dynamic(tile[key]) for tile in per_tile])
             ).to(device)
             for key in dynamic
             if key in first and _is_dynamic_value(first[key])
@@ -177,6 +182,18 @@ def _as_dynamic(value):
     if isinstance(value, np.ndarray):
         return value
     return np.asarray(value, dtype=np.float64)
+
+
+def _stack_padded(arrays):
+    """``np.stack(arrays)``; arrays of differing shapes are padded with
+    zeros at their ends to the largest size along each axis."""
+    shape = tuple(max(sizes) for sizes in zip(*(a.shape for a in arrays)))
+    if all(a.shape == shape for a in arrays):
+        return np.stack(arrays)
+    out = np.zeros((len(arrays),) + shape, arrays[0].dtype)
+    for slot, array in zip(out, arrays):
+        slot[tuple(slice(0, n) for n in array.shape)] = array
+    return out
 
 
 def _arrays_in(obj):
@@ -350,15 +367,17 @@ def compute_torch(graph, name, device=None):
             twin = registry.twin_for(func)
         if twin is None:
             takes_tensors = getattr(func, "torch_accepts_device_tensors", False)
-            if not takes_tensors and any(dep in on_device for dep in deps[key]):
+            fetches = getattr(func, "torch_fetch_inputs", False)
+            if not (takes_tensors or fetches) and any(dep in on_device for dep in deps[key]):
                 raise NotLowerable(
                     "node %s has no capable torch twin and takes a device result"
                     % key.split("_")[0]
                 )
+            device_input = to_host if fetches else without_batch
             cache[key] = run_on_host(
                 func,
                 [
-                    (without_batch(cache[arg]) if arg in on_device else cache[arg])
+                    (device_input(cache[arg]) if arg in on_device else cache[arg])
                     if isinstance(arg, str) and arg in graph
                     else arg
                     for arg in value[1:]

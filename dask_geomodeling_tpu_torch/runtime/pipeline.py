@@ -1,0 +1,128 @@
+"""The host read caches of raster files.
+
+Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF and
+VRT: ``read_geotiff_cached`` decodes a whole file into an mtime-validated
+LRU, and ``read_geotiff_window_cached`` one pixel window of a large file
+(block-wise, optionally of an overview level) into another.  Both are
+keyed by ``(path, variable)`` plus the window, on lookup and on store
+alike, so every tile of a request that reads one unchanged file gets the
+same decoded array (the JAX package looks the whole-file entry up by the
+path and stores it by ``(path, variable)``, so its lookups never hit).  A
+rewrite of the file changes its stamp (mtime and size) and is decoded
+again.
+
+The other raster formats of the JAX package's reader raise
+NotImplementedError naming the JAX module that reads them.  Its
+``TilePrefetcher`` and the vector cache are not ported.
+"""
+import os
+import threading
+from collections import OrderedDict
+from functools import partial
+
+__all__ = [
+    "read_geotiff_cached",
+    "read_geotiff_window_cached",
+    "clear_read_cache",
+    "check_ported_format",
+]
+
+_CACHE_LOCK = threading.Lock()
+_READ_CACHE = OrderedDict()
+_READ_CACHE_SIZE = 8
+_WINDOW_CACHE = OrderedDict()
+_WINDOW_CACHE_SIZE = 64
+
+#: file suffixes of the raster formats the port does not read, and the
+#: JAX module that reads each
+_UNPORTED_FORMATS = {
+    (".asc", ".agr", ".xyz"): "io/asciigrid.py",
+    (".png",): "io/png.py",
+    (".jp2", ".j2k", ".jpx"): "io/jp2.py",
+    (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
+    (".ntf", ".nitf"): "io/nitf.py",
+    (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5"): "io/netcdf.py",
+    (".hdf", ".h4", ".hdf4"): "io/hdf4.py",
+    (".hgt", ".dt0", ".dt1", ".dt2"): "io/dem.py",
+    (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
+    (".zarr",): "io/zarr.py",
+    (".grd", ".sgrd", ".sdat", ".rst"): "io/simplegrids.py",
+    (".mbtiles",): "io/mbtiles.py",
+    (".gpkg",): "io/gpkg_raster.py",
+    (".img",): "io/hfa.py or io/envi.py",
+    (".hdr", ".bsq", ".bil", ".bip", ".envi"): "io/envi.py",
+}
+
+
+def check_ported_format(path):
+    """Raise NotImplementedError when ``path`` names a raster format the
+    port does not read (every format but GeoTIFF and VRT)."""
+    lower = path.lower()
+    for suffixes, module in _UNPORTED_FORMATS.items():
+        if lower.endswith(suffixes):
+            raise NotImplementedError(
+                "reading %s is not ported: dask_geomodeling_tpu/%s reads it"
+                % (os.path.basename(path), module)
+            )
+
+
+def _file_stamp(path):
+    # (mtime_ns, size): plain mtime has 1 s granularity on some filesystems,
+    # so a rewrite within the same tick would serve the stale decode
+    st = os.stat(path)
+    return (st.st_mtime_ns, st.st_size)
+
+
+def _cached(cache, size, key, stamp, read):
+    """``cache[key]`` if its stamp is ``stamp``, else ``read()`` stored."""
+    with _CACHE_LOCK:
+        entry = cache.get(key)
+        if entry is not None and entry[0] == stamp:
+            cache.move_to_end(key)
+            return entry[1]
+    data = read()
+    with _CACHE_LOCK:
+        cache[key] = (stamp, data)
+        cache.move_to_end(key)
+        while len(cache) > size:
+            cache.popitem(last=False)
+    return data
+
+
+def read_geotiff_cached(path, variable=None):
+    """Read a whole GeoTIFF (or VRT mosaic) through an mtime-validated LRU
+    keyed by ``(path, variable)``; ``variable`` is kept in the key as the
+    JAX package keeps it (multi-variable containers are not ported)."""
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.io.vrt import read_vrt
+
+    path = os.path.abspath(path)
+    check_ported_format(path)
+    read = read_vrt if path.lower().endswith(".vrt") else read_geotiff
+    return _cached(
+        _READ_CACHE, _READ_CACHE_SIZE, (path, variable), _file_stamp(path), partial(read, path)
+    )
+
+
+def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=None):
+    """Read one pixel window of a large GeoTIFF (block-level decode,
+    optionally of an overview level) or VRT through an mtime-validated LRU
+    keyed by ``(path, window, level, variable)``."""
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_window
+    from dask_geomodeling_tpu_torch.io.vrt import read_vrt_window
+
+    path = os.path.abspath(path)
+    check_ported_format(path)
+    key = (path, int(row0), int(row1), int(col0), int(col1), int(level), variable)
+    if path.lower().endswith(".vrt"):
+        read = partial(read_vrt_window, path, row0, row1, col0, col1)
+    else:
+        read = partial(read_geotiff_window, path, row0, row1, col0, col1, level=level)
+    return _cached(_WINDOW_CACHE, _WINDOW_CACHE_SIZE, key, _file_stamp(path), read)
+
+
+def clear_read_cache():
+    """Drop all cached decoded rasters."""
+    with _CACHE_LOCK:
+        _READ_CACHE.clear()
+        _WINDOW_CACHE.clear()

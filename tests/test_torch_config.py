@@ -64,14 +64,29 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    }
+    } | set(FILE_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    ):
+    ) + FILE_KEYS:
         assert defaults[key] == jax_config_module.defaults[key], key
+
+
+#: the file layer's keys: the sandbox, the windowed reads, the overviews
+FILE_KEYS = (
+    "geomodeling.root",
+    "geomodeling.strict-file-paths",
+    "geomodeling.windowed-read-limit",
+    "geomodeling.use-overviews",
+)
+
+
+@pytest.mark.parametrize("key", FILE_KEYS)
+def test_file_keys_have_the_jax_defaults(key):
+    assert port_config_module.defaults[key] == jax_config_module.defaults[key]
+    assert port_config_module.config.get(key) == jax_config_module.config.get(key)
 
 
 def test_approx_stride_is_the_jax_default():

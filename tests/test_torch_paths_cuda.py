@@ -24,6 +24,7 @@ import chip_smoke
 from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch import raster as R
+from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
 PATHS = ["elemwise", "reclassify-chain", "combine", "place", "reproject-bilinear"]
 TEMPORAL_PATHS = ["temporal-mean", "temporal-median", "temporal-cumulative"]
@@ -211,3 +212,75 @@ def test_labeled_statistics_on_card(dtype, statistic):
         assert np.all((np.isnan(cpu) & np.isnan(card)) | (np.abs(card - cpu) <= ulp))
     else:
         np.testing.assert_array_equal(card, cpu)
+
+
+# --- the file paths: a 1024^2 sheet read window by window ---
+
+FILE_LIMIT = {"geomodeling.windowed-read-limit": 100_000}
+
+
+@pytest.fixture(scope="module")
+def file_paths(tmp_path_factory):
+    folder = str(tmp_path_factory.mktemp("sheet"))
+    sheet = chip_smoke.write_sheet(folder, width=1024, height=1024, block=120)
+    return folder, chip_smoke.build_file_paths(sheet, reproject_px=512)
+
+
+def _tiles_against_host(view, request, values, tile):
+    tiles, nx = tile_requests(request, tile)
+    for index in (0, len(tiles) // 2, len(tiles) - 1):
+        (rows, cols), (host_rows, host_cols) = chip_smoke.tile_cells(
+            index, nx, request["width"], request["height"], tile)
+        host = compute_host(*view.get_compute_graph(**tiles[index]))["values"]
+        np.testing.assert_array_equal(values[:, rows, cols], host[:, host_rows, host_cols])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["file-read", "file-reproject"])
+def test_file_path_on_card(file_paths, label):
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+
+    device = _card()
+    _, paths = file_paths
+    view, request, _, _ = paths[label]
+    with config.set(FILE_LIMIT):
+        assert view.store._file_read_plan(request) is not None
+        cuda_stencils.reset_launches()
+        before = tile_runtime.batches_run
+        card = evaluate_tiled(view, request, tile_size=256, batch=4, device=device)["values"]
+        batches = tile_runtime.batches_run - before
+        assert cuda_stencils.launches == batches
+        cpu = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")["values"]
+        np.testing.assert_array_equal(card, cpu)
+        if label == "file-read":
+            assert batches == 4  # 16 tiles as a MemorySource's: no tile in a batch of its own
+            _tiles_against_host(view, request, card, 256)
+
+
+@pytest.mark.cuda
+def test_file_export_on_card(file_paths, tmp_path):
+    import os
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    device = _card()
+    _, paths = file_paths
+    view, request, _, _ = paths["file-read"]
+    with config.set(FILE_LIMIT):
+        cuda_stencils.reset_launches()
+        view.to_file(str(tmp_path / "card" / "out.vrt"), tile_size=384, device=device)
+        assert cuda_stencils.launches == 9  # one per subrequest
+        view.to_file(str(tmp_path / "cpu" / "out.vrt"), tile_size=384, device="cpu")
+        names = sorted(os.listdir(tmp_path / "card" / "tiles"))
+        assert len(names) == 9 and names == sorted(os.listdir(tmp_path / "cpu" / "tiles"))
+        for name in names:
+            with open(tmp_path / "card" / "tiles" / name, "rb") as f, \
+                    open(tmp_path / "cpu" / "tiles" / name, "rb") as g:
+                assert f.read() == g.read(), name
+        mosaic = RasterFileSource(str(tmp_path / "card" / "out.vrt"))
+        read_back = mosaic.get_data(device=device, **request)["values"]
+        assert read_back.shape == (1, 1024, 1024)
+        cpu_back = mosaic.get_data(device="cpu", **request)["values"]
+        np.testing.assert_array_equal(read_back, cpu_back)

@@ -34,7 +34,7 @@ from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_point
 from dask_geomodeling_tpu.geometry import GeometryWKTSource as JaxGeometryWKTSource
 from dask_geomodeling_tpu.geometry.parallelize import GeometryTiler
 from dask_geomodeling_tpu.geometry.sources import GeometryFileSource
-from dask_geomodeling_tpu.raster import RasterTiler
+from dask_geomodeling_tpu.geometry.field_operations import Classify as FieldClassify
 from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
@@ -87,7 +87,7 @@ def test_port_never_imports_jax():
     """Both paths at a small size, on the CPU, through the port alone."""
     script = "\n".join(
         [
-            "import sys",
+            "import os, sys",
             "import chip_smoke as cs",
             "from dask_geomodeling_tpu_torch import evaluate_tiled, get_data",
             "source, view = cs.build_headline_view(128)",
@@ -119,6 +119,14 @@ def test_port_never_imports_jax():
             "cs.PARCEL_ORIGIN = (135010.0, 455990.0)",
             "for view, request in cs.build_zonal_views(mean, grid=3, small=1).values():",
             "    assert len(view.get_data(device='cpu', **request)['features']) == 10",
+            "import tempfile",
+            "folder = tempfile.mkdtemp()",
+            "sheet = cs.write_sheet(folder, width=300, height=200, block=40)",
+            "paths = cs.build_file_paths(sheet, reproject_px=128)",
+            "view, request, _, _ = paths['file-read']",
+            "evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
+            "view.to_file(folder + '/out.vrt', tile_size=128, device='cpu')",
+            "assert len(os.listdir(folder + '/tiles')) == 6",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -417,7 +425,9 @@ def test_chip_smoke_builds_the_reference_views():
     [
         (lambda source: GeometryFileSource("/nonexistent/parcels.gpkg"),
          "sources.GeometryFileSource"),  # module ported
-        (lambda source: RasterTiler(source, 64), "parallelize.RasterTiler"),  # module not
+        (lambda source: FieldClassify(
+            JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992")["geometry"], [1, 2], ["x", "y", "z"]),
+         "field_operations.Classify"),  # module not
         (lambda source: GeometryTiler(JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), 10.0,
                                       "EPSG:28992"), "parallelize.GeometryTiler"),  # module not
     ],
