@@ -17,7 +17,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and sigma (radius 3), at the stencils path's (64, 524, 524) and sigma
    5/3 (radius 7), at the file-read path's (64, 524, 524) and sigma 2
    (radius 8), at radius 8 and at a zoom-mode radius 40, and one plane
-   against scipy.ndimage.gaussian_filter, bitwise; the moving maximum at
+   against scipy.ndimage.gaussian_filter, bitwise; the integer frames'
+   entry (float64 storage truncated toward zero between the passes) on
+   every integer width from int8 to uint64 and on a uint8 (64, 524, 524)
+   batch; the moving maximum at
    the stencils path's shape (64, 526, 526) float32 size 3, also against
    torch's max_pool2d, at sizes 5, 7 and 15, at sizes 3, 5 and 7 in every
    integer and float width, and with NaN in a plane; each kernel's static
@@ -80,6 +83,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    border, two files equal to compute_host, and to_cog of a 4096^2
    sub-area with overviews (2, 4, 8), read at overview level 2 with
    geomodeling.use-overviews, equal to compute_host;
+10b. building-heights (check_buildings): 20,000 synthetic building
+   footprints over the sheet (write_buildings: a GeoPackage, layer
+   "pand", with its R-tree), the mean and 90th percentile of the file-read
+   view per building (AggregateRaster), Round, Classify of their
+   difference, Area (build_buildings_view), exported by to_file in
+   1000 m tiles (GeometryTiler over GeometryFileSink GeoPackages, merged):
+   every building whose centroid lies strictly inside a tile, each once;
+   two tiles equal to compute_host (h_mean within one float32 ulp before
+   rounding); the export again through the GeoPackage's R-tree; a 1000 m
+   sub-area exported untiled as GeoJSON and as a Shapefile equal to the
+   host's export; one Gaussian launch per tile, the phases, the device
+   busy time and idle share;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -89,7 +104,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
    same function (CUDA events), and the least time the card could take;
-   the Gaussian is timed at three paths' shapes, one kernel record each.
+   the Gaussian is timed at three paths' shapes, on a uint8 batch (the
+   integer entry) and at the building-heights path's single plane, one
+   kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -693,6 +710,104 @@ def build_file_paths(sheet, reproject_px=FILE_SUB_PX):
     }
 
 
+#: the building-heights path: synthetic BAG-like building footprints
+#: ("panden") over the sheet at a Dutch suburban density, 640 a km^2
+#: (20,000 over the sheet's 31.25 km^2), one to a grid cell, exported in
+#: tiles of 1000 m
+BUILDINGS = 20000
+BUILDING_TILE = 1000.0
+BUILDING_STATUS = ("Pand in gebruik", "Pand in gebruik (niet ingemeten)", "Verbouwing pand")
+BUILDING_STATUS_P = (0.93, 0.05, 0.02)
+
+
+def building_footprint(rng, cx, cy, radius):
+    """One footprint around (cx, cy) inside a circle of ``radius``: a
+    rectangle or an L-shape of 40-400 m^2 (less where the circle is
+    small), aspect up to 1.8, rotated at random, with up to six extra
+    vertices on its edges (4-12 vertices, as BAG outlines carry), to the
+    millimetre."""
+    l_shape = rng.random() < 0.5
+    notch = (rng.uniform(0.3, 0.5), rng.uniform(0.3, 0.5)) if l_shape else (0.0, 0.0)
+    aspect = rng.uniform(1.0, 1.8)
+    # the largest area whose bounding rectangle fits the circle
+    fit = (2 * radius) ** 2 * aspect / (1 + aspect**2) * (1 - notch[0] * notch[1])
+    area = rng.uniform(min(40.0, 0.5 * fit), min(400.0, fit))
+    rect = area / (1 - notch[0] * notch[1])
+    w = np.sqrt(rect * aspect)
+    h = rect / w
+    nw, nh = notch[0] * w, notch[1] * h
+    if l_shape:
+        ring = [(0, 0), (w, 0), (w, h - nh), (w - nw, h - nh), (w - nw, h), (0, h)]
+    else:
+        ring = [(0, 0), (w, 0), (w, h), (0, h)]
+    for _ in range(rng.integers(0, 12 - len(ring) + 1) if len(ring) < 12 else 0):
+        k = int(rng.integers(len(ring)))
+        (x0, y0), (x1, y1) = ring[k], ring[(k + 1) % len(ring)]
+        t = rng.uniform(0.2, 0.8)
+        ring.insert(k + 1, (x0 + t * (x1 - x0), y0 + t * (y1 - y0)))
+    pts = np.array(ring) - (w / 2, h / 2)
+    angle = rng.uniform(0, np.pi)
+    rot = np.array([[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]])
+    return np.round(pts @ rot.T + (cx, cy), 3)
+
+
+def write_buildings(folder, bbox, count=BUILDINGS, seed=13):
+    """Write ``count`` synthetic building footprints over ``bbox``
+    (EPSG:28992) into ``folder``/buildings.gpkg, layer "pand", with its
+    gpkg_rtree_index: one building to a cell of a near-square grid over
+    the bbox, each inside the circle of its cell (none overlap), with a
+    16-digit ``identificatie``, an integer ``bouwjaar`` and a ``status``;
+    fids 1..count.  Returns the path."""
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame, Index
+    from dask_geomodeling_tpu_torch.geo.geometry import Polygon
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+
+    rng = np.random.default_rng(seed)
+    x1, y1, x2, y2 = bbox
+    ny = max(1, int(round(np.sqrt(count * (y2 - y1) / (x2 - x1)))))
+    nx = -(-count // ny)
+    cw, ch = (x2 - x1) / nx, (y2 - y1) / ny
+    radius = min(cw, ch) / 2 * 0.95
+    polygons = []
+    for k in range(count):
+        row, col = divmod(k, nx)
+        polygons.append(Polygon(building_footprint(
+            rng, x1 + (col + 0.5) * cw, y2 - (row + 0.5) * ch, radius)))
+    frame = GeoDataFrame({
+        "identificatie": ["0599100000%06d" % (k + 1) for k in range(count)],
+        "bouwjaar": rng.integers(1850, 2024, size=count),
+        "status": list(rng.choice(BUILDING_STATUS, size=count, p=BUILDING_STATUS_P)),
+    }, geometry=polygons, crs="EPSG:28992", index=Index(np.arange(1, count + 1), name="fid"))
+    path = os.path.join(folder, "buildings.gpkg")
+    write_vector(frame, path, layer="pand")
+    return path
+
+
+def build_buildings_view(buildings, sheet):
+    """The building-heights view: per building the mean and 90th
+    percentile of the smoothed elevation sheet (rounded mean), their
+    difference classified into relief classes, and the area."""
+    from dask_geomodeling_tpu_torch.geometry import (
+        AggregateRaster,
+        Area,
+        Classify,
+        GeometryFileSource,
+        Round,
+    )
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth
+
+    source = GeometryFileSource(buildings, layer="pand")
+    dem = Smooth(RasterFileSource(sheet), 3)
+    mean = AggregateRaster(source, dem, "mean")["agg"]
+    p90 = AggregateRaster(source, dem, "p90")["agg"]
+    return source.set(
+        "h_mean", Round(mean, 2),
+        "h_p90", p90,
+        "relief", Classify(p90 - mean, [0.25, 1.0], ["flat", "sloped", "steep"]),
+        "area", Area(source, "EPSG:28992"),
+    )
+
+
 def fuzz_sources():
     """tests/test_executor_fuzz.py's sources, with the port's MemorySource."""
     from dask_geomodeling_tpu_torch.raster import MemorySource
@@ -1020,11 +1135,11 @@ def check_gaussian(device, headline_sigma, stencils_sigma, file_sigma):
     file_planes = torch.from_numpy(
         (rng.rand(BATCH, TILE + 2 * margin, TILE + 2 * margin) * 8).astype(np.float32)
     ).to(device)
-    max_abs_err = 0.0
+    max_abs_err = {}
     for label, data, (sy, sx) in [
-        ("headline path", planes, headline_sigma),
-        ("stencils path", stencil_planes, stencils_sigma),
-        ("file-read path", file_planes, file_sigma),
+        ("headline", planes, headline_sigma),
+        ("stencils", stencil_planes, stencils_sigma),
+        ("file-read", file_planes, file_sigma),
         ("radius 8", planes, (2.0, 2.0)),
         ("radius 40 (zoom mode)", planes, (10.0, 10.0)),
     ]:
@@ -1041,24 +1156,56 @@ def check_gaussian(device, headline_sigma, stencils_sigma, file_sigma):
               "equal=%s max_abs_err=%r" % (label, sy, sx, tuple(data.shape),
                                            "fused" if fused else "two-pass", equal, err))
         check(equal, "gaussian_blur differs from its plain version (%s)" % label)
-        max_abs_err = max(max_abs_err, err)
+        max_abs_err[label] = err
     host_plane = planes[0].cpu().numpy()
     scipy_plane = ndimage.gaussian_filter(host_plane, headline_sigma, mode="constant", cval=0)
     kernel_plane = cuda_stencils.gaussian_blur(planes[:1].contiguous(), *headline_sigma, 0)
     check(np.array_equal(kernel_plane[0].cpu().numpy(), scipy_plane),
           "gaussian_blur differs from scipy.ndimage.gaussian_filter")
     print("kernel check: gaussian_blur, one plane bitwise equal to scipy.ndimage.gaussian_filter")
-    return [dict(time_gaussian(data, sigma), max_abs_err=max_abs_err, path=path)
+    # the integer frames' entry (float64 storage truncated toward zero):
+    # each integer width, fused and two-pass radii, values beyond 2**53
+    integer_planes = torch.from_numpy(
+        rng.randint(0, 256, size=(BATCH, TILE + 12, TILE + 12)).astype(np.uint8)).to(device)
+    for dtype, low, high in [(np.uint8, 0, 255), (np.int8, -128, 127), (np.int16, -30000, 30000),
+                             (np.uint16, 0, 65535), (np.int32, -2**31, 2**31 - 1),
+                             (np.uint32, 0, 2**32 - 1), (np.int64, -2**62, 2**62),
+                             (np.uint64, 0, 2**63)]:
+        data = torch.from_numpy(rng.randint(low, high, size=(4, 131, 75), dtype=dtype)).to(device)
+        for sy, sx in [(5 / 3, 5 / 3), (0.759, 0.760), (1.5, 0.1), (10.0, 10.0)]:
+            before = cuda_stencils.launches
+            got = cuda_stencils.gaussian_blur(data, sy, sx, 3)
+            want = gaussian_blur_reference(data, sy, sx, 3)
+            torch.cuda.synchronize()
+            check(cuda_stencils.launches > before and got.dtype == data.dtype and
+                  torch.equal(got, want), "gaussian_blur's integer entry differs from its plain "
+                  "version (%s, sigma %s)" % (np.dtype(dtype).name, (sy, sx)))
+    got = cuda_stencils.gaussian_blur(integer_planes, *stencils_sigma, 0)
+    want = gaussian_blur_reference(integer_planes, *stencils_sigma, 0)
+    equal = torch.equal(got, want)
+    label = "integer storage (uint8)"
+    max_abs_err[label] = float((got.double() - want.double()).abs().max())
+    print("kernel check: gaussian_blur integer storage (truncated between the passes) on "
+          "int8-int64 and uint8-uint64 (4, 131, 75) at radii 3, 7 and 40 and a radius of 0, and "
+          "uint8 %s at the stencils path's sigma: equal=%s max_abs_err=%r"
+          % (tuple(integer_planes.shape), equal, max_abs_err[label]))
+    check(equal, "gaussian_blur's integer entry differs from its plain version (uint8)")
+    del got, want
+    return [dict(time_gaussian(data, sigma), max_abs_err=max_abs_err[path], path=path)
             for path, data, sigma in [("headline", planes, headline_sigma),
                                       ("stencils", stencil_planes, stencils_sigma),
-                                      ("file-read", file_planes, file_sigma)]]
+                                      ("file-read", file_planes, file_sigma),
+                                      ("integer storage (uint8)", integer_planes,
+                                       stencils_sigma)]]
 
 
 def time_gaussian(planes, sigma):
     """The kernel, its plain version and the library yardstick on
     ``planes`` (CUDA events), and the bound.  The yardstick is one cuDNN
     convolution with the (2r+1)^2 outer-product weights in full float32
-    (not bitwise: it sums in another order)."""
+    (not bitwise: it sums in another order; an integer batch is convolved
+    as its float32 copy).  The bytes are the input read and the output
+    written once in the planes' dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -1067,7 +1214,7 @@ def time_gaussian(planes, sigma):
 
     (wy, ry), (wx, rx) = gaussian_weights(sigma[0]), gaussian_weights(sigma[1])
     weights = torch.from_numpy(np.outer(wy, wx).astype(np.float32)).to(planes.device)[None, None]
-    images = planes[:, None]
+    images = planes[:, None].float()  # an integer batch: its float32 copy
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1854,6 +2001,327 @@ def check_file_export(card, device, view, request, folder, read_values):
                           border_cells_differing=int(differ.sum()))
 
 
+class PhaseClock:
+    """Seconds spent inside chosen functions while it is installed: each
+    (owner, attribute) is replaced by a wrapper that adds its wall time
+    to its phase (a call nested in a call of the same phase counts once).
+    It never synchronises the card: a phase whose result reaches the host
+    waits for the card there, as it does without the clock."""
+
+    def __init__(self, patches):
+        self.patches = patches
+        self.seconds = {phase: 0.0 for _, _, phase in patches}
+        self.calls = {phase: 0 for _, _, phase in patches}
+        self._depth = {phase: 0 for _, _, phase in patches}
+        self._saved = []
+
+    def _wrap(self, func, phase):
+        import functools
+
+        @functools.wraps(func)
+        def timed(*args, **kwargs):
+            self._depth[phase] += 1
+            t0 = time.perf_counter()
+            try:
+                return func(*args, **kwargs)
+            finally:
+                self._depth[phase] -= 1
+                if self._depth[phase] == 0:
+                    self.seconds[phase] += time.perf_counter() - t0
+                    self.calls[phase] += 1
+
+        return timed
+
+    def __enter__(self):
+        for owner, attribute, phase in self.patches:
+            raw = owner.__dict__[attribute] if isinstance(owner, type) else getattr(owner, attribute)
+            self._saved.append((owner, attribute, raw))
+            if isinstance(raw, staticmethod):
+                setattr(owner, attribute, staticmethod(self._wrap(raw.__func__, phase)))
+            else:
+                setattr(owner, attribute, self._wrap(raw, phase))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attribute, raw in reversed(self._saved):
+            setattr(owner, attribute, raw)
+        self._saved = []
+        return False
+
+
+def export_clock():
+    """A PhaseClock over the phases of a geometry export: the vector file
+    reads (whole-file parses and R-tree reads, cache hits included), the
+    raster window reads, the compute_torch run, AggregateRaster's device
+    plane (label planes and statistics, ending in their copy to the
+    host), the sinks' writes and the merge.  Planning is the export's time outside the run and the
+    merge; it holds the extent requests and the raster window reads."""
+    from dask_geomodeling_tpu_torch.geometry import aggregate
+    from dask_geomodeling_tpu_torch.geometry.sinks import GeometryFileSink
+    from dask_geomodeling_tpu_torch.io import vectorfile
+    from dask_geomodeling_tpu_torch.runtime import executor, pipeline
+
+    return PhaseClock([
+        (pipeline, "read_vector_cached", "vector read"),
+        (vectorfile, "_read_gpkg", "vector read"),
+        (pipeline, "read_geotiff_window_cached", "raster reads"),
+        (pipeline, "read_geotiff_cached", "raster reads"),
+        (executor, "compute_torch", "run"),
+        (aggregate, "_aggregate_on_device", "device plane"),
+        (GeometryFileSink, "process", "sink writes"),
+        (GeometryFileSink, "merge_files", "merge"),
+    ])
+
+
+def frame_rows(frame):
+    """{fid: {column: cell}} of a frame read back from a file, the
+    geometry as WKB."""
+    rows = {}
+    for fid, row in frame.iterrows():
+        rows[fid] = {k: (v.wkb if k == "geometry" and v is not None else v)
+                     for k, v in row.items()}
+    return rows
+
+
+def compare_heights(label, port_rows, host_rows, mean_ulps=None):
+    """The export's rows against the host's: the same fids, every column
+    bitwise but h_mean (rounded), where a row may differ only if its
+    unrounded means are within one float32 ulp (``mean_ulps(fids)``
+    gives them); returns the differing h_mean rows."""
+    check(sorted(port_rows) == sorted(host_rows), "%s: the fids differ from the host's" % label)
+    differ = []
+    for fid, host in host_rows.items():
+        port = port_rows[fid]
+        check(sorted(port) == sorted(host), "%s: the columns differ" % label)
+        for column, value in host.items():
+            if column == "h_mean":
+                if repr(port[column]) != repr(value):
+                    differ.append(fid)
+            else:
+                check(repr(port[column]) == repr(value),
+                      "%s: fid %s %s %r differs from the host's %r"
+                      % (label, fid, column, port[column], value))
+    if differ:
+        ulps = mean_ulps(differ)
+        check(max(ulps) <= 1, "%s: h_mean of %d rows differs by more than one float32 ulp "
+              "before rounding" % (label, len(differ)))
+    return differ
+
+
+def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_TILE,
+                    sub_size=BUILDING_TILE):
+    """The building-heights phase: per-building height statistics of the
+    smoothed sheet, exported in tiles to a GeoPackage (to_file), checked
+    against compute_host and repeated through the GeoPackage's R-tree;
+    a sub-area exported untiled as GeoJSON and as a Shapefile against the
+    host's export of it.  The first export is timed under the phase
+    clock alone; the device busy time and idle share come from the R-tree
+    export, run under torch.profiler.  Returns ({kernel: launches of the
+    first export}, the numbers)."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.core.tokens import tokenize
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink, GeometryTiler
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.io import vectorfile
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    started = time.perf_counter()
+    sheet_bbox = RasterFileSource(sheet).footprint.bbox
+    t0 = time.perf_counter()
+    buildings = write_buildings(folder, sheet_bbox, count)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(buildings)
+    check(vectorfile.gpkg_rtree_name(buildings, "pand") == "rtree_pand_geom",
+          "building-heights: the GeoPackage has no R-tree index")
+    print("building-heights: %d footprints written to a GeoPackage (layer pand, EPSG:28992, "
+          "with its gpkg_rtree_index) in %.2f s, %d bytes" % (count, write_s, size))
+    view = build_buildings_view(buildings, sheet)
+    source = view.args[0]
+    mean_view = view.args[2].args[0].source  # Round(mean) -> GetSeriesBlock -> AggregateRaster
+    projection = "EPSG:28992"
+    pipeline.clear_read_cache()
+
+    def synchronize():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def export(target, profiled):
+        def run():
+            to_file(view, target, tile_size=tile, projection=projection, mode="centroid",
+                    device=device)
+
+        cuda_stencils.reset_launches()
+        with export_clock() as clock:
+            if profiled:
+                seconds, busy = device_busy_ms(run)
+            else:
+                synchronize()
+                t0 = time.perf_counter()
+                run()
+                synchronize()
+                seconds, busy = time.perf_counter() - t0, None
+        launches = {"gaussian_blur": cuda_stencils.launches,
+                    "moving_max": cuda_stencils.moving_max_launches}
+        return seconds, busy, launches, clock
+
+    target = os.path.join(folder, "heights.gpkg")
+    export_s, _, launches, clock = export(target, profiled=False)
+    extent = source.get_data(mode="extent", projection=projection)["extent"]
+    pieces = GeometryTiler(source, tile, projection).get_sources_and_requests(
+        mode="centroid", geometry=box(*extent), projection=projection)
+    subrequests = [request for _, request in pieces]
+    merged = vectorfile.read_vector(target)
+    phases = dict(clock.seconds)
+    phases["planning"] = export_s - phases["run"] - phases["merge"]
+    print("building-heights: to_file of %d buildings in %d tiles of %g m: %.3f s, %.1f "
+          "buildings/s, %d in the merged file [%s]" % (
+              count, len(subrequests), tile, export_s, count / export_s, len(merged), card))
+    print("building-heights: phases (s; planning holds the extent requests and the raster "
+          "window reads, the run holds the device plane and the sink writes; vector reads "
+          "fall in both; %d timed calls): %s" % (
+              sum(clock.calls.values()), json.dumps({k: round(v, 4) for k, v in phases.items()})))
+    print("building-heights: %d Gaussian launches in one export: one per tile subrequest "
+          "(%d), the mean's and the p90's AggregateRaster asking their tile's raster alike, "
+          "so the two share one Smooth node; %d moving-max launches"
+          % (launches["gaussian_blur"], len(subrequests), launches["moving_max"]))
+    check(launches["gaussian_blur"] == len(subrequests),
+          "building-heights: %d Gaussian launches for %d tiles"
+          % (launches["gaussian_blur"], len(subrequests)))
+
+    # every building whose centroid lies strictly inside a tile, each once
+    everything = vectorfile.read_vector(buildings, layer="pand")
+    centroids = np.array([g.centroid.coords[0] for g in everything.geometry.values])
+    inside = np.zeros(len(centroids), bool)
+    for request in subrequests:
+        x1, y1, x2, y2 = request["geometry"].bounds
+        inside |= ((centroids[:, 0] > x1) & (centroids[:, 0] < x2)
+                   & (centroids[:, 1] > y1) & (centroids[:, 1] < y2))
+    fids = merged.index.values.tolist()
+    check(len(fids) == len(set(fids)), "building-heights: a fid is in the merged file twice")
+    check(sorted(fids) == sorted(everything.index.values[inside].tolist()),
+          "building-heights: the merged file does not hold every building whose centroid "
+          "lies strictly inside a tile")
+    names = {"identificatie", "bouwjaar", "status", "h_mean", "h_p90", "relief", "area",
+             "geometry"}
+    check(set(merged.columns) == names, "building-heights: the fields are %s"
+          % sorted(merged.columns))
+    print("building-heights: the merged file holds all %d buildings whose centroid lies "
+          "strictly inside a tile (of %d), each fid once, fields %s"
+          % (len(fids), count, sorted(names - {"geometry"})))
+
+    def mean_ulps(request):
+        def ulps(fids):
+            card_mean = mean_view.get_data(device=device, **request)["features"]
+            host_mean = compute_host(*mean_view.get_compute_graph(**request))["features"]
+            out = []
+            for fid in fids:
+                a = np.float32(card_mean["agg"].values[card_mean.index.values == fid][0])
+                b = np.float32(host_mean["agg"].values[host_mean.index.values == fid][0])
+                out.append(abs(int(a.view(np.int32)) - int(b.view(np.int32))))
+            return out
+        return ulps
+
+    # two tiles against compute_host: the host's partial file of the same
+    # subrequest against the export's rows of those fids
+    host_s = 0.0
+    merged_rows = frame_rows(merged)
+    host_dir = os.path.join(folder, "host_partials")
+    differing = 0
+    for request in (subrequests[0], subrequests[len(subrequests) // 2]):
+        sink = GeometryFileSink(view, host_dir, extension="gpkg")
+        t0 = time.perf_counter()
+        compute_host(*sink.get_compute_graph(**request))
+        host_s += time.perf_counter() - t0
+        host_rows = frame_rows(vectorfile.read_vector(
+            os.path.join(host_dir, tokenize(request)[:7] + ".gpkg")))
+        differing += len(compare_heights(
+            "building-heights tile", {fid: merged_rows[fid] for fid in host_rows if
+                                      fid in merged_rows}, host_rows, mean_ulps(request)))
+    print("building-heights: two tiles' rows equal compute_host of their subrequests: "
+          "geometry, area, h_p90 and relief bitwise, h_mean differing in %d rows (within one "
+          "float32 ulp before rounding) [%s]" % (differing, card))
+
+    # again through the GeoPackage's R-tree
+    # 1 MiB, below the 16 MiB default and the file (a smaller file: half its size)
+    limit = min(1024 * 1024, size // 2)
+    with config.set({"geomodeling.vector-windowed-read-limit": limit}):
+        pipeline.clear_read_cache()
+        rtree_target = os.path.join(folder, "heights_rtree.gpkg")
+        rtree_s, busy_ms, rtree_launches, rtree_clock = export(rtree_target, profiled=True)
+    idle = None if busy_ms is None else 1 - busy_ms / 1e3 / rtree_s
+    rtree_rows = frame_rows(vectorfile.read_vector(rtree_target))
+    check(sorted(rtree_rows) == sorted(merged_rows), "building-heights: the R-tree export "
+          "holds other features")
+    rounding = 0
+    for fid, row in merged_rows.items():
+        for column, value in row.items():
+            if column == "h_mean" and repr(rtree_rows[fid][column]) != repr(value):
+                rounding += 1
+                check(abs(rtree_rows[fid][column] - value) <= 0.0100001,
+                      "building-heights: h_mean of the R-tree export")
+            elif column != "h_mean":
+                check(repr(rtree_rows[fid][column]) == repr(value),
+                      "building-heights: the R-tree export differs in %s" % column)
+    check(rtree_clock.calls["vector read"] >= len(subrequests),
+          "building-heights: the R-tree export read the file %d times"
+          % rtree_clock.calls["vector read"])
+    print("building-heights: through the R-tree (geomodeling.vector-windowed-read-limit "
+          "%d bytes): %d vector reads, the same %d features, h_mean differing in %d rows; "
+          "%.3f s under torch.profiler, %d Gaussian launches; device busy %s, idle share %s "
+          "[%s]" % (limit, rtree_clock.calls["vector read"], len(rtree_rows), rounding, rtree_s,
+                    rtree_launches["gaussian_blur"],
+                    "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
+                    "not measured" if idle is None else "%.4f" % idle, card))
+
+    # a sub-area exported untiled as GeoJSON and as a Shapefile
+    x1, y1, x2, y2 = extent
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    sub = box(cx - sub_size / 2, cy - sub_size / 2, cx + sub_size / 2, cy + sub_size / 2)
+    sub_request = dict(mode="centroid", geometry=sub, projection=projection)
+    for ext in ("geojson", "shp"):
+        ours = os.path.join(folder, "sub." + ext)
+        to_file(view, ours, device=device, **sub_request)
+        host_target = os.path.join(folder, "host_sub." + ext)
+        sink_dir = os.path.join(folder, "host_sub_" + ext)
+        t0 = time.perf_counter()
+        compute_host(*GeometryFileSink(view, sink_dir, extension=ext).get_compute_graph(
+            **sub_request))
+        GeometryFileSink.merge_files(sink_dir, host_target)
+        host_s += time.perf_counter() - t0
+        port_rows = frame_rows(vectorfile.read_vector(ours))
+        differ = compare_heights("building-heights sub-area " + ext, port_rows,
+                                 frame_rows(vectorfile.read_vector(host_target)),
+                                 mean_ulps(sub_request))
+        if not differ and ext == "geojson":
+            check(open(ours, "rb").read() == open(host_target, "rb").read(),
+                  "building-heights: the GeoJSON differs from the host's")
+        print("building-heights: a %g m sub-area exported untiled as %s: %d buildings, equal "
+              "to the host's export (h_mean differing in %d rows)"
+              % (sub_size, ext, len(port_rows), len(differ)))
+    # the Gaussian's plane on this path: the first tile's raster request
+    # and Smooth's margin
+    raster_request = mean_view.get_sources_and_requests(**subrequests[0])[1][1]
+    sigma = smooth_sigma(mean_view.raster, raster_request)
+    margin = int(round(3 * sigma[0]))
+    plane = (1, raster_request["height"] + 2 * margin, raster_request["width"] + 2 * margin)
+    total_s = time.perf_counter() - started
+    print("building-heights: host ground truth %.3f s (two tiles and two sub-area exports); "
+          "the phase %.1f s; the Gaussian's plane %s at sigma %s [%s]"
+          % (host_s, total_s, plane, sigma, card))
+    return launches, dict(
+        plane=plane, sigma=sigma,
+        buildings=count, tiles=len(subrequests), export_s=export_s,
+        buildings_per_s=count / export_s, rtree_device_busy_ms=busy_ms, rtree_idle_share=idle,
+        phases=phases, rtree_export_s=rtree_s, host_s=host_s, phase_s=total_s,
+        h_mean_rows_differing=differing, write_s=write_s, gpkg_bytes=size)
+
+
 def check_fuzz(device):
     """The executor fuzz on the card: the reference's random trees (seeds
     0-39 at 12^2, 40-54 as 6^2 tiles in batches of 2) against compute_host
@@ -1985,6 +2453,7 @@ def run_phases(card, device, folder, mark):
     import torch
 
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
     t0 = time.perf_counter()
@@ -2070,6 +2539,21 @@ def run_phases(card, device, folder, mark):
                                                         read_values)
     del read_values
     mark("the file-export path")
+    launches["building-heights"], buildings = check_buildings(card, device, folder, sheet)
+    rng = np.random.RandomState(1)
+    building_planes = torch.from_numpy(
+        (3 + rng.rand(*buildings["plane"]) * 5).astype(np.float32)).to(device)
+    got = cuda_stencils.gaussian_blur(building_planes, *buildings["sigma"], 0)
+    want = gaussian_blur_reference(building_planes, *buildings["sigma"], 0)
+    check(torch.equal(got, want),
+          "gaussian_blur differs from its plain version at the building-heights plane")
+    err = float((got - want).abs().max())
+    print("kernel check: gaussian_blur building-heights plane %s equal=True max_abs_err=%r"
+          % (tuple(building_planes.shape), err))
+    gaussian.append(dict(time_gaussian(building_planes, buildings["sigma"]),
+                         max_abs_err=err, path="building-heights"))
+    del building_planes, got, want
+    mark("the building-heights path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -2086,6 +2570,7 @@ def run_phases(card, device, folder, mark):
         with interpolation_set(interpolation):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
     timings["file-export"] = export
+    timings["building-heights"] = buildings
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -40,6 +40,16 @@ defaults = {
     # level of a pyramided GeoTIFF (off: the reference reads full
     # resolution)
     "geomodeling.use-overviews": False,
+    # the most features a geometry request returns when it sets no limit
+    # (GeometryFileSource raises above it; Rasterize asks for at most it)
+    "geomodeling.geometry-limit": 10000,
+    # GeoPackages above this many BYTES answer a request's bbox through
+    # their gpkg_rtree_index (only the rows it touches decode) instead of
+    # the parse-whole-file read cache; None disables
+    "geomodeling.vector-windowed-read-limit": 16 * 1024 * 1024,
+    # where to_file of a geometry writes its partial files (None: the
+    # system's temporary directory)
+    "temporary_directory": None,
 }
 
 _MISSING = object()

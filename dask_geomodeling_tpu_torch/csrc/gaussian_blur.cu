@@ -48,6 +48,15 @@
 //   window along the pass axis as double with `fill` slots; a radius too
 //   large for shared memory reads the taps from device memory instead.
 //
+// Integer frames.  scipy.ndimage.gaussian_filter with an integer `output`
+// stores each pass in that integer type before the next pass reads it, and
+// its C cast truncates toward zero.  The entry gaussian_blur_trunc_f64
+// takes the integer frame widened to double (exact for every int32, and
+// as C widens an int64 or uint64) and stores through TruncDouble: a double
+// whose conversion from the accumulator truncates.  Its intermediate and
+// its output are therefore the integers scipy stores, held as doubles, and
+// the caller's cast back to the integer type is exact.
+//
 // Layout: N contiguous planes of H x W.  Weights: w[0..r] per axis (the
 // kernel is symmetric), [wy(ry+1), wx(rx+1)]; the fused launch takes them
 // from the host by value, the two-pass launch from a device buffer.
@@ -80,6 +89,16 @@ struct Weights {
 __device__ __forceinline__ double tap_pair(double a, double b, double w) {
   return __dmul_rn(__dadd_rn(a, b), w);
 }
+
+// The storage of the integer entry: a double that takes a value
+// truncated toward zero, as C's cast of a double to an integer type does.
+struct TruncDouble {
+  double v;
+  TruncDouble() = default;
+  __device__ __forceinline__ explicit TruncDouble(double x) : v(trunc(x)) {}
+  __device__ __forceinline__ explicit operator double() const { return v; }
+};
+static_assert(sizeof(TruncDouble) == sizeof(double), "stored as a double");
 
 // the y pass's result as the next pass reads it: rounded to T
 template <typename T>
@@ -535,6 +554,16 @@ int gaussian_blur_f64(const void* in, void* out, void* scratch,
                       void* stream) {
   return launch<double>(in, out, scratch, host_weights, device_weights, n, h,
                         w, ry, rx, fill, stream);
+}
+
+// An integer frame as double (see TruncDouble): each pass's result is
+// truncated toward zero, so `out` holds the integers scipy stores.
+int gaussian_blur_trunc_f64(const void* in, void* out, void* scratch,
+                            const double* host_weights,
+                            const void* device_weights, int64_t n, int h,
+                            int w, int ry, int rx, double fill, void* stream) {
+  return launch<TruncDouble>(in, out, scratch, host_weights, device_weights, n,
+                             h, w, ry, rx, fill, stream);
 }
 
 }  // extern "C"

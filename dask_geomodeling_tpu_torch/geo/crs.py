@@ -303,6 +303,12 @@ def _registry_get(code):
 
 
 _EPSG_RE = re.compile(r"^(?:EPSG|epsg):(\d+)$")
+#: an OGC URN or URL naming an EPSG code (GeoJSON's legacy named crs,
+#: GML's srsName)
+_URN_RE = re.compile(
+    r"^(?:urn:ogc:def:crs:EPSG:[^:]*:|https?://www\.opengis\.net/def/crs/EPSG/[^/]*/)(\d+)$",
+    re.IGNORECASE,
+)
 #: the EPSG authority closing a WKT text
 _WKT_AUTH_RE = re.compile(r'AUTHORITY\[\"EPSG\",\s*\"?(\d+)\"?\]\s*\]\s*$')
 
@@ -325,8 +331,8 @@ _WKT = {
 
 @lru_cache(maxsize=32)
 def get_sr(user_input):
-    """The SpatialReference of an 'EPSG:xxxx' string, an EPSG integer or a
-    WKT closed by an EPSG authority.
+    """The SpatialReference of an 'EPSG:xxxx' string, an EPSG integer, an
+    OGC URN or URL of an EPSG code, or a WKT closed by an EPSG authority.
     Axis order is traditional GIS (x = lon first)."""
     if isinstance(user_input, SpatialReference):
         return user_input
@@ -338,6 +344,9 @@ def get_sr(user_input):
         return _registry_get(int(match.group(1)))
     if text.isdigit():
         return _registry_get(int(text))
+    match = _URN_RE.match(text)
+    if match:
+        return _registry_get(int(match.group(1)))
     match = _WKT_AUTH_RE.search(text)
     if match and "[" in text:
         return _registry_get(int(match.group(1)))

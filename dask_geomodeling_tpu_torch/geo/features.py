@@ -3,27 +3,44 @@
 Counterpart of dask_geomodeling_tpu/geo/features.py, whose classes are
 pandas subclasses.  The port runs where pandas is not installed (the card
 machine has none), so its frame is its own: numpy columns (one 1-D array
-each, an object array where cells are geometries or lists), an ``Index``
-(values and a name), a ``crs`` and the name of the active geometry
-column.  Rows are selected by position (``iloc``) or by a boolean mask,
-never by label, and a column assigned from another frame's series takes
-its values in order: every frame of a request shares one index.
+each, an object array where cells are geometries, strings or lists), an
+``Index`` (values and a name), a ``crs`` and the name of the active
+geometry column.
 
-It holds what the ported blocks ask of a frame (geometry sources,
-Rasterize, AggregateRaster), and no more: ``len``, ``copy``, ``columns``,
-column get and set (a list of lists makes one list cell per row, the
-multiband output of AggregateRaster), ``name in frame``, ``values``,
-``iloc``, ``index`` with ``name`` and ``to_series()``, ``set_index``,
-``set_geometry``, ``to_crs`` and ``total_bounds``; on the series,
-``bounds``, ``centroid``, ``x``, ``y``, ``intersects``, ``within`` (the
-in-memory source's centroid mode) and ``is_empty``.
+It holds what the ported blocks ask of a frame, with pandas 3's answers:
+
+- rows by position (``iloc``) or by a boolean mask; ``len``, ``copy``,
+  ``columns``, ``name in frame``, ``values``, ``set_index``,
+  ``iterrows`` (cells as Python scalars, as pandas gives them for a frame
+  that holds geometries), ``set_geometry``, ``to_crs``, ``total_bounds``
+  and ``concat``;
+- columns aligned by index label, as pandas aligns them: a series
+  assigned to a frame, and the operands of an arithmetic or logic
+  operation, whose indexes differ are reindexed (NaN where a label is
+  missing; the union of both indexes, sorted, for an operation); a
+  comparison of series whose indexes differ raises, as in pandas;
+- on a series: arithmetic, comparison and logic operators (NaN and None
+  are missing: a comparison with a missing value is False but for ``!=``;
+  an integer division or modulo by zero gives pandas' inf and NaN),
+  ``isna``, ``all``, ``round`` (numpy's half to even), ``map``, ``where``,
+  ``mask``, ``reindex`` and item assignment by a mask;
+- on a geometry series: ``area``, ``bounds``, ``centroid``, ``x``, ``y``,
+  ``intersects``, ``within``, ``is_empty``, ``to_crs`` and a settable
+  ``crs``.
+
+Column types follow pandas' inference from records: numbers with None
+become float64 with NaN, strings with None keep NaN for the missing ones
+(pandas 3's ``str`` dtype), bools with None and all-None columns stay
+object columns of the values.  Strings are held in object arrays.
 """
+import operator
+
 import numpy as np
 
 from dask_geomodeling_tpu_torch.geo import geometry as geom_mod
 from dask_geomodeling_tpu_torch.geo.crs import get_projection, get_transform_func
 
-__all__ = ["Index", "Series", "GeoSeries", "GeoDataFrame"]
+__all__ = ["Index", "Series", "GeoSeries", "GeoDataFrame", "concat", "is_null"]
 
 
 def _objects(items):
@@ -36,9 +53,54 @@ def _objects(items):
     return out
 
 
+def is_null(value):
+    """pandas' ``isna`` of one cell: None, a float NaN or a NaT."""
+    if value is None:
+        return True
+    if isinstance(value, (float, np.floating)):
+        return value != value
+    if isinstance(value, (np.datetime64, np.timedelta64)):
+        return bool(np.isnat(value))
+    return False
+
+
+def _is_number(value):
+    return isinstance(value, (int, float, np.integer, np.floating)) and not isinstance(
+        value, (bool, np.bool_)
+    )
+
+
+def _infer(values):
+    """A column from a list of cells, typed as pandas infers a column of
+    records: numbers (with None as NaN) float64 unless all are integers,
+    bools bool, strings with None a string column with NaN missing, dates
+    datetime64[us] (None as NaT), anything else (or a mix) an object
+    column of the cells as they are."""
+    present = [v for v in values if not is_null(v)]
+    if not present:
+        if values and all(isinstance(v, (float, np.floating)) for v in values):
+            return np.array(values, dtype=float)
+        return _objects(values)
+    if all(isinstance(v, (bool, np.bool_)) for v in present):
+        return np.array(values, dtype=bool) if len(present) == len(values) else _objects(values)
+    if all(_is_number(v) for v in present):
+        if len(present) == len(values) and all(
+            isinstance(v, (int, np.integer)) for v in present
+        ):
+            return np.array(values, dtype=np.int64)
+        return np.array([np.nan if v is None else v for v in values], dtype=float)
+    if all(isinstance(v, str) for v in present):
+        return _objects([np.nan if is_null(v) else v for v in values])
+    if all(isinstance(v, np.datetime64) for v in present):
+        return np.array([np.datetime64("NaT") if v is None else v for v in values],
+                        dtype="datetime64[us]")
+    return _objects(values)
+
+
 def _as_column(values, length=None):
     """A column's values as a 1-D array: a scalar is repeated ``length``
-    times, a list holding lists, arrays, geometries or strings becomes an
+    times, a list is typed as pandas types a column of records
+    (``_infer``); a list holding lists, arrays or geometries becomes an
     object array of those cells."""
     if isinstance(values, (Series, Index)):
         return values.values
@@ -49,11 +111,9 @@ def _as_column(values, length=None):
             return _objects([values] * (length or 0))
         return np.full(length or 0, values)
     values = list(values)
-    if any(not np.isscalar(v) or isinstance(v, str) for v in values if v is not None):
+    if any(not np.isscalar(v) and v is not None for v in values):
         return _objects(values)
-    if any(v is None for v in values):
-        return np.array([np.nan if v is None else v for v in values], dtype=float)
-    return np.asarray(values)
+    return _infer(values)
 
 
 def _row_selector(key, length):
@@ -88,6 +148,23 @@ class Index:
     def __getitem__(self, key):
         return Index(self.values[key], self.name)
 
+    @property
+    def is_unique(self):
+        return len(set(self.values.tolist())) == len(self.values)
+
+    def equals(self, other):
+        """The same labels in the same order (pandas' Index.equals)."""
+        if self is other or self.values is other.values:
+            return True
+        return len(self) == len(other) and bool(
+            np.all(self.values == other.values)
+            if self.values.dtype != object and other.values.dtype != object
+            else self.values.tolist() == other.values.tolist()
+        )
+
+    def tolist(self):
+        return self.values.tolist()
+
     def to_series(self):
         """A series of the labels, indexed by them (pandas' to_series)."""
         return Series(self.values.copy(), index=self, name=self.name)
@@ -98,6 +175,170 @@ class Index:
 
 def _default_index(length):
     return Index(np.arange(length, dtype=np.int64))
+
+
+def _union_labels(a, b):
+    """The labels of an outer join of two indexes, sorted as pandas sorts
+    a union (numbers, then strings, where they do not compare)."""
+    labels = list(dict.fromkeys(a.values.tolist() + b.values.tolist()))
+    try:
+        labels = sorted(labels)
+    except TypeError:
+        labels = sorted(labels, key=lambda v: (isinstance(v, str), v))
+    values = np.asarray(labels) if labels and not any(isinstance(v, str) for v in labels) \
+        else _objects(labels)
+    return Index(values)
+
+
+def _missing_fill(values):
+    """``values`` as a column that can hold NaN: integers become float64,
+    bools object; floats and objects stay."""
+    if values.dtype.kind in "iu":
+        return values.astype(float)
+    if values.dtype.kind == "b":
+        return values.astype(object)
+    return values
+
+
+def _reindexed(values, index, target):
+    """``values`` (labelled by ``index``) at the labels of ``target``,
+    NaN where a label is missing."""
+    if index.equals(target):
+        return values
+    positions = {}
+    for i, label in enumerate(index.values.tolist()):
+        if label in positions:
+            raise ValueError("cannot reindex on an axis with duplicate labels")
+        positions[label] = i
+    take = np.array([positions.get(label, -1) for label in target.values.tolist()],
+                    dtype=np.intp)
+    missing = take < 0
+    if not missing.any():
+        return values[take]
+    out = _missing_fill(values)[np.where(missing, 0, take)].copy() if len(values) \
+        else np.full(len(take), np.nan)
+    out[missing] = np.nan
+    return out
+
+
+def _aligned(left, right):
+    """(index, left values, right values) of two operands; a scalar right
+    operand stays as it is."""
+    if not isinstance(right, Series):
+        return left.index, left.values, right
+    if left.index.equals(right.index):
+        return left.index, left.values, right.values
+    index = _union_labels(left.index, right.index)
+    return (index, _reindexed(left.values, left.index, index),
+            _reindexed(right.values, right.index, index))
+
+
+_COMPARISONS = {operator.eq, operator.ne, operator.lt, operator.le, operator.gt, operator.ge}
+_LOGIC = {operator.and_, operator.or_, operator.xor}
+
+
+def _null_mask(values):
+    if isinstance(values, np.ndarray):
+        if values.dtype.kind in "fc":
+            return np.isnan(values)
+        if values.dtype == object:
+            return np.fromiter((is_null(v) for v in values), bool, len(values))
+        return np.zeros(len(values), bool)
+    return np.bool_(is_null(values))
+
+
+def _compare_objects(op, a, b):
+    """pandas' comparison of object cells: a missing cell compares False
+    (True for ``!=``)."""
+    n = len(a) if isinstance(a, np.ndarray) else len(b)
+    left = a if isinstance(a, np.ndarray) else [a] * n
+    right = b if isinstance(b, np.ndarray) else [b] * n
+    out = np.empty(n, dtype=bool)
+    for i, (x, y) in enumerate(zip(left, right)):
+        if is_null(x) or is_null(y):
+            out[i] = op is operator.ne
+        else:
+            out[i] = bool(op(x, y))
+    return out
+
+
+def _logic_objects(op, a, b):
+    """pandas' logic on object cells: a missing cell counts as False."""
+    def as_bool(values):
+        if isinstance(values, np.ndarray):
+            return np.array([False if is_null(v) else bool(v) for v in values], dtype=bool)
+        return False if is_null(values) else bool(values)
+
+    return op(as_bool(a), as_bool(b))
+
+
+def _arith_objects(op, a, b):
+    """Arithmetic on object cells: NaN where either cell is missing."""
+    n = len(a) if isinstance(a, np.ndarray) else len(b)
+    left = a if isinstance(a, np.ndarray) else [a] * n
+    right = b if isinstance(b, np.ndarray) else [b] * n
+    out = np.empty(n, dtype=object)
+    for i, (x, y) in enumerate(zip(left, right)):
+        out[i] = np.nan if is_null(x) or is_null(y) else op(x, y)
+    return out
+
+
+def _integer_division_fill(op, a, b, result):
+    """pandas' answers of an integer ``//`` or ``%`` by zero: x // 0 is
+    +-inf (0 // 0 NaN) and x % 0 NaN, in a float64 result."""
+    divisor = np.broadcast_to(np.asarray(b), np.shape(result))
+    zero = divisor == 0
+    if not zero.any():
+        return result
+    dividend = np.broadcast_to(np.asarray(a), np.shape(result))
+    out = result.astype(float)
+    if op is operator.floordiv:
+        with np.errstate(invalid="ignore"):
+            fill = np.sign(dividend[zero]) * np.inf
+        fill[dividend[zero] == 0] = np.nan
+        out[zero] = fill
+    else:
+        out[zero] = np.nan
+    return out
+
+
+def _binary_values(op, a, b):
+    """``op`` over aligned values (arrays or a scalar) as pandas computes it."""
+    objects = any(isinstance(v, np.ndarray) and v.dtype == object for v in (a, b)) or any(
+        isinstance(v, str) or v is None for v in (a, b)
+    )
+    if op in _COMPARISONS:
+        if objects:
+            return _compare_objects(op, a, b)
+        with np.errstate(invalid="ignore"):
+            return np.asarray(op(a, b), dtype=bool)
+    if op in _LOGIC:
+        if objects or any(isinstance(v, float) or (isinstance(v, np.ndarray) and v.dtype.kind == "f")
+                          for v in (a, b)):
+            return _logic_objects(op, a, b)
+        return op(a, b)
+    if objects:
+        return _arith_objects(op, a, b)
+    with np.errstate(all="ignore"):
+        result = op(a, b)
+    if op in (operator.floordiv, operator.mod) and np.asarray(result).dtype.kind in "iu":
+        result = _integer_division_fill(op, a, b, result)
+    return result
+
+
+def _binary(op):
+    def method(self, other):
+        if isinstance(other, Series):
+            if op in _COMPARISONS and not self.index.equals(other.index):
+                raise ValueError("Can only compare identically-labeled Series objects")
+            index, a, b = _aligned(self, other)
+        else:
+            index, a, b = self.index, self.values, other
+        return Series(_binary_values(op, a, b), index=index,
+                      name=self.name if not isinstance(other, Series) or other.name == self.name
+                      else None)
+
+    return method
 
 
 class _ILoc:
@@ -136,6 +377,18 @@ class Series:
         """Rows by a boolean mask (a series or an array)."""
         return self._take(key)
 
+    def __setitem__(self, key, value):
+        """Cells by a boolean mask (or positions) set to ``value``; an
+        integer or bool column that cannot hold it is widened first."""
+        key = _row_selector(key, len(self))
+        if isinstance(value, Series):
+            value = value.values[key]
+        if self.values.dtype.kind in "iub" and value is not None and np.size(value) and (
+            np.result_type(self.values, np.asarray(value)) != self.values.dtype
+        ):
+            self.values = self.values.astype(np.result_type(self.values, np.asarray(value)))
+        self.values[key] = value
+
     def _take(self, key):
         if np.isscalar(key):
             return self.values[key]
@@ -149,8 +402,95 @@ class Series:
     def astype(self, dtype):
         return self._new(self.values.astype(dtype), self.index)
 
+    def copy(self):
+        return self._new(self.values.copy(), self.index)
+
     def tolist(self):
         return self.values.tolist()
+
+    def to_numpy(self):
+        return self.values
+
+    # --- missing values ---
+
+    def isna(self):
+        return Series(_null_mask(self.values), index=self.index, name=self.name)
+
+    def all(self):
+        return bool(np.all(self.values))
+
+    # --- alignment and element-wise methods ---
+
+    def reindex(self, index):
+        """The values at the labels of ``index``; NaN where one is missing."""
+        return Series(_reindexed(self.values, self.index, index), index=index, name=self.name)
+
+    def round(self, decimals=0, out=None):
+        """numpy's ``around`` (half to even, in the column's dtype); what
+        ``np.around(series)`` calls."""
+        return self._new(np.around(self.values, decimals), self.index)
+
+    def map(self, func):
+        """``func`` of every cell, the result typed as pandas infers it."""
+        return self._new(_infer([func(v) for v in self.values.tolist()]), self.index)
+
+    def where(self, cond, other=np.nan):
+        """Keep the cells where ``cond`` holds, ``other`` elsewhere (both
+        aligned to this series by label; a missing condition is False)."""
+        return self._replace(~self._condition(cond), other)
+
+    def mask(self, cond, other=np.nan):
+        """Replace the cells where ``cond`` holds by ``other``."""
+        return self._replace(self._condition(cond), other)
+
+    def _condition(self, cond):
+        if isinstance(cond, Series):
+            values = _reindexed(cond.values, cond.index, self.index)
+        else:
+            values = np.asarray(cond)
+        if values.dtype != bool:
+            values = np.array([False if is_null(v) else bool(v) for v in values], dtype=bool)
+        return values
+
+    def _replace(self, replace, other):
+        if not replace.any():
+            return self.copy()
+        if isinstance(other, Series):
+            other = _reindexed(other.values, other.index, self.index)
+        values = self.values
+        if values.dtype.kind in "iu" and np.ndim(other) == 0 and _is_number(other) and (
+            float(other) == int(other) if np.isfinite(float(other)) else False
+        ):
+            other = values.dtype.type(other)  # pandas keeps integers that hold it
+        if values.dtype == object or (isinstance(other, np.ndarray) and other.dtype == object) \
+                or isinstance(other, str) or other is None:
+            out = values.astype(object)
+            out[replace] = other[replace] if isinstance(other, np.ndarray) else other
+        else:
+            out = np.where(replace, other, values)
+        return self._new(out, self.index)
+
+    # the field operations call these with the series on the left
+    __add__ = _binary(operator.add)
+    __sub__ = _binary(operator.sub)
+    __mul__ = _binary(operator.mul)
+    __truediv__ = _binary(operator.truediv)
+    __floordiv__ = _binary(operator.floordiv)
+    __mod__ = _binary(operator.mod)
+    __pow__ = _binary(operator.pow)
+    __eq__ = _binary(operator.eq)
+    __ne__ = _binary(operator.ne)
+    __lt__ = _binary(operator.lt)
+    __le__ = _binary(operator.le)
+    __gt__ = _binary(operator.gt)
+    __ge__ = _binary(operator.ge)
+    __and__ = _binary(operator.and_)
+    __or__ = _binary(operator.or_)
+    __xor__ = _binary(operator.xor)
+    __hash__ = None
+
+    def __invert__(self):
+        return self._new(~self.values, self.index)
 
     def __repr__(self):
         return "Series(%r, name=%r)" % (self.values.tolist(), self.name)
@@ -189,6 +529,10 @@ class GeoSeries(Series):
         return Series(self._map(lambda g: bool(g.is_empty), bool), self.index)
 
     # measures
+    @property
+    def area(self):
+        return Series(self._map(lambda g: float(g.area), float), self.index)
+
     @property
     def centroid(self):
         return GeoSeries(self._map(lambda g: g.centroid, object), self.index, crs=self.crs)
@@ -240,7 +584,8 @@ class GeoDataFrame:
 
     ``data`` is None or empty (no rows and no columns), a dict of columns,
     or another frame (copied); ``geometry`` (a sequence of geometries) adds
-    a "geometry" column and makes it the active one.
+    a "geometry" column and makes it the active one.  ``index`` alone
+    makes a frame of that many rows and no columns.
     """
 
     def __init__(self, data=None, geometry=None, crs=None, index=None):
@@ -260,6 +605,8 @@ class GeoDataFrame:
             length = len(next(iter(self._columns.values()))) if self._columns else 0
         elif data is not None and len(data):
             raise TypeError("a frame is built from a dict of columns or from records")
+        if index is not None and not self._columns:
+            length = len(index)
         if geometry is not None:
             if isinstance(geometry, str):
                 self._geometry_column_name = geometry
@@ -267,9 +614,9 @@ class GeoDataFrame:
                 geometry = GeoSeries(geometry)
                 if self.crs is None:
                     self.crs = geometry.crs
-                if not self._columns:
+                if not self._columns and index is None:
                     length = len(geometry)
-                    index = geometry.index if index is None else index
+                    index = geometry.index
                 self._columns["geometry"] = geometry.values
                 self._geometry_column_name = "geometry"
         elif self._geometry_column_name is None and "geometry" in self._columns:
@@ -315,17 +662,28 @@ class GeoDataFrame:
         return Series(values, index=self.index, name=name)
 
     def __getitem__(self, key):
-        """A column by name, or the rows of a boolean mask."""
+        """A column by name, the columns of a list of names, or the rows
+        of a boolean mask."""
         if isinstance(key, str):
             if key not in self._columns:
                 raise KeyError(key)
             return self._column(key)
+        if isinstance(key, list) and all(isinstance(k, str) for k in key) and key:
+            missing = [k for k in key if k not in self._columns]
+            if missing:
+                raise KeyError(missing)
+            frame = GeoDataFrame(index=self.index, crs=self.crs)
+            frame._columns = {k: self._columns[k] for k in key}
+            return frame
         return self._take(key)
 
     def __setitem__(self, name, value):
-        if isinstance(value, Series) and len(value) != len(self):
-            raise ValueError("a column of %d for %d rows" % (len(value), len(self)))
-        values = _as_column(value, len(self))
+        """A column: a series is aligned to the frame's index by label
+        (NaN where a label is missing), anything else taken in order."""
+        if isinstance(value, Series):
+            values = _reindexed(value.values, value.index, self.index)
+        else:
+            values = _as_column(value, len(self))
         if len(values) != len(self):
             raise ValueError("a column of %d for %d rows" % (len(values), len(self)))
         self._columns[name] = values
@@ -348,6 +706,18 @@ class GeoDataFrame:
         """Rows by position: an int gives a dict of the row's cells, a
         list, array or slice gives a frame."""
         return _ILoc(self)
+
+    def iterrows(self):
+        """(label, {column: cell}) per row, the cells as Python scalars
+        where they are numbers, as pandas' iterrows gives them for a frame
+        that holds an object column."""
+        labels = self.index.values.tolist()
+        columns = {
+            k: (v.astype("datetime64[us]") if v.dtype.kind == "M" else v).tolist()
+            for k, v in self._columns.items()
+        }
+        for i, label in enumerate(labels):
+            yield label, {k: cells[i] for k, cells in columns.items()}
 
     def set_index(self, name, inplace=False):
         frame = self if inplace else self.copy()
@@ -394,3 +764,50 @@ class GeoDataFrame:
 
     def __repr__(self):
         return "GeoDataFrame(%d rows, columns=%r, crs=%r)" % (len(self), self.columns, self.crs)
+
+
+def _concat_columns(parts):
+    """One column from the parts of the frames, typed as pandas' concat
+    types it: one dtype stays, numbers of several dtypes widen (integers
+    and floats to a float, bools with numbers to object), anything else
+    becomes an object column."""
+    kinds = {p.dtype.kind for p in parts}
+    if len({p.dtype for p in parts}) == 1:
+        return np.concatenate(parts)
+    if kinds <= set("iuf") or kinds <= set("iu"):
+        return np.concatenate(parts).astype(np.result_type(*parts))
+    return np.concatenate([p.astype(object) for p in parts])
+
+
+def concat(frames):
+    """The rows of ``frames`` one after another (pandas' concat): the
+    indexes concatenated (the name kept where all agree), the columns in
+    order of first appearance, a column a frame lacks NaN there; the crs
+    and the geometry column of the first frame."""
+    frames = list(frames)
+    if not frames:
+        raise ValueError("No objects to concatenate")
+    names = []
+    for frame in frames:
+        names += [k for k in frame.columns if k not in names]
+    columns = {}
+    for name in names:
+        parts = []
+        for frame in frames:
+            if name in frame._columns:
+                parts.append(frame._columns[name])
+            else:
+                parts.append(np.full(len(frame), np.nan))
+        if any(name not in frame._columns for frame in frames):
+            parts = [_missing_fill(p) for p in parts]
+        columns[name] = _concat_columns(parts)
+    index_names = {frame.index.name for frame in frames}
+    labels = [frame.index.values for frame in frames]
+    index = Index(
+        _concat_columns(labels) if labels else np.empty(0, np.int64),
+        index_names.pop() if len(index_names) == 1 else None,
+    )
+    out = GeoDataFrame(index=index, crs=frames[0].crs)
+    out._columns = columns
+    out._geometry_column_name = frames[0]._geometry_column_name
+    return out

@@ -8,15 +8,13 @@ gives the same float64 bits:
   MultiPolygon, GeometryCollection; ``box()`` and ``shape()``
 - predicates: intersects, within, contains, disjoint, equals, is_valid
 - measures: area, length, bounds, centroid, distance
-- simplify (Douglas-Peucker) and convex_hull
+- operations: intersection, union and difference (the planar overlay,
+  geo/_overlay.py), simplify (Douglas-Peucker) and convex_hull
 - WKT and WKB (ISO little-endian) serialization (geo/_wkt.py);
   ``__geo_interface__``
 
-The planar overlay (``intersection``, ``union``, ``difference``; the JAX
-package's geo/_overlay.py) and ``buffer`` (its geo/_buffer.py) are not
-ported: they raise NotImplementedError naming the module.  ``is_valid``
-keeps the overlay's edge-crossing test (``_edge_intersections``), copied
-here.
+``buffer`` (the JAX package's geo/_buffer.py) is not ported: it raises
+NotImplementedError naming the module.
 
 Geometries are immutable value objects; an optional ``srs`` attribute tags
 the coordinate system.
@@ -320,13 +318,19 @@ class Geometry:
         return _simplify(self, tolerance)
 
     def intersection(self, other):
-        raise NotImplementedError("intersection (geo/_overlay.py) is not ported")
+        from dask_geomodeling_tpu_torch.geo import _overlay
+
+        return _overlay.overlay(self, other, "intersection")
 
     def union(self, other):
-        raise NotImplementedError("union (geo/_overlay.py) is not ported")
+        from dask_geomodeling_tpu_torch.geo import _overlay
+
+        return _overlay.overlay(self, other, "union")
 
     def difference(self, other):
-        raise NotImplementedError("difference (geo/_overlay.py) is not ported")
+        from dask_geomodeling_tpu_torch.geo import _overlay
+
+        return _overlay.overlay(self, other, "difference")
 
     @property
     def convex_hull(self):
@@ -530,10 +534,12 @@ class Polygon(Geometry):
             ):
                 return False
         # rings must not properly cross each other
+        from dask_geomodeling_tpu_torch.geo import _overlay
+
         for i in range(len(rings)):
             for j in range(i + 1, len(rings)):
                 for k in range(len(rings[i]) - 1):
-                    if _edge_intersections(
+                    if _overlay._edge_intersections(
                         rings[i][k], rings[i][k + 1], rings[j]
                     ):
                         return False
@@ -1039,36 +1045,3 @@ def _convex_hull(points):
     lower = half(pts)
     upper = half(pts[::-1])
     return np.array(lower[:-1] + upper[:-1])
-
-
-# copied from the JAX package's geo/_overlay.py, which is not ported:
-# Polygon.is_valid's test of rings that cross
-def _edge_intersections(p, q, ring):
-    """Parameters t in (0, 1) where segment p->q crosses ring edges."""
-    ts = []
-    d = q - p
-    a = ring[:-1]
-    b = ring[1:]
-    e = b - a
-    denom = d[0] * e[:, 1] - d[1] * e[:, 0]
-    diff = a - p
-    with np.errstate(divide="ignore", invalid="ignore"):
-        t = (diff[:, 0] * e[:, 1] - diff[:, 1] * e[:, 0]) / denom
-        u = (diff[:, 0] * d[1] - diff[:, 1] * d[0]) / denom
-    valid = (np.abs(denom) > 1e-15) & (t > 1e-12) & (t < 1 - 1e-12) & (u >= -1e-12) & (
-        u <= 1 + 1e-12
-    )
-    ts.extend(t[valid].tolist())
-    # collinear overlaps: project the other edge's endpoints onto p->q
-    denom_len = d[0] ** 2 + d[1] ** 2
-    if denom_len > 0:
-        collinear = np.abs(denom) <= 1e-15
-        if collinear.any():
-            for idx in np.nonzero(collinear)[0]:
-                for pt in (a[idx], b[idx]):
-                    cross = d[0] * (pt[1] - p[1]) - d[1] * (pt[0] - p[0])
-                    if abs(cross) < 1e-9 * np.sqrt(denom_len):
-                        tt = ((pt[0] - p[0]) * d[0] + (pt[1] - p[1]) * d[1]) / denom_len
-                        if 1e-12 < tt < 1 - 1e-12:
-                            ts.append(float(tt))
-    return ts

@@ -9,9 +9,9 @@ one (geo/features.py).  The geometry plane runs on the host; only
 AggregateRaster takes device tensors (its raster), through
 ``compute_torch``.
 
-The field operations (and so the series operators that build them), the
-sinks and the other GeometryBlocks are not ported; ``to_file`` raises
-NotImplementedError.
+The series operators build the field operations
+(geometry/field_operations.py) and ``to_file`` exports through the sinks
+(geometry/sinks.py), as in the JAX package.
 """
 from dask_geomodeling_tpu_torch.core import Block, arg, expect_instance
 from dask_geomodeling_tpu_torch.geo.features import Series
@@ -60,12 +60,58 @@ class GeometryBlock(Block):
         return SetSeriesBlock(self, *args)
 
     def to_file(self, *args, **kwargs):
-        raise NotImplementedError("geometry/sinks.py is not ported")
+        """Export features to a file; see
+        :func:`dask_geomodeling_tpu_torch.geometry.sinks.to_file`."""
+        from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+
+        return to_file(self, *args, **kwargs)
+
+
+def _series_operator(block_name, unary=False, const=None):
+    """An operator overload building the named field-operation block
+    lazily (field_operations imports this module)."""
+    if unary:
+
+        def method(self):
+            import dask_geomodeling_tpu_torch.geometry as blocks
+
+            cls = getattr(blocks, block_name)
+            return cls(self) if const is None else cls(self, const)
+
+    else:
+
+        def method(self, other):
+            import dask_geomodeling_tpu_torch.geometry as blocks
+
+            return getattr(blocks, block_name)(self, other)
+
+    method.__doc__ = "Build a %s block from this series." % block_name
+    return method
 
 
 class SeriesBlock(Block):
-    """A block representing one column of a GeometryBlock.  Its operator
-    overloads, which build field operations, are not ported."""
+    """A block representing one column of a GeometryBlock."""
+
+    __add__ = __radd__ = _series_operator("Add")
+    __mul__ = __rmul__ = _series_operator("Multiply")
+    __neg__ = _series_operator("Multiply", unary=True, const=-1)
+    __sub__ = _series_operator("Subtract")
+    __floordiv__ = _series_operator("FloorDivide")
+    __mod__ = _series_operator("Modulo")
+    __truediv__ = _series_operator("Divide")
+    __pow__ = _series_operator("Power")
+    __eq__ = _series_operator("Equal")
+    __ne__ = _series_operator("NotEqual")
+    __gt__ = _series_operator("Greater")
+    __ge__ = _series_operator("GreaterEqual")
+    __lt__ = _series_operator("Less")
+    __le__ = _series_operator("LessEqual")
+    __invert__ = _series_operator("Invert", unary=True)
+    __and__ = _series_operator("And")
+    __or__ = _series_operator("Or")
+    __xor__ = _series_operator("Xor")
+
+    __hash__ = Block.__hash__
 
 
 class GetSeriesBlock(SeriesBlock):

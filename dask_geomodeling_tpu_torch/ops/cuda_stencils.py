@@ -2,7 +2,8 @@
 
 - ``gaussian_blur`` (csrc/gaussian_blur.cu) replaces the Pallas TPU
   kernel ``gaussian_blur_pallas``
-  (dask_geomodeling_tpu/ops/pallas_stencils.py:55);
+  (dask_geomodeling_tpu/ops/pallas_stencils.py:55); an integer frame runs
+  its truncating float64-storage entry;
 - ``moving_max`` (csrc/moving_max.cu) replaces ``moving_max_pallas``
   (dask_geomodeling_tpu/ops/pallas_stencils.py:136).
 
@@ -24,6 +25,7 @@ from dask_geomodeling_tpu_torch.ops import _build
 from dask_geomodeling_tpu_torch.ops.stencils import (
     gaussian_blur_reference,
     gaussian_weights,
+    is_integer_frame,
     moving_max_reference,
 )
 
@@ -45,6 +47,8 @@ fused_launches = 0
 moving_max_launches = 0
 
 _ENTRY = {torch.float32: "gaussian_blur_f32", torch.float64: "gaussian_blur_f64"}
+#: the integer frames' entry: float64 storage truncated toward zero
+_TRUNC_ENTRY = "gaussian_blur_trunc_f64"
 
 
 def reset_launches():
@@ -70,7 +74,7 @@ def _check_planes(name, values):
 def _library():
     lib = _build.load_library("gaussian_blur")
     if not getattr(lib, "_declared", False):
-        for name in _ENTRY.values():
+        for name in (*_ENTRY.values(), _TRUNC_ENTRY):
             fn = getattr(lib, name)
             fn.argtypes = [
                 ctypes.c_void_p,  # in
@@ -117,28 +121,35 @@ def _device_weights(sigma_y, sigma_x, device):
 
 def gaussian_blur(values, sigma_y, sigma_x, fill):
     """Separable Gaussian over (N, h, w) data, constant ``fill`` boundary;
-    returns float32 (float64 for float64 input), like the reference.
+    returns float32 for float32 input, float64 for float64 and the frame's
+    own dtype for an integer frame, like the reference.
 
-    CUDA tensors must be contiguous float32 or float64; cast before the
-    call (the Smooth twin does).  One call is one kernel launch (two for a
-    radius above the fused launch's limit) on the current stream, without
-    a synchronise.
+    CUDA tensors must be contiguous float32, float64 or integer (cast a
+    float16 frame before the call; the Smooth twin does).  An integer
+    frame runs the truncating entry over a float64 copy, whose result is
+    cast back exactly.  One call is one kernel launch (two for a radius
+    above the fused launch's limit) on the current stream, without a
+    synchronise.
     """
     global launches, fused_launches
     if values.device.type == "cpu":
         return gaussian_blur_reference(values, sigma_y, sigma_x, fill)
     if values.device.type != "cuda":
         raise ValueError("gaussian_blur: unsupported device %s" % values.device)
-    if values.dtype not in _ENTRY:
+    integer = is_integer_frame(values.dtype)
+    if values.dtype not in _ENTRY and not integer:
         raise TypeError(
-            "gaussian_blur: CUDA input must be float32 or float64, got %s"
-            % values.dtype
+            "gaussian_blur: CUDA input must be float32, float64 or an integer "
+            "dtype, got %s" % values.dtype
         )
     _check_planes("gaussian_blur", values)
+    frame_dtype = values.dtype
+    if integer:
+        values = values.to(torch.float64)
     n, height, width = values.shape
     out = torch.empty_like(values)
     if values.numel() == 0:
-        return out
+        return out.to(frame_dtype)
 
     sigma_y, sigma_x = float(sigma_y), float(sigma_x)
     host_weights, radius_y, radius_x = _half_weights(sigma_y, sigma_x)
@@ -148,7 +159,7 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
         scratch = torch.empty_like(values)
         device_weights = _device_weights(sigma_y, sigma_x, values.device)
     with torch.cuda.device(values.device):
-        err = getattr(lib, _ENTRY[values.dtype])(
+        err = getattr(lib, _TRUNC_ENTRY if integer else _ENTRY[values.dtype])(
             values.data_ptr(),
             out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
@@ -172,7 +183,7 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
         fused_launches += 1
     else:
         launches += 2
-    return out
+    return out.to(frame_dtype) if integer else out
 
 
 #: the kernel's type codes (csrc/moving_max.cu)

@@ -4,7 +4,8 @@
 dask_geomodeling_tpu/ops/stencils.py:gaussian_blur_jax, but it follows
 the host's arithmetic instead of the TPU's: scipy.ndimage.gaussian_filter
 (what the numpy Smooth process runs) accumulates each 1-D pass in double
-and writes it into the frame's own dtype before the next pass.  Doing the
+and writes it into the frame's own dtype before the next pass (an integer
+frame's pass truncated toward zero by C's cast).  Doing the
 same here makes the port's Smooth bitwise equal to the host, where the
 JAX twin, which accumulates in float32, is only allclose.
 
@@ -29,6 +30,7 @@ __all__ = [
     "gaussian_blur_reference",
     "gaussian_weights",
     "blur_dtype",
+    "is_integer_frame",
     "footprint_runs",
     "moving_max_reference",
 ]
@@ -65,8 +67,18 @@ def gaussian_weights(sigma, truncate=4.0):
 
 def blur_dtype(dtype):
     """The dtype a blur of ``dtype`` data computes and returns: float64
-    stays float64, everything else works in float32."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
+    stays float64, an integer frame is stored in its own dtype
+    (``is_integer_frame``), everything else works in float32."""
+    if dtype == torch.float64 or is_integer_frame(dtype):
+        return dtype
+    return torch.float32
+
+
+def is_integer_frame(dtype):
+    """True for the integer dtypes whose blur stores each pass in the
+    frame's dtype, truncated toward zero, as ``ndimage.gaussian_filter``
+    does with an integer ``output`` (bool is not one of them)."""
+    return not dtype.is_floating_point and not dtype.is_complex and dtype != torch.bool
 
 
 def gaussian_blur_reference(values, sigma_y, sigma_x, fill):
@@ -77,26 +89,47 @@ def gaussian_blur_reference(values, sigma_y, sigma_x, fill):
     w[j]`` for j = r..1 (scipy's symmetric order), in float64 with separate
     multiplies and adds, then rounds to the working dtype; y first, then x.
     A pass whose radius is 0 is skipped.
+
+    An integer frame (``is_integer_frame``) is widened to float64 as C
+    widens it, and each pass's result is truncated toward zero, as scipy's
+    C cast stores it in the integer ``output`` before the next pass reads
+    it; the result has the frame's dtype.  Fills outside the dtype's range
+    are not defined by scipy (its cast is undefined there).
     """
+    if is_integer_frame(values.dtype):
+        out = values.to(torch.float64)
+        for axis, sigma in ((1, sigma_y), (2, sigma_x)):
+            blurred = _blur_pass(out, axis, sigma, fill)
+            if blurred is not None:
+                out = torch.trunc(blurred)
+        return out.to(values.dtype)
     out_dtype = blur_dtype(values.dtype)
     out = values.to(out_dtype)
     for axis, sigma in ((1, sigma_y), (2, sigma_x)):
-        weights, radius = gaussian_weights(sigma)
-        if radius == 0:
-            continue
-        pad = (0, 0, radius, radius) if axis == 1 else (radius, radius)
-        # pad in float64 with the double fill, as scipy pads with cval
-        padded = F.pad(out.to(torch.float64), pad, value=float(fill))
-        length = out.shape[axis]
-
-        def tap(offset):
-            return padded.narrow(axis, radius + offset, length)
-
-        acc = tap(0) * float(weights[radius])
-        for j in range(radius, 0, -1):
-            acc = acc + (tap(-j) + tap(j)) * float(weights[radius + j])
-        out = acc.to(out_dtype)
+        blurred = _blur_pass(out, axis, sigma, fill)
+        if blurred is not None:
+            out = blurred.to(out_dtype)
     return out
+
+
+def _blur_pass(out, axis, sigma, fill):
+    """One 1-D pass of scipy's kernel along ``axis`` in float64, or None
+    for a radius of 0."""
+    weights, radius = gaussian_weights(sigma)
+    if radius == 0:
+        return None
+    pad = (0, 0, radius, radius) if axis == 1 else (radius, radius)
+    # pad in float64 with the double fill, as scipy pads with cval
+    padded = F.pad(out.to(torch.float64), pad, value=float(fill))
+    length = out.shape[axis]
+
+    def tap(offset):
+        return padded.narrow(axis, radius + offset, length)
+
+    acc = tap(0) * float(weights[radius])
+    for j in range(radius, 0, -1):
+        acc = acc + (tap(-j) + tap(j)) * float(weights[radius + j])
+    return acc
 
 
 def footprint_runs(size):

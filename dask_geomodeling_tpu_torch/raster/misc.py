@@ -18,6 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core import arg, expect_instance
 from dask_geomodeling_tpu_torch.device import (
     as_operand,
@@ -55,11 +56,6 @@ __all__ = [
     "Rasterize",
     "RasterizeWKT",
 ]
-
-#: the features a Rasterize asks its source for, unless it sets a limit:
-#: the JAX package's default ``geomodeling.geometry-limit``
-GEOMETRY_LIMIT = 10000
-
 
 def _data_cells(frame):
     """Boolean index of a frame's data-carrying cells (boolean frames:
@@ -601,7 +597,9 @@ class Rasterize(_GeometryRaster):
             "geometry": box(*request["bbox"]),
             "projection": request["projection"],
             "min_size": self._cell_floor(request["bbox"], width, height),
-            "limit": self.limit if self.limit is not None else GEOMETRY_LIMIT,
+            "limit": self.limit
+            if self.limit is not None
+            else config.get("geomodeling.geometry-limit"),
             "start": request.get("start"),
             "stop": request.get("stop"),
         }

@@ -325,7 +325,10 @@ def _smooth_torch(data, process_kwargs=None):
     ``_smooth_jax``): nodata becomes ``fill``, then the Gaussian (one
     kernel launch over all B x bands planes of a batch), the cast back to
     the frame's dtype, then the exact crop or the order-0 zoom back onto
-    the request grid.  ``size`` is the batch's first tile's."""
+    the request grid.  ``size`` is the batch's first tile's.  An integer
+    frame is blurred in its own dtype (each pass truncated, as the numpy
+    process's integer ``output`` stores it), so for it, as for float64,
+    the cast back changes nothing."""
     if data is None or process_kwargs is None:
         return data
     size_y, size_x = process_kwargs["size"]

@@ -1,4 +1,4 @@
-"""The host read caches of raster files.
+"""The host read caches of raster and vector files.
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF and
 VRT: ``read_geotiff_cached`` decodes a whole file into an mtime-validated
@@ -11,9 +11,13 @@ path and stores it by ``(path, variable)``, so its lookups never hit).  A
 rewrite of the file changes its stamp (mtime and size) and is decoded
 again.
 
+``read_vector_cached`` parses a whole vector file into a third LRU, keyed
+by ``(path, layer)`` on lookup and store and validated by the same stamp;
+callers treat the frame it returns as read-only.
+
 The other raster formats of the JAX package's reader raise
 NotImplementedError naming the JAX module that reads them.  Its
-``TilePrefetcher`` and the vector cache are not ported.
+``TilePrefetcher`` is not ported.
 """
 import os
 import threading
@@ -23,6 +27,7 @@ from functools import partial
 __all__ = [
     "read_geotiff_cached",
     "read_geotiff_window_cached",
+    "read_vector_cached",
     "clear_read_cache",
     "check_ported_format",
 ]
@@ -32,6 +37,8 @@ _READ_CACHE = OrderedDict()
 _READ_CACHE_SIZE = 8
 _WINDOW_CACHE = OrderedDict()
 _WINDOW_CACHE_SIZE = 64
+_VECTOR_CACHE = OrderedDict()
+_VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
 #: JAX module that reads each
@@ -121,8 +128,23 @@ def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=N
     return _cached(_WINDOW_CACHE, _WINDOW_CACHE_SIZE, key, _file_stamp(path), read)
 
 
+def read_vector_cached(path, layer=None):
+    """Read a whole vector file through an mtime-validated LRU keyed by
+    ``(path, layer)``, so the tiles of a request parse an unchanged file
+    once.  The frame is shared: callers must treat it as read-only
+    (GeometryFileSource copies it before it writes to it)."""
+    from dask_geomodeling_tpu_torch.io import vectorfile
+
+    path = os.path.abspath(path)
+    return _cached(
+        _VECTOR_CACHE, _VECTOR_CACHE_SIZE, (path, layer), _file_stamp(path),
+        partial(vectorfile.read_vector, path, layer=layer),
+    )
+
+
 def clear_read_cache():
-    """Drop all cached decoded rasters."""
+    """Drop all cached decoded rasters and vector frames."""
     with _CACHE_LOCK:
         _READ_CACHE.clear()
         _WINDOW_CACHE.clear()
+        _VECTOR_CACHE.clear()

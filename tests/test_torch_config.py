@@ -64,13 +64,13 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    } | set(FILE_KEYS)
+    } | set(FILE_KEYS) | set(VECTOR_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    ) + FILE_KEYS:
+    ) + FILE_KEYS + VECTOR_KEYS:
         assert defaults[key] == jax_config_module.defaults[key], key
 
 
@@ -83,7 +83,16 @@ FILE_KEYS = (
 )
 
 
-@pytest.mark.parametrize("key", FILE_KEYS)
+#: the vector file layer's keys: the geometry limit, the R-tree reads,
+#: the partial files of a geometry export
+VECTOR_KEYS = (
+    "geomodeling.geometry-limit",
+    "geomodeling.vector-windowed-read-limit",
+    "temporary_directory",
+)
+
+
+@pytest.mark.parametrize("key", FILE_KEYS + VECTOR_KEYS)
 def test_file_keys_have_the_jax_defaults(key):
     assert port_config_module.defaults[key] == jax_config_module.defaults[key]
     assert port_config_module.config.get(key) == jax_config_module.config.get(key)

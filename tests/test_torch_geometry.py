@@ -108,14 +108,21 @@ def test_transform_bitwise(src, dst):
 
 
 @pytest.mark.parametrize("operation, module", [
-    (lambda g: g.intersection(g), "_overlay"),
-    (lambda g: g.union(g), "_overlay"),
-    (lambda g: g.difference(g), "_overlay"),
-    (lambda g: g.buffer(1.0), "_buffer"),
+    (lambda g, h: g.intersection(h), "_overlay"),
+    (lambda g, h: g.union(h), "_overlay"),
+    (lambda g, h: g.difference(h), "_overlay"),
+    (lambda g, h: g.buffer(1.0), "_buffer"),
 ])
 def test_overlay_and_buffer_not_ported(operation, module):
-    with pytest.raises(NotImplementedError, match=module):
-        operation(geometry.box(0, 0, 1, 1))
+    """The overlay is ported (geo/_overlay.py) and gives the JAX
+    package's geometries; ``buffer`` is not, and raises naming its module."""
+    pair = geometry.box(0, 0, 1, 1), geometry.box(0.5, -0.5, 2, 0.75)
+    if module == "_buffer":
+        with pytest.raises(NotImplementedError, match=module):
+            operation(*pair)
+        return
+    expected = operation(jax_geometry.box(0, 0, 1, 1), jax_geometry.box(0.5, -0.5, 2, 0.75))
+    _same_geometry(operation(*pair), expected)
 
 
 # --- the feature frame against the JAX package's pandas frames ---
@@ -268,3 +275,26 @@ def test_geometry_wkt_source(mode):
             _same_frame(actual["features"], expected["features"])
     with pytest.raises(ValueError):
         type(view)("NOT A WKT", "EPSG:28992")
+
+
+@pytest.mark.parametrize("other", [
+    "POLYGON ((0 0, 10 0, 10 10, 0 10, 0 0))",  # a box
+    "POLYGON ((2 2, 2 8, 8 8, 8 2, 2 2))",  # a box, clockwise
+    "POLYGON ((0 0, 10 0, 0 10, 0 0))",  # not a box
+    "POLYGON ((0 0, 10 0, 10 10, 0 10, 0 0), (4 4, 6 4, 6 6, 4 6, 4 4))",  # a box with a hole
+    "POLYGON ((5 5, 5 5, 5 5, 5 5, 5 5))",  # degenerate
+])
+def test_geoseries_intersects_as_per_geometry(other):
+    """GeoSeries.intersects gives the answers of the JAX package's
+    per-geometry loop, for boxes and other polygons alike."""
+    rng = np.random.RandomState(2)
+    wkts = [geometry.box(x, y, x + w, y + h).wkt for x, y, w, h in
+            np.round(rng.uniform([-3, -3, 0.5, 0.5], [11, 11, 4, 4], size=(60, 4)), 1)]
+    wkts += ["POINT (10 10)", "POINT (10 11)", "LINESTRING (-1 5, 11 5)", "POLYGON EMPTY",
+             "POLYGON ((10 0, 12 0, 12 2, 10 2, 10 0))"]
+    port = GeoSeries([geometry.from_wkt(w) for w in wkts]).intersects(geometry.from_wkt(other))
+    ref = JaxGeoSeries([jax_geometry.from_wkt(w) for w in wkts]).intersects(
+        jax_geometry.from_wkt(other))
+    assert port.tolist() == ref.tolist()
+    assert port.tolist() == [bool(geometry.from_wkt(w).intersects(geometry.from_wkt(other)))
+                             for w in wkts]

@@ -11,7 +11,9 @@ median, p90 bitwise; sum and mean within one float32 ulp), with the
 label planes bitwise to the host scanline's;
 every TemporalAggregate statistic, TemporalSum and Cumulative over a small
 source on the card against compute_host; the fuzz's trees on the card
-against compute_host; the float64 discrete ops.  This file imports nothing
+against compute_host; the float64 discrete ops; the building-heights
+export of 400 footprints over a 1024^2 sheet against the CPU, and
+chip_smoke's building-heights phase at that size.  This file imports nothing
 of JAX or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -284,3 +286,59 @@ def test_file_export_on_card(file_paths, tmp_path):
         assert read_back.shape == (1, 1024, 1024)
         cpu_back = mosaic.get_data(device="cpu", **request)["values"]
         np.testing.assert_array_equal(read_back, cpu_back)
+
+
+# --- building-heights at small size ---
+
+
+@pytest.fixture(scope="module")
+def buildings(file_paths):
+    """A 1024^2 sheet and 400 footprints over it (chip_smoke's builders)."""
+    folder, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    bbox = RasterFileSource(sheet).footprint.bbox
+    path = chip_smoke.write_buildings(folder, bbox, 400)
+    return chip_smoke.build_buildings_view(path, sheet)
+
+
+def _heights(path):
+    from dask_geomodeling_tpu_torch.io.vectorfile import read_vector
+
+    return chip_smoke.frame_rows(read_vector(path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", ["gpkg", "geojson", "shp"])
+def test_building_heights_on_card(buildings, tmp_path, ext):
+    """The export on the card against the same export on the CPU: the
+    same rows, h_mean within one float32 ulp before rounding (float64
+    atomics), one Gaussian launch per tile."""
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+
+    device = _card()
+    request = dict(tile_size=128.0, projection="EPSG:28992", mode="centroid")
+    cuda_stencils.reset_launches()
+    to_file(buildings, str(tmp_path / ("card." + ext)), device=device, **request)
+    assert cuda_stencils.launches == 16  # 512 m x 512 m in 128 m tiles
+    to_file(buildings, str(tmp_path / ("cpu." + ext)), device="cpu", **request)
+    card, cpu = _heights(str(tmp_path / ("card." + ext))), _heights(str(tmp_path / ("cpu." + ext)))
+    assert len(card) > 300
+    # a rounded h_mean may flip where the card's float64 atomics put the
+    # mean one float32 ulp from the CPU's: allowed as a difference of 0.01
+    differ = chip_smoke.compare_heights("card", card, cpu, lambda fids: [
+        0 if abs(card[f]["h_mean"] - cpu[f]["h_mean"]) <= 0.0100001 else 2 for f in fids])
+    assert len(differ) <= 2
+
+
+@pytest.mark.cuda
+def test_building_heights_phase_on_card(file_paths, tmp_path):
+    """chip_smoke's phase at small size: every check of the full run."""
+    device = _card()
+    folder, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    launches, numbers = chip_smoke.check_buildings("card", device, str(tmp_path), sheet,
+                                                   count=400, tile=128.0, sub_size=200.0)
+    assert launches["gaussian_blur"] == numbers["tiles"] == 16

@@ -158,8 +158,6 @@ def test_tiler_point_and_passthrough(source):
 def test_tiler_over_a_twin_chain_fetches_each_subrequest(source, monkeypatch):
     """The subrequests' twins run on the device; the tiler gets each
     result copied to the host once (executor.to_host)."""
-    # float32: on integer data the numpy Smooth rounds between its axis
-    # passes and the twin once (ROADMAP Queue 3)
     jax_view = R.RasterTiler(R.Smooth(R.Multiply(source, 1.5), 1.5), 2)
     request = dict(mode="vals", bbox=(135000, 455995, 135005, 456000), width=10, height=10,
                    projection="EPSG:28992", start=T0, stop=datetime(2000, 1, 1, 2))
@@ -171,6 +169,18 @@ def test_tiler_over_a_twin_chain_fetches_each_subrequest(source, monkeypatch):
     assert_same(view.get_data(device="cpu", **request), jax_numpy(jax_view, request))
     assert len(fetched) == 25  # 5 x 5 subrequests of 2^2 px; the root is on the host
     assert executor.host_node_runs == runs + 1  # the tiler's assembly alone
+
+
+def test_tiler_over_smooth_on_an_integer_source(source):
+    """Smooth over the uint8 source itself: the numpy process stores each
+    axis pass in uint8, truncated, and so does the twin."""
+    jax_view = R.RasterTiler(R.Smooth(source, 1.5), 2)
+    request = dict(mode="vals", bbox=(135000, 455995, 135005, 456000), width=10, height=10,
+                   projection="EPSG:28992", start=T0, stop=datetime(2000, 1, 1, 2))
+    view = from_reference(jax_view.serialize())
+    expected = jax_numpy(jax_view, request)
+    assert expected["values"].dtype == np.uint8
+    assert_same(view.get_data(device="cpu", **request), expected)
 
 
 # --- RasterFileSink and to_file (tests/test_raster_sinks.py) ---

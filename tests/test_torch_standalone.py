@@ -32,9 +32,10 @@ import chip_smoke
 from dask_geomodeling_tpu import config as jax_config
 from dask_geomodeling_tpu.geo.crs import transform_points as jax_transform_points
 from dask_geomodeling_tpu.geometry import GeometryWKTSource as JaxGeometryWKTSource
-from dask_geomodeling_tpu.geometry.parallelize import GeometryTiler
-from dask_geomodeling_tpu.geometry.sources import GeometryFileSource
-from dask_geomodeling_tpu.geometry.field_operations import Classify as FieldClassify
+from dask_geomodeling_tpu import geometry as jax_blocks
+from dask_geomodeling_tpu.geometry.merge import MergeGeometryBlocks
+from dask_geomodeling_tpu.geometry.constructive import Buffer
+from dask_geomodeling_tpu.geometry.text import ParseTextColumn
 from dask_geomodeling_tpu.raster import HillShade as JaxHillShade
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import MovingMax as JaxMovingMax
@@ -127,6 +128,16 @@ def test_port_never_imports_jax():
             "evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
             "view.to_file(folder + '/out.vrt', tile_size=128, device='cpu')",
             "assert len(os.listdir(folder + '/tiles')) == 6",
+            "from dask_geomodeling_tpu_torch.geometry.sinks import to_file",
+            "from dask_geomodeling_tpu_torch.io.vectorfile import read_vector",
+            "from dask_geomodeling_tpu_torch.raster import RasterFileSource",
+            "bbox = RasterFileSource(sheet).footprint.bbox",
+            "buildings = cs.write_buildings(folder, bbox, 24)",
+            "view = cs.build_buildings_view(buildings, sheet)",
+            "for ext, tile in (('gpkg', 60.0), ('geojson', None), ('shp', 60.0)):",
+            "    to_file(view, folder + '/heights.' + ext, tile_size=tile,",
+            "            projection='EPSG:28992', mode='centroid', device='cpu')",
+            "    assert len(read_vector(folder + '/heights.' + ext)) > 15",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -423,19 +434,80 @@ def test_chip_smoke_builds_the_reference_views():
 @pytest.mark.parametrize(
     "make, name",
     [
-        (lambda source: GeometryFileSource("/nonexistent/parcels.gpkg"),
-         "sources.GeometryFileSource"),  # module ported
-        (lambda source: FieldClassify(
-            JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992")["geometry"], [1, 2], ["x", "y", "z"]),
-         "field_operations.Classify"),  # module not
-        (lambda source: GeometryTiler(JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), 10.0,
-                                      "EPSG:28992"), "parallelize.GeometryTiler"),  # module not
+        (lambda source: MergeGeometryBlocks(
+            JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"),
+            JaxGeometryWKTSource("POINT (2 1)", "EPSG:28992")),
+         "merge.MergeGeometryBlocks"),  # module not ported
+        (lambda source: Buffer(JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), 1.0, "EPSG:28992"),
+         "constructive.Buffer"),  # module not
+        (lambda source: ParseTextColumn(
+            JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), "geometry", {"x": "x"}),
+         "text.ParseTextColumn"),  # module not
     ],
 )
 def test_from_reference_names_what_is_not_ported(make, name):
     source, _ = bench.build_view(32)
     with pytest.raises(NotImplementedError, match=name):
         from_reference(make(source).serialize())
+
+
+def test_from_reference_names_a_class_missing_from_a_ported_module(monkeypatch):
+    """A reference class in a module the port has, where the port's module
+    lacks that class (no real one does now, so one is put on the JAX side)."""
+    from dask_geomodeling_tpu.geometry import geom_operations as jax_geom_operations
+
+    class Perimeter(jax_geom_operations.Area):
+        pass
+
+    Perimeter.__module__ = jax_geom_operations.__name__
+    monkeypatch.setattr(jax_geom_operations, "Perimeter", Perimeter, raising=False)
+    view = Perimeter(JaxGeometryWKTSource("POINT (1 1)", "EPSG:28992"), "EPSG:28992")
+    with pytest.raises(NotImplementedError, match=r"geom_operations\.Perimeter is not ported"):
+        from_reference(view.serialize())
+
+
+def test_from_reference_carries_the_vector_blocks(tmp_path):
+    """GeometryFileSource, every field operation, Area, GeometryTiler and
+    GeometryFileSink come across: the port's class of the same module
+    path and name, with the same arguments."""
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+
+    path = str(tmp_path / "pand.gpkg")
+    write_vector(GeoDataFrame({"a": [1.5], "b": [2]}, geometry=[box(0, 0, 1, 1)],
+                              crs="EPSG:28992"), path, layer="pand")
+    source = jax_blocks.GeometryFileSource(path, layer="pand")
+    a, b = source["a"], source["b"]
+    series = [
+        jax_blocks.Classify(a, [1.0, 2.0], ["x", "y", "z"], right=False),
+        jax_blocks.ClassifyFromColumns(source, "a", ["b"], ["low", "high"]),
+        a + b, a - 1, a * b, a / 2.0, a // b, a ** 2, a % 3, a == b, a != 1, a > b, a >= 1,
+        a < b, a <= 2, (a > 1) & (b > 1), (a > 1) | (b > 1), (a > 1) ^ (b > 1), ~(a > 1),
+        jax_blocks.Where(a, a > 1, 0.0), jax_blocks.Mask(a, a > 1, b),
+        jax_blocks.Round(a, 2), jax_blocks.Interp(a, [0, 1], [1, 3], left=0.0),
+        jax_blocks.Choose(a, b, a), jax_blocks.Area(source, "EPSG:28992"),
+    ]
+    view = jax_blocks.GeometryTiler(jax_blocks.GeometryFileSink(
+        source.set(*[x for k, s in enumerate(series) for x in ("c%d" % k, s)]), "/out", "gpkg",
+    ), 1000.0, "EPSG:28992")
+    serialized = view.serialize()
+    ported = from_reference(serialized)
+    found = {}
+
+    def walk(block):
+        found[type(block).__module__ + "." + type(block).__name__] = block
+        for arg in block.args:
+            if hasattr(arg, "args") and hasattr(arg, "token"):
+                walk(arg)
+
+    walk(ported)
+    expected = {value[0].replace("dask_geomodeling_tpu.", "dask_geomodeling_tpu_torch.", 1)
+                for value in serialized["graph"].values()}
+    assert set(found) == expected
+    assert len(expected) >= 27
+    assert ported.size == 1000.0 and ported.source.extension == "gpkg"
+    assert ported.source.source.columns == view.source.source.columns
 
 
 # --- the numpy processes and compute_host ---

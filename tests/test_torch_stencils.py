@@ -1,7 +1,8 @@
 """The port's Gaussian: plain torch version, CUDA kernel, Smooth twin.
 
 The plain version follows scipy's arithmetic (float64 accumulation, float32
-rounding between passes), so it is held bitwise to scipy and to the numpy
+rounding between passes; an integer frame's passes truncated toward zero
+into its own dtype), so it is held bitwise to scipy and to the numpy
 Smooth process.  The Pallas TPU kernel accumulates in float32, so against
 it the check is allclose.
 """
@@ -103,6 +104,90 @@ def test_smooth_zoom_bitwise(size):
         kwargs,
     )
     values, _ = _run_smooth_twin(data, kwargs)
+    np.testing.assert_array_equal(values, expected["values"])
+
+
+# --- integer frames: each pass stored in the frame's dtype, truncated ---
+
+INT_DTYPES = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32, np.uint64]
+
+
+def _int_planes(seed, dtype, shape=(2, 47, 53), wide=False):
+    """Integers of ``dtype`` drawn from a seed: small values, or (``wide``)
+    values over half the dtype's range (beyond 2**53 for the 64-bit ones)."""
+    rng = np.random.RandomState(seed)
+    info = np.iinfo(dtype)
+    if wide:
+        lo, hi = info.min // 2, info.max // 2
+    else:
+        lo, hi = max(int(info.min), -100), min(int(info.max), 250)
+    return rng.randint(lo, hi, size=shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("sigma", [(1.1, 0.7), (0.759, 0.760), (2.0, 0.1)])
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_reference_integer_bitwise_gaussian_filter1d(dtype, sigma, wide):
+    """Per axis: scipy's 1-D pass into the integer dtype (its C cast
+    truncates toward zero), y first, then x over the stored y pass."""
+    data = _int_planes(12, dtype, wide=wide)
+    fill = 3
+    expected = data.copy()
+    for axis, s in ((1, sigma[0]), (2, sigma[1])):
+        if int(4.0 * s + 0.5) == 0:
+            continue
+        expected = ndimage.gaussian_filter1d(
+            expected, s, axis=axis, output=dtype, mode="constant", cval=fill
+        )
+    actual = gaussian_blur_reference(torch.from_numpy(data), *sigma, fill)
+    assert actual.dtype == torch.from_numpy(data).dtype
+    np.testing.assert_array_equal(actual.numpy(), expected)
+
+
+def test_reference_integer_truncates_toward_zero():
+    """An impulse of 10 and of -10 with sigma 1 along x: 0 0 2 3 2 0 0
+    where float64 gives 0.044 0.54 2.42 3.99 2.42 0.54 0.044."""
+    for dtype, sign in ((torch.uint8, 1), (torch.int16, -1)):
+        data = torch.zeros((1, 1, 7), dtype=dtype)
+        data[0, 0, 3] = 10 * sign
+        out = gaussian_blur_reference(data, 0.0, 1.0, 0)
+        assert out.dtype == dtype
+        assert out[0, 0].tolist() == [0, 0, 2 * sign, 3 * sign, 2 * sign, 0, 0]
+
+
+def _int_smooth_inputs(seed, dtype, wide=False):
+    values = _int_planes(seed, dtype, shape=(2, 60, 70), wide=wide)
+    nodata = np.iinfo(dtype).max
+    values[:, 5:9, 10:14] = nodata
+    return {"values": values, "no_data_value": nodata}
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize(
+    "mode,size,fill",
+    [("exact", [2.275, 2.281], 0), ("exact", [3.6, 3.0], 7), ("zoom", [9.0, 9.5], 0),
+     ("zoom", [30.0, 24.0], 5)],
+)
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_smooth_integer_frames_bitwise(dtype, mode, size, fill, wide):
+    """The twin against the port's numpy process and the JAX package's,
+    in exact and zoom modes, with nodata and an in-range fill."""
+    from dask_geomodeling_tpu_torch.raster.spatial import _smooth_process as port_process
+
+    data = _int_smooth_inputs(13, dtype, wide)
+    kwargs = {"smooth_mode": mode, "fill": fill, "size": size}
+
+    def host(process):
+        return process(
+            {"values": data["values"].copy(), "no_data_value": data["no_data_value"]}, kwargs
+        )
+
+    expected = host(_smooth_process)
+    port_host = host(port_process)
+    values, no_data_value = _run_smooth_twin(data, kwargs)
+    assert values.dtype == expected["values"].dtype == dtype
+    assert no_data_value == expected["no_data_value"]
+    np.testing.assert_array_equal(port_host["values"], expected["values"])
     np.testing.assert_array_equal(values, expected["values"])
 
 
@@ -242,3 +327,49 @@ def test_kernel_more_planes_than_the_grid_takes(sigma):
     """65,537 planes: more than a launch's 65,535 grid rows of planes."""
     _on_card()
     _card_equal(torch.from_numpy(_planes(11, (65537, 5, 6))).cuda(), sigma, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("sigma", EDGE_SIGMAS)
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_kernel_truncating_entry_equals_reference(dtype, sigma, wide):
+    """The integer frames' entry (float64 storage truncated toward zero),
+    fused and two-pass radii, against the plain version: torch.equal, in
+    the frame's dtype, values beyond 2**53 included."""
+    _on_card()
+    data = torch.from_numpy(_int_planes(14, dtype, shape=(3, 75, 131), wide=wide)).cuda()
+    before = cuda_stencils.launches
+    out = cuda_stencils.gaussian_blur(data, *sigma, 4)
+    want = gaussian_blur_reference(data, *sigma, 4)
+    torch.cuda.synchronize()
+    assert cuda_stencils.launches > before
+    assert out.dtype == want.dtype == data.dtype
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("size", [1.5, 3.0, 9.0])  # exact mode, and zoom mode above 6 px
+@pytest.mark.parametrize("dtype", INT_DTYPES)
+def test_smooth_view_on_integer_sources_as_the_numpy_executor(dtype, size):
+    """Smooth over an integer MemorySource with nodata: the port's view
+    (on CPU tensors) against the JAX package's numpy executor."""
+    from dask_geomodeling_tpu import config as jax_config
+    from dask_geomodeling_tpu import raster as R
+    from dask_geomodeling_tpu_torch import from_reference
+
+    data = _int_smooth_inputs(15, dtype)
+    values = data["values"][:1].copy()
+    values[values == data["no_data_value"]] = 77  # a nodata value each source dtype takes
+    source = R.MemorySource(data=values, no_data_value=77,
+                            projection="EPSG:28992", pixel_size=1.0, pixel_origin=(0, 60))
+    view = R.Smooth(source, size, fill=2)
+    request = dict(mode="vals", bbox=(5, 10, 55, 50), projection="EPSG:28992", width=50,
+                   height=40)
+    with jax_config.set({"geomodeling.executor": "numpy"}):
+        expected = view.get_data(**request)
+    actual = from_reference(view.serialize()).get_data(device="cpu", **request)
+    # (MemorySource narrows int64 data that fits int32, in both packages)
+    assert actual["values"].dtype == expected["values"].dtype
+    assert expected["values"].dtype.kind in "iu"
+    assert actual["no_data_value"] == expected["no_data_value"] == 77
+    np.testing.assert_array_equal(actual["values"], expected["values"])
