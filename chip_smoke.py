@@ -95,6 +95,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sub-area exported untiled as GeoJSON and as a Shapefile equal to the
    host's export; one Gaussian launch per tile, the phases, the device
    busy time and idle share;
+10c. wms-serving (check_wms_serving): the port's WSGI WMS server
+   (ipyleaflet_plugin.wms_app on wsgiref at 127.0.0.1, a background
+   thread) over two registered layers of the sheet, ahn-smooth (the
+   file-read view, style terrain, 0-10) and ahn-hillshade
+   (HillShade(RasterFileSource), gray, 0-255); a slippy map's GetMap
+   traffic (every 256^2 EPSG:3857 XYZ tile of zooms 14 and 15 over the
+   sheet and the middle 9 of zoom 16's 18 rows, PNG) through urllib in
+   four passes: cold (read caches cleared, no
+   result cache), warm, fill (the 256 MiB result cache of wms_serve) and
+   hit (byte-identical PNGs, no Gaussian launch); p50/p99/max latency a
+   layer and pass; 32 sampled tiles a layer against compute_host (at
+   most 5e-4 of the warped source cells differing, outside their reach
+   ahn-smooth bitwise and ahn-hillshade within 1 in at most 1e-3 of the
+   cells, every pixel whose value agrees coloured as the host's render
+   colours it), each timed in-process on the card (render_wms_tile) and
+   on the numpy host alike; 16 GetFeatureInfo answers against the host's values,
+   GetLegendGraphic, GetCoverage read back, GetCapabilities, a layer
+   naming the JAX package's classes answered 400; four threads rendering
+   64 tiles as the serial render does, one Gaussian launch per
+   ahn-smooth tile; a phase split of the sampled tiles and a profiled
+   warm pass, apart from the timed ones;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -105,15 +126,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    path's shape, the kernel, its plain version and one PyTorch call of the
    same function (CUDA events), and the least time the card could take;
    the Gaussian is timed at three paths' shapes, on a uint8 batch (the
-   integer entry) and at the building-heights path's single plane, one
-   kernel record each.
+   integer entry) and at the building-heights and wms-serving paths'
+   single planes, one kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
 port's compute_host.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Without CUDA the
 script exits non-zero before printing any result.  It imports nothing of
-JAX, pandas or the JAX package, and checks that at the end.
+JAX, pandas, matplotlib, Pillow or the JAX package, and checks that at
+the end.
 """
 import json
 import os
@@ -2322,6 +2344,561 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
         h_mean_rows_differing=differing, write_s=write_s, gpkg_bytes=size)
 
 
+# --- the wms-serving phase ---
+
+#: a slippy-map client's traffic over the sheet: WMS 1.1.1 GetMap,
+#: image/png, EPSG:3857, 256^2 tiles, every XYZ tile of these zooms that
+#: touches the sheet's EPSG:3857 box, row-major within each zoom
+WMS_ZOOMS = (14, 15, 16)
+WMS_TILE = 256
+WMS_ORIGIN = 20037508.342789244  # half the web Mercator world's width
+#: the last zoom is cut to this many of its tile rows, the middle ones
+#: (the phase's time budget: all 18 rows took 129.5 s on an NVIDIA H100
+#: 80GB HBM3 at 700 W, PERF.md section 4)
+WMS_LAST_ZOOM_ROWS = 9
+#: wms_serve.main's result cache
+WMS_CACHE_BYTES = 256 * 2**20
+#: tiles a layer held to compute_host, spread over the zooms
+WMS_SAMPLE = 32
+WMS_FEATURE_INFO = 16
+WMS_THREADS = 4
+WMS_CONCURRENT_TILES = 64
+
+
+def wms_layers(sheet):
+    """{name: (view, style, vmin, vmax)}: the layers the phase serves,
+    the file-read path's view and a HillShade of the sheet."""
+    from dask_geomodeling_tpu_torch.raster import HillShade, RasterFileSource, Smooth
+
+    return {
+        "ahn-smooth": (Smooth(RasterFileSource(sheet), 3), "terrain", 0.0, 10.0),
+        "ahn-hillshade": (HillShade(RasterFileSource(sheet)), "gray", 0.0, 255.0),
+    }
+
+
+def xyz_tiles(bbox, zooms=WMS_ZOOMS, last_zoom_rows=None):
+    """Every XYZ tile (z, x, y) of ``zooms`` that touches ``bbox``
+    (EPSG:3857), row-major within each zoom; with ``last_zoom_rows``, only
+    that many of the last zoom's rows, the middle ones."""
+    tiles = []
+    for z in zooms:
+        size = 2 * WMS_ORIGIN / 2**z
+        x0 = int(np.floor((bbox[0] + WMS_ORIGIN) / size))
+        x1 = int(np.ceil((bbox[2] + WMS_ORIGIN) / size))
+        y0 = int(np.floor((WMS_ORIGIN - bbox[3]) / size))
+        y1 = int(np.ceil((WMS_ORIGIN - bbox[1]) / size))
+        if z == zooms[-1] and last_zoom_rows is not None and last_zoom_rows < y1 - y0:
+            y0 += (y1 - y0 - last_zoom_rows) // 2
+            y1 = y0 + last_zoom_rows
+        tiles += [(z, x, y) for y in range(y0, y1) for x in range(x0, x1)]
+    return tiles
+
+
+def xyz_bbox(z, x, y):
+    """The EPSG:3857 box of XYZ tile (z, x, y)."""
+    size = 2 * WMS_ORIGIN / 2**z
+    return (x * size - WMS_ORIGIN, WMS_ORIGIN - (y + 1) * size,
+            (x + 1) * size - WMS_ORIGIN, WMS_ORIGIN - y * size)
+
+
+def getmap_params(layer, style, vmin, vmax, tile):
+    """A slippy-map client's GetMap query of ``tile``."""
+    return {"SERVICE": "WMS", "VERSION": "1.1.1", "REQUEST": "GetMap", "LAYERS": layer,
+            "STYLES": style, "VMIN": repr(vmin), "VMAX": repr(vmax), "FORMAT": "image/png",
+            "SRS": "EPSG:3857", "BBOX": "%r,%r,%r,%r" % xyz_bbox(*tile),
+            "WIDTH": str(WMS_TILE), "HEIGHT": str(WMS_TILE)}
+
+
+def tile_request(tile):
+    """The get_data request a GetMap of ``tile`` makes."""
+    return dict(mode="vals", bbox=xyz_bbox(*tile), height=WMS_TILE, width=WMS_TILE,
+                projection="EPSG:3857", start=None)
+
+
+class WMSClient:
+    """The port's wms_app on wsgiref at 127.0.0.1 (a free port), served
+    from a background thread; ``get`` asks from the calling thread."""
+
+    def __init__(self):
+        from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+        from dask_geomodeling_tpu_torch.ipyleaflet_plugin import wms_app
+
+        class Quiet(WSGIRequestHandler):
+            def log_message(self, *args):
+                pass
+
+        self.httpd = make_server("127.0.0.1", 0, wms_app, handler_class=Quiet)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = "http://127.0.0.1:%d/wms?" % self.httpd.server_address[1]
+
+    def get(self, params):
+        """(status, content type, body, seconds) of one GET."""
+        import urllib.error
+        import urllib.request
+        from urllib.parse import urlencode
+
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(self.url + urlencode(params), timeout=120) as response:
+                body = response.read()
+                status, content_type = response.status, response.headers["Content-Type"]
+        except urllib.error.HTTPError as e:
+            body, status, content_type = e.read(), e.code, e.headers["Content-Type"]
+        return status, content_type, body, time.perf_counter() - t0
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=30)
+
+
+def latency_numbers(seconds):
+    """Tiles, p50, p99 and max ms, and tiles a second, of per-tile seconds."""
+    ms = np.asarray(seconds) * 1e3
+    p50, p99 = np.percentile(ms, [50, 99])
+    return dict(tiles=int(ms.size), p50_ms=float(p50), p99_ms=float(p99), max_ms=float(ms.max()),
+                tiles_per_s=float(ms.size / (ms.sum() / 1e3)))
+
+
+def wms_pass(client, layers, tiles, label, card):
+    """One pass over every tile of every layer through HTTP, layer by
+    layer; returns ({layer: (PNG bytes per tile, latency numbers)},
+    {kernel: its launches in the pass})."""
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+
+    cuda_stencils.reset_launches()
+    out = {}
+    for name, (_, style, vmin, vmax) in layers.items():
+        bodies, seconds = [], []
+        for tile in tiles:
+            status, content_type, body, s = client.get(getmap_params(name, style, vmin, vmax, tile))
+            check(status == 200 and content_type == "image/png" and body[:4] == b"\x89PNG",
+                  "wms-serving %s: %s tile %s answered %s %r" % (label, name, tile, status, body[:200]))
+            bodies.append(body)
+            seconds.append(s)
+        numbers = latency_numbers(seconds)
+        out[name] = (bodies, numbers)
+        print("wms-serving [%s] %s %s: %d tiles, p50 %.3f ms, p99 %.3f ms, max %.3f ms, "
+              "%.1f tiles/s" % (card, label, name, numbers["tiles"], numbers["p50_ms"],
+                                numbers["p99_ms"], numbers["max_ms"], numbers["tiles_per_s"]))
+    return out, {"gaussian_blur": cuda_stencils.launches,
+                  "moving_max": cuda_stencils.moving_max_launches}
+
+
+def wms_source_reach(view, request, device):
+    """The output cells of ``request`` within reach of a cell where the
+    view's warped source on the card differs from compute_host's (the
+    cross-CRS nearest warp's residual), and the share of source cells that
+    differ.  The reach is the view's own: HillShade's 3x3 window, Smooth's
+    Gaussian radius; both requests' sources are grown evenly about the
+    output."""
+    from scipy import ndimage
+
+    from dask_geomodeling_tpu_torch import compute_host, compute_torch
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_weights
+
+    graph, name = view.get_compute_graph(**request)
+    node = graph[name]
+    host = compute_host(graph, node[1])["values"][0]
+    _kept.clear()
+    compute_torch(dict(graph, kept=(_keep_on_device, node[1])), "kept", device=device)
+    card = _kept.pop()["values"][0].cpu().numpy()
+    differ = card != host
+    if host.dtype.kind == "f":
+        differ &= ~(np.isnan(card) & np.isnan(host))
+    if getattr(node[0], "__name__", "") == "_smooth_process":
+        reach = [gaussian_weights(size / 3)[1] for size in node[2]["size"]]
+    else:
+        reach = [1, 1]
+    if differ.any():
+        differ = ndimage.binary_dilation(differ, np.ones([2 * r + 1 for r in reach], bool))
+    height, width = request["height"], request["width"]
+    my, mx = (differ.shape[0] - height) // 2, (differ.shape[1] - width) // 2
+    return differ[my:my + height, mx:mx + width], float(np.mean(card != host))
+
+
+def wms_within_limits(name, port, host, reach):
+    """Whether a tile's card values meet the limits of PERF.md section 2
+    beside compute_host's: outside the reach of a differing warped source
+    cell, ahn-smooth bitwise and ahn-hillshade within 1 in at most 1e-3 of
+    the cells; returns (ok, differing cells, differing cells outside the
+    reach)."""
+    differ, worst, _ = compare_cells(port, host, None)
+    differ_mask = port != host
+    if host.dtype.kind == "f":
+        differ_mask &= ~(np.isnan(port) & np.isnan(host))
+    outside = differ_mask & ~reach
+    if name == "ahn-hillshade":
+        off = np.abs(port.astype(np.int64) - host.astype(np.int64))
+        ok = not (outside & (off > 1)).any() and outside.mean() <= STENCILS_SHARE
+    else:
+        ok = not outside.any()
+    return ok, differ, int(np.count_nonzero(outside))
+
+
+def wms_ground_truth(card, device, layers, tiles, picks, served):
+    """The sampled tiles on the card against compute_host, and the served
+    PNGs against the host's render of the host's values: at most 5e-4 of
+    the warped source cells differ (the cross-CRS nearest warp's limit),
+    the values within each view's own limit outside their reach
+    (wms_within_limits), and every pixel whose value agrees coloured
+    alike.  Each sampled tile is also timed in-process on both sides, the
+    same way (no HTTP on either): the card's render_wms_tile of the GetMap
+    (its PNG equal to the served one) and the numpy host's planning,
+    compute_host, render and PNG encode, the two in turns, which one goes
+    first alternating by tile.  Returns {layer: the card's and the host's
+    latency numbers, the pixels and cells that differ}."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.io.png import decode_png_bytes
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import (
+        encode_tile, render_wms_tile, tile_values)
+
+    out = {}
+    for name, (view, style, vmin, vmax) in layers.items():
+        card_s, host_s, pixels_off, cells_off, worst_source = [], [], 0, 0, 0.0
+        for turn, index in enumerate(picks):
+            request = tile_request(tiles[index])
+            params = {k.lower(): v for k, v in
+                      getmap_params(name, style, vmin, vmax, tiles[index]).items()}
+            for side in ("card", "host") if turn % 2 == 0 else ("host", "card"):
+                t0 = time.perf_counter()
+                if side == "card":
+                    card_png = render_wms_tile(params)
+                    card_s.append(time.perf_counter() - t0)
+                else:
+                    host = compute_host(*view.get_compute_graph(**request))
+                    host_png = encode_tile(tile_values(host, WMS_TILE, WMS_TILE), style, vmin,
+                                           vmax)
+                    host_s.append(time.perf_counter() - t0)
+            check(card_png == served[name][0][index], "wms-serving: %s tile %s rendered "
+                  "in-process differs from the served one" % (name, tiles[index]))
+            port = view.get_data(**request)
+            check(port["values"].dtype == host["values"].dtype
+                  and port["no_data_value"] == host["no_data_value"],
+                  "wms-serving: %s tile %s: dtype or nodata" % (name, tiles[index]))
+            a, b = port["values"][0], host["values"][0]
+            reach, source_share = wms_source_reach(view, request, device)
+            worst_source = max(worst_source, source_share)
+            ok, differ, outside = wms_within_limits(name, a, b, reach)
+            cells_off += differ
+            check(source_share <= HEADLINE_SHARE and ok,
+                  "wms-serving: %s tile %s: %.3g of the warped source cells differ; %d cells "
+                  "differ, %d beyond the view's limit" % (name, tiles[index], source_share,
+                                                         differ, outside))
+            agree = (a == b) | ((a != a) & (b != b))
+            pixels = (decode_png_bytes(served[name][0][index])[0]
+                      != decode_png_bytes(host_png)[0]).any(axis=0)
+            pixels_off += int(np.count_nonzero(pixels))
+            check(not (pixels & agree).any(), "wms-serving: %s tile %s: a pixel whose value "
+                  "agrees with the host's is coloured otherwise" % (name, tiles[index]))
+        paired = {"card": latency_numbers(card_s), "host": latency_numbers(host_s)}
+        print("wms-serving [%s] %s in-process on %d sampled tiles (planning, values, render and "
+              "PNG, no HTTP): card p50 %.3f ms, p99 %.3f ms, max %.3f ms; numpy host p50 %.3f "
+              "ms, p99 %.3f ms, max %.3f ms" % (
+                  card, name, len(picks), paired["card"]["p50_ms"], paired["card"]["p99_ms"],
+                  paired["card"]["max_ms"], paired["host"]["p50_ms"], paired["host"]["p99_ms"],
+                  paired["host"]["max_ms"]))
+        print("wms-serving: %s on the card: at most %.3g of a tile's warped source cells "
+              "differ, %d cells and %d pixels differ in all, none beyond the limits or where "
+              "the values agree" % (name, worst_source, cells_off, pixels_off))
+        out[name] = dict(paired, differing_pixels=pixels_off, differing_cells=cells_off,
+                         largest_source_share=worst_source)
+    return out
+
+
+def wms_other_requests(client, device, layers, tiles, picks, folder):
+    """GetFeatureInfo at WMS_FEATURE_INFO pixels against compute_host,
+    GetLegendGraphic of each style, GetCoverage of a tile of the last
+    zoom against the tile's values, GetCapabilities' layers and WGS84
+    boxes, and a layer JSON naming the JAX package's classes refused with
+    400 without loading any module of it."""
+    from xml.etree import ElementTree
+
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.geo.crs import transform_extent
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.io.png import decode_png_bytes
+    from dask_geomodeling_tpu_torch.render import colormaps
+
+    rng = np.random.RandomState(17)
+    names = list(layers)
+    explained = 0
+    for k in range(WMS_FEATURE_INFO):
+        name = names[k % len(names)]
+        view, style, vmin, vmax = layers[name]
+        col, row = rng.randint(0, WMS_TILE, 2)
+        status, _, body, _ = client.get(dict(
+            getmap_params(name, style, vmin, vmax, tiles[picks[k % len(picks)]]),
+            REQUEST="GetFeatureInfo", QUERY_LAYERS=name, X=str(col), Y=str(row)))
+        check(status == 200, "wms-serving: GetFeatureInfo answered %s %r" % (status, body[:200]))
+        payload = json.loads(body)
+        point = (payload["x"], payload["y"], payload["x"], payload["y"])
+        host = compute_host(*view.get_compute_graph(
+            mode="vals", bbox=point, width=1, height=1, projection="EPSG:3857", start=None))
+        raw = host["values"][0, 0, 0]
+        want = None if raw == host["no_data_value"] or not np.isfinite(raw) else raw.item()
+        got = payload["value"]
+        if got != want:
+            reach, _ = wms_source_reach(view, dict(
+                mode="vals", bbox=point, width=1, height=1, projection="EPSG:3857", start=None),
+                device)
+            near = name == "ahn-hillshade" and None not in (got, want) and abs(got - want) <= 1
+            check(near or reach.any(), "wms-serving: GetFeatureInfo of %s at %s gave %r, the "
+                  "host %r" % (name, point, got, want))
+            explained += 1
+    styles = sorted({style for _, style, _, _ in layers.values()})
+    ramp = np.linspace(1.0, 0.0, 160)[:, None].repeat(24, axis=1)
+    for style in styles:
+        status, content_type, body, _ = client.get({"REQUEST": "GetLegendGraphic", "STYLES": style})
+        check(status == 200 and content_type == "image/png" and np.array_equal(
+            decode_png_bytes(body)[0], colormaps.apply(style, ramp).transpose(2, 0, 1)),
+            "wms-serving: GetLegendGraphic of %s" % style)
+    view, style, vmin, vmax = layers["ahn-smooth"]
+    tile = next(t for t in tiles if t[0] == max(t[0] for t in tiles))
+    status, content_type, body, _ = client.get(dict(
+        getmap_params("ahn-smooth", style, vmin, vmax, tile), REQUEST="GetCoverage",
+        COVERAGE="ahn-smooth", FORMAT="GeoTIFF"))
+    check(status == 200 and content_type == "image/tiff", "wms-serving: GetCoverage %s" % status)
+    path = os.path.join(folder, "coverage.tif")
+    with open(path, "wb") as f:
+        f.write(body)
+    coverage = read_geotiff(path)
+    expected = view.get_data(**tile_request(tile))
+    check(np.array_equal(coverage.array, expected["values"])
+          and coverage.no_data_value == expected["no_data_value"],
+          "wms-serving: GetCoverage differs from the tile's values")
+    status, _, body, _ = client.get({"SERVICE": "WMS", "REQUEST": "GetCapabilities"})
+    listed = {}
+    for element in ElementTree.fromstring(body).iter("Layer"):
+        box = element.find("LatLonBoundingBox")
+        if element.findtext("Name") is not None and box is not None:
+            listed[element.findtext("Name")] = tuple(
+                float(box.get(k)) for k in ("minx", "miny", "maxx", "maxy"))
+    for name, (layer_view, _, _, _) in layers.items():
+        want = tuple(float("%.9g" % v) for v in transform_extent(
+            layer_view.footprint.bbox, layer_view.projection, "EPSG:4326"))
+        check(listed.get(name) == want,
+              "wms-serving: GetCapabilities lists %s as %s" % (name, listed.get(name)))
+    foreign = view.to_json().replace("dask_geomodeling_tpu_torch.", "dask_geomodeling_tpu.")
+    loaded = set(sys.modules)
+    status, _, body, _ = client.get(getmap_params(foreign, style, vmin, vmax, tiles[0]))
+    leaked = [m for m in set(sys.modules) - loaded if m.split(".")[0] in (
+        "jax", "dask_geomodeling_tpu")]
+    check(status == 400 and b"is outside" in body and not leaked,
+          "wms-serving: a JAX-package layer answered %s %r (loaded %s)" % (status, body[:120], leaked))
+    print("wms-serving: %d GetFeatureInfo answers equal the host's values (%d within the "
+          "limits only); GetLegendGraphic of %s, GetCoverage of tile %s and GetCapabilities (%s "
+          "with their WGS84 boxes) checked; a layer naming the JAX package's classes answered "
+          "400 and loaded none of its modules"
+          % (WMS_FEATURE_INFO - explained, explained, ", ".join(styles), tile,
+             ", ".join(sorted(listed))))
+
+
+def wms_threaded(layers, tiles):
+    """WMS_THREADS threads call render_wms_tile on WMS_CONCURRENT_TILES
+    distinct tiles (the last ones, half of each layer): each PNG equals
+    the serial render, and the Gaussian launches once per ahn-smooth
+    tile.  Returns (tiles, Gaussian launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import render_wms_tile
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+
+    jobs = [{k.lower(): v for k, v in getmap_params(name, style, vmin, vmax, tile).items()}
+            for name, (_, style, vmin, vmax) in layers.items()
+            for tile in tiles[-(WMS_CONCURRENT_TILES // len(layers)):]]
+    serial = [render_wms_tile(p) for p in jobs]
+    cuda_stencils.reset_launches()
+    with ThreadPoolExecutor(max_workers=WMS_THREADS) as pool:
+        threaded = list(pool.map(render_wms_tile, jobs))
+    launched, moving_max = cuda_stencils.launches, cuda_stencils.moving_max_launches
+    smooth_jobs = sum(1 for p in jobs if p["layers"] == "ahn-smooth")
+    check(threaded == serial, "wms-serving: the threaded renders differ from the serial ones")
+    check(launched == smooth_jobs and moving_max == 0, "wms-serving: %d Gaussian and %d "
+          "moving-max launches from %d threaded ahn-smooth renders"
+          % (launched, moving_max, smooth_jobs))
+    print("wms-serving: %d threads rendered %d distinct tiles equal to the serial renders, %d "
+          "Gaussian launches for %d ahn-smooth tiles" % (WMS_THREADS, len(jobs), launched,
+                                                         smooth_jobs))
+    return len(jobs), launched
+
+
+def wms_tile_phases(view, request, device, seconds):
+    """One GetMap tile's values, split into phases (synchronised) added
+    to ``seconds``: the file window reads, the rest of the planning, the
+    run on the card (its per-tile host staging included) and the copy to
+    the host.  Returns (the answer, the Smooth input's plane shape or
+    None, the clock at the end)."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_torch
+    from dask_geomodeling_tpu_torch.io import geotiff
+
+    read = geotiff.read_geotiff_window
+    reads = [0.0]
+
+    def timed_read(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return read(*args, **kwargs)
+        finally:
+            reads[0] += time.perf_counter() - t0
+
+    def lap(phase, since):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[phase] = seconds.get(phase, 0.0) + now - since
+        return now
+
+    t0 = time.perf_counter()
+    geotiff.read_geotiff_window = timed_read
+    try:
+        graph, name = view.get_compute_graph(**request)
+    finally:
+        geotiff.read_geotiff_window = read
+    t1 = lap("planning", t0)
+    seconds["planning"] -= reads[0]
+    seconds["file window reads"] = seconds.get("file window reads", 0.0) + reads[0]
+    plane = None
+    if getattr(graph[name][0], "__name__", "") == "_smooth_process":
+        _kept.clear()
+        compute_torch(dict(graph, kept=(_keep_on_device, graph[name][1])), "kept", device=device)
+        plane = (1,) + tuple(_kept.pop()["values"].shape[-2:])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    _kept.clear()
+    compute_torch(dict(graph, kept=(_keep_on_device, name)), "kept", device=device)
+    data = _kept.pop()
+    t2 = lap("device run", t1)
+    data = dict(data, values=data["values"].cpu().numpy())
+    return data, plane, lap("copy to the host", t2)
+
+
+def wms_split(card, layers, tiles, picks, device, served):
+    """The phases of the sampled tiles, read caches cleared first (an
+    unmeasured pass): the planning's, the device's and the copy's
+    (wms_tile_phases), the colour render and the PNG encode; each PNG is
+    the one served.  Returns ({layer: mean ms a phase}, the Smooth plane)."""
+    from dask_geomodeling_tpu_torch.io.png import write_png_bytes
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import tile_values
+    from dask_geomodeling_tpu_torch.render import colormaps
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    pipeline.clear_read_cache()
+    split, plane = {}, None
+    for name, (view, style, vmin, vmax) in layers.items():
+        seconds = {}
+        for index in picks:
+            data, tile_plane, t0 = wms_tile_phases(view, tile_request(tiles[index]), device, seconds)
+            plane = tile_plane or plane  # the last zoom's
+            normalized = colormaps.normalize(tile_values(data, WMS_TILE, WMS_TILE), vmin, vmax)
+            rgba = colormaps.apply(style, normalized)
+            rgba[np.ma.getmaskarray(normalized), 3] = 0
+            t1 = time.perf_counter()
+            seconds["render"] = seconds.get("render", 0.0) + t1 - t0
+            png = write_png_bytes(rgba.transpose(2, 0, 1))
+            seconds["PNG encode"] = seconds.get("PNG encode", 0.0) + time.perf_counter() - t1
+            check(png == served[name][0][index], "wms-serving: the split %s tile %s differs from "
+                  "the served one" % (name, tiles[index]))
+        split[name] = {k: v / len(picks) * 1e3 for k, v in seconds.items()}
+        print("wms-serving [%s] %s phases a tile (ms, mean of %d tiles, read caches cleared, "
+              "synchronised): %s" % (card, name, len(picks),
+                                     ", ".join("%s %.3f" % kv for kv in split[name].items())))
+    return split, plane
+
+
+def check_wms_serving(card, device, sheet, zooms=WMS_ZOOMS, sample=WMS_SAMPLE,
+                      last_zoom_rows=WMS_LAST_ZOOM_ROWS):
+    """The wms-serving phase: the port's WSGI server over two layers of
+    the sheet (wms_layers), a slippy map's GetMap traffic (xyz_tiles) in
+    four passes: cold (read caches cleared, no result cache), warm, fill
+    (wms_serve's 256 MiB result cache) and hit; the host's ground truth on
+    sampled tiles; GetFeatureInfo, GetLegendGraphic, GetCoverage,
+    GetCapabilities and a JAX-package layer refused; a four-thread
+    render; then, apart from the timed passes, a phase split and a warm
+    pass under torch.profiler.  Returns ({kernel: launches of the cold
+    pass, as counted}, the numbers)."""
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.geo import Extent
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import register_layer, unregister_layers
+    from dask_geomodeling_tpu_torch.runtime import pipeline, results
+
+    started = time.perf_counter()
+    layers = wms_layers(sheet)
+    smooth_view = layers["ahn-smooth"][0]
+    bbox = Extent(smooth_view.footprint.bbox, "EPSG:28992").transformed("EPSG:3857").bbox
+    every = len(xyz_tiles(bbox, zooms))
+    tiles = xyz_tiles(bbox, zooms, last_zoom_rows)
+    per_zoom = {z: sum(1 for t in tiles if t[0] == z) for z in zooms}
+    print("wms-serving: %d of the %d XYZ tiles a layer over the sheet (%s; zoom %d cut to %s "
+          "rows), %d layers, %d GetMaps a pass"
+          % (len(tiles), every, ", ".join("zoom %d: %d" % kv for kv in per_zoom.items()),
+             zooms[-1], last_zoom_rows, len(layers), len(tiles) * len(layers)))
+    numbers = {"tiles_per_layer": len(tiles), "tiles_per_zoom": per_zoom}
+    for name, (view, _, _, _) in layers.items():
+        register_layer(name, view)
+    client = WMSClient()
+    try:
+        with config.set({"geomodeling.block-import-paths": ["dask_geomodeling_tpu_torch"],
+                         "geomodeling.wms-json-layers": True,
+                         "geomodeling.result-cache-size": 0}):
+            pipeline.clear_read_cache()
+            cold, cold_launches = wms_pass(client, layers, tiles, "cold", card)
+            warm, warm_launches = wms_pass(client, layers, tiles, "warm", card)
+            results.clear()
+            with config.set({"geomodeling.result-cache-size": WMS_CACHE_BYTES}):
+                fill, fill_launches = wms_pass(client, layers, tiles, "fill", card)
+                hit, hit_launches = wms_pass(client, layers, tiles, "hit", card)
+            stats = results.stats()
+            results.clear()
+            passes = {"cold": cold_launches, "warm": warm_launches, "fill": fill_launches,
+                      "hit": hit_launches}
+            launches = {label: counts["gaussian_blur"] for label, counts in passes.items()}
+            moving_max = {label: counts["moving_max"] for label, counts in passes.items()}
+            print("wms-serving: Gaussian launches per pass %s for %d ahn-smooth tiles, moving-max "
+                  "launches per pass %s; the result cache after the hit pass: %s"
+                  % (json.dumps(launches), len(tiles), json.dumps(moving_max), stats))
+            check(launches["cold"] == launches["warm"] == launches["fill"] == len(tiles),
+                  "wms-serving: the cold, warm and fill passes launched %s Gaussians for %d tiles"
+                  % (launches, len(tiles)))
+            check(launches["hit"] == 0, "wms-serving: the hit pass launched %d Gaussians"
+                  % launches["hit"])
+            check(not any(moving_max.values()),
+                  "wms-serving: a pass launched moving-max kernels: %s" % moving_max)
+            check(stats["hits"] == len(tiles) * len(layers) and stats["evictions"] == 0,
+                  "wms-serving: the hit pass was not served from the cache: %s" % stats)
+            for name in layers:
+                check(warm[name][0] == cold[name][0] and fill[name][0] == cold[name][0],
+                      "wms-serving: %s: the warm or fill PNGs differ from the cold ones" % name)
+                check(hit[name][0] == fill[name][0],
+                      "wms-serving: %s: the hit PNGs differ from the fill ones" % name)
+            numbers.update(
+                passes={label: {name: p[name][1] for name in layers} for label, p in
+                        (("cold", cold), ("warm", warm), ("fill", fill), ("hit", hit))},
+                gaussian_launches=launches, moving_max_launches=moving_max, result_cache=stats)
+            picks = np.linspace(0, len(tiles) - 1, sample).round().astype(int)
+            numbers["in_process"] = wms_ground_truth(card, device, layers, tiles, picks, cold)
+            wms_other_requests(client, device, layers, tiles, picks, os.path.dirname(sheet))
+            numbers["threaded"] = wms_threaded(layers, tiles)
+            numbers["phases_ms"], plane = wms_split(card, layers, tiles, picks, device, cold)
+            profiled_s, busy_ms = device_busy_ms(
+                lambda: wms_pass(client, layers, tiles, "profiled warm", card))
+    finally:
+        client.close()
+        unregister_layers()
+    idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
+    print("wms-serving [%s]: profiled warm pass %.4f s, device busy %s, idle share %s"
+          % (card, profiled_s, "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
+             "not measured" if idle is None else "%.4f" % idle))
+    last = next(t for t in tiles if t[0] == zooms[-1])
+    numbers.update(profiled_s=profiled_s, device_busy_ms=busy_ms, idle_share=idle,
+                   plane=list(plane), sigma=list(smooth_sigma(smooth_view, tile_request(last))),
+                   seconds=time.perf_counter() - started)
+    return cold_launches, numbers
+
+
 def check_fuzz(device):
     """The executor fuzz on the card: the reference's random trees (seeds
     0-39 at 12^2, 40-54 as 6^2 tiles in batches of 2) against compute_host
@@ -2554,6 +3131,19 @@ def run_phases(card, device, folder, mark):
                          max_abs_err=err, path="building-heights"))
     del building_planes, got, want
     mark("the building-heights path")
+    launches["wms-serving"], wms = check_wms_serving(card, device, sheet)
+    wms_planes = torch.from_numpy(
+        (3 + rng.rand(*wms["plane"]) * 5).astype(np.float32)).to(device)
+    got = cuda_stencils.gaussian_blur(wms_planes, *wms["sigma"], 0)
+    want = gaussian_blur_reference(wms_planes, *wms["sigma"], 0)
+    check(torch.equal(got, want), "gaussian_blur differs from its plain version at the WMS plane")
+    err = float((got - want).abs().max())
+    print("kernel check: gaussian_blur wms-serving plane %s equal=True max_abs_err=%r"
+          % (tuple(wms_planes.shape), err))
+    gaussian.append(dict(time_gaussian(wms_planes, wms["sigma"]), max_abs_err=err,
+                         path="wms-serving"))
+    del wms_planes, got, want
+    mark("the wms-serving path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -2571,6 +3161,7 @@ def run_phases(card, device, folder, mark):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
     timings["file-export"] = export
     timings["building-heights"] = buildings
+    timings["wms-serving"] = wms
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
@@ -2578,11 +3169,11 @@ def run_phases(card, device, folder, mark):
                                       numbers["bound_ms"], numbers["bound_by"]))
 
     mark("the timing")
-    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                    or m == "dask_geomodeling_tpu" or m.startswith("dask_geomodeling_tpu.")
-                    or m == "pandas" or m.startswith("pandas."))
-    check(not leaked, "modules of JAX, pandas or the JAX package were imported: %s" % leaked[:5])
-    print("imports: no module of JAX, pandas or the JAX package was loaded")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "dask_geomodeling_tpu", "pandas", "matplotlib", "PIL"))
+    check(not leaked, "modules of JAX, pandas, matplotlib, Pillow or the JAX package were "
+          "imported: %s" % leaked[:5])
+    print("imports: no module of JAX, pandas, matplotlib, Pillow or the JAX package was loaded")
     timings["zonal"] = zonal
     timings["rasterize-wkt"]["parity_twin_ms"] = wkt_ms
     print("paths: %s" % json.dumps(timings))

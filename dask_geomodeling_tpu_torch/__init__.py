@@ -7,9 +7,10 @@ counterpart in the JAX package (``dask_geomodeling_tpu``), of which it
 imports nothing.  It adds torch twins of the process functions (raster/),
 the device plane of zonal statistics (ops/segment.py), a registry that
 maps one to the other (registry.py), an executor and a batched tile
-runtime (runtime/), the hand-written CUDA kernels (csrc/, ops/), and
-``from_reference`` (convert.py), which carries a serialized view of the
-JAX package across.
+runtime (runtime/), the hand-written CUDA kernels (csrc/, ops/), the
+WMS server (ipyleaflet_plugin.py, wms_serve.py) with its result cache
+(runtime/results.py) and colour maps (render/), and ``from_reference``
+(convert.py), which carries a serialized view of the JAX package across.
 
 Entry points take an explicit ``device``; ``None`` reads
 ``geomodeling.torch-device`` (default ``"cuda"``), and CUDA without a

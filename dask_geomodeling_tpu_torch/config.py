@@ -50,6 +50,16 @@ defaults = {
     # where to_file of a geometry writes its partial files (None: the
     # system's temporary directory)
     "temporary_directory": None,
+    # byte budget of the cross-request result cache at the raster
+    # get_data boundary (runtime/results.py); 0 = off (a file-backed
+    # response can go stale when the file changes)
+    "geomodeling.result-cache-size": 0,
+    # accept raw view JSON in the WMS ``layers``/``coverage`` parameter;
+    # wms_serve.main turns it off whenever named layers are registered
+    "geomodeling.wms-json-layers": True,
+    # module prefixes a deserialized view may import its classes from
+    # (None: the whole port); checked before any import
+    "geomodeling.block-import-paths": None,
 }
 
 _MISSING = object()

@@ -11,10 +11,22 @@ There is no scheduler: ``Block.get_data`` runs the graph with the port's
 torch executor (runtime/executor.py) on the card unless the caller passes
 ``device="cpu"``, and runtime/host.py:compute_host evaluates it with the
 numpy processes when asked to.
+
+A view travels as JSON (``to_json``, ``from_json``): class paths as
+strings, arrays as nested lists.  Deserializing imports only the port's
+own package, and under ``geomodeling.block-import-paths`` only the
+prefixes it lists, checked before anything is imported: a layer that
+names a class of the JAX package is refused, and neither that package
+nor jax is loaded.
 """
+import json
+import logging
 import sys
 
+from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core.tokens import tokenize
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["construct", "arg", "Block"]
 
@@ -67,6 +79,13 @@ def construct(graph, name):
         return built[key]
 
     return build(name)
+
+
+def _under(module, prefix):
+    """Whether ``module`` is the package ``prefix`` or inside it (a
+    shared leading string is not enough: ``dask_geomodeling_tpu`` does
+    not hold ``dask_geomodeling_tpu_torch``)."""
+    return module == prefix or module.startswith(prefix + ".")
 
 
 class Block:
@@ -176,11 +195,18 @@ class Block:
     @staticmethod
     def from_import_path(path):
         """The Block class at ``path``, which must lie in the port's own
-        package (checked before anything is imported)."""
+        package and, when ``geomodeling.block-import-paths`` lists
+        prefixes, under one of them (both checked before anything is
+        imported)."""
         module, name = path.rsplit(".", 1)
-        if not (module == PACKAGE or module.startswith(PACKAGE + ".")):
+        if not _under(module, PACKAGE):
             raise TypeError(
                 '"{}" is outside the package {}.'.format(path, PACKAGE)
+            )
+        allowed = config.get("geomodeling.block-import-paths", None)
+        if allowed is not None and not any(_under(module, prefix) for prefix in allowed):
+            raise TypeError(
+                '"{}" is outside the allowed block import paths.'.format(path)
             )
         __import__(module)
         klass = getattr(sys.modules[module], name, None)
@@ -188,15 +214,51 @@ class Block:
             return klass
         raise TypeError('"{}" is not a valid Block.'.format(path))
 
+    @classmethod
+    def from_json(cls, val, **kwargs):
+        return cls.deserialize(json.loads(val, **kwargs))
+
+    def to_json(self, **kwargs):
+        kwargs.setdefault("cls", _BlockArgsEncoder)
+        return json.dumps(self.serialize(), **kwargs)
+
     def serialize(self):
         graph, name = self.get_graph(serialize=True)
         return {"version": self.JSON_VERSION, "graph": graph, "name": name}
 
     @classmethod
     def deserialize(cls, val):
+        version = val.get("version")
+        if version is not None and version > cls.JSON_VERSION:
+            logger.warning(
+                "Deserializing a version %s graph with a version %s runtime",
+                version,
+                cls.JSON_VERSION,
+            )
         return construct(val["graph"], val["name"])
 
     def __repr__(self):
         return "{}({})".format(
             type(self).__name__, ", ".join(repr(x) for x in self.args)
         )
+
+
+class _BlockArgsEncoder(json.JSONEncoder):
+    """JSON encoder for common Block argument types: arrays as nested
+    lists (constructors coerce them again), numpy scalars as Python
+    numbers, datetimes as ISO strings and timedeltas as seconds."""
+
+    def default(self, o):
+        import datetime
+
+        import numpy as np
+
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        if isinstance(o, np.generic):
+            return o.item()
+        if isinstance(o, datetime.datetime):
+            return o.isoformat()
+        if isinstance(o, datetime.timedelta):
+            return o.total_seconds()
+        return super().default(o)

@@ -62,6 +62,8 @@
 // from the host by value, the two-pass launch from a device buffer.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <stdint.h>
 
 namespace {
@@ -378,13 +380,17 @@ __global__ void blur_pass(const T* __restrict__ in, T* __restrict__ out,
 }
 
 int max_shared_bytes() {
-  static int bytes = 0;
+  // cached as resident is in launch_fixed: safe on a first call from two
+  // threads at once
+  static std::atomic<int> cached{0};
+  int bytes = cached.load(std::memory_order_relaxed);
   if (bytes == 0) {
     int device = 0;
     if (cudaGetDevice(&device) != cudaSuccess ||
         cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device) != cudaSuccess)
       bytes = SMALL_SMEM;
+    cached.store(bytes, std::memory_order_relaxed);
   }
   return bytes;
 }
@@ -410,8 +416,11 @@ int launch_fixed(const T* src, T* dst, const Weights& wt, int64_t n, int h,
   const int64_t tiles_per_plane = tiles_x * (((int64_t)h + TILE_H - 1) / TILE_H);
   if (tiles_per_plane >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int64_t tiles = n * tiles_per_plane;
-  // as many blocks as fit on the card at once, each walking over tiles
-  static int resident = 0;
+  // as many blocks as fit on the card at once, each walking over tiles;
+  // the count is cached in an atomic: two threads that launch first at
+  // the same time both compute it and store the same value
+  static std::atomic<int> cached_resident{0};
+  int resident = cached_resident.load(std::memory_order_relaxed);
   if (resident == 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -422,6 +431,7 @@ int launch_fixed(const T* src, T* dst, const Weights& wt, int64_t n, int h,
           &per_sm, blur_fused_fixed<T, R>, THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     resident = sms * (per_sm > 0 ? per_sm : 1);
+    cached_resident.store(resident, std::memory_order_relaxed);
   }
   const int64_t blocks = tiles < resident ? tiles : resident;
   blur_fused_fixed<T, R><<<(unsigned)blocks, THREADS, smem, s>>>(

@@ -42,6 +42,8 @@
 // taps through the cache, one row run per footprint row.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
@@ -206,8 +208,11 @@ int launch_fixed(const T* src, T* dst, int64_t n, int h, int w, T lowest,
   const int64_t tiles_per_plane = tiles_x * (((int64_t)h + TILE_H - 1) / TILE_H);
   if (tiles_per_plane >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int64_t tiles = n * tiles_per_plane;
-  // as many blocks as fit on the card at once, each walking over tiles
-  static int resident = 0;
+  // as many blocks as fit on the card at once, each walking over tiles;
+  // the count is cached in an atomic: two threads that launch first at
+  // the same time both compute it and store the same value
+  static std::atomic<int> cached_resident{0};
+  int resident = cached_resident.load(std::memory_order_relaxed);
   if (resident == 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -218,6 +223,7 @@ int launch_fixed(const T* src, T* dst, int64_t n, int h, int w, T lowest,
           &per_sm, moving_max_fixed<T, SIZE>, THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     resident = sms * (per_sm > 0 ? per_sm : 1);
+    cached_resident.store(resident, std::memory_order_relaxed);
   }
   const int64_t blocks = tiles < resident ? tiles : resident;
   moving_max_fixed<T, SIZE><<<(unsigned)blocks, THREADS, 0, s>>>(

@@ -309,6 +309,8 @@ _URN_RE = re.compile(
     r"^(?:urn:ogc:def:crs:EPSG:[^:]*:|https?://www\.opengis\.net/def/crs/EPSG/[^/]*/)(\d+)$",
     re.IGNORECASE,
 )
+#: OGC's lon/lat WGS84 (WMS 1.3's CRS:84, GeoJSON's CRS84 URN)
+_CRS84_RE = re.compile(r"^(urn:ogc:def:crs:OGC:[\d.]*:|OGC:)?CRS:?84$", re.IGNORECASE)
 #: the EPSG authority closing a WKT text
 _WKT_AUTH_RE = re.compile(r'AUTHORITY\[\"EPSG\",\s*\"?(\d+)\"?\]\s*\]\s*$')
 
@@ -332,7 +334,8 @@ _WKT = {
 @lru_cache(maxsize=32)
 def get_sr(user_input):
     """The SpatialReference of an 'EPSG:xxxx' string, an EPSG integer, an
-    OGC URN or URL of an EPSG code, or a WKT closed by an EPSG authority.
+    OGC URN or URL of an EPSG code, OGC's CRS:84, or a WKT closed by an
+    EPSG authority.
     Axis order is traditional GIS (x = lon first)."""
     if isinstance(user_input, SpatialReference):
         return user_input
@@ -347,6 +350,8 @@ def get_sr(user_input):
     match = _URN_RE.match(text)
     if match:
         return _registry_get(int(match.group(1)))
+    if _CRS84_RE.match(text):
+        return _registry_get(4326)
     match = _WKT_AUTH_RE.search(text)
     if match and "[" in text:
         return _registry_get(int(match.group(1)))

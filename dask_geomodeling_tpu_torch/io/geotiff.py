@@ -10,8 +10,9 @@ Read support (foreign files):
 - classic TIFF and BigTIFF, little- and big-endian
 - striped or tiled layout, chunky (contig) or planar organization
 - uncompressed, DEFLATE (zlib), LZW (with early-change), PackBits, LZMA
-  (stdlib ``lzma``); JPEG, WebP and ZSTD through the lazy imports of
-  ``PIL`` and ``zstandard`` where those are installed
+  (stdlib ``lzma``); ZSTD through a lazy import of ``zstandard`` where it
+  is installed.  JPEG and WebP chunks, which the JAX package decodes with
+  Pillow, raise NotImplementedError: the port uses no Pillow
 - horizontal-differencing predictor (2) for integer samples
 - dtypes: u1 i1 u2 i2 u4 i4 f4 f8 (bool is stored as u1)
 - GeoTIFF georeferencing: ModelPixelScale + ModelTiepoint, EPSG code via
@@ -89,7 +90,6 @@ _COMPRESSION_JPEG = 7  # new-style JPEG (tables in tag 347)
 _COMPRESSION_LZMA = 34925
 _COMPRESSION_ZSTD = 50000
 _COMPRESSION_WEBP = 50001
-_JPEG_TABLES = 347
 
 
 @dataclass
@@ -225,7 +225,10 @@ def _encode_image(array, compression, file_dtype, tiled, tile_size):
         for b in range(bands):
             planes.append(np.ascontiguousarray(array[b], file_dtype))
     if compression == _COMPRESSION_WEBP:
-        return [_encode_webp_chunk(plane) for plane in planes]
+        raise NotImplementedError(
+            "WebP TIFF compression needs an image codec the port does not have "
+            "(the JAX package writes it with Pillow)"
+        )
     return _map_chunks(lambda plane: _encode(plane.tobytes(), compression), planes)
 
 
@@ -536,23 +539,6 @@ def _encode(data, compression):
     return data
 
 
-def _encode_webp_chunk(tile):
-    """Lossless WebP bytes for one (h, w) uint8 band chunk."""
-    from io import BytesIO
-
-    from PIL import Image
-
-    if tile.dtype != np.uint8:
-        raise ValueError(
-            "WebP TIFF compression requires uint8 data (got %s)" % tile.dtype
-        )
-    buf = BytesIO()
-    Image.fromarray(np.ascontiguousarray(tile), mode="L").save(
-        buf, format="WEBP", lossless=True
-    )
-    return buf.getvalue()
-
-
 def _lzw_decode(data):
     """TIFF LZW (MSB-first bit packing, early code-width change)."""
     out = bytearray()
@@ -625,7 +611,7 @@ def _packbits_decode(data):
     return bytes(out)
 
 
-def _decode(data, compression, jpeg_tables=None, samples=None):
+def _decode(data, compression):
     if compression == _COMPRESSION_NONE:
         return data
     if compression in (_COMPRESSION_DEFLATE, _COMPRESSION_DEFLATE_OLD):
@@ -645,36 +631,11 @@ def _decode(data, compression, jpeg_tables=None, samples=None):
 
         return zstandard.ZstdDecompressor().decompressobj().decompress(data)
     if compression in (_COMPRESSION_JPEG, _COMPRESSION_WEBP):
-        return _decode_image_chunk(data, jpeg_tables, samples)
+        raise NotImplementedError(
+            "JPEG and WebP TIFF compression need an image codec the port does "
+            "not have (the JAX package reads them with Pillow)"
+        )
     raise NotImplementedError("Unsupported TIFF compression: %d" % compression)
-
-
-def _decode_image_chunk(data, jpeg_tables, samples):
-    """Pixel bytes from a JPEG (new-style, compression 7) or WebP
-    (compression 50001) chunk: each tile/strip is a standalone image
-    stream; abbreviated JPEG streams get the IFD-level JPEGTables
-    (tag 347) spliced in after their SOI marker."""
-    from io import BytesIO
-
-    from PIL import Image
-
-    if (
-        jpeg_tables is not None
-        and len(jpeg_tables) > 4
-        and data[:2] == b"\xff\xd8"
-    ):
-        # SOI + tables (sans its SOI/EOI markers) + the chunk after SOI
-        data = b"\xff\xd8" + bytes(jpeg_tables)[2:-2] + data[2:]
-    with Image.open(BytesIO(data)) as image:
-        if image.mode == "YCbCr":
-            image = image.convert("RGB")
-        pixels = np.asarray(image)
-    if samples is not None and pixels.ndim == 3 and pixels.shape[2] != samples:
-        if samples == 1:
-            pixels = pixels[:, :, 0]  # grayscale promoted by the codec
-        else:
-            pixels = pixels[:, :, :samples]
-    return pixels.tobytes()
 
 
 def _undo_predictor(chunk, predictor, samples):
@@ -1103,7 +1064,7 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                         f.seek(offsets[idx])
                         wanted.append((plane, ty, tx, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[3], compression, tags.get(_JPEG_TABLES), samples),
+                lambda item: _decode(item[3], compression),
                 wanted,
             )
             for (plane, ty, tx, _), raw in zip(wanted, decoded):
@@ -1153,7 +1114,7 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                     f.seek(offsets[idx])
                     wanted.append((plane, strip, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[2], compression, tags.get(_JPEG_TABLES), samples),
+                lambda item: _decode(item[2], compression),
                 wanted,
             )
             for (plane, strip, _), raw in zip(wanted, decoded):

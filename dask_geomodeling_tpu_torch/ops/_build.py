@@ -36,6 +36,8 @@ NVCC_FLAGS = (
 
 _LIBRARIES = {}
 _LOCK = threading.Lock()
+#: one lock per source name, held while it builds and loads
+_NAME_LOCKS = {}
 #: per source name: {"seconds": build time (0 when reused), "log": nvcc output}
 build_log = {}
 
@@ -57,8 +59,12 @@ def nvcc_path():
 
 
 def load_library(name):
-    """The ctypes library built from ``csrc/<name>.cu`` (built if needed)."""
+    """The ctypes library built from ``csrc/<name>.cu`` (built if needed).
+    Safe from several threads: each source builds once, under its own
+    lock, so two sources build at the same time."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBRARIES.get(name)
         if lib is None:
             lib = _LIBRARIES[name] = ctypes.CDLL(library_path(name))

@@ -14,9 +14,15 @@ a CUDA tensor it launches the kernel or raises: there is no fallback.
 ``launches`` counts Gaussian launches (every ``<<<>>>``) and
 ``fused_launches`` those of the fused shape; ``moving_max_launches``
 counts moving-max launches.  ``reset_launches()`` sets all three to 0.
+
+The wrappers may be called from several threads at once (a WMS server
+renders tiles on a pool): the counters move under a lock, so they stay
+exact, and each library's ctypes signatures are declared once, under the
+same lock, before any thread calls into it.
 """
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -50,12 +56,24 @@ _ENTRY = {torch.float32: "gaussian_blur_f32", torch.float64: "gaussian_blur_f64"
 #: the integer frames' entry: float64 storage truncated toward zero
 _TRUNC_ENTRY = "gaussian_blur_trunc_f64"
 
+#: guards the counters and the libraries' declarations
+_LOCK = threading.Lock()
+
 
 def reset_launches():
     global launches, fused_launches, moving_max_launches
-    launches = 0
-    fused_launches = 0
-    moving_max_launches = 0
+    with _LOCK:
+        launches = 0
+        fused_launches = 0
+        moving_max_launches = 0
+
+
+def _count(gaussian=0, fused=0, moving_max=0):
+    global launches, fused_launches, moving_max_launches
+    with _LOCK:
+        launches += gaussian
+        fused_launches += fused
+        moving_max_launches += moving_max
 
 
 def _check_planes(name, values):
@@ -73,30 +91,35 @@ def _check_planes(name, values):
 
 def _library():
     lib = _build.load_library("gaussian_blur")
-    if not getattr(lib, "_declared", False):
-        for name in (*_ENTRY.values(), _TRUNC_ENTRY):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                ctypes.c_void_p,  # in
-                ctypes.c_void_p,  # out
-                ctypes.c_void_p,  # scratch (NULL for the fused launch)
-                ctypes.c_void_p,  # host weights, float64 [wy, wx] (fused launch)
-                ctypes.c_void_p,  # the same on the device (two-pass launch)
-                ctypes.c_int64,  # planes
-                ctypes.c_int,  # height
-                ctypes.c_int,  # width
-                ctypes.c_int,  # radius y
-                ctypes.c_int,  # radius x
-                ctypes.c_double,  # fill
-                ctypes.c_void_p,  # cudaStream_t
-            ]
-            fn.restype = ctypes.c_int
-        lib.gaussian_blur_fused_max_radius.argtypes = []
-        lib.gaussian_blur_fused_max_radius.restype = ctypes.c_int
-        lib.gaussian_blur_error_string.argtypes = [ctypes.c_int]
-        lib.gaussian_blur_error_string.restype = ctypes.c_char_p
-        lib._declared = True
+    with _LOCK:
+        if not getattr(lib, "_declared", False):
+            _declare_gaussian(lib)
     return lib
+
+
+def _declare_gaussian(lib):
+    for name in (*_ENTRY.values(), _TRUNC_ENTRY):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ctypes.c_void_p,  # in
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # scratch (NULL for the fused launch)
+            ctypes.c_void_p,  # host weights, float64 [wy, wx] (fused launch)
+            ctypes.c_void_p,  # the same on the device (two-pass launch)
+            ctypes.c_int64,  # planes
+            ctypes.c_int,  # height
+            ctypes.c_int,  # width
+            ctypes.c_int,  # radius y
+            ctypes.c_int,  # radius x
+            ctypes.c_double,  # fill
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+    lib.gaussian_blur_fused_max_radius.argtypes = []
+    lib.gaussian_blur_fused_max_radius.restype = ctypes.c_int
+    lib.gaussian_blur_error_string.argtypes = [ctypes.c_int]
+    lib.gaussian_blur_error_string.restype = ctypes.c_char_p
+    lib._declared = True
 
 
 @functools.lru_cache(maxsize=64)
@@ -131,7 +154,6 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
     above the fused launch's limit) on the current stream, without a
     synchronise.
     """
-    global launches, fused_launches
     if values.device.type == "cpu":
         return gaussian_blur_reference(values, sigma_y, sigma_x, fill)
     if values.device.type != "cuda":
@@ -179,10 +201,9 @@ def gaussian_blur(values, sigma_y, sigma_x, fill):
             % (lib.gaussian_blur_error_string(err).decode(), err)
         )
     if scratch is None:
-        launches += 1
-        fused_launches += 1
+        _count(gaussian=1, fused=1)
     else:
-        launches += 2
+        _count(gaussian=2)
     return out.to(frame_dtype) if integer else out
 
 
@@ -203,22 +224,27 @@ _MOVING_MAX_TYPES = {
 
 def _moving_max_library():
     lib = _build.load_library("moving_max")
-    if not getattr(lib, "_declared", False):
-        lib.moving_max.argtypes = [
-            ctypes.c_void_p,  # in
-            ctypes.c_void_p,  # out
-            ctypes.c_int64,  # planes
-            ctypes.c_int,  # height
-            ctypes.c_int,  # width
-            ctypes.c_int,  # size (odd)
-            ctypes.c_int,  # type code
-            ctypes.c_void_p,  # cudaStream_t
-        ]
-        lib.moving_max.restype = ctypes.c_int
-        lib.moving_max_error_string.argtypes = [ctypes.c_int]
-        lib.moving_max_error_string.restype = ctypes.c_char_p
-        lib._declared = True
+    with _LOCK:
+        if not getattr(lib, "_declared", False):
+            _declare_moving_max(lib)
     return lib
+
+
+def _declare_moving_max(lib):
+    lib.moving_max.argtypes = [
+        ctypes.c_void_p,  # in
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # planes
+        ctypes.c_int,  # height
+        ctypes.c_int,  # width
+        ctypes.c_int,  # size (odd)
+        ctypes.c_int,  # type code
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.moving_max.restype = ctypes.c_int
+    lib.moving_max_error_string.argtypes = [ctypes.c_int]
+    lib.moving_max_error_string.restype = ctypes.c_char_p
+    lib._declared = True
 
 
 def moving_max(values, size):
@@ -230,7 +256,6 @@ def moving_max(values, size):
     One call is one kernel launch on the current stream, without a
     synchronise.
     """
-    global moving_max_launches
     if values.device.type == "cpu":
         return moving_max_reference(values, size)
     if values.device.type != "cuda":
@@ -263,5 +288,5 @@ def moving_max(values, size):
             "moving_max kernel launch failed: %s (CUDA error %d)"
             % (lib.moving_max_error_string(err).decode(), err)
         )
-    moving_max_launches += 1
+    _count(moving_max=1)
     return out

@@ -26,7 +26,28 @@ def get_data(view, *, device=None, **request):
     tiled request whose tiles plan differently (``NotLowerable`` from
     ``evaluate_tiled``) runs whole through ``compute_torch`` on the same
     device, as the JAX package's ``get_data`` falls back to its staged
-    executor."""
+    executor.
+
+    With ``geomodeling.result-cache-size`` above 0, whole responses are
+    LRU-cached across requests by (view token, request token, device) in
+    runtime/results.py, the tile server's reuse layer; a vals request
+    resolves its device first, so it enters the key."""
+    cache_bytes = config.get("geomodeling.result-cache-size", 0)
+    if not cache_bytes:
+        return _get_data_uncached(view, device, request)
+    from dask_geomodeling_tpu_torch.device import resolve_device
+    from dask_geomodeling_tpu_torch.runtime import results
+
+    key_device = None  # a time or meta request runs on the host
+    if request.get("mode") not in ("time", "meta"):
+        device = key_device = resolve_device(device)
+    return results.get_or_compute(
+        view, request, lambda: _get_data_uncached(view, device, request), int(cache_bytes),
+        device=key_device,
+    )
+
+
+def _get_data_uncached(view, device, request):
     from dask_geomodeling_tpu_torch.runtime.executor import NotLowerable, compute_torch
     from dask_geomodeling_tpu_torch.runtime.host import compute_metadata
     from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled

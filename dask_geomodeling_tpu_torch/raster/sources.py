@@ -406,6 +406,22 @@ class RasterFileSource(RasterSourceBase):
                 from dask_geomodeling_tpu_torch.io.vrt import read_vrt_info
 
                 self._info = read_vrt_info(path)
+            elif path.lower().endswith(".png"):
+                # no header reader: the whole-file read cache decodes it
+                from dask_geomodeling_tpu_torch.io.geotiff import GeoTIFFInfo
+                from dask_geomodeling_tpu_torch.runtime.pipeline import read_geotiff_cached
+
+                data = read_geotiff_cached(path, variable=self.variable)
+                self._info = GeoTIFFInfo(
+                    width=data.array.shape[2],
+                    height=data.array.shape[1],
+                    bands=data.array.shape[0],
+                    dtype=str(data.array.dtype),
+                    projection=data.projection,
+                    geo_transform=data.geo_transform,
+                    no_data_value=data.no_data_value,
+                    metadata=data.metadata,
+                )
             else:
                 from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_info
 

@@ -1,7 +1,7 @@
 """The host read caches of raster and vector files.
 
-Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF and
-VRT: ``read_geotiff_cached`` decodes a whole file into an mtime-validated
+Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
+VRT and PNG: ``read_geotiff_cached`` decodes a whole file into an mtime-validated
 LRU, and ``read_geotiff_window_cached`` one pixel window of a large file
 (block-wise, optionally of an overview level) into another.  Both are
 keyed by ``(path, variable)`` plus the window, on lookup and on store
@@ -44,7 +44,6 @@ _VECTOR_CACHE_SIZE = 16
 #: JAX module that reads each
 _UNPORTED_FORMATS = {
     (".asc", ".agr", ".xyz"): "io/asciigrid.py",
-    (".png",): "io/png.py",
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
     (".ntf", ".nitf"): "io/nitf.py",
@@ -63,7 +62,7 @@ _UNPORTED_FORMATS = {
 
 def check_ported_format(path):
     """Raise NotImplementedError when ``path`` names a raster format the
-    port does not read (every format but GeoTIFF and VRT)."""
+    port does not read (every format but GeoTIFF, VRT and PNG)."""
     lower = path.lower()
     for suffixes, module in _UNPORTED_FORMATS.items():
         if lower.endswith(suffixes):
@@ -101,11 +100,13 @@ def read_geotiff_cached(path, variable=None):
     keyed by ``(path, variable)``; ``variable`` is kept in the key as the
     JAX package keeps it (multi-variable containers are not ported)."""
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.io.png import read_png
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt
 
     path = os.path.abspath(path)
     check_ported_format(path)
-    read = read_vrt if path.lower().endswith(".vrt") else read_geotiff
+    lower = path.lower()
+    read = read_vrt if lower.endswith(".vrt") else read_png if lower.endswith(".png") else read_geotiff
     return _cached(
         _READ_CACHE, _READ_CACHE_SIZE, (path, variable), _file_stamp(path), partial(read, path)
     )

@@ -64,7 +64,7 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    } | set(FILE_KEYS) | set(VECTOR_KEYS)
+    } | set(FILE_KEYS) | set(VECTOR_KEYS) | set(SERVING_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
@@ -92,10 +92,26 @@ VECTOR_KEYS = (
 )
 
 
+#: the serving keys: the result cache, raw view JSON in WMS layers, the
+#: import guard (the JAX package reads the last with a default of None
+#: and lists it in no defaults)
+SERVING_KEYS = (
+    "geomodeling.result-cache-size",
+    "geomodeling.wms-json-layers",
+    "geomodeling.block-import-paths",
+)
+
+
 @pytest.mark.parametrize("key", FILE_KEYS + VECTOR_KEYS)
 def test_file_keys_have_the_jax_defaults(key):
     assert port_config_module.defaults[key] == jax_config_module.defaults[key]
     assert port_config_module.config.get(key) == jax_config_module.config.get(key)
+
+
+@pytest.mark.parametrize("key", SERVING_KEYS)
+def test_serving_keys_have_the_jax_defaults(key):
+    assert port_config_module.defaults[key] == jax_config_module.defaults.get(key)
+    assert port_config_module.config.get(key) == jax_config_module.config.get(key, None)
 
 
 def test_approx_stride_is_the_jax_default():

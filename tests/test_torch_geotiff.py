@@ -250,3 +250,18 @@ def test_vrt(tmp_path):
         assert_same_data(got, JV.read_vrt_window(port_path, *window))
         np.testing.assert_array_equal(got.array, whole.array[:, window[0]:window[1],
                                                              window[2]:window[3]])
+
+
+def test_jpeg_and_webp_chunks_are_not_ported(tmp_path):
+    """The JAX package reads JPEG and writes WebP TIFF chunks with Pillow;
+    the port uses no Pillow and names what is missing."""
+    image = pytest.importorskip("PIL.Image")
+    smooth = np.add.outer(np.arange(32), np.arange(48)).astype(np.uint8)
+    path = str(tmp_path / "jpeg.tif")
+    image.fromarray(smooth, mode="L").save(path, compression="jpeg", quality=95)
+    assert J.read_geotiff(path).array.shape == (1, 32, 48)
+    with pytest.raises(NotImplementedError, match="Pillow"):
+        P.read_geotiff(path)
+    with pytest.raises(NotImplementedError, match="Pillow"):
+        P.write_geotiff(str(tmp_path / "webp.tif"), smooth[None], GT, "EPSG:28992", None,
+                        compress="webp")

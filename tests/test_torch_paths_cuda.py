@@ -13,7 +13,9 @@ every TemporalAggregate statistic, TemporalSum and Cumulative over a small
 source on the card against compute_host; the fuzz's trees on the card
 against compute_host; the float64 discrete ops; the building-heights
 export of 400 footprints over a 1024^2 sheet against the CPU, and
-chip_smoke's building-heights phase at that size.  This file imports nothing
+chip_smoke's building-heights phase at that size; the wms-serving GetMaps of both
+layers against the CPU, the phase at small size and the launch counters
+under eight threads.  This file imports nothing
 of JAX or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -342,3 +344,97 @@ def test_building_heights_phase_on_card(file_paths, tmp_path):
     launches, numbers = chip_smoke.check_buildings("card", device, str(tmp_path), sheet,
                                                    count=400, tile=128.0, sub_size=200.0)
     assert launches["gaussian_blur"] == numbers["tiles"] == 16
+
+
+# --- wms-serving at small size ---
+
+
+@pytest.fixture(scope="module")
+def wms_sheet(tmp_path_factory):
+    """A 1200 x 1500 sheet (600 m x 750 m: 12 XYZ tiles of zooms 14-16),
+    read window by window."""
+    folder = str(tmp_path_factory.mktemp("wms"))
+    return chip_smoke.write_sheet(folder, width=1200, height=1500, block=60)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", ["ahn-smooth", "ahn-hillshade"])
+def test_getmap_on_card_equals_cpu(wms_sheet, layer):
+    """A 256^2 GetMap of each layer on the card against the same tile on
+    the CPU: the values within the limits outside the reach of a differing
+    warped source cell, and every pixel whose value agrees coloured alike."""
+    from dask_geomodeling_tpu_torch.io.png import decode_png_bytes
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import render_wms_tile
+
+    device = _card()
+    view, style, vmin, vmax = chip_smoke.wms_layers(wms_sheet)[layer]
+    tiles = chip_smoke.xyz_tiles(view.footprint.transformed("EPSG:3857").bbox)
+    with config.set({"geomodeling.windowed-read-limit": 10**5}):
+        for tile in [t for t in tiles if t[0] == 16][:3]:
+            params = {k.lower(): v for k, v in chip_smoke.getmap_params(
+                layer, style, vmin, vmax, tile).items()}
+            params["layers"] = view.to_json()
+            request = chip_smoke.tile_request(tile)
+            card = view.get_data(device=device, **request)["values"][0]
+            cpu = view.get_data(device="cpu", **request)["values"][0]
+            reach, share = chip_smoke.wms_source_reach(view, request, device)
+            ok, _, outside = chip_smoke.wms_within_limits(layer, card, cpu, reach)
+            assert share <= chip_smoke.HEADLINE_SHARE and ok, outside
+            with config.set({"geomodeling.torch-device": "cpu"}):
+                cpu_png = render_wms_tile(params)
+            card_png = render_wms_tile(params)
+            pixels = (decode_png_bytes(card_png)[0] != decode_png_bytes(cpu_png)[0]).any(axis=0)
+            assert not (pixels & (card == cpu)).any()
+
+
+@pytest.mark.cuda
+def test_wms_serving_phase_on_card(wms_sheet):
+    """chip_smoke's phase at small size: every check of the full run, the
+    four-thread render included."""
+    device = _card()
+    with config.set({"geomodeling.windowed-read-limit": 10**5}):
+        launches, numbers = chip_smoke.check_wms_serving("card", device, wms_sheet, sample=8)
+    assert launches["gaussian_blur"] == numbers["tiles_per_layer"] == 12
+    assert launches["moving_max"] == 0
+    assert numbers["gaussian_launches"]["hit"] == 0
+    assert not any(numbers["moving_max_launches"].values())
+    assert set(numbers["in_process"]["ahn-smooth"]) >= {"card", "host"}
+    assert numbers["threaded"] == (24, 12)
+
+
+@pytest.mark.cuda
+def test_launch_counters_exact_under_threads():
+    """Eight threads launch both kernels at once, from a fresh start of
+    their first calls: every launch is counted, and each result equals its
+    plain version."""
+    import threading
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import (
+        gaussian_blur_reference, moving_max_reference)
+
+    device = _card()
+    planes = torch.rand(2, 270, 270, device=device)
+    want_blur = gaussian_blur_reference(planes, 1.3, 1.3, 0)
+    want_max = moving_max_reference(planes, 3)
+    cuda_stencils.reset_launches()
+    failures = []
+    start = threading.Barrier(8)
+
+    def work():
+        start.wait()
+        for _ in range(50):
+            if not torch.equal(cuda_stencils.gaussian_blur(planes, 1.3, 1.3, 0), want_blur):
+                failures.append("gaussian_blur")
+            if not torch.equal(cuda_stencils.moving_max(planes, 3), want_max):
+                failures.append("moving_max")
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    assert not failures
+    assert cuda_stencils.launches == cuda_stencils.fused_launches == 400
+    assert cuda_stencils.moving_max_launches == 400

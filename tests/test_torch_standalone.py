@@ -1,8 +1,9 @@
 """The port stands on its own and agrees with the JAX package.
 
 - no module of the port, and not chip_smoke.py, imports the JAX package,
-  jax, pandas, bench or benchmarks (an AST scan), and running the port's
-  paths loads none of them (a subprocess);
+  jax, pandas, bench, benchmarks, matplotlib or Pillow (an AST scan), and
+  running the port's paths, a WMS GetMap and a legend included, loads
+  none of them (a subprocess);
 - the port's CRS subset gives the JAX package's float64 bits;
 - a JAX-package view carried across by ``from_reference`` plans the same
   graph: the same process functions (by name) with equal literals;
@@ -48,7 +49,7 @@ from dask_geomodeling_tpu_torch.runtime.executor import _reachable, _toposort
 from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("dask_geomodeling_tpu", "jax", "pandas", "bench", "benchmarks")
+FORBIDDEN = ("dask_geomodeling_tpu", "jax", "pandas", "bench", "benchmarks", "matplotlib", "PIL")
 
 
 def _port_files():
@@ -134,10 +135,25 @@ def test_port_never_imports_jax():
             "bbox = RasterFileSource(sheet).footprint.bbox",
             "buildings = cs.write_buildings(folder, bbox, 24)",
             "view = cs.build_buildings_view(buildings, sheet)",
+            "from dask_geomodeling_tpu_torch.geo import Extent",
+            "bbox_3857 = Extent(bbox, 'EPSG:28992').transformed('EPSG:3857').bbox",
             "for ext, tile in (('gpkg', 60.0), ('geojson', None), ('shp', 60.0)):",
             "    to_file(view, folder + '/heights.' + ext, tile_size=tile,",
             "            projection='EPSG:28992', mode='centroid', device='cpu')",
             "    assert len(read_vector(folder + '/heights.' + ext)) > 15",
+            "from urllib.parse import urlencode",
+            "from dask_geomodeling_tpu_torch.ipyleaflet_plugin import register_layer, wms_app",
+            "register_layer('ahn', paths['file-read'][0])",
+            "status = []",
+            "query = urlencode(dict(request='GetMap', layers='ahn', styles='terrain', vmin=0,",
+            "                       vmax=10, srs='EPSG:3857', bbox='%r,%r,%r,%r' % bbox_3857,",
+            "                       width=64, height=64))",
+            "config.set({'geomodeling.torch-device': 'cpu'})",
+            "body = b''.join(wms_app({'QUERY_STRING': query}, lambda s, h: status.append(s)))",
+            "assert status == ['200 OK'] and body[:4] == b'\\x89PNG', (status, body[:200])",
+            "query = urlencode(dict(request='GetLegendGraphic', styles='gray'))",
+            "body = b''.join(wms_app({'QUERY_STRING': query}, lambda s, h: status.append(s)))",
+            "assert status[-1] == '200 OK' and body[:4] == b'\\x89PNG', status",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
