@@ -116,6 +116,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    64 tiles as the serial render does, one Gaussian launch per
    ahn-smooth tile; a phase split of the sampled tiles and a profiled
    warm pass, apart from the timed ones;
+10d. auto-routing (check_auto_routing): geomodeling.executor "auto" over
+   the two WMS layers at the sheet's grid and the headline view at its
+   request's cell in EPSG:3857: 8 requests of each edge 64, 128, 256,
+   512, 1024 and 2048 px a view, at windows drawn from a seed, in one
+   seeded, interleaved order, the router exploring from an empty table
+   whose state file lives in the temporary folder; every card-routed
+   answer against compute_host (tile by tile above one 512^2 tile, as
+   the card runs it; the file-read view bitwise, HillShade
+   within 1 in at most 1e-3 of its cells, the headline at most 5e-4 of
+   its cells differing); per view and edge the routes taken, the
+   Gaussian launches on each route (none on host routes), the final
+   host and card Mpx/s and the settled route; after save and a reseeded
+   reset, one request per key takes its settled route;
+   status.snapshot(); a 2048^2 request under the Profiler and
+   torch_trace (a non-empty Chrome trace);
+10e. building-rings (check_building_rings): the building-heights
+   footprints inside a 1400 m square of the sheet (about 1,250, cut from
+   the sheet's 20,000: the host buffer costs tens of ms a footprint),
+   written with a beschrijving of key=value lines; the view
+   (build_rings_view) buffers each by 10 m, subtracts the footprint,
+   simplifies, takes the mean and p10 of the file-read view over the
+   ring (the Gaussian and the device zonal plane), merges (left) the
+   footprint's own mean, parses two keys, takes a field difference and
+   clips each ring to its tile (Intersection); exported by to_file in
+   1000 m tiles, timed under a phase clock (buffer, difference, vector
+   read, zonal, sink); one tile against compute_host and a 300 m
+   sub-area exported as GeoJSON byte-identical to the host's export;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -773,16 +800,14 @@ def building_footprint(rng, cx, cy, radius):
     return np.round(pts @ rot.T + (cx, cy), 3)
 
 
-def write_buildings(folder, bbox, count=BUILDINGS, seed=13):
-    """Write ``count`` synthetic building footprints over ``bbox``
-    (EPSG:28992) into ``folder``/buildings.gpkg, layer "pand", with its
-    gpkg_rtree_index: one building to a cell of a near-square grid over
-    the bbox, each inside the circle of its cell (none overlap), with a
+def building_frame(bbox, count=BUILDINGS, seed=13):
+    """``count`` synthetic building footprints over ``bbox`` (EPSG:28992)
+    as a frame: one building to a cell of a near-square grid over the
+    bbox, each inside the circle of its cell (none overlap), with a
     16-digit ``identificatie``, an integer ``bouwjaar`` and a ``status``;
-    fids 1..count.  Returns the path."""
+    fids 1..count."""
     from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame, Index
     from dask_geomodeling_tpu_torch.geo.geometry import Polygon
-    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
 
     rng = np.random.default_rng(seed)
     x1, y1, x2, y2 = bbox
@@ -795,13 +820,21 @@ def write_buildings(folder, bbox, count=BUILDINGS, seed=13):
         row, col = divmod(k, nx)
         polygons.append(Polygon(building_footprint(
             rng, x1 + (col + 0.5) * cw, y2 - (row + 0.5) * ch, radius)))
-    frame = GeoDataFrame({
+    return GeoDataFrame({
         "identificatie": ["0599100000%06d" % (k + 1) for k in range(count)],
         "bouwjaar": rng.integers(1850, 2024, size=count),
         "status": list(rng.choice(BUILDING_STATUS, size=count, p=BUILDING_STATUS_P)),
     }, geometry=polygons, crs="EPSG:28992", index=Index(np.arange(1, count + 1), name="fid"))
+
+
+def write_buildings(folder, bbox, count=BUILDINGS, seed=13):
+    """Write building_frame(bbox, count, seed) into
+    ``folder``/buildings.gpkg, layer "pand", with its gpkg_rtree_index.
+    Returns the path."""
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+
     path = os.path.join(folder, "buildings.gpkg")
-    write_vector(frame, path, layer="pand")
+    write_vector(building_frame(bbox, count, seed), path, layer="pand")
     return path
 
 
@@ -2105,29 +2138,78 @@ def frame_rows(frame):
     return rows
 
 
-def compare_heights(label, port_rows, host_rows, mean_ulps=None):
+def compare_heights(label, port_rows, host_rows, mean_ulps=None, rounded=("h_mean",)):
     """The export's rows against the host's: the same fids, every column
-    bitwise but h_mean (rounded), where a row may differ only if its
-    unrounded means are within one float32 ulp (``mean_ulps(fids)``
-    gives them); returns the differing h_mean rows."""
+    bitwise but the ``rounded`` ones (rounded means, and what is derived
+    from them), where a row may differ only if its unrounded means are
+    within one float32 ulp (``mean_ulps(fids)`` gives them); returns the
+    differing rows' fids."""
     check(sorted(port_rows) == sorted(host_rows), "%s: the fids differ from the host's" % label)
     differ = []
     for fid, host in host_rows.items():
         port = port_rows[fid]
         check(sorted(port) == sorted(host), "%s: the columns differ" % label)
         for column, value in host.items():
-            if column == "h_mean":
-                if repr(port[column]) != repr(value):
-                    differ.append(fid)
-            else:
-                check(repr(port[column]) == repr(value),
-                      "%s: fid %s %s %r differs from the host's %r"
-                      % (label, fid, column, port[column], value))
+            if repr(port[column]) == repr(value):
+                continue
+            check(column in rounded, "%s: fid %s %s %r differs from the host's %r"
+                  % (label, fid, column, port[column], value))
+            if fid not in differ:
+                differ.append(fid)
     if differ:
         ulps = mean_ulps(differ)
-        check(max(ulps) <= 1, "%s: h_mean of %d rows differs by more than one float32 ulp "
+        check(max(ulps) <= 1, "%s: a mean of %d rows differs by more than one float32 ulp "
               "before rounding" % (label, len(differ)))
     return differ
+
+
+def mean_ulps(mean_views, request, device):
+    """``ulps(fids)``: the float32 ulps between the card's and the host's
+    unrounded means of ``fids``, over each AggregateRaster of
+    ``mean_views`` that holds the fid, on ``request``."""
+    from dask_geomodeling_tpu_torch import compute_host
+
+    def ulps(fids):
+        means = [(mean_view.get_data(device=device, **request)["features"],
+                  compute_host(*mean_view.get_compute_graph(**request))["features"])
+                 for mean_view in mean_views]
+        out = []
+        for fid in fids:
+            found = False
+            for card_mean, host_mean in means:
+                at = card_mean.index.values == fid
+                host_at = host_mean.index.values == fid
+                check(at.any() == host_at.any(), "fid %s has a mean on one of the card and the "
+                      "host only" % fid)
+                if at.any():
+                    found = True
+                    a = np.float32(card_mean["agg"].values[at][0])
+                    b = np.float32(host_mean["agg"].values[host_at][0])
+                    out.append(abs(int(a.view(np.int32)) - int(b.view(np.int32))))
+            check(found, "fid %s differs from the host's, and no mean holds it" % fid)
+        return out
+    return ulps
+
+
+def geojson_equal(ours, theirs, differ, rounded):
+    """Whether the GeoJSON file ``ours`` is byte-identical to ``theirs``
+    once the ``rounded`` properties of the features ``differ`` (the rows
+    compare_heights found within one ulp) take their values from
+    ``theirs``: every other byte must be the same."""
+    with open(theirs, "rb") as f:
+        host_bytes = f.read()
+    with open(ours, "rb") as f:
+        port_bytes = f.read()
+    if not differ:
+        return port_bytes == host_bytes
+    ids = {fid.item() if hasattr(fid, "item") else fid for fid in differ}
+    host = {feature["id"]: feature for feature in json.loads(host_bytes)["features"]}
+    port = json.loads(port_bytes)
+    for feature in port["features"]:
+        if feature["id"] in ids:
+            for column in rounded:
+                feature["properties"][column] = host[feature["id"]]["properties"][column]
+    return json.dumps(port).encode() == host_bytes
 
 
 def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_TILE,
@@ -2237,18 +2319,6 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
           "strictly inside a tile (of %d), each fid once, fields %s"
           % (len(fids), count, sorted(names - {"geometry"})))
 
-    def mean_ulps(request):
-        def ulps(fids):
-            card_mean = mean_view.get_data(device=device, **request)["features"]
-            host_mean = compute_host(*mean_view.get_compute_graph(**request))["features"]
-            out = []
-            for fid in fids:
-                a = np.float32(card_mean["agg"].values[card_mean.index.values == fid][0])
-                b = np.float32(host_mean["agg"].values[host_mean.index.values == fid][0])
-                out.append(abs(int(a.view(np.int32)) - int(b.view(np.int32))))
-            return out
-        return ulps
-
     # two tiles against compute_host: the host's partial file of the same
     # subrequest against the export's rows of those fids
     host_s = 0.0
@@ -2264,7 +2334,7 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
             os.path.join(host_dir, tokenize(request)[:7] + ".gpkg")))
         differing += len(compare_heights(
             "building-heights tile", {fid: merged_rows[fid] for fid in host_rows if
-                                      fid in merged_rows}, host_rows, mean_ulps(request)))
+                                      fid in merged_rows}, host_rows, mean_ulps([mean_view], request, device)))
     print("building-heights: two tiles' rows equal compute_host of their subrequests: "
           "geometry, area, h_p90 and relief bitwise, h_mean differing in %d rows (within one "
           "float32 ulp before rounding) [%s]" % (differing, card))
@@ -2319,10 +2389,11 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
         port_rows = frame_rows(vectorfile.read_vector(ours))
         differ = compare_heights("building-heights sub-area " + ext, port_rows,
                                  frame_rows(vectorfile.read_vector(host_target)),
-                                 mean_ulps(sub_request))
-        if not differ and ext == "geojson":
-            check(open(ours, "rb").read() == open(host_target, "rb").read(),
-                  "building-heights: the GeoJSON differs from the host's")
+                                 mean_ulps([mean_view], sub_request, device))
+        if ext == "geojson":
+            check(geojson_equal(ours, host_target, differ, ("h_mean",)),
+                  "building-heights: the GeoJSON differs from the host's beyond h_mean of "
+                  "%d rows" % len(differ))
         print("building-heights: a %g m sub-area exported untiled as %s: %d buildings, equal "
               "to the host's export (h_mean differing in %d rows)"
               % (sub_size, ext, len(port_rows), len(differ)))
@@ -2899,6 +2970,496 @@ def check_wms_serving(card, device, sheet, zooms=WMS_ZOOMS, sample=WMS_SAMPLE,
     return cold_launches, numbers
 
 
+# --- the auto-routing phase ---
+
+#: request edges (px) of the auto-routing phase, and requests a view and edge
+AUTO_EDGES = (64, 128, 256, 512, 1024, 2048)
+AUTO_PER_EDGE = 8
+
+
+def auto_views(sheet, headline_view, headline_req):
+    """{name: (view, request template, the limits' kind)}: the sheet's two
+    WMS layers at the sheet's grid in EPSG:28992, and the headline view
+    at its request's cell in EPSG:3857."""
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    layers = wms_layers(sheet)
+    x1, y1, x2, y2 = RasterFileSource(sheet).footprint.bbox
+    sheet_box = dict(mode="vals", projection="EPSG:28992", start=None,
+                     bbox=(x1, y1, x2, y2), cell=SHEET_CELL)
+    hx1, hy1, hx2, hy2 = headline_req["bbox"]
+    head_box = dict(headline_req, cell=(hx2 - hx1) / headline_req["width"])
+    del head_box["width"], head_box["height"]
+    return {
+        "ahn-smooth": (layers["ahn-smooth"][0], sheet_box, "bitwise"),
+        "ahn-hillshade": (layers["ahn-hillshade"][0], sheet_box, "within-1"),
+        "headline": (headline_view, head_box, "share"),
+    }
+
+
+def auto_requests(views, edges=AUTO_EDGES, per_edge=AUTO_PER_EDGE, seed=17):
+    """[(view name, edge, request)]: ``per_edge`` requests a view and
+    edge, each an edge^2 window at the view's cell, on the cell grid, at
+    a position drawn from ``seed``, in one seeded, interleaved order."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for name, (_, template, _) in views.items():
+        x1, y1, x2, y2 = template["bbox"]
+        cell = template["cell"]
+        cols, rows = int(round((x2 - x1) / cell)), int(round((y2 - y1) / cell))
+        for edge in edges:
+            for _ in range(per_edge):
+                col = int(rng.integers(0, cols - edge + 1))
+                row = int(rng.integers(0, rows - edge + 1))
+                bbox = (x1 + col * cell, y2 - (row + edge) * cell,
+                        x1 + (col + edge) * cell, y2 - row * cell)
+                request = {k: v for k, v in template.items() if k != "cell"}
+                request.update(bbox=bbox, width=edge, height=edge)
+                items.append((name, edge, request))
+    return [items[i] for i in rng.permutation(len(items))]
+
+
+def routed_within_limits(kind, port, host, label):
+    """(differing cells, cells) of a card-routed answer beside the host's
+    (host_answer); raises where the limits of its path are broken:
+    bitwise (the file-read view), within 1 (HillShade's float32
+    transcendentals, the share held over all its answers by the caller),
+    or only the share of differing cells (the headline's cross-CRS warp)."""
+    a, e = port["values"], host["values"]
+    check(a.shape == e.shape and a.dtype == e.dtype, "auto-routing: %s: shape or dtype differs"
+          % label)
+    differ, worst, _ = compare_cells(a, e, host["no_data_value"])
+    if kind == "bitwise":
+        check(differ == 0, "auto-routing: a card-routed %s answer differs from compute_host "
+              "in %d cells" % (label, differ))
+    elif kind == "within-1":
+        check(worst <= 1, "auto-routing: a card-routed %s answer is %r off" % (label, worst))
+    return differ, e.size
+
+
+def host_answer(view, request, tile=TILE):
+    """compute_host of ``request`` as the card's route runs it: whole up
+    to one tile, else tile by tile (tile_requests), assembled as
+    evaluate_tiled assembles the card's tiles; a Smooth's values near a
+    tile border depend on the tile grid (the Gaussian reaches past its
+    margin), so a tiled answer is held to its own tiles."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    width, height = request["width"], request["height"]
+    if max(width, height) <= tile:
+        return compute_host(*view.get_compute_graph(**request))
+    tiles, nx = tile_requests(request, tile)
+    out = None
+    for index, tile_request in enumerate(tiles):
+        host = compute_host(*view.get_compute_graph(**tile_request))
+        if out is None:
+            out = np.empty((host["values"].shape[0], height, width), host["values"].dtype)
+        (rows, cols), (tile_rows, tile_cols) = tile_cells(index, nx, width, height, tile)
+        out[:, rows, cols] = host["values"][:, tile_rows, tile_cols]
+    return {"values": out, "no_data_value": host["no_data_value"]}
+
+
+def check_auto_routing(card, device, folder, sheet, headline_view, headline_req,
+                       edges=AUTO_EDGES, per_edge=AUTO_PER_EDGE):
+    """The auto-routing phase: geomodeling.executor "auto" over three views
+    (auto_views) and ``per_edge`` requests of each edge (auto_requests:
+    144 at the defaults), the router
+    exploring from an empty table whose state file lives in ``folder``;
+    every route taken, the Gaussian launches per route, each card-routed
+    answer against compute_host; the table's final rates and settled
+    routes per view and edge; after save and a reseeded reset, one
+    request per key takes its settled route; status.snapshot(), and a
+    request of the largest edge under the Profiler and torch_trace.  Returns
+    ({kernel: launches in the routed requests}, the numbers)."""
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import pipeline, router, status
+    from dask_geomodeling_tpu_torch.runtime.profile import Profiler, torch_trace
+
+    started = time.perf_counter()
+    views = auto_views(sheet, headline_view, headline_req)
+    items = auto_requests(views, edges, per_edge)
+    state = os.path.join(folder, "router-state.json")
+    routes = []
+    real_choose = router.choose
+
+    def choosing(view, request, eligible):
+        routes.append(real_choose(view, request, eligible))
+        return routes[-1]
+
+    settings = {"geomodeling.executor": "auto", "geomodeling.router-state": state,
+                "geomodeling.auto-min-device-px": 0, "geomodeling.result-cache-size": 0,
+                "geomodeling.torch-device": str(device)}
+    table = {}
+    share = {name: [0, 0] for name in views}
+    launches = {"gaussian_blur": 0, "moving_max": 0}
+    host_s = 0.0
+    router.choose = choosing
+    try:
+        with config.set(settings):
+            router.reset(reseed=False)
+            pipeline.clear_read_cache()
+            for name, edge, request in items:
+                view, _, kind = views[name]
+                cuda_stencils.reset_launches()
+                t0 = time.perf_counter()
+                out = view.get_data(**request)
+                seconds = time.perf_counter() - t0
+                route = routes[-1]
+                entry = table.setdefault((name, edge), {"numpy": 0, "torch": 0, "gaussian": {
+                    "numpy": 0, "torch": 0}, "seconds": {"numpy": [], "torch": []}})
+                entry[route] += 1
+                entry["gaussian"][route] += cuda_stencils.launches
+                entry["seconds"][route].append(seconds)
+                launches["gaussian_blur"] += cuda_stencils.launches
+                launches["moving_max"] += cuda_stencils.moving_max_launches
+                if route == "torch":
+                    t0 = time.perf_counter()
+                    host = host_answer(view, request, config.get("geomodeling.tile-size"))
+                    host_s += time.perf_counter() - t0
+                    differ, cells = routed_within_limits(kind, out, host, "%s %d^2" % (name, edge))
+                    share[name][0] += differ
+                    share[name][1] += cells
+            keys = {}
+            for (name, edge), entry in sorted(table.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+                view = views[name][0]
+                request = next(r for n, e, r in items if n == name and e == edge)
+                # the route the router takes next for this key
+                settled = router.route_of(view, request)
+                s = router.state_of(view, request)
+                keys[(name, edge)] = settled
+                entry.update(host_mpx_s=s["numpy"], card_mpx_s=s["torch"], settled=settled,
+                             torch_runs=s["torch_runs"])
+                print("auto-routing [%s] %s %d^2: routes numpy %d, torch %d; Gaussian launches "
+                      "on host routes %d, on card routes %d; final host %s Mpx/s, card %s Mpx/s; "
+                      "settled %s" % (card, name, edge, entry["numpy"], entry["torch"],
+                                      entry["gaussian"]["numpy"], entry["gaussian"]["torch"],
+                                      s["numpy"], s["torch"], settled))
+            for (name, edge), entry in table.items():
+                check(entry["gaussian"]["numpy"] == 0, "auto-routing: %s %d^2: host routes "
+                      "launched %d Gaussians" % (name, edge, entry["gaussian"]["numpy"]))
+                if name == "ahn-smooth" and entry["torch"]:
+                    check(entry["gaussian"]["torch"] >= entry["torch"], "auto-routing: %s %d^2: "
+                          "%d card routes launched %d Gaussians" % (
+                              name, edge, entry["torch"], entry["gaussian"]["torch"]))
+            taken = {r: routes.count(r) for r in ("numpy", "torch")}
+            check(taken["numpy"] > 0 and taken["torch"] > 0,
+                  "auto-routing: only one route was taken: %s" % taken)
+            for name, (differ, cells) in share.items():
+                limit = {"ahn-smooth": 0.0, "ahn-hillshade": STENCILS_SHARE,
+                         "headline": HEADLINE_SHARE}[name]
+                check(differ <= limit * cells, "auto-routing: %s: %d of %d card-routed cells "
+                      "differ from compute_host" % (name, differ, cells))
+                print("auto-routing: %s: %d of %d card-routed cells differ from compute_host "
+                      "(limit share %r)" % (name, differ, cells, limit))
+            # the settled routes survive a save and a reseeded reset
+            router.save()
+            router.reset(reseed=True)
+            del routes[:]
+            for (name, edge), settled in keys.items():
+                request = next(r for n, e, r in items if n == name and e == edge)
+                views[name][0].get_data(**request)
+                check(routes[-1] == settled, "auto-routing: %s %d^2 took %s after the reseed, "
+                      "settled %s" % (name, edge, routes[-1], settled))
+            print("auto-routing: after save and reset(reseed=True) from %s, one request per key "
+                  "took its settled route (%d keys, %d to the card)"
+                  % (os.path.basename(state), len(keys), sum(v == "torch" for v in keys.values())))
+            snapshot = status.snapshot()
+            print("auto-routing: status.snapshot() %s" % json.dumps(snapshot))
+            # one request of the largest edge of the file-read view under the
+            # Profiler and torch_trace
+            name, edge, request = next(i for i in items
+                                       if i[0] == "ahn-smooth" and i[1] == max(edges))
+            trace_dir = os.path.join(folder, "trace")
+            with config.set({"geomodeling.executor": "torch"}):
+                with torch_trace(trace_dir), Profiler() as prof:
+                    views[name][0].get_data(**request)
+            trace_bytes = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+            check(trace_bytes > 0, "auto-routing: torch_trace wrote an empty trace")
+            print("auto-routing: Profiler summary of one %s %d^2 request on the card (torch_trace "
+                  "wrote %d bytes):\n%s" % (name, edge, trace_bytes, prof.summary()))
+    finally:
+        router.choose = real_choose
+        with config.set({"geomodeling.router-state": None}):
+            router.reset(reseed=False)  # nothing left for the exit's autosave
+    # per view, the smallest edge from which the card settles at every
+    # larger edge (None: the host at the largest)
+    crossover = {name: next((e for e in edges if all(
+        keys[(name, f)] == "torch" for f in edges if f >= e)), None) for name in views}
+    print("auto-routing [%s]: %d requests, routes taken %s, the smallest edge from which the card "
+          "settles at every larger edge: %s; host ground truth %.3f s; the phase %.1f s"
+          % (card, len(items), json.dumps(taken), json.dumps(crossover), host_s,
+             time.perf_counter() - started))
+    numbers = dict(
+        requests=len(items), routes=taken, crossover_edge=crossover, host_s=host_s,
+        table={"%s %d" % key: {k: v for k, v in entry.items() if k != "seconds"}
+               for key, entry in table.items()},
+        snapshot=snapshot, trace_bytes=trace_bytes, seconds=time.perf_counter() - started)
+    return launches, numbers
+
+
+# --- the building-rings phase ---
+
+#: the building-rings path: the building-heights footprints inside a
+#: RINGS_SIDE^2 (about 2 km^2) sub-area of the sheet, buffered by
+#: RINGS_DISTANCE m, minus the footprint, simplified at RINGS_SIMPLIFY m
+RINGS_SIDE = 1400.0
+RINGS_DISTANCE = 10.0
+RINGS_SIMPLIFY = 0.25
+RINGS_SUB = 300.0
+RINGS_FIELDS = ("identificatie", "bouwjaar", "ring_mean", "ring_p10", "h_mean", "peil",
+                "kelder", "drempel")
+#: the fields that may differ from the host's where an unrounded mean is
+#: one float32 ulp off (float64 atomics): the rounded means, and the
+#: floor level above the ring's
+RINGS_ROUNDED = ("ring_mean", "h_mean", "drempel")
+
+
+def rings_area(bbox, side=RINGS_SIDE):
+    """The rings' sub-area: a side^2 box in the middle of ``bbox``."""
+    cx, cy = (bbox[0] + bbox[2]) / 2, (bbox[1] + bbox[3]) / 2
+    half = min(side, bbox[2] - bbox[0], bbox[3] - bbox[1]) / 2
+    return (cx - half, cy - half, cx + half, cy + half)
+
+
+def description(rng):
+    """A ``beschrijving``: key=value lines as a water board's building
+    register carries them, a floor level (vloerpeil, m NAP) missing in one
+    of ten and null in one of twenty, a basement flag and a source."""
+    lines = ["bron=BAG"]
+    draw = rng.random()
+    if draw >= 0.15:
+        lines.append("vloerpeil=%.2f" % rng.uniform(2.0, 9.0))
+    elif draw >= 0.10:
+        lines.append("vloerpeil=null")
+    lines.append("kelder=%s" % ("true" if rng.random() < 0.2 else "false"))
+    lines.append("opmerking=peil ingemeten %d" % rng.integers(1995, 2024))
+    return "\n".join(lines)
+
+
+def write_rings_buildings(folder, sheet_bbox, area, count=BUILDINGS, seed=13):
+    """Write the footprints of write_buildings(sheet_bbox, count, seed)
+    whose every vertex lies inside ``area`` into ``folder``/rings.gpkg,
+    layer "pand", with a ``beschrijving`` of key=value lines (seeded);
+    returns (its path, the number written)."""
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+
+    frame = building_frame(sheet_bbox, count, seed)
+    x1, y1, x2, y2 = area
+    keep = np.array([x1 < g.bounds[0] and g.bounds[2] < x2 and y1 < g.bounds[1]
+                     and g.bounds[3] < y2 for g in frame.geometry.values])
+    frame = frame.iloc[np.flatnonzero(keep)]
+    rng = np.random.default_rng(seed + 1)
+    frame["beschrijving"] = [description(rng) for _ in range(len(frame))]
+    path = os.path.join(folder, "rings.gpkg")
+    write_vector(frame, path, layer="pand")
+    return path, len(frame)
+
+
+def rings_blocks(buildings, sheet):
+    """The building-rings view's blocks: {"view", "ring_mean", "own_mean"}
+    (the two unrounded means' AggregateRaster blocks).  The view: a 10 m
+    ring around each footprint (Buffer, Difference with the footprint,
+    Simplify), the mean and 10th percentile of the smoothed sheet over
+    the ring, merged (left) with the footprint's own mean height, the
+    floor level and basement flag parsed from the description, the floor
+    level above the ring's mean ground, and each ring clipped to the
+    request's geometry (Intersection)."""
+    from dask_geomodeling_tpu_torch.geometry import (
+        AggregateRaster,
+        Buffer,
+        Difference,
+        GeometryFileSource,
+        Intersection,
+        MergeGeometryBlocks,
+        ParseTextColumn,
+        Round,
+        Simplify,
+    )
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth
+
+    footprints = GeometryFileSource(buildings, layer="pand")
+    rings = Simplify(Difference(Buffer(footprints, RINGS_DISTANCE, "EPSG:28992"), footprints),
+                     RINGS_SIMPLIFY)
+    dem = Smooth(RasterFileSource(sheet), 3)
+    ring_mean = AggregateRaster(rings, dem, "mean")
+    own_mean = AggregateRaster(footprints, dem, "mean")
+    stats = rings.set("ring_mean", Round(ring_mean["agg"], 2),
+                      "ring_p10", AggregateRaster(rings, dem, "p10")["agg"])
+    own = footprints.set("h_mean", Round(own_mean["agg"], 2))
+    merged = MergeGeometryBlocks(stats, own, how="left")
+    parsed = ParseTextColumn(merged, "beschrijving", {"vloerpeil": "peil", "kelder": "kelder"})
+    view = Intersection(parsed.set("drempel", parsed["peil"] - parsed["ring_mean"]))
+    return {"view": view, "ring_mean": ring_mean, "own_mean": own_mean}
+
+
+def build_rings_view(buildings, sheet):
+    """The building-rings view (rings_blocks)."""
+    return rings_blocks(buildings, sheet)["view"]
+
+
+def rings_clock():
+    """A PhaseClock over the building-rings export: the buffers (the
+    distance fields and their contours), the differences, the vector
+    file reads, the zonal statistics' device plane and the sinks' writes
+    and merge."""
+    from dask_geomodeling_tpu_torch.geo import _buffer
+    from dask_geomodeling_tpu_torch.geo.features import GeoSeries
+    from dask_geomodeling_tpu_torch.geometry import aggregate
+    from dask_geomodeling_tpu_torch.geometry.sinks import GeometryFileSink
+    from dask_geomodeling_tpu_torch.io import vectorfile
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    return PhaseClock([
+        (_buffer, "buffer", "buffer"),
+        (GeoSeries, "difference", "difference"),
+        (pipeline, "read_vector_cached", "vector read"),
+        (vectorfile, "_read_gpkg", "vector read"),
+        (aggregate, "_aggregate_on_device", "zonal"),
+        (GeometryFileSink, "process", "sink"),
+        (GeometryFileSink, "merge_files", "sink"),
+    ])
+
+
+def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=BUILDING_TILE,
+                         sub_size=RINGS_SUB, count=BUILDINGS):
+    """The building-rings phase: the rings view (build_rings_view) over
+    the footprints inside a side^2 sub-area of the sheet, exported by
+    to_file in tiles of ``tile`` m (GeometryTiler over GeometryFileSink
+    GeoPackages, merged) under the phase clock; one tile against
+    compute_host; a sub_size^2 sub-area exported untiled as GeoJSON
+    byte-identical to the host's export.  Returns ({kernel: launches of
+    the export}, the numbers)."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.core.tokens import tokenize
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink, GeometryTiler
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.io import vectorfile
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    started = time.perf_counter()
+    sheet_bbox = RasterFileSource(sheet).footprint.bbox
+    area = rings_area(sheet_bbox, side)
+    t0 = time.perf_counter()
+    buildings, count = write_rings_buildings(folder, sheet_bbox, area, count)
+    write_s = time.perf_counter() - t0
+    print("building-rings: %d of the building-heights footprints inside a %g m square "
+          "(%.3f km^2) written with a beschrijving to a GeoPackage in %.2f s"
+          % (count, area[2] - area[0], (area[2] - area[0]) * (area[3] - area[1]) / 1e6, write_s))
+    blocks = rings_blocks(buildings, sheet)
+    view = blocks["view"]
+    fields = {name: name for name in RINGS_FIELDS}
+    projection = "EPSG:28992"
+    pipeline.clear_read_cache()
+    target = os.path.join(folder, "rings_export.gpkg")
+    # the request names its geometry: an Intersection answers no extent
+    # request without one (in the JAX package too), and to_file asks for
+    # the extent when the request has none
+    export_request = dict(mode="centroid", geometry=box(*area), projection=projection)
+    cuda_stencils.reset_launches()
+    with rings_clock() as clock:
+        t0 = time.perf_counter()
+        to_file(view, target, fields=fields, tile_size=tile, device=device, **export_request)
+        export_s = time.perf_counter() - t0
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    pieces = GeometryTiler(view, tile, projection).get_sources_and_requests(**export_request)
+    subrequests = [request for _, request in pieces]
+    merged = vectorfile.read_vector(target)
+    phases = dict(clock.seconds)
+    phases["other"] = export_s - sum(phases.values())
+    print("building-rings: to_file of %d buildings in %d tiles of %g m: %.3f s, %.1f "
+          "buildings/s, %d rings in the merged file [%s]" % (
+              count, len(subrequests), tile, export_s, count / export_s, len(merged), card))
+    print("building-rings: phases (s; the buffers and the differences run on the host, the "
+          "zonal statistics' device plane on the card; %d timed calls): %s" % (
+              sum(clock.calls.values()), json.dumps({k: round(v, 4) for k, v in phases.items()})))
+    print("building-rings: %d Gaussian launches (two a tile: the rings' and the footprints' "
+          "AggregateRaster read the sheet over different boxes), %d moving-max launches"
+          % (launches["gaussian_blur"], launches["moving_max"]))
+    check(launches["gaussian_blur"] == 2 * len(subrequests),
+          "building-rings: %d Gaussian launches for %d tiles" % (launches["gaussian_blur"],
+                                                                 len(subrequests)))
+    check(set(merged.columns) == set(RINGS_FIELDS) | {"geometry"},
+          "building-rings: the fields are %s" % sorted(merged.columns))
+    check(len(merged) == count, "building-rings: %d rings exported for %d buildings"
+          % (len(merged), count))
+    check(all(g is not None and not g.is_empty and g.area > 0 for g in merged.geometry.values),
+          "building-rings: an empty ring was exported")
+    peil = merged["peil"].values.astype(float)
+    print("building-rings: %d rings; floor level parsed in %d, missing or null in %d; "
+          "kelder %s; ring areas %.1f-%.1f m^2" % (
+              len(merged), np.isfinite(peil).sum(), (~np.isfinite(peil)).sum(),
+              sorted(set(merged["kelder"].tolist()), key=repr),
+              min(g.area for g in merged.geometry.values),
+              max(g.area for g in merged.geometry.values)))
+
+    mean_views = [blocks["ring_mean"], blocks["own_mean"]]
+
+    # one tile against compute_host: the host's partial file of the same
+    # subrequest against the export's rows of those fids
+    host_s = 0.0
+    merged_rows = frame_rows(merged)
+    host_dir = os.path.join(folder, "rings_host")
+    # the tile with the fewest rings (the host's buffers cost tens of ms each)
+    request = min((r for r in subrequests if any(r["geometry"].intersects(g.centroid)
+                                                 for g in merged.geometry.values)),
+                  key=lambda r: sum(r["geometry"].intersects(g.centroid)
+                                    for g in merged.geometry.values))
+    sink = GeometryFileSink(view, host_dir, extension="gpkg", fields=fields)
+    t0 = time.perf_counter()
+    compute_host(*sink.get_compute_graph(**request))
+    host_s += time.perf_counter() - t0
+    host_rows = frame_rows(vectorfile.read_vector(
+        os.path.join(host_dir, tokenize(request)[:7] + ".gpkg")))
+    check(len(host_rows) > 0, "building-rings: the host's tile is empty")
+    differing = compare_heights("building-rings tile", {fid: merged_rows[fid] for fid in host_rows
+                                                        if fid in merged_rows}, host_rows,
+                                mean_ulps(mean_views, request, device), RINGS_ROUNDED)
+    print("building-rings: one tile's %d rows equal compute_host of its subrequest (%.3f s on the "
+          "host): geometry, ring_p10, peil and kelder bitwise, the rounded means differing in "
+          "%d rows [%s]" % (len(host_rows), host_s, len(differing), card))
+
+    # a sub-area exported untiled as GeoJSON, against the host's export
+    x1, y1, x2, y2 = area
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    sub = box(cx - sub_size / 2, cy - sub_size / 2, cx + sub_size / 2, cy + sub_size / 2)
+    sub_request = dict(mode="centroid", geometry=sub, projection=projection)
+    ours = os.path.join(folder, "rings_sub.geojson")
+    to_file(view, ours, fields=fields, device=device, **sub_request)
+    host_target = os.path.join(folder, "rings_host_sub.geojson")
+    sink_dir = os.path.join(folder, "rings_host_sub")
+    t0 = time.perf_counter()
+    compute_host(*GeometryFileSink(view, sink_dir, extension="geojson", fields=fields)
+                 .get_compute_graph(**sub_request))
+    GeometryFileSink.merge_files(sink_dir, host_target)
+    host_s += time.perf_counter() - t0
+    port_rows = frame_rows(vectorfile.read_vector(ours))
+    differ = compare_heights("building-rings sub-area", port_rows,
+                             frame_rows(vectorfile.read_vector(host_target)),
+                             mean_ulps(mean_views, sub_request, device), RINGS_ROUNDED)
+    identical = geojson_equal(ours, host_target, [], RINGS_ROUNDED)
+    check(geojson_equal(ours, host_target, differ, RINGS_ROUNDED),
+          "building-rings: the GeoJSON differs from the host's beyond the rounded means of "
+          "%d rows" % len(differ))
+    check(len(port_rows) > 5, "building-rings: the sub-area holds %d rings" % len(port_rows))
+    print("building-rings: a %g m sub-area exported untiled as GeoJSON: %d rings clipped to it, "
+          "byte-identical to the host's export: %s (rounded means differing in %d rows)"
+          % (sub_size, len(port_rows), identical, len(differ)))
+    total_s = time.perf_counter() - started
+    print("building-rings: host ground truth %.3f s; the phase %.1f s [%s]"
+          % (host_s, total_s, card))
+    return launches, dict(
+        buildings=count, area_km2=(area[2] - area[0]) * (area[3] - area[1]) / 1e6,
+        tiles=len(subrequests), export_s=export_s, buildings_per_s=count / export_s,
+        phases=phases, host_s=host_s, phase_s=total_s, rows_differing=len(differing) + len(differ),
+        geojson_identical=identical, write_s=write_s)
+
+
 def check_fuzz(device):
     """The executor fuzz on the card: the reference's random trees (seeds
     0-39 at 12^2, 40-54 as 6^2 tiles in batches of 2) against compute_host
@@ -3144,6 +3705,11 @@ def run_phases(card, device, folder, mark):
                          path="wms-serving"))
     del wms_planes, got, want
     mark("the wms-serving path")
+    launches["auto-routing"], auto = check_auto_routing(card, device, folder, sheet,
+                                                        headline_view, headline_req)
+    mark("the auto-routing path")
+    launches["building-rings"], rings = check_building_rings(card, device, folder, sheet)
+    mark("the building-rings path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -3162,6 +3728,8 @@ def run_phases(card, device, folder, mark):
     timings["file-export"] = export
     timings["building-heights"] = buildings
     timings["wms-serving"] = wms
+    timings["auto-routing"] = auto
+    timings["building-rings"] = rings
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -2,9 +2,14 @@
 
 Counterpart of dask_geomodeling_tpu/config.py (``Config``), holding only
 the keys the port reads, with the JAX package's defaults where it has the
-key.  There is no executor switch: the port always
-runs its torch twins, on the device ``geomodeling.torch-device`` names
-unless the caller passes one.
+key.  ``geomodeling.executor`` picks how a raster vals request runs:
+"torch" (the default) runs the torch twins on the device
+``geomodeling.torch-device`` names unless the caller passes one,
+"numpy" runs the numpy processes on the host under the configured
+``scheduler`` (``core/graphs.py:compute``), and
+"auto" routes each request between the two by their measured rates
+(runtime/router.py).  The JAX package defaults to "auto"; the port
+defaults to the card.
 
 Usage::
 
@@ -12,6 +17,7 @@ Usage::
     with config.set({"geomodeling.tile-size": 256}):
         ...
 """
+import os
 import threading
 from contextlib import ContextDecorator
 
@@ -20,6 +26,35 @@ __all__ = ["config", "defaults"]
 defaults = {
     # device of the entry points when the caller passes none
     "geomodeling.torch-device": "cuda",
+    # how a raster vals request runs: "torch" (the twins on the device),
+    # "numpy" (the numpy processes on the host, compute()) or "auto"
+    # (routed per (view, size bucket) by measured rates, runtime/router.py)
+    "geomodeling.executor": "torch",
+    # "auto" considers the card only for requests of at least this many
+    # pixels; smaller ones run on the host.  chip_smoke.py's auto-routing
+    # tables (three runs, NVIDIA H100 80GB HBM3, 700.00 W): at 64^2 the
+    # host won on all three views in every run, at 128^2 the card won on
+    # the headline view in every run; so 128^2
+    "geomodeling.auto-min-device-px": 128 * 128,
+    # under "auto", the card's measured rate must exceed margin times the
+    # host's before a request kind is routed to it (hysteresis: close
+    # calls stay on the host).  Same tables: the closest calls were the
+    # sheet views at 256^2 (the card at 1.00-1.94 times the host's rate,
+    # settling either way from run to run) and the headline at 128^2
+    # (1.18-2.33); the JAX package's 1.15 is kept
+    "geomodeling.auto-margin": 1.15,
+    # the router's table survives restarts in this file (None: not kept);
+    # the port's own name, so it never reads the JAX package's rates
+    "geomodeling.router-state": os.path.join(
+        os.path.expanduser("~"), ".cache", "dask_geomodeling_tpu_torch", "router-state.json"),
+    # scheduler of compute() off the "torch" executor (the host routes of
+    # get_data under "numpy" and "auto"): sync | threads |
+    # processes (core/scheduler.py)
+    "scheduler": None,
+    # in-memory byte budget of the pooled schedulers' intermediate
+    # results; beyond it, the least recently used spill to disk
+    # (parallel/spill.py).  None/0: unlimited
+    "geomodeling.scheduler-memory-limit": None,
     # tile edge of the batched tile runtime (pixels); a vals request
     # larger than one tile runs as tiles
     "geomodeling.tile-size": 512,

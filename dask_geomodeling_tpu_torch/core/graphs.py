@@ -7,10 +7,13 @@ its static ``process`` combines what they return.  The recursion gives a
 compute graph ``{name_token: (process, *args)}`` whose keys are content
 hashes, so shared (block, request) pairs appear once.
 
-There is no scheduler: ``Block.get_data`` runs the graph with the port's
-torch executor (runtime/executor.py) on the card unless the caller passes
-``device="cpu"``, and runtime/host.py:compute_host evaluates it with the
-numpy processes when asked to.
+``Block.get_data`` runs the graph with the port's torch executor
+(runtime/executor.py) on the card unless the caller passes
+``device="cpu"``; runtime/host.py:compute_host evaluates it with the
+numpy processes, synchronously, when asked to.  ``compute`` is the JAX
+package's entry point of the same name: the torch executor under
+``geomodeling.executor`` "torch", else the numpy processes under the
+configured ``scheduler`` (core/scheduler.py).
 
 A view travels as JSON (``to_json``, ``from_json``): class paths as
 strings, arrays as nested lists.  Deserializing imports only the port's
@@ -28,7 +31,7 @@ from dask_geomodeling_tpu_torch.core.tokens import tokenize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["construct", "arg", "Block"]
+__all__ = ["construct", "arg", "Block", "compute"]
 
 #: the port's own package: the only one ``from_import_path`` imports from
 PACKAGE = "dask_geomodeling_tpu_torch"
@@ -51,6 +54,20 @@ def arg(index, doc=None, default=_ARG_MISSING):
     if doc:
         fget.__doc__ = doc
     return property(fget)
+
+
+def compute(graph, name, device=None):
+    """Compute ``name`` of a graph ``{name: (func, *args)}`` with the
+    configured executor: "torch" runs ``compute_torch`` on ``device``
+    (``None``: ``geomodeling.torch-device``); any other runs the numpy
+    processes under the configured ``scheduler``."""
+    if config.get("geomodeling.executor", "torch") == "torch":
+        from dask_geomodeling_tpu_torch.runtime.executor import compute_torch
+
+        return compute_torch(graph, name, device=device)
+    from dask_geomodeling_tpu_torch.core.scheduler import get_scheduler
+
+    return get_scheduler()(graph, [name])[0]
 
 
 def construct(graph, name):

@@ -25,11 +25,15 @@ It holds what the ported blocks ask of a frame, with pandas 3's answers:
   ``isna``, ``all``, ``round`` (numpy's half to even), ``map``, ``where``,
   ``mask``, ``reindex`` and item assignment by a mask;
 - on a geometry series: ``area``, ``bounds``, ``centroid``, ``x``, ``y``,
-  ``intersects``, ``within``, ``is_empty``, ``to_crs`` and a settable
-  ``crs``.
+  ``intersects``, ``within``, ``is_empty``, ``isnull``, ``to_crs``, a
+  settable ``crs``, and the operations ``buffer``, ``simplify``,
+  ``intersection`` and ``difference``;
+- ``merge`` of two frames on their indexes, as pandas' ``merge`` with
+  ``left_index=True, right_index=True`` answers it.
 
-Column types follow pandas' inference from records: numbers with None
-become float64 with NaN, strings with None keep NaN for the missing ones
+Column types follow pandas' inference from records (and from a list,
+which infers alike): numbers with None (or NaN with None) become float64
+with NaN, strings with None keep NaN for the missing ones
 (pandas 3's ``str`` dtype), bools with None and all-None columns stay
 object columns of the values.  Strings are held in object arrays.
 """
@@ -40,7 +44,7 @@ import numpy as np
 from dask_geomodeling_tpu_torch.geo import geometry as geom_mod
 from dask_geomodeling_tpu_torch.geo.crs import get_projection, get_transform_func
 
-__all__ = ["Index", "Series", "GeoSeries", "GeoDataFrame", "concat", "is_null"]
+__all__ = ["Index", "Series", "GeoSeries", "GeoDataFrame", "concat", "merge", "is_null"]
 
 
 def _objects(items):
@@ -78,8 +82,9 @@ def _infer(values):
     column of the cells as they are."""
     present = [v for v in values if not is_null(v)]
     if not present:
-        if values and all(isinstance(v, (float, np.floating)) for v in values):
-            return np.array(values, dtype=float)
+        if any(isinstance(v, (float, np.floating)) for v in values) and all(
+                v is None or isinstance(v, (float, np.floating)) for v in values):
+            return np.array([np.nan if v is None else v for v in values], dtype=float)
         return _objects(values)
     if all(isinstance(v, (bool, np.bool_)) for v in present):
         return np.array(values, dtype=bool) if len(present) == len(values) else _objects(values)
@@ -423,7 +428,7 @@ class Series:
 
     def reindex(self, index):
         """The values at the labels of ``index``; NaN where one is missing."""
-        return Series(_reindexed(self.values, self.index, index), index=index, name=self.name)
+        return self._new(_reindexed(self.values, self.index, index), index)
 
     def round(self, decimals=0, out=None):
         """numpy's ``around`` (half to even, in the column's dtype); what
@@ -496,6 +501,10 @@ class Series:
         return "Series(%r, name=%r)" % (self.values.tolist(), self.name)
 
 
+#: a label a series holds more than once (pandas' ``get`` gives a series)
+_MANY = object()
+
+
 class GeoSeries(Series):
     """A series of geometries (an object array) with a ``crs``."""
 
@@ -563,6 +572,44 @@ class GeoSeries(Series):
         with np.errstate(invalid="ignore"):
             return np.array([np.nanmin(b[:, 0]), np.nanmin(b[:, 1]),
                              np.nanmax(b[:, 2]), np.nanmax(b[:, 3])])
+
+    def isnull(self):
+        """The JAX package's ``GeoSeries.isnull``: None or an empty
+        geometry (a NaN cell is not null there)."""
+        return Series(np.array([g is None or (hasattr(g, "is_empty") and g.is_empty)
+                                for g in self.values], dtype=bool), self.index)
+
+    # operations
+    def _geometries(self, func):
+        return GeoSeries(self._map(func, object), index=self.index, crs=self.crs)
+
+    def buffer(self, distance, resolution=16):
+        return self._geometries(lambda g: g.buffer(distance, resolution))
+
+    def simplify(self, tolerance, preserve_topology=True):
+        return self._geometries(lambda g: g.simplify(tolerance))
+
+    def intersection(self, other):
+        return self._geometries(lambda g: g.intersection(other))
+
+    def difference(self, other):
+        """Element-wise difference with a series aligned by label, or with
+        one geometry.  By label, as the JAX package's pandas ``get`` finds
+        it: a geometry whose label ``other`` lacks, or holds more than
+        once, stays as it is."""
+        if not isinstance(other, Series):
+            return self._geometries(lambda g: g.difference(other))
+        found = {}
+        for label, value in zip(other.index.values.tolist(), other.values):
+            found[label] = _MANY if label in found else value
+        result = []
+        for label, g in zip(self.index.values.tolist(), self.values):
+            value = found.get(label)
+            if g is None or value is None or value is _MANY:
+                result.append(g)
+            else:
+                result.append(g.difference(value))
+        return GeoSeries(result, index=self.index, crs=self.crs)
 
     def to_crs(self, crs):
         """All geometries transformed to another CRS."""
@@ -810,4 +857,153 @@ def concat(frames):
     out = GeoDataFrame(index=index, crs=frames[0].crs)
     out._columns = columns
     out._geometry_column_name = frames[0]._geometry_column_name
+    return out
+
+
+def _sorted_labels(labels):
+    """Labels in pandas' sort order (numbers, then strings, where they do
+    not compare)."""
+    try:
+        return sorted(labels)
+    except TypeError:
+        return sorted(labels, key=lambda v: (isinstance(v, str), v))
+
+
+def _monotonic(keys):
+    try:
+        return all(a <= b for a, b in zip(keys, keys[1:]))
+    except TypeError:
+        return False
+
+
+def _stable_argsort(codes):
+    return np.argsort(np.asarray(codes, dtype=np.intp), kind="stable")
+
+
+def _inner_non_unique(lkeys, rkeys, right_first):
+    """pandas' ``libjoin.inner_join(..., sort=False)`` over keys coded in
+    order of first appearance (the right's first where ``right_first``,
+    as ``_factorize_keys`` codes numbers): the pairs by code, then put
+    back in the left's order, where pandas takes a short cut when the
+    pairs are as many as the left's rows, and that short cut orders them
+    by the left's sort order instead."""
+    codes = {}
+    for key in (rkeys + lkeys if right_first else lkeys + rkeys):
+        codes.setdefault(key, len(codes))
+    llab = [codes[k] for k in lkeys]
+    rlab = [codes[k] for k in rkeys]
+    left_sorter, right_sorter = _stable_argsort(llab), _stable_argsort(rlab)
+    lcount = np.bincount(llab, minlength=len(codes)) if llab else np.zeros(len(codes), int)
+    rcount = np.bincount(rlab, minlength=len(codes)) if rlab else np.zeros(len(codes), int)
+    pairs, lpos, rpos = [], 0, 0
+    for code in range(len(codes)):
+        lc, rc = int(lcount[code]), int(rcount[code])
+        if lc and rc:
+            pairs += [(left_sorter[lpos + j], right_sorter[rpos + k])
+                      for j in range(lc) for k in range(rc)]
+        lpos += lc
+        rpos += rc
+    if not pairs:
+        return np.empty(0, np.intp), np.empty(0, np.intp)
+    li, ri = (np.array(p, dtype=np.intp) for p in zip(*pairs))
+    if len(lkeys) == len(li):
+        rev = np.empty(len(lkeys), np.intp)
+        rev[left_sorter] = np.arange(len(lkeys))
+    else:
+        rev = _stable_argsort(li)
+    return li[rev], ri[rev]
+
+
+def _join_positions(left, right, how):
+    """(left positions, right positions) of the rows of pandas'
+    ``Index.join(..., sort=False)`` of two indexes, -1 where a side has
+    no row: "left" in the left's order, "right" in the right's, "inner"
+    in the left's, "outer" by sorted label; a label on both sides more
+    than once gives every pair, left-major.  An inner join whose right
+    holds a label twice, of indexes that are not both sorted, follows
+    pandas' ``inner_join`` (``_inner_non_unique``); an outer join with
+    one side empty, its ``_join_empty``."""
+    lkeys, rkeys = left.tolist(), right.tolist()
+    if how == "outer" and bool(lkeys) != bool(rkeys):
+        # one side empty: pandas' _join_empty sorts the other side with
+        # numpy's default (unstable) argsort unless it is sorted already
+        keys = left if lkeys else right
+        order = np.arange(len(keys)) if _monotonic(keys.tolist()) else np.argsort(keys)
+        missing = np.full(len(keys), -1, np.intp)
+        return (order.astype(np.intp), missing) if lkeys else (missing, order.astype(np.intp))
+    if how == "inner" and len(set(rkeys)) < len(rkeys) and lkeys and not (
+            _monotonic(lkeys) and _monotonic(rkeys) and len(set(lkeys)) == len(lkeys)):
+        return _inner_non_unique(lkeys, rkeys, right_first=left.dtype.kind in "iufb")
+    lpos, rpos = {}, {}
+    for i, key in enumerate(lkeys):
+        lpos.setdefault(key, []).append(i)
+    for j, key in enumerate(rkeys):
+        rpos.setdefault(key, []).append(j)
+    if how == "left":
+        pairs = [(i, j) for i, key in enumerate(lkeys) for j in rpos.get(key, [-1])]
+    elif how == "right":
+        pairs = [(i, j) for j, key in enumerate(rkeys) for i in lpos.get(key, [-1])]
+    elif how == "inner":
+        pairs = [(i, j) for i, key in enumerate(lkeys) for j in rpos.get(key, [])]
+    else:
+        pairs = [(i, j) for key in _sorted_labels(set(lkeys) | set(rkeys))
+                 for i in lpos.get(key, [-1]) for j in rpos.get(key, [-1])]
+    if not pairs:
+        return np.empty(0, np.intp), np.empty(0, np.intp)
+    positions = np.array(pairs, dtype=np.intp)
+    return positions[:, 0], positions[:, 1]
+
+
+def _take_or_missing(values, positions):
+    """``values`` at ``positions``, NaN where a position is -1 (an integer
+    column becomes float64 and a bool column object there, as pandas
+    fills a missing row)."""
+    missing = positions < 0
+    if not missing.any():
+        return values[positions]
+    out = _missing_fill(values)
+    out = out[np.where(missing, 0, positions)] if len(values) else \
+        np.empty(len(positions), out.dtype)
+    if out.dtype.kind == "M":
+        out[missing] = np.datetime64("NaT")
+    else:
+        out[missing] = np.nan
+    return out
+
+
+def merge(left, right, how="inner", suffixes=("_x", "_y")):
+    """pandas' ``merge(left, right, how, suffixes=suffixes,
+    left_index=True, right_index=True)`` of two frames: the rows as
+    ``_join_positions`` gives them, the left's columns then the right's,
+    a column name both hold suffixed on each side, and a row a side lacks
+    filled with NaN there.  The result's index takes the labels of the
+    side that has the row (the right's name for "right", else the
+    left's); its active geometry column is "geometry" where it has one.
+    An empty side keeps the other side's order ("outer": sorted)."""
+    if how not in ("left", "right", "inner", "outer"):
+        raise ValueError("how must be left, right, inner or outer, not %r" % (how,))
+    shared = [name for name in left.columns if name in right._columns]
+    if shared and not (suffixes[0] or suffixes[1]):
+        raise ValueError("columns overlap but no suffix specified: %s" % shared)
+    lvalues, rvalues = left.index.values, right.index.values
+    lpos, rpos = _join_positions(lvalues, rvalues, how)
+    if lvalues.dtype == object or rvalues.dtype == object:
+        labels = _objects([lvalues[i] if i >= 0 else rvalues[j] for i, j in zip(lpos, rpos)])
+    else:
+        dtype = np.result_type(lvalues, rvalues)
+        labels = np.where(lpos >= 0, lvalues.astype(dtype)[np.maximum(lpos, 0)]
+                          if len(lvalues) else np.zeros(len(lpos), dtype),
+                          rvalues.astype(dtype)[np.maximum(rpos, 0)]
+                          if len(rvalues) else np.zeros(len(rpos), dtype))
+    columns = {}
+    for frame, positions, suffix in ((left, lpos, suffixes[0]), (right, rpos, suffixes[1])):
+        for name, values in frame._columns.items():
+            target = name + suffix if name in shared else name
+            if target in columns:
+                raise ValueError("suffixes %r cause duplicate columns %r" % (suffixes, target))
+            columns[target] = _take_or_missing(values, positions)
+    name = right.index.name if how == "right" else left.index.name
+    out = GeoDataFrame(index=Index(labels, name), crs=left.crs)
+    out._columns = columns
+    out._geometry_column_name = "geometry" if "geometry" in columns else None
     return out

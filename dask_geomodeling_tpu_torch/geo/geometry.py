@@ -9,12 +9,10 @@ gives the same float64 bits:
 - predicates: intersects, within, contains, disjoint, equals, is_valid
 - measures: area, length, bounds, centroid, distance
 - operations: intersection, union and difference (the planar overlay,
-  geo/_overlay.py), simplify (Douglas-Peucker) and convex_hull
+  geo/_overlay.py), buffer (a contoured distance field, geo/_buffer.py),
+  simplify (Douglas-Peucker) and convex_hull
 - WKT and WKB (ISO little-endian) serialization (geo/_wkt.py);
   ``__geo_interface__``
-
-``buffer`` (the JAX package's geo/_buffer.py) is not ported: it raises
-NotImplementedError naming the module.
 
 Geometries are immutable value objects; an optional ``srs`` attribute tags
 the coordinate system.
@@ -312,7 +310,9 @@ class Geometry:
     # --- operations ---
 
     def buffer(self, distance, resolution=16):
-        raise NotImplementedError("buffer (geo/_buffer.py) is not ported")
+        from dask_geomodeling_tpu_torch.geo import _buffer
+
+        return _buffer.buffer(self, distance, resolution)
 
     def simplify(self, tolerance, preserve_topology=True):
         return _simplify(self, tolerance)

@@ -104,6 +104,10 @@ class Extent:
         self.bbox = tuple(bbox)
         self.srs = get_projection(sr)
 
+    def buffered(self, size):
+        x1, y1, x2, y2 = self.bbox
+        return type(self)((x1 - size, y1 - size, x2 + size, y2 + size), self.srs)
+
     def transformed(self, sr):
         from dask_geomodeling_tpu_torch.geo.crs import get_projection, transform_extent
 

@@ -1,9 +1,11 @@
 """Geometry blocks: the ported subset of dask_geomodeling_tpu/geometry.
 
-The sources (GeometryFileSource, GeometryWKTSource), the base classes,
-the field operations, Area, GeometryTiler, GeometryFileSink and zonal
-statistics (AggregateRaster, AggregateRasterAboveThreshold).  Not ported:
-the set, text, merge and constructive operations.
+Every geometry block of the JAX package: the sources (GeometryFileSource,
+GeometryWKTSource), the base classes, the field operations, Area, the
+constructive (Buffer, Simplify), set (Difference, Intersection), merge
+(MergeGeometryBlocks) and text (ParseTextColumn) operations,
+GeometryTiler, GeometryFileSink and zonal statistics (AggregateRaster,
+AggregateRasterAboveThreshold).
 """
 from dask_geomodeling_tpu_torch.geometry.base import (  # noqa: F401
     BaseSingle,
@@ -50,3 +52,7 @@ from dask_geomodeling_tpu_torch.geometry.aggregate import (  # noqa: F401
     AggregateRasterAboveThreshold,
 )
 from dask_geomodeling_tpu_torch.geometry.sinks import GeometryFileSink  # noqa: F401
+from dask_geomodeling_tpu_torch.geometry.constructive import Buffer, Simplify  # noqa: F401
+from dask_geomodeling_tpu_torch.geometry.set_operations import Difference, Intersection  # noqa: F401
+from dask_geomodeling_tpu_torch.geometry.merge import MergeGeometryBlocks  # noqa: F401
+from dask_geomodeling_tpu_torch.geometry.text import ParseTextColumn  # noqa: F401

@@ -2,12 +2,20 @@
 raster request.
 
 Counterparts of dask_geomodeling_tpu/raster/base.py (``RasterBlock``,
-``BaseSingle``) and of its ``RasterBlock._get_data_uncached``: a vals
-request larger than
-``geomodeling.tile-size`` runs as batched tiles (runtime/tiles.py), any
-other vals request through ``compute_torch``, and a time or meta request
-through ``compute_metadata`` on the host.  There is no router and no
-fallback: a failure raises.
+``BaseSingle``) and of its ``RasterBlock._get_data_uncached``.  A time or
+meta request runs through ``compute_metadata`` on the host.  A vals
+request runs as ``geomodeling.executor`` says:
+
+- "torch" (the default): on the device, as batched tiles
+  (runtime/tiles.py) when it is larger than ``geomodeling.tile-size``,
+  else (or when its tiles plan differently) through ``compute_torch``;
+- "numpy": the numpy processes on the host, under the configured
+  ``scheduler`` (``core/graphs.py:compute``);
+- "auto": one of the two, chosen per (view, size bucket) by the
+  router's measured rates (runtime/router.py); requests below
+  ``geomodeling.auto-min-device-px`` pixels run on the host.
+
+There is no fallback: a failure on the device raises, under "auto" too.
 """
 from datetime import datetime as Datetime
 
@@ -19,7 +27,8 @@ __all__ = ["RasterBlock", "BaseSingle", "get_data"]
 
 def get_data(view, *, device=None, **request):
     """Evaluate ``request`` on ``view`` with the torch twins on ``device``
-    (``None``: ``geomodeling.torch-device``, the card by default).  A time
+    (``None``: ``geomodeling.torch-device``, the card by default), or as
+    ``geomodeling.executor`` says otherwise (the module's docstring).  A time
     or meta request holds no pixels: it runs the numpy processes on the
     host and resolves no device, so the blocks that ask their sources for
     times while planning (the temporal ones) can do so on any machine.  A
@@ -31,7 +40,8 @@ def get_data(view, *, device=None, **request):
     With ``geomodeling.result-cache-size`` above 0, whole responses are
     LRU-cached across requests by (view token, request token, device) in
     runtime/results.py, the tile server's reuse layer; a vals request
-    resolves its device first, so it enters the key."""
+    resolves its device first, so it enters the key (none under the
+    "numpy" executor, which runs on the host)."""
     cache_bytes = config.get("geomodeling.result-cache-size", 0)
     if not cache_bytes:
         return _get_data_uncached(view, device, request)
@@ -39,7 +49,8 @@ def get_data(view, *, device=None, **request):
     from dask_geomodeling_tpu_torch.runtime import results
 
     key_device = None  # a time or meta request runs on the host
-    if request.get("mode") not in ("time", "meta"):
+    if request.get("mode") not in ("time", "meta") and (
+            config.get("geomodeling.executor", "torch") != "numpy"):
         device = key_device = resolve_device(device)
     return results.get_or_compute(
         view, request, lambda: _get_data_uncached(view, device, request), int(cache_bytes),
@@ -47,13 +58,43 @@ def get_data(view, *, device=None, **request):
     )
 
 
+EXECUTORS = ("torch", "numpy", "auto")
+
+
 def _get_data_uncached(view, device, request):
-    from dask_geomodeling_tpu_torch.runtime.executor import NotLowerable, compute_torch
+    from dask_geomodeling_tpu_torch.core.graphs import compute
     from dask_geomodeling_tpu_torch.runtime.host import compute_metadata
-    from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
 
     if request.get("mode") in ("time", "meta"):
         return compute_metadata(*view.get_compute_graph(**request))
+    executor = config.get("geomodeling.executor", "torch")
+    if executor not in EXECUTORS:
+        raise ValueError("geomodeling.executor is %r, not one of %s" % (executor, EXECUTORS))
+    if executor == "numpy":
+        return compute(*view.get_compute_graph(**request))
+    if executor == "auto" and request.get("mode") == "vals":
+        from dask_geomodeling_tpu_torch.device import resolve_device
+        from dask_geomodeling_tpu_torch.runtime import router
+
+        device = resolve_device(device)  # the card asked for and absent raises
+        pixels = (request.get("width") or 0) * (request.get("height") or 0)
+        eligible = pixels >= config.get("geomodeling.auto-min-device-px", 65536)
+        if router.choose(view, request, eligible) == "torch":
+            # the values come back in host memory, so the clock holds the
+            # card's whole run, not only its launches
+            with router.timed_route(view, request, "torch"):
+                return _on_device(view, device, request)
+        with router.timed_route(view, request, "numpy"):
+            # compute() reads the executor, "auto": the scheduler's route
+            return compute(*view.get_compute_graph(**request))
+    return _on_device(view, device, request)
+
+
+def _on_device(view, device, request):
+    """The card's route: batched tiles, else ``compute_torch``."""
+    from dask_geomodeling_tpu_torch.runtime.executor import NotLowerable, compute_torch
+    from dask_geomodeling_tpu_torch.runtime.tiles import evaluate_tiled
+
     tile_size = config.get("geomodeling.tile-size", 512)
     width = request.get("width") or 0
     height = request.get("height") or 0

@@ -642,7 +642,9 @@ def to_device(array, device):
     else:
         tensor = torch.tensor(np.ascontiguousarray(array), device=device)
     try:
-        ref = weakref.ref(array, lambda _ref: _RESIDENT.pop(key, None))
+        # the table is bound now: at interpreter exit the module's globals
+        # may already be gone when the last arrays go
+        ref = weakref.ref(array, lambda _ref, table=_RESIDENT: table.pop(key, None))
     except TypeError:
         return tensor  # not weak-referenceable: not cached
     _RESIDENT[key] = (ref, tensor)

@@ -21,6 +21,7 @@ Twins work batch-first (registry.py).  Here the batch is one request,
 B = 1; runtime/tiles.py runs the same twins over B tiles at once.
 """
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ import torch
 from dask_geomodeling_tpu_torch import registry
 from dask_geomodeling_tpu_torch.device import resolve_device
 from dask_geomodeling_tpu_torch.raster.sources import to_device
+from dask_geomodeling_tpu_torch.runtime import profile as _profile
 
 __all__ = [
     "compute_torch",
@@ -356,12 +358,14 @@ def compute_torch(graph, name, device=None):
 
     cache = {}
     on_device = set()
+    profiled = _profile.active()
     for key in order:
         value = graph[key]
         if not _is_task(value):
             cache[key] = value
             continue
         func = value[0]
+        t0 = time.perf_counter()
         twin = None
         if registry.is_capable(func, literal_args(value, graph)):
             twin = registry.twin_for(func)
@@ -399,6 +403,13 @@ def compute_torch(graph, name, device=None):
                     )
             cache[key] = twin(*args)
             on_device.add(key)
+        if profiled:
+            # a twin's time is its launches'; a host node counts as a task
+            if key not in on_device:
+                _profile.announce_total(1)
+            _profile.record(getattr(func, "__qualname__", "?"),
+                            "device" if key in on_device else "task",
+                            time.perf_counter() - t0, t0)
         # release each intermediate after its last consumer
         for dep in deps[key]:
             remaining[dep] -= 1
@@ -406,4 +417,7 @@ def compute_torch(graph, name, device=None):
                 cache.pop(dep, None)
 
     result = cache[name]
-    return to_host(result) if name in on_device else result
+    if name not in on_device:
+        return result
+    with _profile.span("fetch[%s]" % name.split("_")[0], "transfer"):
+        return to_host(result)

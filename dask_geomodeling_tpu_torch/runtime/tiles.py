@@ -45,6 +45,7 @@ import torch
 from dask_geomodeling_tpu_torch import registry
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.device import resolve_device
+from dask_geomodeling_tpu_torch.runtime import profile as _profile
 from dask_geomodeling_tpu_torch.runtime.executor import (
     NotLowerable,
     _is_task,
@@ -57,10 +58,13 @@ from dask_geomodeling_tpu_torch.runtime.executor import (
     static_key,
 )
 
-__all__ = ["evaluate_tiled", "tile_requests", "TileProgram", "NotLowerable", "batches_run"]
+__all__ = ["evaluate_tiled", "tile_requests", "TileProgram", "NotLowerable", "batches_run",
+           "programs_built"]
 
 #: batches run by evaluate_tiled since import
 batches_run = 0
+#: tile programs (one per evaluate_tiled call) built since import
+programs_built = 0
 
 
 def _plan(view, request):
@@ -278,10 +282,12 @@ def evaluate_tiled(
         raise ValueError("width/height must be positive")
     requests, nx = tile_requests(request, tile_size)
 
-    global batches_run
+    global batches_run, programs_built
     clock = _PhaseClock(phase_seconds, device)
-    program = TileProgram(view, requests[0], device)
-    plans = [program.plan(view, r) for r in requests]
+    with _profile.span("plan[%d tiles]" % len(requests), "tiles"):
+        program = TileProgram(view, requests[0], device)
+        programs_built += 1
+        plans = [program.plan(view, r) for r in requests]
     # tiles whose static literals agree share batches (a cross-CRS Smooth's
     # sigma differs from tile row to tile row in its last digits); within
     # a group, batches of ``batch`` tiles, the last at its own size
@@ -294,18 +300,23 @@ def evaluate_tiled(
         for lo in range(0, len(members), batch)
     ]
     clock.lap("plan")
+    _profile.announce_total(len(batches))
     out = None
     empty = 0  # batches whose root answered None
     for indices in batches:
-        device_result = program.run([plans[k] for k in indices])
+        t_batch = time.perf_counter()
+        with _profile.span("run[%d tiles]" % len(indices), "device"):
+            device_result = program.run([plans[k] for k in indices])
         for k in indices:
             plans[k] = None  # release the tile's host results
         batches_run += 1
         clock.lap("run")
         if device_result is None:
             empty += 1
+            _profile.record("tile_batch", "tiles", time.perf_counter() - t_batch, t_batch)
             continue
-        result = device_result.cpu().numpy()
+        with _profile.span("fetch[%d tiles]" % len(indices), "transfer"):
+            result = device_result.cpu().numpy()
         clock.lap("fetch")
         if out is None:
             out = np.empty((result.shape[1], height, width), result.dtype)
@@ -321,6 +332,7 @@ def evaluate_tiled(
                 :, tile_size - vh :, :vw
             ]
         clock.lap("assemble")
+        _profile.record("tile_batch", "tiles", time.perf_counter() - t_batch, t_batch)
     if empty:
         if out is not None:
             raise NotLowerable("some tiles answer None and others do not")

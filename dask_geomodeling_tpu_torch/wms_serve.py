@@ -26,8 +26,9 @@ def main(port=8787, host="127.0.0.1",
 
     ``layers`` maps names to Blocks (or view-JSON strings) advertised by
     GetCapabilities; the serving defaults turn on the cross-request
-    result cache.  ``router_state`` belongs to the JAX package's auto
-    router, which the port does not have: it raises NotImplementedError.
+    result cache and, when ``router_state`` names a file, keep the auto
+    router's measurements there across restarts (runtime/router.py; it
+    routes only under ``geomodeling.executor`` "auto").
 
     ``allow_json_layers``: whether the ``layers`` query parameter may
     carry raw view JSON.  Defaults to False whenever named ``layers``
@@ -38,18 +39,22 @@ def main(port=8787, host="127.0.0.1",
     from dask_geomodeling_tpu_torch.core import Block
     from dask_geomodeling_tpu_torch.ipyleaflet_plugin import register_layer
 
-    if router_state:
-        raise NotImplementedError(
-            "router_state: the auto router is not ported "
-            "(dask_geomodeling_tpu/runtime/router.py)"
-        )
     if allow_json_layers is None:
         allow_json_layers = not layers
-    config.set({
+    settings = {
         "geomodeling.block-import-paths": list(block_import_paths),
         "geomodeling.result-cache-size": int(result_cache_bytes or 0),
         "geomodeling.wms-json-layers": bool(allow_json_layers),
-    })
+    }
+    if router_state:
+        settings["geomodeling.router-state"] = router_state
+    config.set(settings)
+    if router_state:
+        # restore the learned routes now (and make a later reset re-seed
+        # from the file instead of exploring every view again)
+        from dask_geomodeling_tpu_torch.runtime import router
+
+        router.reset(reseed=True)
     for name, block in (layers or {}).items():
         if isinstance(block, str):
             block = Block.from_json(block)

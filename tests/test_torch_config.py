@@ -64,7 +64,8 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    } | set(FILE_KEYS) | set(VECTOR_KEYS) | set(SERVING_KEYS)
+    } | set(FILE_KEYS) | set(VECTOR_KEYS) | set(SERVING_KEYS) | set(ROUTING_KEYS) \
+        | set(SCHEDULER_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
@@ -102,6 +103,39 @@ SERVING_KEYS = (
 )
 
 
+#: the router's keys: the executor switch, its size gate and margin
+#: (measured on the card, chip_smoke.py's auto-routing phase), and its
+#: state file
+ROUTING_KEYS = (
+    "geomodeling.executor",
+    "geomodeling.auto-min-device-px",
+    "geomodeling.auto-margin",
+    "geomodeling.router-state",
+)
+
+#: the host schedulers' keys
+SCHEDULER_KEYS = ("scheduler", "geomodeling.scheduler-memory-limit")
+
+
+def test_routing_keys_default_to_the_card_and_a_state_file_of_the_port():
+    """The port runs on the card unless asked otherwise (the JAX package
+    defaults to "auto"), and its router never reads the JAX package's
+    measured rates."""
+    defaults = port_config_module.defaults
+    assert defaults["geomodeling.executor"] == "torch"
+    assert jax_config_module.defaults["geomodeling.executor"] == "auto"
+    state = defaults["geomodeling.router-state"]
+    assert "dask_geomodeling_tpu_torch" in state
+    assert state != jax_config_module.defaults["geomodeling.router-state"]
+    assert defaults["geomodeling.auto-min-device-px"] > 0
+    assert defaults["geomodeling.auto-margin"] >= 1.0
+
+
+@pytest.mark.parametrize("key", SCHEDULER_KEYS)
+def test_scheduler_keys_have_the_jax_defaults(key):
+    assert port_config_module.defaults[key] == jax_config_module.defaults[key]
+
+
 @pytest.mark.parametrize("key", FILE_KEYS + VECTOR_KEYS)
 def test_file_keys_have_the_jax_defaults(key):
     assert port_config_module.defaults[key] == jax_config_module.defaults[key]
@@ -110,8 +144,11 @@ def test_file_keys_have_the_jax_defaults(key):
 
 @pytest.mark.parametrize("key", SERVING_KEYS)
 def test_serving_keys_have_the_jax_defaults(key):
+    # the JAX package's live value is not read: tests/test_wms.py leaves
+    # geomodeling.block-import-paths set in its config, which a later file
+    # on the same worker sees
     assert port_config_module.defaults[key] == jax_config_module.defaults.get(key)
-    assert port_config_module.config.get(key) == jax_config_module.config.get(key, None)
+    assert port_config_module.config.get(key) == jax_config_module.defaults.get(key)
 
 
 def test_approx_stride_is_the_jax_default():

@@ -15,7 +15,9 @@ against compute_host; the float64 discrete ops; the building-heights
 export of 400 footprints over a 1024^2 sheet against the CPU, and
 chip_smoke's building-heights phase at that size; the wms-serving GetMaps of both
 layers against the CPU, the phase at small size and the launch counters
-under eight threads.  This file imports nothing
+under eight threads; the auto-routing phase over a small sheet and a
+512^2 headline source; the building-rings export of the footprints
+inside a 256 m square against the CPU, and its phase at that size.  This file imports nothing
 of JAX or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -400,6 +402,73 @@ def test_wms_serving_phase_on_card(wms_sheet):
     assert not any(numbers["moving_max_launches"].values())
     assert set(numbers["in_process"]["ahn-smooth"]) >= {"card", "host"}
     assert numbers["threaded"] == (24, 12)
+
+
+# --- auto-routing and building-rings at small size ---
+
+
+@pytest.mark.cuda
+def test_auto_routing_phase_on_card(wms_sheet, tmp_path):
+    """chip_smoke's auto-routing phase over the small sheet and a 512^2
+    headline source, edges 64 to 512: both routes taken, Gaussians only on
+    card routes, every card-routed answer within its limits, the settled
+    routes after a reseed, a non-empty trace."""
+    device = _card()
+    source, view = chip_smoke.build_headline_view(512)
+    request = chip_smoke.headline_request(source, 1024)
+    with config.set({"geomodeling.windowed-read-limit": 10**5}):
+        launches, numbers = chip_smoke.check_auto_routing(
+            "card", device, str(tmp_path), wms_sheet, view, request, edges=(64, 128, 256, 512),
+            per_edge=6)
+    assert numbers["routes"]["numpy"] > 0 and numbers["routes"]["torch"] > 0
+    assert launches["gaussian_blur"] > 0 and launches["moving_max"] == 0
+    assert numbers["trace_bytes"] > 0
+    assert config.get("geomodeling.executor") == "torch"
+
+
+@pytest.mark.cuda
+def test_building_rings_on_card_equals_cpu(file_paths, tmp_path):
+    """The rings export on the card against the same export on the CPU:
+    the same rows, the rounded means within one float32 ulp before
+    rounding (float64 atomics), two Gaussian launches a tile."""
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    device = _card()
+    _, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    bbox = RasterFileSource(sheet).footprint.bbox
+    area = chip_smoke.rings_area(bbox, 256.0)
+    rings, count = chip_smoke.write_rings_buildings(str(tmp_path), bbox, area, 400)
+    view = chip_smoke.build_rings_view(rings, sheet)
+    fields = {name: name for name in chip_smoke.RINGS_FIELDS}
+    request = dict(tile_size=128.0, projection="EPSG:28992", mode="centroid",
+                   geometry=box(*area), fields=fields)
+    cuda_stencils.reset_launches()
+    to_file(view, str(tmp_path / "card.gpkg"), device=device, **request)
+    assert cuda_stencils.launches == 2 * 4
+    to_file(view, str(tmp_path / "cpu.gpkg"), device="cpu", **request)
+    card, cpu = _heights(str(tmp_path / "card.gpkg")), _heights(str(tmp_path / "cpu.gpkg"))
+    assert len(card) == count > 50
+    differ = chip_smoke.compare_heights("card", card, cpu, lambda fids: [
+        0 if all(abs(card[f][k] - cpu[f][k]) <= 0.0100001 for k in ("ring_mean", "h_mean"))
+        else 2 for f in fids], chip_smoke.RINGS_ROUNDED)
+    assert len(differ) <= 2
+
+
+@pytest.mark.cuda
+def test_building_rings_phase_on_card(file_paths, tmp_path):
+    """chip_smoke's phase at small size: every check of the full run."""
+    device = _card()
+    _, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    launches, numbers = chip_smoke.check_building_rings(
+        "card", device, str(tmp_path), sheet, side=256.0, tile=128.0, sub_size=80.0, count=400)
+    assert numbers["tiles"] == 4
+    assert launches["gaussian_blur"] == 2 * numbers["tiles"]
+    assert launches["moving_max"] == 0
 
 
 @pytest.mark.cuda

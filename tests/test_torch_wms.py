@@ -511,8 +511,9 @@ def test_wms_13_crs_and_axis_order(views):
     render_both(p11[1], p11[0])
 
 
-def test_wms_serve_main_configuration(views, monkeypatch):
+def test_wms_serve_main_configuration(views, monkeypatch, tmp_path):
     from dask_geomodeling_tpu_torch import wms_serve
+    from dask_geomodeling_tpu_torch.runtime import router
 
     _, port_json = views
     served = {}
@@ -529,7 +530,7 @@ def test_wms_serve_main_configuration(views, monkeypatch):
 
     monkeypatch.setattr(wms_serve, "make_server", lambda h, p, app: FakeServer())
     keys = ("geomodeling.result-cache-size", "geomodeling.wms-json-layers",
-            "geomodeling.block-import-paths")
+            "geomodeling.block-import-paths", "geomodeling.router-state")
     before = {key: config.get(key) for key in keys}
     try:
         wms_serve.main(port=0, layers={"demo": port_json}, result_cache_bytes=123456)
@@ -539,11 +540,15 @@ def test_wms_serve_main_configuration(views, monkeypatch):
         # named layers registered => raw view JSON off by default
         assert config.get("geomodeling.wms-json-layers") is False
         assert "demo" in plugin.get_capabilities_xml()
-        # the auto router is not ported
-        with pytest.raises(NotImplementedError, match="runtime/router.py"):
-            wms_serve.main(port=0, router_state="/tmp/routes.json")
+        # router_state names the router's file and seeds the table from it
+        state = tmp_path / "routes.json"
+        state.write_text('{"abc:16": {"numpy": 1.0, "torch": 9.0, "torch_runs": 2}}')
+        wms_serve.main(port=0, router_state=str(state))
+        assert config.get("geomodeling.router-state") == str(state)
+        assert router.stats()[("abc", 16)]["torch"] == 9.0
     finally:
         config.set(before)
+        router.reset(reseed=False)
 
 
 def test_wms_13_crs84_never_flips():
