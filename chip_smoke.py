@@ -33,6 +33,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    no twin raises, a 64^2 corner equals compute_host bit for bit, and 16
    tiles spread over the request differ from it in at most 5e-4 of their
    cells;
+4b. border-reproject (PR 11): the headline's chain over an 8192^2
+   float32 source in EPSG:25832 (ETRS89 / UTM 32N) over Gronau, sent
+   through to_json and Block.from_json as a service registers a layer
+   (the token kept; its data comes back float64), asked for its
+   footprint in EPSG:28992 at 10240^2: two datums and two projection
+   families, with the checks of 6 and the headline's 5e-4 share; then
+   crs-families: the same chain over a 1024^2 source in each CRS of
+   CRS_FAMILIES requested in EPSG:3857, and over RD New with a synthetic
+   NTv2 grid for the Amersfoort datum (write_amersfoort_grid), tile by
+   tile within 5e-4 of compute_host; cumulative-nesting: a
+   TemporalAggregate and a Cumulative over a Cumulative of an
+   elementwise node at 1024^2, bitwise; json-integer: a uint8 source + 1
+   loaded from JSON answers int64 on the card, as on the host;
 5. stencils path: HillShade(Smooth(MovingMax(source, 3), 5)) of
    benchmarks/run.py over its 8192^2 float32 EPSG:28992 source, requested
    whole in the same CRS: 256 tiles in 4 batches.  One moving-max and one
@@ -147,7 +160,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
    Classify at and beside their thresholds, bitwise;
-12. timing, per tiled path: median of 3 evaluate_tiled runs (Mpx/s), the
+12. timing, per tiled path (border-reproject's plan seconds beside the
+   headline's): median of 3 evaluate_tiled runs (Mpx/s), the
    numpy host rate on the sampled tiles, one run's seconds per phase, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
@@ -218,9 +232,9 @@ FP64_OPS_PER_S = 17e12
 # --- the views, with the port's own classes ---
 
 
-def build_headline_view(source_px=8192):
+def build_headline_view(source_px=8192, projection="EPSG:28992", origin=(85000, 455000)):
     """bench.py:build_view: Classify(Reclassify(Classify(Smooth(source + 1))))
-    over an 8192^2 float32 EPSG:28992 source."""
+    over an 8192^2 float32 source, in EPSG:28992 unless told otherwise."""
     from dask_geomodeling_tpu_torch.raster import Classify, MemorySource, Reclassify, Smooth
 
     rng = np.random.RandomState(42)
@@ -230,9 +244,9 @@ def build_headline_view(source_px=8192):
     source = MemorySource(
         data=data,
         no_data_value=float(np.finfo(np.float32).max),
-        projection="EPSG:28992",
+        projection=projection,
         pixel_size=1.0,
-        pixel_origin=(85000, 455000),
+        pixel_origin=origin,
         time_first=datetime(2000, 1, 1),
         time_delta=timedelta(hours=1),
     )
@@ -266,6 +280,157 @@ def headline_request(source, out_px):
         height=out_px,
         start=datetime(2000, 1, 1),
     )
+
+
+# border-reproject: a water board on the Dutch-German border takes the
+# German 1 m elevation model (ETRS89 / UTM 32N) into RD New; the source
+# lies over Gronau (about 7.0 E, 52.2 N), its top-left corner here
+BORDER_ORIGIN = (362000.0, 5792000.0)
+
+
+def build_border_view(source_px=8192):
+    """The headline's chain over a float32 source in EPSG:25832, sent
+    through JSON as a service registers a layer: (built view, the view
+    Block.from_json loads)."""
+    from dask_geomodeling_tpu_torch import Block
+
+    _, view = build_headline_view(source_px, "EPSG:25832", BORDER_ORIGIN)
+    return view, Block.from_json(view.to_json())
+
+
+def border_request(view, out_px):
+    """The view's footprint in EPSG:28992, at out_px^2."""
+    from dask_geomodeling_tpu_torch.geo import Extent
+
+    bbox = Extent.from_geometry(view.geometry).transformed("EPSG:28992").bbox
+    return dict(mode="vals", bbox=bbox, projection="EPSG:28992", width=out_px,
+                height=out_px, start=datetime(2000, 1, 1))
+
+
+#: crs-families: (label, CRS, (lon, lat) of the source's centre inside its
+#: area of use), one projection family each; the last has no EPSG code
+CRS_FAMILIES = (
+    ("lcc-2sp", "EPSG:2154", (3.0, 46.5)),
+    ("lcc-belgium", "EPSG:31370", (4.4, 50.8)),
+    ("laea", "EPSG:3035", (10.0, 52.0)),
+    ("albers", "EPSG:5070", (-96.0, 40.0)),
+    ("polar-stereographic", "EPSG:3413", (-45.0, 70.0)),
+    ("krovak", "EPSG:5514", (15.5, 49.8)),
+    ("hotine-swiss", "EPSG:2056", (8.2, 46.8)),
+    ("tm-osgb36", "EPSG:27700", (-1.5, 52.5)),
+    ("mercator", "EPSG:3395", (0.0, 10.0)),
+    ("proj4-utm", "+proj=utm +zone=31 +ellps=GRS80 +units=m +no_defs", (3.0, 52.0)),
+)
+FAMILY_PX = 1024
+FAMILY_CELL = 10.0
+#: the NTv2 request: an RD New source over Amersfoort, with a grid
+#: registered for the Amersfoort datum
+NTV2_PLACE = ("EPSG:28992", (5.39, 52.16))
+
+
+def build_family_view(projection, place, px=FAMILY_PX, cell=FAMILY_CELL, seed=42):
+    """The headline's chain over a px^2 float32 source in ``projection``
+    centred on ``place`` (lon, lat), with ``cell`` m pixels; returns
+    (view, its px^2 request in EPSG:3857 over the source's footprint)."""
+    from dask_geomodeling_tpu_torch.geo import Extent, transform_points
+    from dask_geomodeling_tpu_torch.raster import Classify, MemorySource, Reclassify, Smooth
+
+    (cx,), (cy,) = transform_points([place[0]], [place[1]], "EPSG:4326", projection)
+    half = px * cell / 2
+    rng = np.random.RandomState(seed)
+    data = (rng.rand(1, px, px) * 250).astype(np.float32)
+    data[0, :64, :64] = np.float32(np.finfo(np.float32).max)
+    source = MemorySource(data=data, no_data_value=float(np.finfo(np.float32).max),
+                          projection=projection, pixel_size=cell,
+                          pixel_origin=(float(cx) - half, float(cy) + half),
+                          time_first=datetime(2000, 1, 1), time_delta=timedelta(hours=1))
+    view = Classify(
+        Reclassify(
+            Classify(Smooth(source + 1, size=3), bins=[50.0, 100.0, 150.0, 200.0]),
+            data=[[0, 1], [1, 5], [2, 9], [3, 13], [4, 17]],
+        ),
+        bins=[4, 8, 12, 16],
+    )
+    bbox = Extent.from_geometry(source.geometry).transformed("EPSG:3857").bbox
+    return view, dict(mode="vals", bbox=bbox, projection="EPSG:3857", width=px, height=px,
+                      start=datetime(2000, 1, 1))
+
+
+def _gsb_record(name, payload):
+    return name.ljust(8).encode("ascii") + payload
+
+
+def write_ntv2(path, s_lat, n_lat, e_long, w_long, inc, shift_fn):
+    """A little-endian single-sub-grid NTv2 file, as tests/test_ntv2.py
+    builds them: bounds and increment in arc-seconds (longitudes positive
+    west); shift_fn(lon_deg, lat_deg) -> (lat shift, west lon shift) in
+    arc-seconds, over arrays of the nodes."""
+    import struct
+
+    def int_rec(name, value):
+        return _gsb_record(name, struct.pack("<i", value) + b"\x00" * 4)
+
+    def float_rec(name, value):
+        return _gsb_record(name, struct.pack("<d", value))
+
+    def text_rec(name, text):
+        return _gsb_record(name, text.ljust(8).encode("ascii")[:8])
+
+    n_rows = int(round((n_lat - s_lat) / inc)) + 1
+    n_cols = int(round((w_long - e_long) / inc)) + 1
+    header = b"".join([
+        int_rec("NUM_OREC", 11), int_rec("NUM_SREC", 11), int_rec("NUM_FILE", 1),
+        text_rec("GS_TYPE", "SECONDS"), text_rec("VERSION", "NTv2.0"),
+        text_rec("SYSTEM_F", "TESTSRC"), text_rec("SYSTEM_T", "WGS84"),
+        float_rec("MAJOR_F", 6378388.0), float_rec("MINOR_F", 6356911.9),
+        float_rec("MAJOR_T", 6378137.0), float_rec("MINOR_T", 6356752.3),
+        text_rec("SUB_NAME", "TEST"), text_rec("PARENT", "NONE"),
+        text_rec("CREATED", "now"), text_rec("UPDATED", "now"),
+        float_rec("S_LAT", s_lat), float_rec("N_LAT", n_lat),
+        float_rec("E_LONG", e_long), float_rec("W_LONG", w_long),
+        float_rec("LAT_INC", inc), float_rec("LONG_INC", inc),
+        int_rec("GS_COUNT", n_rows * n_cols),
+    ])
+    # rows south to north, columns east to west
+    lat = (s_lat + np.arange(n_rows) * inc)[:, None] / 3600.0
+    lon = -(e_long + np.arange(n_cols) * inc)[None, :] / 3600.0
+    dlat, dlon = shift_fn(np.broadcast_to(lon, (n_rows, n_cols)),
+                          np.broadcast_to(lat, (n_rows, n_cols)))
+    nodes = np.zeros((n_rows, n_cols, 4), "<f4")
+    nodes[..., 0], nodes[..., 1], nodes[..., 2:] = dlat, dlon, 0.1
+    with open(path, "wb") as f:
+        f.write(header + nodes.tobytes())
+
+
+def write_amersfoort_grid(path):
+    """An NTv2 grid over the Netherlands (50-54 N, 3-8 E, 0.25 degree
+    nodes) for the Amersfoort datum: the Helmert shift to WGS84 at each
+    node plus a smooth field of up to 0.05 arc-seconds, so that it moves
+    points by up to about 1.5 m from the Helmert answer."""
+    from dask_geomodeling_tpu_torch.geo import transform_points
+
+    def shift(lon, lat):
+        wlon, wlat = transform_points(lon.ravel(), lat.ravel(), "EPSG:4289", "EPSG:4326")
+        dlat = (wlat.reshape(lat.shape) - lat) * 3600 + 0.05 * np.sin(lon)
+        dlon_west = -(wlon.reshape(lon.shape) - lon) * 3600 + 0.05 * np.cos(lat)
+        return dlat, dlon_west
+
+    write_ntv2(path, 180000.0, 194400.0, -28800.0, -10800.0, 900.0, shift)
+
+
+def build_nesting_views(px=1024, frames=6):
+    """The two Cumulative nestings whose time subrequest ran through an
+    elementwise twin: over a px^2 float32 source of hourly frames with 5%
+    nodata; returns ({label: view}, request)."""
+    from dask_geomodeling_tpu_torch.raster import Cumulative, TemporalAggregate
+
+    source = make_source(px, seed=7, bands=frames, nodata_share=NODATA_SHARE)
+    inner = Cumulative(source + 1.5, statistic="sum")
+    views = {
+        "aggregate-of-cumulative": TemporalAggregate(inner, "2h", statistic="sum"),
+        "cumulative-of-cumulative": Cumulative(inner, statistic="sum"),
+    }
+    return views, dict(vals_request(px), stop=datetime(2000, 1, 1, frames - 1))
 
 
 def make_source(px, seed=0, bands=1, time_first=datetime(2000, 1, 1), nodata_share=0.0,
@@ -717,7 +882,7 @@ def write_sheet(folder, width=SHEET_WIDTH, height=SHEET_HEIGHT, block=SHEET_BLOC
 
 def sheet_request(source):
     """The whole sheet at its native grid."""
-    return dict(mode="vals", bbox=source.footprint.bbox, projection="EPSG:28992",
+    return dict(mode="vals", bbox=source.geometry.bounds, projection="EPSG:28992",
                 width=source.info.width, height=source.info.height)
 
 
@@ -2236,7 +2401,7 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
     from dask_geomodeling_tpu_torch.runtime import pipeline
 
     started = time.perf_counter()
-    sheet_bbox = RasterFileSource(sheet).footprint.bbox
+    sheet_bbox = RasterFileSource(sheet).geometry.bounds
     t0 = time.perf_counter()
     buildings = write_buildings(folder, sheet_bbox, count)
     write_s = time.perf_counter() - t0
@@ -2749,7 +2914,7 @@ def wms_other_requests(client, device, layers, tiles, picks, folder):
                 float(box.get(k)) for k in ("minx", "miny", "maxx", "maxy"))
     for name, (layer_view, _, _, _) in layers.items():
         want = tuple(float("%.9g" % v) for v in transform_extent(
-            layer_view.footprint.bbox, layer_view.projection, "EPSG:4326"))
+            layer_view.geometry.bounds, layer_view.projection, "EPSG:4326"))
         check(listed.get(name) == want,
               "wms-serving: GetCapabilities lists %s as %s" % (name, listed.get(name)))
     foreign = view.to_json().replace("dask_geomodeling_tpu_torch.", "dask_geomodeling_tpu.")
@@ -2899,7 +3064,7 @@ def check_wms_serving(card, device, sheet, zooms=WMS_ZOOMS, sample=WMS_SAMPLE,
     started = time.perf_counter()
     layers = wms_layers(sheet)
     smooth_view = layers["ahn-smooth"][0]
-    bbox = Extent(smooth_view.footprint.bbox, "EPSG:28992").transformed("EPSG:3857").bbox
+    bbox = Extent(smooth_view.geometry.bounds, "EPSG:28992").transformed("EPSG:3857").bbox
     every = len(xyz_tiles(bbox, zooms))
     tiles = xyz_tiles(bbox, zooms, last_zoom_rows)
     per_zoom = {z: sum(1 for t in tiles if t[0] == z) for z in zooms}
@@ -2984,7 +3149,7 @@ def auto_views(sheet, headline_view, headline_req):
     from dask_geomodeling_tpu_torch.raster import RasterFileSource
 
     layers = wms_layers(sheet)
-    x1, y1, x2, y2 = RasterFileSource(sheet).footprint.bbox
+    x1, y1, x2, y2 = RasterFileSource(sheet).geometry.bounds
     sheet_box = dict(mode="vals", projection="EPSG:28992", start=None,
                      bbox=(x1, y1, x2, y2), cell=SHEET_CELL)
     hx1, hy1, hx2, hy2 = headline_req["bbox"]
@@ -3342,7 +3507,7 @@ def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=BUIL
     from dask_geomodeling_tpu_torch.runtime import pipeline
 
     started = time.perf_counter()
-    sheet_bbox = RasterFileSource(sheet).footprint.bbox
+    sheet_bbox = RasterFileSource(sheet).geometry.bounds
     area = rings_area(sheet_bbox, side)
     t0 = time.perf_counter()
     buildings, count = write_rings_buildings(folder, sheet_bbox, area, count)
@@ -3458,6 +3623,137 @@ def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=BUIL
         tiles=len(subrequests), export_s=export_s, buildings_per_s=count / export_s,
         phases=phases, host_s=host_s, phase_s=total_s, rows_differing=len(differing) + len(differ),
         geojson_identical=identical, write_s=write_s)
+
+
+def compare_tiles(label, device, view, request, share=HEADLINE_SHARE):
+    """``view`` over ``request`` through evaluate_tiled on the card, held
+    tile by tile to compute_host (a stencil's answer depends on the
+    request window): at most ``share`` of the cells differing.  Returns
+    (Gaussian launches, differing cells, cells)."""
+    from dask_geomodeling_tpu_torch import evaluate_tiled
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    before = cuda_stencils.launches
+    result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+    launched = cuda_stencils.launches - before
+    values = result["values"]
+    tiles, nx = tile_requests(request, TILE)
+    differing = cells = 0
+    for k, tile in enumerate(tiles):
+        (rows, cols), (host_rows, host_cols) = tile_cells(
+            k, nx, request["width"], request["height"], TILE)
+        host = host_values(view, tile)[:, host_rows, host_cols]
+        differing += int(np.count_nonzero(values[:, rows, cols] != host))
+        cells += host.size
+    data_share = float((values != result["no_data_value"]).mean())
+    print("%s: %s %s, %d tiles, %d Gaussian launches, data in %.4f of the cells; %d of %d "
+          "cells differ from compute_host (share %r)" % (label, values.shape, values.dtype,
+                                                         len(tiles), launched, data_share,
+                                                         differing, cells, differing / cells))
+    check(values.shape == (1, request["height"], request["width"]), "%s: output shape" % label)
+    check(launched > 0, "%s: the Gaussian did not launch" % label)
+    check(data_share > 0.01, "%s: output is all nodata" % label)
+    check(differing <= share * cells, "%s: differing share above %g" % (label, share))
+    return launched, differing, cells
+
+
+def check_crs_families(device, folder, px=FAMILY_PX):
+    """crs-families: the headline's chain over a px^2 source in each CRS
+    of CRS_FAMILIES, requested in EPSG:3857 at px^2 on the card, each
+    against compute_host; then an RD New source with a synthetic NTv2 grid
+    registered for the Amersfoort datum, against compute_host under the
+    same setting.  Returns the Gaussian launches."""
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.geo import transform_points
+
+    launched = 0
+    for label, projection, place in CRS_FAMILIES:
+        view, request = build_family_view(projection, place, px)
+        launched += compare_tiles("crs-families %s (%s)" % (label, projection[:24]), device,
+                                  view, request)[0]
+    grid = os.path.join(folder, "amersfoort.gsb")
+    write_amersfoort_grid(grid)
+    view, request = build_family_view(*NTV2_PLACE, px)
+    x1, y1, x2, y2 = request["bbox"]
+    centre = ([(x1 + x2) / 2], [(y1 + y2) / 2])
+    helmert = transform_points(*centre, "EPSG:3857", "EPSG:28992")
+    with config.set({"geomodeling.ntv2-grids": {"Amersfoort": grid}}):
+        shifted = transform_points(*centre, "EPSG:3857", "EPSG:28992")
+        launched += compare_tiles("crs-families ntv2 (EPSG:28992, Amersfoort grid)", device,
+                                  view, request)[0]
+    moved = float(np.hypot(shifted[0][0] - helmert[0][0], shifted[1][0] - helmert[1][0]))
+    print("crs-families ntv2: the grid moves the request's centre by %.4f m from the "
+          "Helmert answer" % moved)
+    check(moved > 0.01, "crs-families ntv2: the grid was not applied")
+    return launched
+
+
+def check_border(px=8192):
+    """border-reproject, before its tiled run: the view sent through JSON
+    keeps its token.  Returns (the loaded view, its request, the JSON
+    round trip's seconds)."""
+    t0 = time.perf_counter()
+    view, loaded = build_border_view(px)
+    json_s = time.perf_counter() - t0
+    check(loaded.token == view.token, "border-reproject: the JSON view's token differs")
+    request = border_request(loaded, HEADLINE_PX)
+    source = loaded
+    while type(source).__name__ != "MemorySource":
+        source = source.args[0]
+    print("border-reproject: %d^2 EPSG:25832 source through to_json and from_json in %.2f s "
+          "(token kept, the source's data %s); request %r in EPSG:28992 at %d^2"
+          % (px, json_s, source.data.dtype, request["bbox"], HEADLINE_PX))
+    return loaded, request, json_s
+
+
+def check_nesting(device):
+    """The two Cumulative nestings at 1024^2 on the card: get_data and
+    evaluate_tiled bitwise to compute_host, and their time answers."""
+    from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled
+    from dask_geomodeling_tpu_torch.runtime import executor
+
+    views, request = build_nesting_views()
+    host_runs = executor.host_node_runs
+    for label, view in views.items():
+        expected = compute_host(*view.get_compute_graph(**request))
+        whole = view.get_data(device=device, **request)
+        tiled = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+        for name, actual in (("get_data", whole), ("evaluate_tiled", tiled)):
+            check(actual["values"].dtype == expected["values"].dtype
+                  and np.array_equal(actual["values"], expected["values"]),
+                  "cumulative-nesting %s: %s differs from compute_host" % (label, name))
+        time_request = dict(request, mode="time")
+        check(view.get_data(device=device, **time_request)
+              == compute_host(*view.get_compute_graph(**time_request)),
+              "cumulative-nesting %s: the time answer differs" % label)
+        print("cumulative-nesting %s: %s %s, get_data and evaluate_tiled bitwise to "
+              "compute_host, time answer equal" % (label, whole["values"].shape,
+                                                  whole["values"].dtype))
+    check(executor.host_node_runs == host_runs, "cumulative-nesting: a node ran on the host")
+
+
+def check_json_integer(device, px=1024):
+    """A uint8 MemorySource + 1 loaded from JSON answers int64 on the card,
+    as compute_host does (construction without validation keeps the
+    integer list as int64), with the built view's token."""
+    from dask_geomodeling_tpu_torch import Block, compute_host
+    from dask_geomodeling_tpu_torch.raster import MemorySource
+
+    data = np.random.RandomState(3).randint(0, 255, (1, px, px)).astype(np.uint8)
+    view = MemorySource(data=data, no_data_value=255, projection="EPSG:28992",
+                        pixel_size=1.0, pixel_origin=(135000.0, 456000.0)) + 1
+    loaded = Block.from_json(view.to_json())
+    request = dict(mode="vals", bbox=(135000.0, 456000.0 - px, 135000.0 + px, 456000.0),
+                   projection="EPSG:28992", width=px, height=px, start=datetime(1970, 1, 1))
+    card = loaded.get_data(device=device, **request)
+    host = compute_host(*loaded.get_compute_graph(**request))
+    print("json-integer: a uint8 source + 1 from JSON answers %s on the card, %s on the host"
+          % (card["values"].dtype, host["values"].dtype))
+    check(loaded.token == view.token, "json-integer: the token differs")
+    check(card["values"].dtype == host["values"].dtype == np.int64,
+          "json-integer: not int64")
+    check(np.array_equal(card["values"], host["values"]), "json-integer: values differ")
 
 
 def check_fuzz(device):
@@ -3620,6 +3916,27 @@ def run_phases(card, device, folder, mark):
     stencils_launches, stencils_host = check_stencils(device, stencils_view, stencils_req)
     launches = {"headline": headline_launches, "stencils": stencils_launches}
     mark("the headline and stencils paths")
+    border_view, border_req, border_json_s = check_border()
+    cuda_stencils.reset_launches()
+    border_host, _ = check_algebra_path(
+        "border-reproject", device, border_view, border_req, "nearest",
+        (border_req["bbox"][0], border_req["bbox"][3]), share=HEADLINE_SHARE, sigma_groups=True)
+    launches["border-reproject"] = {"gaussian_blur": cuda_stencils.launches,
+                                    "moving_max": cuda_stencils.moving_max_launches}
+    check(launches["border-reproject"]["gaussian_blur"] > 0,
+          "border-reproject: the Gaussian did not launch")
+    mark("the border-reproject path")
+    cuda_stencils.reset_launches()
+    check_crs_families(device, folder)
+    launches["crs-families"] = {"gaussian_blur": cuda_stencils.launches,
+                                "moving_max": cuda_stencils.moving_max_launches}
+    for label, phase in (("cumulative-nesting", check_nesting),
+                         ("json-integer", check_json_integer)):
+        cuda_stencils.reset_launches()
+        phase(device)
+        launches[label] = {"gaussian_blur": cuda_stencils.launches,
+                           "moving_max": cuda_stencils.moving_max_launches}
+    mark("the crs-families, cumulative-nesting and json-integer phases")
     algebra = build_algebra_paths(ALGEBRA_PX)
     algebra_host = {}
     for label, (view, request, interpolation, corner) in algebra.items():
@@ -3717,8 +4034,14 @@ def run_phases(card, device, folder, mark):
     # 9. timing
     timings = {
         "headline": time_path("headline", card, headline_view, headline_req, device, headline_host),
+        "border-reproject": time_path("border-reproject", card, border_view, border_req, device,
+                                      border_host),
         "stencils": time_path("stencils", card, stencils_view, stencils_req, device, stencils_host),
     }
+    timings["border-reproject"]["json_s"] = border_json_s
+    print("timing [%s] border-reproject: plan %.4f s against the headline's %.4f s (one run "
+          "each, synchronised)" % (card, timings["border-reproject"]["phases_s"]["plan"],
+                                   timings["headline"]["phases_s"]["plan"]))
     algebra_host.update(file_host)
     for label, (view, request, interpolation, _) in (
             list(algebra.items()) + list(temporal.items()) + list(geometry.items())

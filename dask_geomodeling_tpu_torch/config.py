@@ -95,6 +95,10 @@ defaults = {
     # module prefixes a deserialized view may import its classes from
     # (None: the whole port); checked before any import
     "geomodeling.block-import-paths": None,
+    # NTv2 grid-shift files per datum name, e.g. {"NZGD49": ".../nz.gsb"}:
+    # upgrades that datum's WGS84 leg from Helmert (~0.5 m) to grid
+    # interpolation (geo/ntv2.py, read where crs._datum_shift runs)
+    "geomodeling.ntv2-grids": None,
 }
 
 _MISSING = object()

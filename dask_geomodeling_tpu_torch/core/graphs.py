@@ -16,11 +16,13 @@ package's entry point of the same name: the torch executor under
 configured ``scheduler`` (core/scheduler.py).
 
 A view travels as JSON (``to_json``, ``from_json``): class paths as
-strings, arrays as nested lists.  Deserializing imports only the port's
-own package, and under ``geomodeling.block-import-paths`` only the
-prefixes it lists, checked before anything is imported: a layer that
-names a class of the JAX package is refused, and neither that package
-nor jax is loaded.
+strings, arrays as nested lists.  ``from_json`` constructs without
+validation, as the JAX package does: each Block keeps the arguments as
+JSON gives them and the token its key embeds.  Deserializing imports
+only the port's own package, and under ``geomodeling.block-import-paths``
+only the prefixes it lists, checked before anything is imported: a layer
+that names a class of the JAX package is refused, and neither that
+package nor jax is loaded.
 """
 import json
 import logging
@@ -31,7 +33,7 @@ from dask_geomodeling_tpu_torch.core.tokens import tokenize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["construct", "arg", "Block", "compute"]
+__all__ = ["construct", "construct_multiple", "arg", "Block", "DummyBlock", "compute"]
 
 #: the port's own package: the only one ``from_import_path`` imports from
 PACKAGE = "dask_geomodeling_tpu_torch"
@@ -70,32 +72,67 @@ def compute(graph, name, device=None):
     return get_scheduler()(graph, [name])[0]
 
 
-def construct(graph, name):
+def _construct_exc_callback(e, dumps):
+    """``pack_exception`` callback prefixing errors with the failing key."""
+    key = sys._getframe(1).f_locals.get("key")
+    e.args = ("{0}: {1}".format(key, str(e)),)
+    raise e
+
+
+def _reconstruct_token(key):
+    """The 32-hex-digit token a graph key 'SomeName_<token>' embeds, or
+    None when the key carries no such suffix."""
+    head, _, tail = key.rpartition("_")
+    if not head or len(tail) != 32:
+        return None
+    try:
+        int(tail, 16)
+    except ValueError:
+        return None
+    return tail.lower()
+
+
+def construct(graph, name, validate=True):
     """Construct the Block ``name`` (and the Blocks it depends on) from a
     construction graph ``{name: [cls_or_import_path, *args]}``; an arg
     that is a key of the graph stands for that Block."""
-    built = {}
+    return construct_multiple(graph, [name], validate)[0]
 
-    def build(key):
-        if key not in built:
-            value = graph[key]
-            cls = value[0]
-            if isinstance(cls, str):
-                cls = Block.from_import_path(cls)
-            if not (isinstance(cls, type) and issubclass(cls, Block)):
-                raise TypeError("Cannot construct from object of type '{}'".format(cls))
-            args = [
-                build(a) if isinstance(a, str) and a in graph else a
-                for a in value[1:]
-            ]
-            try:
-                built[key] = cls(*args)
-            except Exception as e:
-                e.args = ("{0}: {1}".format(key, e),)
-                raise
-        return built[key]
 
-    return build(name)
+def _construction_task(key, value, validate):
+    """One scheduler task (callable + args) for a construction-graph item;
+    ``value`` is ``[cls_or_import_path, *args]``."""
+    cls = value[0]
+    if isinstance(cls, str):
+        cls = Block.from_import_path(cls)
+    if not (isinstance(cls, type) and issubclass(cls, Block)):
+        raise TypeError("Cannot construct from object of type '{}'".format(cls))
+    if validate:
+        return (cls,) + tuple(value[1:])
+    token = _reconstruct_token(key)
+    if token is None:
+        logger.warning(
+            "Construct received a key with an invalid name ('%s'), "
+            "while validation was turned off",
+            key,
+        )
+    return (cls._init_no_validation, token) + tuple(value[1:])
+
+
+def construct_multiple(graph, names, validate=True):
+    """Construct several Blocks from one construction graph.
+
+    With ``validate=False`` each Block's ``__init__`` is skipped and the
+    token its key embeds is kept (JSON loads this way, as in the JAX
+    package: an integer list in a MemorySource stays int64).
+    """
+    from dask_geomodeling_tpu_torch.core.scheduler import get_sync
+
+    tasks = {
+        key: _construction_task(key, value, validate)
+        for key, value in graph.items()
+    }
+    return get_sync(tasks, names, pack_exception=_construct_exc_callback)
 
 
 def _under(module, prefix):
@@ -137,6 +174,15 @@ class Block:
     def process(data):
         """Combine source data; default passes single-source data through."""
         return data
+
+    @classmethod
+    def _init_no_validation(cls, token, *args):
+        """Construct directly from a token and args, skipping validation."""
+        obj = cls.__new__(cls)
+        obj.args = args
+        if token:
+            obj._cached_token = token
+        return obj
 
     def get_sources_and_requests(self, **request):
         """``(source, request)`` pairs; non-Block sources are passed to
@@ -244,7 +290,7 @@ class Block:
         return {"version": self.JSON_VERSION, "graph": graph, "name": name}
 
     @classmethod
-    def deserialize(cls, val):
+    def deserialize(cls, val, validate=False):
         version = val.get("version")
         if version is not None and version > cls.JSON_VERSION:
             logger.warning(
@@ -252,7 +298,7 @@ class Block:
                 version,
                 cls.JSON_VERSION,
             )
-        return construct(val["graph"], val["name"])
+        return construct(val["graph"], val["name"], validate=validate)
 
     def __repr__(self):
         return "{}({})".format(
@@ -279,3 +325,23 @@ class _BlockArgsEncoder(json.JSONEncoder):
         if isinstance(o, datetime.timedelta):
             return o.total_seconds()
         return super().default(o)
+
+
+class DummyBlock(Block):
+    """Placeholder block carrying a user-supplied name and token.
+
+    Useful for partially evaluating block graphs when computing tokens.
+    """
+
+    def __init__(self, name):
+        super().__init__(name)
+
+    @property
+    def token(self):
+        # the token is the part after the LAST underscore: class-name
+        # prefixes may themselves contain underscores
+        return self.name.rsplit("_", 1)[1]
+
+    @property
+    def name(self):
+        return self.args[0]

@@ -1,7 +1,11 @@
-"""Geo foundation: dtypes, transforms, the CRS subset, band snapping, the
+"""Geo foundation: dtypes, transforms, the CRS layer, band snapping, the
 resample calendar (geo/calendar.py), the geometry engine
 (geo/geometry.py), the pandas-free feature frame (geo/features.py) and
-the numpy rasterizer (geo/rasterize.py)."""
+the numpy rasterizer (geo/rasterize.py).
+
+The flat namespace is the JAX package's ``geo`` namespace but for
+``get_index_jax``, which works on JAX arrays only.
+"""
 from dask_geomodeling_tpu_torch.geo.dtypes import (  # noqa: F401
     dtype_for_statistic,
     get_dtype_max,
@@ -9,16 +13,22 @@ from dask_geomodeling_tpu_torch.geo.dtypes import (  # noqa: F401
     get_footprint,
     get_index,
     get_int_dtype,
+    get_rounded_repr,
     get_uint_dtype,
     parse_percentile_statistic,
 )
 from dask_geomodeling_tpu_torch.geo.geotransform import Extent, GeoTransform  # noqa: F401
 from dask_geomodeling_tpu_torch.geo.crs import (  # noqa: F401
+    SpatialReference,
+    TransformException,
+    crs_to_srs,
+    get_crs,
     get_epsg_or_wkt,
     get_projection,
     get_sr,
     get_transform_func,
     transform_extent,
+    transform_min_size,
     transform_points,
 )
 from dask_geomodeling_tpu_torch.geo.timeutils import (  # noqa: F401
@@ -30,6 +40,7 @@ from dask_geomodeling_tpu_torch.geo.timeutils import (  # noqa: F401
     offset_to_timedelta,
     snap_start_stop,
 )
+from dask_geomodeling_tpu_torch.geo.safefiles import safe_abspath, safe_file_url  # noqa: F401
 from dask_geomodeling_tpu_torch.geo.measurements import percentile  # noqa: F401
 from dask_geomodeling_tpu_torch.geo.rasterize import rasterize_geoseries  # noqa: F401
 from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame, GeoSeries  # noqa: F401

@@ -2,6 +2,7 @@
 dask_geomodeling_tpu/geo/dtypes.py): data cells are ``values !=
 no_data_value``, floats compared with ``np.isclose``."""
 import re
+from math import floor, log10
 
 import numpy as np
 
@@ -12,6 +13,7 @@ __all__ = [
     "get_int_dtype",
     "get_uint_dtype",
     "get_footprint",
+    "get_rounded_repr",
     "parse_percentile_statistic",
     "dtype_for_statistic",
 ]
@@ -66,6 +68,20 @@ def get_footprint(size):
     r = s / 2
     x, y = np.indices((s, s)) - o
     return (x**2 + y**2) < (r**2)
+
+
+def get_rounded_repr(obj, significant=4, fmt="{} (rounded)"):
+    """Repr of a number tuple rounded to ``significant`` digits."""
+    def to_significant(n):
+        if not n:
+            return n
+        magnitude = int(floor(log10(abs(n))))
+        return round(n, significant - 1 - magnitude)
+
+    rounded = obj.__class__(to_significant(n) for n in obj)
+    if tuple(rounded) == tuple(obj):
+        return repr(obj)
+    return fmt.format(repr(rounded))
 
 
 def parse_percentile_statistic(statistic):

@@ -1,19 +1,23 @@
-"""GeoTransform and Extent, as far as the port's paths use them
+"""GeoTransform and Extent: the affine pixel-to-world foundation
 (counterparts of dask_geomodeling_tpu/geo/geotransform.py).
 
 A GDAL-style 6-tuple ``(p, a, b, q, c, d)`` maps array indices ``(i, j)``
 to projected coordinates ``x = p + a*j + b*i``, ``y = q + c*j + d*i``.
-Tilted transforms are rejected.
+Tilted transforms are rejected.  An Extent is a bbox with its spatial
+reference; ``as_geometry`` and ``from_geometry`` pass it to and from a
+box Polygon that carries its ``srs`` (a raster Block's ``geometry``).
 """
 import math
 
 import numpy as np
 
+from dask_geomodeling_tpu_torch.geo.dtypes import get_rounded_repr
+
 __all__ = ["GeoTransform", "Extent"]
 
 
 class GeoTransform(tuple):
-    """Affine pixel-to-world mapping as used by GDAL."""
+    """Affine pixel-to-world mapping as used by GDAL, with helpers."""
 
     def __init__(self, tpl):
         if len(tpl) != 6:
@@ -27,6 +31,14 @@ class GeoTransform(tuple):
     def from_bbox(cls, bbox, height, width):
         x1, y1, x2, y2 = bbox
         return cls((x1, (x2 - x1) / width, 0, y2, 0, (y1 - y2) / height))
+
+    def __repr__(self):
+        return get_rounded_repr(tuple(self))
+
+    @property
+    def cell_area(self):
+        p, a, b, q, c, d = self
+        return abs(a * d - b * c)
 
     @property
     def origin(self):
@@ -43,6 +55,11 @@ class GeoTransform(tuple):
         _, a, b, _, c, d = self
         det = 1.0 / (a * d - b * c)
         return d * det, -b * det, -c * det, a * det
+
+    def scale(self, x, y):
+        """Scale the pixel size by (x, y), keeping the origin."""
+        p, a, b, q, c, d = self
+        return type(self)([p, a * x, b * x, q, c * y, d * y])
 
     def shift(self, origin):
         """Shift the origin to integer pixel coordinates ``(i, j)``."""
@@ -66,6 +83,24 @@ class GeoTransform(tuple):
             np.floor(col).astype(np.int64),
         )
 
+    def get_points(self, indices):
+        """World coordinates (N x 2) for N x 2 integer indices (i, j)."""
+        p, a, b, q, c, d = self
+        i, j = indices.transpose()
+        points = np.empty(indices.shape)
+        points[:, 0] = p + a * j + b * i
+        points[:, 1] = q + c * j + d * i
+        return points
+
+    def get_bbox(self, offset, shape):
+        """Bbox covered by a subarray at ``offset`` with ``shape``."""
+        _, a, b, _, c, d = self
+        m, n = shape
+        west, north = self.shift(offset).origin
+        east = west + a * n + b * m
+        south = north + c * n + d * m
+        return west, south, east, north
+
     def get_indices_for_bbox(self, bbox):
         """((i1, i2), (j1, j2)) array index ranges covering ``bbox``."""
         x1, y1, x2, y2 = bbox
@@ -76,14 +111,23 @@ class GeoTransform(tuple):
         rows = sorted((int(math.floor(row_nw)), int(math.floor(row_se))))
         return tuple(rows), tuple(cols)
 
-    def get_bbox(self, offset, shape):
-        """Bbox covered by a subarray at ``offset`` with ``shape``."""
-        _, a, b, _, c, d = self
-        m, n = shape
-        west, north = self.shift(offset).origin
-        east = west + a * n + b * m
-        south = north + c * n + d * m
-        return west, south, east, north
+    def get_array_ranges(self, bbox, shape):
+        """Slices and paddings needed to extract ``bbox`` from an array of
+        ``shape`` (bands, height, width).
+
+        Returns ``(((i1, i2), (j1, j2)), padding_or_None)`` where padding is
+        ``((before_i, after_i), (before_j, after_j))``.
+        """
+        ranges, padding, outside = [], [], False
+        for (lo, hi), size in zip(self.get_indices_for_bbox(bbox), shape[1:]):
+            if lo == hi:
+                hi += 1  # point request: keep the index range non-empty
+            in_lo, in_hi = np.clip([lo, hi], 0, size)
+            ranges.append((in_lo, in_hi))
+            pad = (hi - lo, 0) if in_lo == in_hi else (in_lo - lo, hi - in_hi)
+            padding.append(pad)
+            outside = outside or pad[0] > 0 or pad[1] > 0
+        return tuple(ranges), tuple(padding) if outside else None
 
     def aligns_with(self, other):
         """True if the other transform has the same resolution and the grid
@@ -104,6 +148,48 @@ class Extent:
         self.bbox = tuple(bbox)
         self.srs = get_projection(sr)
 
+    @property
+    def sr(self):
+        from dask_geomodeling_tpu_torch.geo.crs import get_sr
+
+        return get_sr(self.srs)
+
+    def __repr__(self):
+        return "<{}: {} / {}>".format(
+            type(self).__name__, self.srs, get_rounded_repr(self.bbox)
+        )
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Extent)
+            and self.bbox == other.bbox
+            and self.srs == other.srs
+        )
+
+    def __hash__(self):
+        return hash((self.bbox, self.srs))
+
+    @property
+    def width(self):
+        return self.bbox[2] - self.bbox[0]
+
+    @property
+    def height(self):
+        return self.bbox[3] - self.bbox[1]
+
+    @classmethod
+    def from_geometry(cls, geometry):
+        """Build from a Geometry that carries its own ``srs``."""
+        return cls(bbox=geometry.bounds, sr=geometry.srs)
+
+    def as_geometry(self):
+        """Return a Polygon geometry carrying this extent's srs."""
+        from dask_geomodeling_tpu_torch.geo.geometry import box
+
+        geom = box(*self.bbox)
+        geom.srs = self.srs
+        return geom
+
     def buffered(self, size):
         x1, y1, x2, y2 = self.bbox
         return type(self)((x1 - size, y1 - size, x2 + size, y2 + size), self.srs)
@@ -115,14 +201,6 @@ class Extent:
         if self.srs.upper() == srs.upper():
             return self
         return Extent(bbox=transform_extent(self.bbox, self.srs, srs), sr=srs)
-
-    @property
-    def width(self):
-        return self.bbox[2] - self.bbox[0]
-
-    @property
-    def height(self):
-        return self.bbox[3] - self.bbox[1]
 
     def union(self, other):
         """Union of self and other, in the SRS of self."""

@@ -15,6 +15,7 @@ import os
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core import arg, expect_instance
 from dask_geomodeling_tpu_torch.geo import (
+    TransformException,
     WKTReadingError,
     get_sr,
     shapely_from_wkt,
@@ -218,7 +219,7 @@ class GeometryWKTSource(GeometryBlock):
             raise ValueError("The provided geometry is not a valid WKT")
         try:
             get_sr(projection)
-        except (TypeError, ValueError):
+        except (TypeError, TransformException):
             raise ValueError("The provided projection is not valid")
         super().__init__(wkt, projection)
 

@@ -80,7 +80,7 @@ def _layer_block(text):
 def get_capabilities_xml(base_url="http://localhost/wms"):
     """A minimal WMS 1.1.1 GetCapabilities document listing the
     registered layers with their WGS84 bounding boxes (of the layer's
-    ``footprint``, the box the JAX package reads off ``geometry``)."""
+    ``geometry``)."""
     from dask_geomodeling_tpu_torch.geo.crs import transform_extent
 
     entries = []
@@ -89,7 +89,7 @@ def get_capabilities_xml(base_url="http://localhost/wms"):
     for name, block in layers.items():
         bbox = ""
         try:
-            extent = block.footprint.bbox
+            extent = block.geometry.bounds
             projection = block.projection
             if projection and extent:
                 w, s, e, n = transform_extent(

@@ -140,9 +140,8 @@ class RasterBlock(Block):
     """The base block for temporal rasters.
 
     Attributes (None when empty): ``period``, ``timedelta``, ``extent``
-    (WGS84), ``footprint`` (the data's box as an ``Extent`` in its own
-    projection: the JAX package's ``geometry``, which the port keeps as a
-    box), ``dtype``, ``fillvalue``, ``projection``, ``geo_transform``,
+    (WGS84), ``geometry`` (the data's box as a Polygon in its own
+    projection, with ``srs`` set), ``dtype``, ``fillvalue``, ``projection``, ``geo_transform``,
     ``temporal``.  Request fields: ``mode`` ('vals'|'time'|'meta'),
     ``bbox``, ``projection``, ``width``, ``height``, ``start``, ``stop``.
     Response: None or a dict with ``values`` (bands, height, width) and
@@ -223,7 +222,7 @@ for _attribute in (
     "temporal",
     "dtype",
     "fillvalue",
-    "footprint",
+    "geometry",
     "projection",
     "geo_transform",
 ):

@@ -9,7 +9,6 @@ subrequests that map each source's frames onto the unified axis.  Those
 time requests run on the host (their inputs are host literals); only the
 vals merges have a twin, which works batch-first on (B, bands, h, w).
 """
-import functools
 import itertools
 from datetime import timedelta as Timedelta
 
@@ -112,11 +111,14 @@ class BaseCombine(RasterBlock):
         return get_dtype_max(self.dtype)
 
     @property
-    def footprint(self):
-        return _combined(
-            [source.footprint for source in self.args],
-            lambda footprints: functools.reduce(Extent.union, footprints),
-        )
+    def geometry(self):
+        def union_all(geometries):
+            extent = Extent.from_geometry(geometries[0])
+            for geometry in geometries[1:]:
+                extent = extent.union(Extent.from_geometry(geometry))
+            return extent.as_geometry()
+
+        return _combined([source.geometry for source in self.args], union_all)
 
     @property
     def projection(self):

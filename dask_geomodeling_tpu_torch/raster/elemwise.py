@@ -23,7 +23,7 @@ from dask_geomodeling_tpu_torch.device import (
     equal_scalar,
     torch_dtype,
 )
-from dask_geomodeling_tpu_torch.geo import GeoTransform, get_dtype_max, get_index
+from dask_geomodeling_tpu_torch.geo import Extent, GeoTransform, get_dtype_max, get_index
 from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock
 from dask_geomodeling_tpu_torch.registry import register
 
@@ -103,13 +103,13 @@ def _box_overlap(extents):
     return (x_lo, y_lo, x_hi, y_hi)
 
 
-def _footprint_overlap(footprints):
-    overlap = footprints[0]
-    for footprint in footprints[1:]:
-        overlap = overlap.intersection(footprint)
+def _geometry_overlap(geometries):
+    overlap = Extent.from_geometry(geometries[0])
+    for geometry in geometries[1:]:
+        overlap = overlap.intersection(Extent.from_geometry(geometry))
         if overlap is None:
             return None
-    return overlap
+    return overlap.as_geometry()
 
 
 def _common_value(values):
@@ -174,8 +174,8 @@ class BaseElementwise(RasterBlock):
     extent = _combined(
         _when_all(_box_overlap), doc="intersection of the sources' extents"
     )
-    footprint = _combined(
-        _when_all(_footprint_overlap),
+    geometry = _combined(
+        _when_all(_geometry_overlap),
         doc="intersection of the sources' native footprints",
     )
     projection = _combined(

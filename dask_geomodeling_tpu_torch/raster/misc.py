@@ -31,6 +31,7 @@ from dask_geomodeling_tpu_torch.device import (
 from dask_geomodeling_tpu_torch.geo import (
     Extent,
     GeoSeries,
+    TransformException,
     WKTReadingError,
     get_dtype_max,
     get_index,
@@ -168,11 +169,14 @@ class Clip(BaseSingle):
         return x1, y1, x2, y2
 
     @property
-    def footprint(self):
-        result, mask = [x.footprint for x in self.args]
+    def geometry(self):
+        result, mask = [x.geometry for x in self.args]
         if result is None or mask is None:
             return None
-        return result.intersection(mask)
+        extent = Extent.from_geometry(result).intersection(Extent.from_geometry(mask))
+        if extent is None:
+            return None
+        return extent.as_geometry()
 
     @property
     def period(self):
@@ -529,7 +533,7 @@ class _GeometryRaster(RasterBlock):
     extent = None
     timedelta = None
     temporal = False
-    footprint = None
+    geometry = None
     projection = None
     geo_transform = None
 
@@ -671,7 +675,7 @@ class RasterizeWKT(_GeometryRaster):
             raise ValueError("The provided geometry is not a valid WKT")
         try:
             get_sr(projection)
-        except (TypeError, ValueError):
+        except (TypeError, TransformException):
             raise ValueError("The provided projection is not valid")
         super().__init__(wkt, projection)
 
@@ -691,11 +695,6 @@ class RasterizeWKT(_GeometryRaster):
         geom = shapely_from_wkt(self.wkt)
         geom.srs = self.projection
         return geom
-
-    @property
-    def footprint(self):
-        """The geometry's box, as the port's footprints are."""
-        return Extent(shapely_from_wkt(self.wkt).bounds, self.projection)
 
     def get_sources_and_requests(self, **request):
         mode = request["mode"]

@@ -379,11 +379,18 @@ class BaseReduction(BaseElementwise):
         return x1, y1, x2, y2
 
     @property
-    def footprint(self):
-        footprints = filter_none([x.footprint for x in self.args])
-        if not footprints:
+    def geometry(self):
+        geometries = filter_none([x.geometry for x in self.args])
+        if not geometries:
             return None
-        return functools.reduce(Extent.union, footprints)
+        if len(geometries) == 1:
+            return geometries[0]
+        union = functools.reduce(
+            lambda grown, geom: grown.union(Extent.from_geometry(geom)),
+            geometries[1:],
+            Extent.from_geometry(geometries[0]),
+        )
+        return union.as_geometry()
 
 
 class _FunctionNamespace:

@@ -163,11 +163,10 @@ def to_cog(source, url, overviews=None, overview_resampling="nearest", device=No
 
 
 #: export request fields derivable from a source raster's native grid:
-#: field -> (source attribute to derive from, derivation); the port's box
-#: ``footprint`` stands in for the JAX package's ``geometry``
+#: field -> (source attribute to derive from, derivation)
 _NATIVE_FIELDS = (
     ("projection", "projection", lambda source: source.projection),
-    ("bbox", "extent", lambda source: source.footprint.bbox),
+    ("bbox", "extent", lambda source: source.geometry.bounds),
 )
 
 

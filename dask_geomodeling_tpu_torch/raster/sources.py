@@ -237,8 +237,9 @@ class RasterSourceBase(RasterBlock):
         return None if extent is None else extent.transformed("EPSG:4326").bbox
 
     @property
-    def footprint(self):
-        return self._get_extent()
+    def geometry(self):
+        extent = self._get_extent()
+        return None if extent is None else extent.as_geometry()
 
 
 class MemorySource(RasterSourceBase):
@@ -308,7 +309,19 @@ class MemorySource(RasterSourceBase):
             raise ValueError("%s should have length 2" % name)
         return [float(x) for x in pair]
 
-    data = arg(0)
+    @property
+    def data(self):
+        data = self.args[0]
+        if not isinstance(data, np.ndarray):
+            # views loaded from JSON (no validation) carry plain lists: an
+            # integer list becomes int64, as in the JAX package; coerce
+            # once and keep it
+            data = np.asarray(data)
+            if data.ndim == 2:
+                data = data[np.newaxis]
+            self.args = (data,) + tuple(self.args[1:])
+        return data
+
     no_data_value = arg(1)
     projection = arg(2)
     pixel_size = arg(3)

@@ -569,17 +569,17 @@ class Place(BaseSingle):
 
     @property
     def extent(self):
-        footprint = self.footprint
-        if footprint is None:
+        geometry = self.geometry
+        if geometry is None:
             return None
-        return footprint.transformed("EPSG:4326").bbox
+        return Extent.from_geometry(geometry).transformed("EPSG:4326").bbox
 
     @property
-    def footprint(self):
-        store_footprint = self.store.footprint
-        if store_footprint is None:
+    def geometry(self):
+        store_geometry = self.store.geometry
+        if store_geometry is None:
             return None
-        extent = store_footprint.transformed(self.place_projection)
+        extent = Extent.from_geometry(store_geometry).transformed(self.place_projection)
         _x1, _y1, _x2, _y2 = extent.bbox
         p, q = self.anchor
         if not self.coordinates:
@@ -587,7 +587,7 @@ class Place(BaseSingle):
         P, Q = zip(*self.coordinates)
         x1, x2 = _x1 + min(P) - p, _x2 + max(P) - p
         y1, y2 = _y1 + min(Q) - q, _y2 + max(Q) - q
-        return Extent((x1, y1, x2, y2), extent.srs)
+        return Extent((x1, y1, x2, y2), extent.srs).as_geometry()
 
     def _points_in(self, projection):
         """Anchor and target coordinates transformed to ``projection``."""
@@ -637,10 +637,12 @@ class Place(BaseSingle):
 
         anchor, coordinates = self._points_in(request["projection"])
 
-        footprint = self.store.footprint
-        if footprint is None:
+        extent_geometry = self.store.geometry
+        if extent_geometry is None:
             return (({"mode": "null"}, None),)
-        xmin, ymin, xmax, ymax = footprint.transformed(request["projection"]).bbox
+        xmin, ymin, xmax, ymax = (
+            Extent.from_geometry(extent_geometry).transformed(request["projection"]).bbox
+        )
 
         x1, y1, x2, y2 = request["bbox"]
         size_x = (x2 - x1) / request["width"]

@@ -137,6 +137,30 @@ def _map_structure(func, obj):
     return func(obj)
 
 
+#: request modes whose answers hold no pixels
+_NO_PIXEL_MODES = ("time", "meta", "empty_time", "empty_meta")
+
+
+def time_or_meta_nodes(graph, order):
+    """The keys of ``order`` (topological) that answer a time or meta
+    request: a node with a literal naming such a mode, or whose graph
+    inputs all answer one.  No twin serves them: a time-mode Cumulative
+    has no twin, so the elementwise node under it must answer on the
+    host too."""
+    found = set()
+    for key in order:
+        value = graph[key]
+        if not _is_task(value):
+            continue
+        modes = [a["mode"] for a in value[1:] if isinstance(a, dict) and "mode" in a]
+        refs = [a for a in value[1:] if isinstance(a, str) and a in graph]
+        if any(mode in _NO_PIXEL_MODES for mode in modes) or (
+            refs and not modes and all(ref in found for ref in refs)
+        ):
+            found.add(key)
+    return found
+
+
 def literal_args(value, graph):
     """A node's literal args, graph-key args as None (what a twin's
     ``capable`` sees)."""
@@ -358,6 +382,7 @@ def compute_torch(graph, name, device=None):
 
     cache = {}
     on_device = set()
+    host_only = time_or_meta_nodes(graph, order)
     profiled = _profile.active()
     for key in order:
         value = graph[key]
@@ -367,7 +392,7 @@ def compute_torch(graph, name, device=None):
         func = value[0]
         t0 = time.perf_counter()
         twin = None
-        if registry.is_capable(func, literal_args(value, graph)):
+        if key not in host_only and registry.is_capable(func, literal_args(value, graph)):
             twin = registry.twin_for(func)
         if twin is None:
             takes_tensors = getattr(func, "torch_accepts_device_tensors", False)

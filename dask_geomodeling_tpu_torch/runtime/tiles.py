@@ -56,6 +56,7 @@ from dask_geomodeling_tpu_torch.runtime.executor import (
     run_on_host,
     stack_host_results,
     static_key,
+    time_or_meta_nodes,
 )
 
 __all__ = ["evaluate_tiled", "tile_requests", "TileProgram", "NotLowerable", "batches_run",
@@ -106,11 +107,14 @@ class TileProgram:
         self.on_host = []  # per node: computed on the host while planning
         self.args = []  # per node: ("node", position) or ("literal", pos)
         self.consumers = [0] * len(order)
+        host_only = time_or_meta_nodes(graph, order)
         for key in order:
             value = graph[key]
             refs = [position[a] for a in value[1:] if isinstance(a, str) and a in graph]
-            capable = _is_task(value) and registry.is_capable(
-                value[0], literal_args(value, graph)
+            capable = (
+                _is_task(value)
+                and key not in host_only
+                and registry.is_capable(value[0], literal_args(value, graph))
             )
             host = _is_task(value) and not capable and all(self.on_host[r] for r in refs)
             if not (capable or host):

@@ -33,7 +33,7 @@ def files(tmp_path_factory):
     sheet = chip_smoke.write_sheet(str(folder), width=512, height=512, block=60)
     from dask_geomodeling_tpu_torch.raster import RasterFileSource
 
-    buildings = chip_smoke.write_buildings(str(folder), RasterFileSource(sheet).footprint.bbox,
+    buildings = chip_smoke.write_buildings(str(folder), RasterFileSource(sheet).geometry.bounds,
                                            200)
     return folder, sheet, buildings
 

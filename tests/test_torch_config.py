@@ -65,13 +65,13 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
     } | set(FILE_KEYS) | set(VECTOR_KEYS) | set(SERVING_KEYS) | set(ROUTING_KEYS) \
-        | set(SCHEDULER_KEYS)
+        | set(SCHEDULER_KEYS) | set(CRS_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    ) + FILE_KEYS + VECTOR_KEYS:
+    ) + FILE_KEYS + VECTOR_KEYS + CRS_KEYS:
         assert defaults[key] == jax_config_module.defaults[key], key
 
 
@@ -115,6 +115,9 @@ ROUTING_KEYS = (
 
 #: the host schedulers' keys
 SCHEDULER_KEYS = ("scheduler", "geomodeling.scheduler-memory-limit")
+
+#: the CRS layer's key: NTv2 grids per datum (geo/ntv2.py)
+CRS_KEYS = ("geomodeling.ntv2-grids",)
 
 
 def test_routing_keys_default_to_the_card_and_a_state_file_of_the_port():

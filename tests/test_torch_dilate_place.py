@@ -132,4 +132,4 @@ def test_place_attributes():
     port_view = from_reference(view.serialize())
     np.testing.assert_allclose(port_view.extent, view.extent)
     assert port_view.projection == view.projection
-    assert port_view.footprint.bbox == view.geometry.bounds
+    assert port_view.geometry.bounds == view.geometry.bounds

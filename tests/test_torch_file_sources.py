@@ -128,7 +128,7 @@ def test_attributes(root):
                       "timedelta", "temporal"):
         assert getattr(source, attribute) == getattr(jax_source, attribute), attribute
     assert len(source) == len(jax_source) == 3
-    assert source.footprint.bbox == jax_source.geometry.bounds
+    assert source.geometry.bounds == jax_source.geometry.bounds
     source.close_dataset()
     assert not hasattr(source, "_info")
 

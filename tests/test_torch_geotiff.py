@@ -265,3 +265,40 @@ def test_jpeg_and_webp_chunks_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="Pillow"):
         P.write_geotiff(str(tmp_path / "webp.tif"), smooth[None], GT, "EPSG:28992", None,
                         compress="webp")
+
+
+CRS_CASES = {
+    "etrs89-utm32n": "EPSG:25832",
+    "lambert-93": "EPSG:2154",
+    "wkt-only": 'PROJCS["unnamed",GEOGCS["GRS 1980",DATUM["unknown",SPHEROID["GRS80",6378137,'
+                '298.257222101]],PRIMEM["Greenwich",0],UNIT["degree",0.0174532925199433]],'
+                'PROJECTION["Transverse_Mercator"],PARAMETER["latitude_of_origin",0],'
+                'PARAMETER["central_meridian",7.5],PARAMETER["scale_factor",0.9996],'
+                'PARAMETER["false_easting",500000],PARAMETER["false_northing",0],'
+                'UNIT["metre",1]]',
+    "proj4-only": "+proj=laea +lat_0=52 +lon_0=10 +x_0=4321000 +y_0=3210000 +ellps=GRS80 +units=m",
+}
+
+
+@pytest.mark.parametrize("case", sorted(CRS_CASES))
+def test_any_crs_round_trips_as_the_jax_writer_writes_it(tmp_path, case):
+    """A GeoTIFF in a CRS outside RD New, web Mercator and WGS 84: an EPSG
+    code writes its code, a WKT or proj4 string without one writes the
+    user-defined (32767) key with its WKT; the bytes are the JAX writer's
+    and each package reads the same projection back from either file."""
+    projection = CRS_CASES[case]
+    array = array_of("f4", shape=(1, 20, 30))
+    paths = str(tmp_path / "jax.tif"), str(tmp_path / "port.tif")
+    for writer, path in zip((J.write_geotiff, P.write_geotiff), paths):
+        writer(path, array, (362000.0, 1.0, 0.0, 5792000.0, 0.0, -1.0), projection, -9999.0,
+               compress="deflate", tiled=True, tile_size=16)
+    with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+        assert f.read() == g.read()
+    for path in paths:
+        port, jax = P.read_geotiff(path), J.read_geotiff(path)
+        assert_same_data(port, jax)
+        if projection.startswith("EPSG:"):
+            assert port.projection == projection
+        else:
+            assert get_sr(port.projection).code is None
+            assert get_sr(port.projection).ExportToWkt() == get_sr(projection).ExportToWkt()

@@ -23,7 +23,7 @@ from dask_geomodeling_tpu.core.graphs import _BlockArgsEncoder as JaxEncoder
 from dask_geomodeling_tpu.raster import MemorySource as JaxMemorySource
 from dask_geomodeling_tpu.raster import Smooth as JaxSmooth
 from dask_geomodeling_tpu.raster import TemporalAggregate as JaxTemporalAggregate
-from dask_geomodeling_tpu_torch import from_reference
+from dask_geomodeling_tpu_torch import compute_host, from_reference
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core import Block
 from dask_geomodeling_tpu_torch.core.graphs import _BlockArgsEncoder
@@ -128,3 +128,32 @@ def test_the_guard_runs_before_the_import(monkeypatch):
 def test_construct_refuses_a_non_block():
     with pytest.raises(TypeError, match="not a valid Block"):
         Block.from_import_path("dask_geomodeling_tpu_torch.core.graphs.construct")
+
+
+@pytest.mark.parametrize("dtype", ["u1", "i2", "i8"])
+def test_integer_json_source_answers_int64_with_the_jax_token(dtype):
+    """An integer MemorySource + 1 sent through JSON: both packages load
+    it without validation, so the integer list stays int64 (an int64
+    source was coerced to int32 when it was built), the answer is int64
+    and each loaded view keeps the token its JSON names; the port's and
+    the JAX package's loads of the same JSON agree in token and dtype."""
+    from dask_geomodeling_tpu.core import Block as JaxBlock
+
+    data = (np.arange(256).reshape(1, 16, 16) % 9).astype(dtype)
+    jax_view = JaxMemorySource(data=data, no_data_value=8, projection="EPSG:28992",
+                               pixel_size=0.5, pixel_origin=(135000.0, 456008.0)) + 1
+    port_view = from_reference(jax_view.serialize())
+    text = port_view.to_json()
+    loaded = Block.from_json(text)
+    jax_loaded = JaxBlock.from_json(text.replace("dask_geomodeling_tpu_torch.",
+                                                 "dask_geomodeling_tpu."))
+    assert loaded.token == jax_loaded.token == port_view.token
+    assert JaxBlock.from_json(jax_view.to_json()).token == jax_view.token
+    request = dict(REQUEST, start=datetime(1970, 1, 1), stop=None)
+    with jax_config.set({"geomodeling.executor": "numpy"}):
+        expected = jax_loaded.get_data(**request)
+    for actual in (loaded.get_data(device="cpu", **request),
+                   compute_host(*loaded.get_compute_graph(**request))):
+        assert actual["values"].dtype == expected["values"].dtype == np.int64
+        np.testing.assert_array_equal(actual["values"], expected["values"])
+        assert actual["no_data_value"] == expected["no_data_value"]

@@ -17,8 +17,12 @@ chip_smoke's building-heights phase at that size; the wms-serving GetMaps of bot
 layers against the CPU, the phase at small size and the launch counters
 under eight threads; the auto-routing phase over a small sheet and a
 512^2 headline source; the building-rings export of the footprints
-inside a 256 m square against the CPU, and its phase at that size.  This file imports nothing
-of JAX or pandas, so it runs where neither is installed.
+inside a 256 m square against the CPU, and its phase at that size; the
+border-reproject view (a 512^2 EPSG:25832 source through JSON, 1024^2 in
+EPSG:28992) and each crs-families view at 256^2 against the CPU, the
+crs-families phase with its NTv2 request at that size, the Cumulative
+nestings and the integer JSON phase.  This file imports nothing of JAX
+or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
 
@@ -30,6 +34,7 @@ import chip_smoke
 from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch import raster as R
+from dask_geomodeling_tpu_torch.geo import Extent
 from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
 PATHS = ["elemwise", "reclassify-chain", "combine", "place", "reproject-bilinear"]
@@ -302,7 +307,7 @@ def buildings(file_paths):
     sheet = paths["file-read"][0].store.url
     from dask_geomodeling_tpu_torch.raster import RasterFileSource
 
-    bbox = RasterFileSource(sheet).footprint.bbox
+    bbox = RasterFileSource(sheet).geometry.bounds
     path = chip_smoke.write_buildings(folder, bbox, 400)
     return chip_smoke.build_buildings_view(path, sheet)
 
@@ -370,7 +375,7 @@ def test_getmap_on_card_equals_cpu(wms_sheet, layer):
 
     device = _card()
     view, style, vmin, vmax = chip_smoke.wms_layers(wms_sheet)[layer]
-    tiles = chip_smoke.xyz_tiles(view.footprint.transformed("EPSG:3857").bbox)
+    tiles = chip_smoke.xyz_tiles(Extent.from_geometry(view.geometry).transformed("EPSG:3857").bbox)
     with config.set({"geomodeling.windowed-read-limit": 10**5}):
         for tile in [t for t in tiles if t[0] == 16][:3]:
             params = {k.lower(): v for k, v in chip_smoke.getmap_params(
@@ -439,7 +444,7 @@ def test_building_rings_on_card_equals_cpu(file_paths, tmp_path):
     device = _card()
     _, paths = file_paths
     sheet = paths["file-read"][0].store.url
-    bbox = RasterFileSource(sheet).footprint.bbox
+    bbox = RasterFileSource(sheet).geometry.bounds
     area = chip_smoke.rings_area(bbox, 256.0)
     rings, count = chip_smoke.write_rings_buildings(str(tmp_path), bbox, area, 400)
     view = chip_smoke.build_rings_view(rings, sheet)
@@ -507,3 +512,45 @@ def test_launch_counters_exact_under_threads():
     assert not failures
     assert cuda_stencils.launches == cuda_stencils.fused_launches == 400
     assert cuda_stencils.moving_max_launches == 400
+
+
+@pytest.mark.cuda
+def test_border_reproject_on_card_equals_cpu():
+    device = _card()
+    _, view = chip_smoke.build_border_view(512)
+    request = chip_smoke.border_request(view, 1024)
+    card = evaluate_tiled(view, request, tile_size=256, batch=4, device=device)["values"]
+    cpu = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")["values"]
+    np.testing.assert_array_equal(card, cpu)
+    tile = tile_requests(request, 256)[0][0]
+    np.testing.assert_array_equal(
+        evaluate_tiled(view, tile, tile_size=256, batch=1, device=device)["values"],
+        compute_host(*view.get_compute_graph(**tile))["values"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", [f[0] for f in chip_smoke.CRS_FAMILIES])
+def test_crs_family_on_card_equals_cpu(family):
+    device = _card()
+    _, projection, place = next(f for f in chip_smoke.CRS_FAMILIES if f[0] == family)
+    view, request = chip_smoke.build_family_view(projection, place, px=256, cell=40.0)
+    card = evaluate_tiled(view, request, tile_size=256, batch=4, device=device)["values"]
+    cpu = evaluate_tiled(view, request, tile_size=256, batch=4, device="cpu")["values"]
+    np.testing.assert_array_equal(card, cpu)
+    # the coarse warp grid against the host's per-pixel transform: the
+    # headline's share of differing cells
+    host = compute_host(*view.get_compute_graph(**request))["values"]
+    assert np.count_nonzero(card != host) <= chip_smoke.HEADLINE_SHARE * host.size
+
+
+@pytest.mark.cuda
+def test_crs_families_phase_on_card(tmp_path):
+    device = _card()
+    assert chip_smoke.check_crs_families(device, str(tmp_path), px=256) > 0
+
+
+@pytest.mark.cuda
+def test_nesting_and_json_integer_phases_on_card():
+    device = _card()
+    chip_smoke.check_nesting(device)
+    chip_smoke.check_json_integer(device, px=256)

@@ -41,7 +41,7 @@ def files(tmp_path_factory):
     sheet = chip_smoke.write_sheet(str(folder), width=512, height=512, block=60)
     from dask_geomodeling_tpu_torch.raster import RasterFileSource
 
-    bbox = RasterFileSource(sheet).footprint.bbox
+    bbox = RasterFileSource(sheet).geometry.bounds
     area = chip_smoke.rings_area(bbox, SIDE)
     buildings, count = chip_smoke.write_rings_buildings(str(folder), bbox, area, 200)
     return folder, sheet, buildings, area, count

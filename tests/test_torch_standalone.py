@@ -3,9 +3,14 @@
 - no module of the port, and not chip_smoke.py, imports the JAX package,
   jax, pandas, bench, benchmarks, matplotlib or Pillow (an AST scan), and
   running the port's paths, a WMS GetMap and a legend, routed requests
-  under the profiler, the pooled scheduler with its spill, and the
-  building-rings view included, loads none of them (a subprocess);
-- the port's CRS subset gives the JAX package's float64 bits;
+  under the profiler, the pooled scheduler with its spill, the
+  building-rings view, the border-reproject and crs-families views (an
+  NTv2 grid included), the Cumulative nestings and an integer JSON view
+  included, loads none of them, and opens no file of the JAX package:
+  the EPSG table it reads is its own copy (a subprocess, with an audit
+  hook on ``open``);
+- the port's CRS layer gives the JAX package's float64 bits on RD New,
+  web Mercator and WGS 84 (every other CRS: tests/test_torch_crs.py);
 - a JAX-package view carried across by ``from_reference`` plans the same
   graph: the same process functions (by name) with equal literals;
 - each copied numpy process gives the JAX package's result bit for bit on
@@ -91,6 +96,9 @@ def test_port_never_imports_jax():
     script = "\n".join(
         [
             "import os, sys",
+            "opened = []",
+            "sys.addaudithook(lambda event, args: opened.append(os.path.abspath(args[0]))",
+            "                 if event == 'open' and args and isinstance(args[0], str) else None)",
             "import chip_smoke as cs",
             "from dask_geomodeling_tpu_torch import evaluate_tiled, get_data",
             "source, view = cs.build_headline_view(128)",
@@ -133,7 +141,7 @@ def test_port_never_imports_jax():
             "from dask_geomodeling_tpu_torch.geometry.sinks import to_file",
             "from dask_geomodeling_tpu_torch.io.vectorfile import read_vector",
             "from dask_geomodeling_tpu_torch.raster import RasterFileSource",
-            "bbox = RasterFileSource(sheet).footprint.bbox",
+            "bbox = RasterFileSource(sheet).geometry.bounds",
             "buildings = cs.write_buildings(folder, bbox, 24)",
             "view = cs.build_buildings_view(buildings, sheet)",
             "from dask_geomodeling_tpu_torch.geo import Extent",
@@ -177,6 +185,30 @@ def test_port_never_imports_jax():
             "to_file(cs.build_rings_view(rings, sheet), folder + '/rings.geojson', fields=fields,",
             "        geometry=box(*area), mode='centroid', projection='EPSG:28992', device='cpu')",
             "assert len(read_vector(folder + '/rings.geojson')) == n > 0",
+            "view, loaded = cs.build_border_view(128)",
+            "assert loaded.token == view.token",
+            "request = cs.border_request(loaded, 256)",
+            "evaluate_tiled(loaded, request, tile_size=128, batch=2, device='cpu')",
+            "for label, projection, place in cs.CRS_FAMILIES:",
+            "    view, request = cs.build_family_view(projection, place, px=128, cell=40.0)",
+            "    evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
+            "cs.write_amersfoort_grid(folder + '/nl.gsb')",
+            "with config.set({'geomodeling.ntv2-grids': {'Amersfoort': folder + '/nl.gsb'}}):",
+            "    view, request = cs.build_family_view(*cs.NTV2_PLACE, px=128, cell=40.0)",
+            "    view.get_data(device='cpu', **request)",
+            "import contextlib, io",
+            "with contextlib.redirect_stdout(io.StringIO()):",
+            "    cs.check_nesting('cpu')",
+            "    cs.check_json_integer('cpu', px=64)",
+            "import dask_geomodeling_tpu_torch as top, dask_geomodeling_tpu_torch.utils as utils",
+            "assert top.DummyBlock and utils.create_dataset([[[1]]], projection='EPSG:2056')",
+            "from dask_geomodeling_tpu_torch.geo import _epsg_registry",
+            "assert _epsg_registry.resolve(3006) is not None",
+            "table = os.path.join(%r, 'dask_geomodeling_tpu_torch', 'geo', 'epsg.json.gz')" % REPO,
+            "assert table in opened, 'the EPSG table was not read from the port'",
+            "jax_package = os.path.join(%r, 'dask_geomodeling_tpu') + os.sep" % REPO,
+            "foreign = [p for p in opened if p.startswith(jax_package)]",
+            "assert not foreign, foreign",
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]" % (FORBIDDEN,),
             "assert not bad, bad",
             "print('standalone')",
@@ -195,7 +227,7 @@ def test_port_never_imports_jax():
     assert proc.stdout.strip() == "standalone"
 
 
-# --- the CRS subset ---
+# --- the CRS layer on the three CRSes of the port's first paths ---
 
 CRSES = ["EPSG:28992", "EPSG:3857", "EPSG:4326"]
 
@@ -223,8 +255,15 @@ def test_transform_points_bitwise(src, dst):
 
 
 def test_other_crs_is_not_ported():
-    with pytest.raises(NotImplementedError, match="EPSG:32631"):
-        transform_points([500000.0], [0.0], "EPSG:32631", "EPSG:4326")
+    """Every code of the EPSG table is ported now (tests/test_torch_crs.py);
+    a code outside it raises the JAX package's TransformException."""
+    from dask_geomodeling_tpu.geo.crs import TransformException as JaxTransformException
+    from dask_geomodeling_tpu_torch.geo.crs import TransformException
+
+    for package_error, transform in ((TransformException, transform_points),
+                                     (JaxTransformException, jax_transform_points)):
+        with pytest.raises(package_error, match="999999"):
+            transform([500000.0], [0.0], "EPSG:999999", "EPSG:4326")
 
 
 # --- views carried across ---

@@ -432,3 +432,25 @@ def test_port_is_bitwise_where_the_jax_twin_is_not(statistic):
         jax_twin = view.get_data(**request)["values"]
     assert np.count_nonzero(jax_twin != expected) > 0
     np.testing.assert_allclose(jax_twin, expected, rtol=1e-5)
+
+
+NESTINGS = {
+    "aggregate-of-cumulative": lambda inner: R.TemporalAggregate(inner, "2h", statistic="sum"),
+    "cumulative-of-cumulative": lambda inner: R.Cumulative(inner, statistic="sum"),
+}
+
+
+@pytest.mark.parametrize("mode", ["vals", "time", "meta"])
+@pytest.mark.parametrize("nesting", sorted(NESTINGS))
+def test_cumulative_nestings(nesting, mode):
+    """A TemporalAggregate or Cumulative over a Cumulative of an
+    elementwise node: the time subrequest of the inner Cumulative runs
+    through the elementwise node, whose twin must not serve it (the
+    time-mode Cumulative has none).  Whole and tiled, as the JAX package's
+    numpy executor answers."""
+    source = random_source("float32", 12, time_first=datetime(2000, 3, 25), seed=5)
+    view = NESTINGS[nesting](R.Cumulative(source + 1.5, statistic="sum"))
+    request = stat_request(datetime(2000, 3, 25), datetime(2000, 3, 25, 11))
+    expected = agree(view, dict(request, mode=mode), tile=3, batch=4)
+    if mode == "vals":
+        assert expected["values"].shape[0] == (6 if nesting.startswith("aggregate") else 12)

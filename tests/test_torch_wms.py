@@ -383,9 +383,9 @@ def test_geomodeling_layer_with_stub_ipyleaflet(monkeypatch):
         ).serialize())
         layer = module.GeomodelingLayer(view, "http://localhost:8888/", vmin=0.0, vmax=10.0)
         assert layer.url == "http://localhost:8888/wms"
-        # the port's from_json validates (construction without validation
-        # is not ported), so the uint8 data comes back int32 and the token
-        # differs: the layer carries the view's JSON, which answers alike
+        # the layer carries the view's JSON; loaded without validation, as
+        # in the JAX package, its uint8 data comes back as an int64 list
+        # and answers the same values
         assert layer.layers == view.to_json()
         request = dict(mode="vals", bbox=(0.0, 0.0, 4.0, 4.0), projection="EPSG:3857",
                        width=4, height=4)
@@ -468,9 +468,8 @@ def test_named_layers_and_capabilities(views):
 
 
 def test_capabilities_of_a_file_layer_read_its_footprint(tmp_path):
-    """The port reads a layer's WGS84 box off its footprint where the
-    JAX package reads its geometry: the same document for a file layer
-    in EPSG:28992."""
+    """The port reads a layer's WGS84 box off its geometry as the JAX
+    package does: the same document for a file layer in EPSG:28992."""
     from dask_geomodeling_tpu.io.geotiff import write_geotiff
     from dask_geomodeling_tpu.raster import RasterFileSource
 
@@ -634,6 +633,24 @@ def test_wcs_getcoverage(views, tmp_path):
     bad = {"REQUEST": "GetCoverage", "COVERAGE": "missing!", "CRS": "EPSG:3857",
            "BBOX": "0,0,1,1", "WIDTH": "4", "HEIGHT": "4"}
     assert wsgi(plugin.wms_app, bad)[0].startswith("400")
+
+
+@pytest.mark.parametrize("dtype", ["u1", "i2"])
+def test_wcs_getcoverage_of_an_integer_json_layer(dtype):
+    """An integer view passed as raw JSON in COVERAGE: both servers load it
+    without validation (the integer list becomes int64) and write the
+    same GeoTIFF, byte for byte."""
+    source = columns_source(data=np.tile(np.arange(10, dtype=dtype), (10, 1)),
+                            no_data_value=255 if dtype == "u1" else -1)
+    port_json = from_reference((source + 1).serialize()).to_json()
+    jax_json = port_json.replace("dask_geomodeling_tpu_torch.", "dask_geomodeling_tpu.")
+    query = {"SERVICE": "WCS", "REQUEST": "GetCoverage", "CRS": "EPSG:3857",
+             "BBOX": "0,0,10,10", "WIDTH": "20", "HEIGHT": "20", "FORMAT": "GeoTIFF"}
+    status, headers, body = wsgi(plugin.wms_app, dict(query, COVERAGE=port_json))
+    jax_status, _, jax_body = wsgi(jax_plugin.wms_app, dict(query, COVERAGE=jax_json))
+    assert status == jax_status == "200 OK"
+    assert headers["Content-Type"] == "image/tiff"
+    assert body == jax_body
 
 
 # --- FORMAT, TRANSPARENT and BGCOLOR ---
