@@ -33,8 +33,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    no twin raises, a 64^2 corner equals compute_host bit for bit, and 16
    tiles spread over the request differ from it in at most 5e-4 of their
    cells;
-4b. border-reproject (PR 11): the headline's chain over an 8192^2
-   float32 source in EPSG:25832 (ETRS89 / UTM 32N) over Gronau, sent
+4b. border-reproject: the headline's chain over a 4096^2
+   float32 source of 2 m cells (the 8192 m square of an 8192^2 source of
+   1 m, cut to a quarter of its cells for the JSON leg's time) in
+   EPSG:25832 (ETRS89 / UTM 32N) over Gronau, sent
    through to_json and Block.from_json as a service registers a layer
    (the token kept; its data comes back float64), asked for its
    footprint in EPSG:28992 at 10240^2: two datums and two projection
@@ -156,6 +158,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1000 m tiles, timed under a phase clock (buffer, difference, vector
    read, zonal, sink); one tile against compute_host and a 300 m
    sub-area exported as GeoJSON byte-identical to the host's export;
+10f. building-formats (check_building_formats): the 20,000 footprints
+   written as GML (layer pand, srsName EPSG:28992, as BGT and BAG
+   extracts arrive), build_buildings_view over GeometryFileSource of the
+   GML, exported by to_file in 1000 m tiles into GML partials merged into
+   one GML, every row equal to building-heights' GeoPackage export and
+   one tile to compute_host, timed under the export clock; then the
+   building-rings square's footprints written as SpatiaLite, a zipped
+   shapefile and DXF (in RD), MIF/MID, TopoJSON, KML and KMZ (in
+   EPSG:4326), OSM (write_osm, layer multipolygons) and GPX (the outer
+   rings as tracks through a 1 m Buffer), each read back through
+   GeometryFileSource and asked once for the whole square on the card:
+   every format equal to compute_host of its view, the ones that keep RD
+   coordinates to the GML view's answer as well; one Gaussian launch per
+   tile and per format;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -232,9 +248,11 @@ FP64_OPS_PER_S = 17e12
 # --- the views, with the port's own classes ---
 
 
-def build_headline_view(source_px=8192, projection="EPSG:28992", origin=(85000, 455000)):
+def build_headline_view(source_px=8192, projection="EPSG:28992", origin=(85000, 455000),
+                        cell=1.0):
     """bench.py:build_view: Classify(Reclassify(Classify(Smooth(source + 1))))
-    over an 8192^2 float32 source, in EPSG:28992 unless told otherwise."""
+    over an 8192^2 float32 source of 1 m cells, in EPSG:28992 unless told
+    otherwise."""
     from dask_geomodeling_tpu_torch.raster import Classify, MemorySource, Reclassify, Smooth
 
     rng = np.random.RandomState(42)
@@ -245,7 +263,7 @@ def build_headline_view(source_px=8192, projection="EPSG:28992", origin=(85000, 
         data=data,
         no_data_value=float(np.finfo(np.float32).max),
         projection=projection,
-        pixel_size=1.0,
+        pixel_size=cell,
         pixel_origin=origin,
         time_first=datetime(2000, 1, 1),
         time_delta=timedelta(hours=1),
@@ -288,13 +306,13 @@ def headline_request(source, out_px):
 BORDER_ORIGIN = (362000.0, 5792000.0)
 
 
-def build_border_view(source_px=8192):
+def build_border_view(source_px=8192, cell=1.0):
     """The headline's chain over a float32 source in EPSG:25832, sent
     through JSON as a service registers a layer: (built view, the view
     Block.from_json loads)."""
     from dask_geomodeling_tpu_torch import Block
 
-    _, view = build_headline_view(source_px, "EPSG:25832", BORDER_ORIGIN)
+    _, view = build_headline_view(source_px, "EPSG:25832", BORDER_ORIGIN, cell)
     return view, Block.from_json(view.to_json())
 
 
@@ -1003,20 +1021,25 @@ def write_buildings(folder, bbox, count=BUILDINGS, seed=13):
     return path
 
 
-def build_buildings_view(buildings, sheet):
+def build_buildings_view(buildings, sheet, layer="pand", buffer=None):
     """The building-heights view: per building the mean and 90th
     percentile of the smoothed elevation sheet (rounded mean), their
-    difference classified into relief classes, and the area."""
+    difference classified into relief classes, and the area.  The
+    footprints are the file's ``layer``, buffered by ``buffer`` m if
+    given (GPX tracks, at GPX_BUFFER_RESOLUTION)."""
     from dask_geomodeling_tpu_torch.geometry import (
         AggregateRaster,
         Area,
+        Buffer,
         Classify,
         GeometryFileSource,
         Round,
     )
     from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth
 
-    source = GeometryFileSource(buildings, layer="pand")
+    source = GeometryFileSource(buildings, layer=layer)
+    if buffer is not None:
+        source = Buffer(source, buffer, "EPSG:28992", GPX_BUFFER_RESOLUTION)
     dem = Smooth(RasterFileSource(sheet), 3)
     mean = AggregateRaster(source, dem, "mean")["agg"]
     p90 = AggregateRaster(source, dem, "p90")["agg"]
@@ -3410,11 +3433,7 @@ def write_rings_buildings(folder, sheet_bbox, area, count=BUILDINGS, seed=13):
     returns (its path, the number written)."""
     from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
 
-    frame = building_frame(sheet_bbox, count, seed)
-    x1, y1, x2, y2 = area
-    keep = np.array([x1 < g.bounds[0] and g.bounds[2] < x2 and y1 < g.bounds[1]
-                     and g.bounds[3] < y2 for g in frame.geometry.values])
-    frame = frame.iloc[np.flatnonzero(keep)]
+    frame = square_frame(sheet_bbox, area, count, seed)
     rng = np.random.default_rng(seed + 1)
     frame["beschrijving"] = [description(rng) for _ in range(len(frame))]
     path = os.path.join(folder, "rings.gpkg")
@@ -3625,6 +3644,308 @@ def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=BUIL
         geojson_identical=identical, write_s=write_s)
 
 
+# --- the building-formats phase ---
+
+#: the formats of the building-formats round over the rings' square:
+#: (format, file name, layer read, CRS written; None: no CRS, the
+#: request's).  SpatiaLite, the zipped shapefile and DXF keep RD
+#: coordinates exactly; the others go through degrees.
+FORMAT_ROUND = (
+    ("sqlite", "pand.sqlite", "pand", "EPSG:28992"),
+    ("zip", "pand.zip", "pand", "EPSG:28992"),
+    ("dxf", "pand.dxf", None, None),
+    ("mif", "pand.mif", None, "EPSG:4326"),
+    ("topojson", "pand.topojson", "pand", "EPSG:4326"),
+    ("kml", "pand.kml", None, "EPSG:4326"),
+    ("kmz", "pand.kmz", None, "EPSG:4326"),
+    ("osm", "pand.osm", "multipolygons", "EPSG:4326"),
+    ("gpx", "pand.gpx", "tracks", "EPSG:4326"),
+)
+#: the buffer around a GPX track (a footprint's outer ring), at two points
+#: a quarter circle: the distance field's cell is then the sheet's 0.5 m,
+#: and the host's buffer of a track takes milliseconds, not a tenth of a
+#: second
+GPX_BUFFER = 1.0
+GPX_BUFFER_RESOLUTION = 2
+#: the computed fields of build_buildings_view, compared across formats
+HEIGHT_FIELDS = ("h_mean", "h_p90", "relief", "area", "geometry")
+
+
+def square_frame(sheet_bbox, area, count=BUILDINGS, seed=13):
+    """building_frame(sheet_bbox, count, seed) cut to the footprints whose
+    every vertex lies inside ``area``."""
+    frame = building_frame(sheet_bbox, count, seed)
+    x1, y1, x2, y2 = area
+    keep = np.array([x1 < g.bounds[0] and g.bounds[2] < x2 and y1 < g.bounds[1]
+                     and g.bounds[3] < y2 for g in frame.geometry.values])
+    return frame.iloc[np.flatnonzero(keep)]
+
+
+def write_osm(frame, path):
+    """OSM XML of a frame of polygons in EPSG:4326 (neither package writes
+    OSM): a node per vertex, a closed way per footprint tagged
+    building=yes, its id the frame's index label."""
+    lines = ['<?xml version="1.0" encoding="UTF-8"?>', '<osm version="0.6" generator="chip_smoke">']
+    ways = []
+    node = 0
+    for fid, geom in zip(frame.index.values.tolist(), frame.geometry.values):
+        refs = []
+        for lon, lat in list(geom.exterior.coords)[:-1]:
+            node += 1
+            lines.append('  <node id="%d" lat="%r" lon="%r"/>' % (node, float(lat), float(lon)))
+            refs.append(node)
+        ways.append('  <way id="%d">%s<tag k="building" v="yes"/></way>' % (
+            fid, "".join('<nd ref="%d"/>' % r for r in refs + refs[:1])))
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ways + ["</osm>"]) + "\n")
+
+
+def write_format(fmt, frame, path, crs):
+    """Write the square's footprints as ``fmt`` (in ``crs``): GPX as the
+    outer rings, tracks named after the fid; OSM by write_osm."""
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame
+    from dask_geomodeling_tpu_torch.geo.geometry import LineString
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+
+    if crs is not None and crs != frame.crs:
+        frame = frame.to_crs(crs)
+    if fmt == "osm":
+        return write_osm(frame, path)
+    if fmt == "gpx":
+        frame = GeoDataFrame({"name": [str(fid) for fid in frame.index.values.tolist()]},
+                             geometry=[LineString(list(g.exterior.coords))
+                                       for g in frame.geometry.values], crs=crs)
+    write_vector(frame, path, layer="pand")
+
+
+def format_fids(fmt, features, written):
+    """The building fid of each row a format's view answered: SpatiaLite
+    and TopoJSON keep the index, KML and KMZ their Placemark ids, OSM
+    its way ids, GPX its track names, MIF the identificatie, the
+    shapefile (whose field names stop at 10 characters) and DXF only the
+    order of the rows written."""
+    labels = features.index.values.tolist()
+    if fmt in ("sqlite", "topojson", "kml", "kmz"):
+        return [int(label) for label in labels]
+    if fmt == "osm":
+        return [int(v) for v in features["osm_id"].values.tolist()]
+    if fmt == "gpx":
+        return [int(v) for v in features["name"].values.tolist()]
+    if fmt in ("dxf", "zip"):
+        return [written[label] for label in labels]
+    return [int(v) % 10**6 for v in features["identificatie"].values.tolist()]
+
+
+def height_rows(features, fids, fields=HEIGHT_FIELDS):
+    """{fid: {field: cell}} of a view's answer, the geometry as WKB."""
+    rows = frame_rows(features)
+    return {fid: {k: rows[label][k] for k in fields}
+            for fid, label in zip(fids, features.index.values.tolist())}
+
+
+def building_fid(identificatie):
+    """The fid of an identificatie, as text or as the int a GML read
+    sniffs it to."""
+    return int(identificatie) % 10**6
+
+
+def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BUILDING_TILE,
+                           count=BUILDINGS, formats=FORMAT_ROUND):
+    """The building-formats phase.  (a) The 20,000 footprints written as
+    GML (layer pand, srsName EPSG:28992, as BGT and BAG extracts arrive),
+    read by GeometryFileSource into build_buildings_view and exported by
+    to_file in ``tile`` m tiles into GML partials merged into one GML:
+    every row equal to building-heights' GeoPackage export
+    (``heights.gpkg`` in ``folder``), one tile to compute_host.  (b) The
+    footprints of the rings' side^2 square in each format of ``formats``,
+    read back through GeometryFileSource (GPX's tracks through a 1 m
+    Buffer) and asked once for the whole square on the card: each equal
+    to compute_host of its view, and the formats that keep RD coordinates
+    to the GML view's answer row for row as well (a round trip through
+    degrees moves vertices in their last bits).  Returns ({kernel:
+    launches of the path}, the numbers)."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.core.tokens import tokenize
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink, GeometryTiler
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.io import vectorfile
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    started = time.perf_counter()
+    projection = "EPSG:28992"
+    sheet_bbox = RasterFileSource(sheet).geometry.bounds
+    frame = building_frame(sheet_bbox, count)
+    gml = os.path.join(folder, "buildings.gml")
+    t0 = time.perf_counter()
+    vectorfile.write_vector(frame, gml, layer="pand")
+    write_s = time.perf_counter() - t0
+    pipeline.clear_read_cache()
+    t0 = time.perf_counter()
+    read = vectorfile.read_vector(gml, layer="pand")
+    read_s = time.perf_counter() - t0
+    check(len(read) == count and read.crs == projection, "building-formats: the GML read back "
+          "%d footprints in %s" % (len(read), read.crs))
+    print("building-formats: %d footprints written to GML (layer pand, srsName %s) in %.2f s, "
+          "%d bytes; read back in %.2f s" % (count, projection, write_s, os.path.getsize(gml),
+                                            read_s))
+    del read
+    pipeline.clear_read_cache()
+    view = build_buildings_view(gml, sheet)
+    source = view.args[0]
+    mean_view = view.args[2].args[0].source
+
+    # (a) the tiled export into GML partials, merged into one GML
+    target = os.path.join(folder, "heights.gml")
+    cuda_stencils.reset_launches()
+    with export_clock() as clock:
+        t0 = time.perf_counter()
+        to_file(view, target, tile_size=tile, projection=projection, mode="centroid",
+                device=device)
+        export_s = time.perf_counter() - t0
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    extent = source.get_data(mode="extent", projection=projection)["extent"]
+    pieces = GeometryTiler(source, tile, projection).get_sources_and_requests(
+        mode="centroid", geometry=box(*extent), projection=projection)
+    subrequests = [request for _, request in pieces]
+    phases = dict(clock.seconds)
+    phases["planning"] = export_s - phases["run"] - phases["merge"]
+    merged = vectorfile.read_vector(target)
+    print("building-formats: to_file of %d buildings from the GML in %d tiles of %g m into GML "
+          "partials, merged: %.3f s, %.1f buildings/s, %d in the merged GML [%s]"
+          % (count, len(subrequests), tile, export_s, count / export_s, len(merged), card))
+    print("building-formats: phases (s; the vector read parses the GML once, the merge parses "
+          "the %d partials; %d timed calls): %s" % (
+              len(subrequests), sum(clock.calls.values()),
+              json.dumps({k: round(v, 4) for k, v in phases.items()})))
+    print("building-formats: %d Gaussian launches in the GML export (one per tile), %d "
+          "moving-max launches" % (launches["gaussian_blur"], launches["moving_max"]))
+    check(launches["gaussian_blur"] == len(subrequests) > 0,
+          "building-formats: %d Gaussian launches for %d tiles"
+          % (launches["gaussian_blur"], len(subrequests)))
+
+    def by_fid(frame_read):
+        rows = {}
+        for row in frame_rows(frame_read).values():
+            row["identificatie"] = "%016d" % int(row["identificatie"])
+            rows[building_fid(row["identificatie"])] = row
+        return rows
+
+    def tile_ulps(requests):
+        """mean_ulps over the tiles: each fid on the tile its centroid
+        lies in (the GML source's labels are pand.<fid - 1>)."""
+        def ulps(fids):
+            out = []
+            for request in requests:
+                x1, y1, x2, y2 = request["geometry"].bounds
+                here = []
+                for fid in fids:
+                    cx, cy = frame.geometry.values[fid - 1].centroid.coords[0]
+                    if x1 < cx < x2 and y1 < cy < y2:
+                        here.append("pand.%d" % (fid - 1))
+                if here:
+                    out += mean_ulps([mean_view], request, device)(here)
+            return out
+        return ulps
+
+    gml_rows = by_fid(merged)
+    gpkg_rows = by_fid(vectorfile.read_vector(os.path.join(folder, "heights.gpkg")))
+    differing = compare_heights("building-formats GML export", gml_rows, gpkg_rows,
+                                tile_ulps(subrequests))
+    print("building-formats: the merged GML's %d rows equal building-heights' GeoPackage "
+          "export: every field bitwise, h_mean differing in %d rows (within one float32 ulp "
+          "before rounding)" % (len(gml_rows), len(differing)))
+    host_dir = os.path.join(folder, "formats_host")
+    request = subrequests[len(subrequests) // 3]
+    t0 = time.perf_counter()
+    compute_host(*GeometryFileSink(view, host_dir, extension="gml").get_compute_graph(**request))
+    host_s = time.perf_counter() - t0
+    host_rows = by_fid(vectorfile.read_vector(
+        os.path.join(host_dir, tokenize(request)[:7] + ".gml")))
+    tile_differ = compare_heights("building-formats GML tile",
+                                  {fid: gml_rows[fid] for fid in host_rows}, host_rows,
+                                  tile_ulps([request]))
+    print("building-formats: one tile's %d rows equal compute_host of its subrequest (%.3f s "
+          "on the host), h_mean differing in %d rows [%s]"
+          % (len(host_rows), host_s, len(tile_differ), card))
+
+    # (b) a round of the other formats over the rings' square
+    area = rings_area(sheet_bbox, side)
+    square = square_frame(sheet_bbox, area, count)
+    request = dict(mode="centroid", geometry=box(*area), projection=projection)
+    pipeline.clear_read_cache()
+    reference = view.get_data(device=device, **request)["features"]
+    reference_rows = height_rows(reference, [building_fid(v) for v in
+                                             reference["identificatie"].values.tolist()])
+    check(set(square.index.values.tolist()) <= set(reference_rows), "building-formats: the GML "
+          "view does not answer every footprint of the square")
+    round_launches = {"gaussian_blur": 0, "moving_max": 0}
+    numbers = {}
+    for fmt, name, layer, crs in formats:
+        path = os.path.join(folder, name)
+        t0 = time.perf_counter()
+        write_format(fmt, square, path, crs)
+        fmt_write_s = time.perf_counter() - t0
+        pipeline.clear_read_cache()
+        t0 = time.perf_counter()
+        rows_read = len(pipeline.read_vector_cached(path, layer))
+        fmt_read_s = time.perf_counter() - t0
+        fmt_view = build_buildings_view(path, sheet, layer=layer,
+                                        buffer=GPX_BUFFER if fmt == "gpx" else None)
+        fmt_mean = fmt_view.args[2].args[0].source
+        cuda_stencils.reset_launches()
+        t0 = time.perf_counter()
+        features = fmt_view.get_data(device=device, **request)["features"]
+        card_s = time.perf_counter() - t0
+        round_launches["gaussian_blur"] += cuda_stencils.launches
+        round_launches["moving_max"] += cuda_stencils.moving_max_launches
+        check(cuda_stencils.launches == 1, "building-formats %s: %d Gaussian launches"
+              % (fmt, cuda_stencils.launches))
+        t0 = time.perf_counter()
+        host = compute_host(*fmt_view.get_compute_graph(**request))["features"]
+        fmt_host_s = time.perf_counter() - t0
+        check(len(features) == len(square), "building-formats %s: %d rows for the square's %d "
+              "footprints" % (fmt, len(features), len(square)))
+        ulps = mean_ulps([fmt_mean], request, device)
+        differ = compare_heights("building-formats " + fmt, frame_rows(features),
+                                 frame_rows(host), ulps)
+        against = "compute_host"
+        if crs in (projection, None):
+            # RD kept exactly: the GML view's answers too (a shapefile
+            # turns its outer rings clockwise: the geometry's WKB and the
+            # area's last bits differ, the height fields do not)
+            fields = HEIGHT_FIELDS if fmt != "zip" else ("h_mean", "h_p90", "relief")
+            labels = features.index.values.tolist()
+            fids = dict(zip(labels, format_fids(fmt, features, square.index.values.tolist())))
+            differ += compare_heights(
+                "building-formats %s against the GML view" % fmt,
+                height_rows(features, labels, fields),
+                {label: {k: reference_rows[fids[label]][k] for k in fields} for label in labels},
+                ulps)
+            against += " and the GML view's %s" % "/".join(fields)
+        numbers[fmt] = dict(rows=len(features), rows_read=rows_read, write_s=fmt_write_s,
+                            read_s=fmt_read_s, card_s=card_s, host_s=fmt_host_s,
+                            h_mean_rows_differing=len(differ), bytes=os.path.getsize(path))
+        print("building-formats %s: %d rows (read %d), write %.3f s, read %.3f s, card %.3f s, "
+              "host %.3f s; equal to %s (h_mean differing in %d rows) [%s]"
+              % (fmt, len(features), rows_read, fmt_write_s, fmt_read_s, card_s, fmt_host_s,
+                 against, len(differ), card))
+    for kernel, n in round_launches.items():
+        launches[kernel] += n
+    total_s = time.perf_counter() - started
+    print("building-formats: %d Gaussian launches on the path (%d tiles and %d format "
+          "requests); the phase %.1f s [%s]" % (launches["gaussian_blur"], len(subrequests),
+                                               len(formats), total_s, card))
+    return launches, dict(
+        buildings=count, tiles=len(subrequests), gml_write_s=write_s, gml_read_s=read_s,
+        gml_bytes=os.path.getsize(gml), export_s=export_s, buildings_per_s=count / export_s,
+        phases=phases, host_s=host_s, h_mean_rows_differing=len(differing),
+        square=len(square), formats=numbers, phase_s=total_s)
+
+
 def compare_tiles(label, device, view, request, share=HEADLINE_SHARE):
     """``view`` over ``request`` through evaluate_tiled on the card, held
     tile by tile to compute_host (a stencil's answer depends on the
@@ -3689,21 +4010,28 @@ def check_crs_families(device, folder, px=FAMILY_PX):
     return launched
 
 
-def check_border(px=8192):
+#: border-reproject's source: 4096^2 cells of 2 m over the 8192 m square
+#: an 8192^2 source of 1 m covered (its 17-digit floats took 77 s through
+#: JSON on the card machine; a quarter of the cells take a quarter)
+BORDER_PX = 4096
+BORDER_CELL = 2.0
+
+
+def check_border(px=BORDER_PX, cell=BORDER_CELL):
     """border-reproject, before its tiled run: the view sent through JSON
     keeps its token.  Returns (the loaded view, its request, the JSON
     round trip's seconds)."""
     t0 = time.perf_counter()
-    view, loaded = build_border_view(px)
+    view, loaded = build_border_view(px, cell)
     json_s = time.perf_counter() - t0
     check(loaded.token == view.token, "border-reproject: the JSON view's token differs")
     request = border_request(loaded, HEADLINE_PX)
     source = loaded
     while type(source).__name__ != "MemorySource":
         source = source.args[0]
-    print("border-reproject: %d^2 EPSG:25832 source through to_json and from_json in %.2f s "
-          "(token kept, the source's data %s); request %r in EPSG:28992 at %d^2"
-          % (px, json_s, source.data.dtype, request["bbox"], HEADLINE_PX))
+    print("border-reproject: %d^2 EPSG:25832 source of %g m cells through to_json and "
+          "from_json in %.2f s (token kept, the source's data %s); request %r in EPSG:28992 at "
+          "%d^2" % (px, cell, json_s, source.data.dtype, request["bbox"], HEADLINE_PX))
     return loaded, request, json_s
 
 
@@ -4027,6 +4355,10 @@ def run_phases(card, device, folder, mark):
     mark("the auto-routing path")
     launches["building-rings"], rings = check_building_rings(card, device, folder, sheet)
     mark("the building-rings path")
+    launches["building-formats"], formats = check_building_formats(card, device, folder, sheet)
+    check(launches["building-formats"]["gaussian_blur"] > 0,
+          "building-formats: the Gaussian did not launch")
+    mark("the building-formats path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -4053,6 +4385,7 @@ def run_phases(card, device, folder, mark):
     timings["wms-serving"] = wms
     timings["auto-routing"] = auto
     timings["building-rings"] = rings
+    timings["building-formats"] = formats
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

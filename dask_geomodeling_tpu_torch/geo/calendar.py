@@ -8,11 +8,11 @@ blocks accept:
 
 - the ticks ``us``, ``ms``, ``s``, ``min`` and ``h``, and the calendar
   day ``D``, with any multiple;
-- ``W-<DAY>``, ``MS``/``ME``, ``QS-<MON>``/``QE-<MON>`` and
-  ``YS-<MON>``/``YE-<MON>``.
+- ``W-<DAY>``, ``MS``/``ME``, ``QS-<MON>``/``QE-<MON>``,
+  ``HYS-<MON>``/``HYE-<MON>`` and ``YS-<MON>``/``YE-<MON>``.
 
 Every other pandas alias (business days and hours, semi-months, weeks of
-the month, fiscal years, half years, nanoseconds) raises
+the month, fiscal years, business half years, nanoseconds) raises
 ``NotImplementedError`` naming it; a string pandas rejects raises
 ``ValueError``.
 
@@ -56,12 +56,15 @@ _FINER = {"h": ("min", 60), "min": ("s", 60), "s": ("ms", 1000), "ms": ("us", 10
           "us": ("ns", 1000)}
 _DAYS = ["MON", "TUE", "WED", "THU", "FRI", "SAT", "SUN"]
 _MONTHS = ["JAN", "FEB", "MAR", "APR", "MAY", "JUN", "JUL", "AUG", "SEP", "OCT", "NOV", "DEC"]
-#: anchored families: default anchor (pandas' ``_from_name`` default)
-_ANCHORED = {"W": None, "QS": 1, "QE": 12, "YS": 1, "YE": 12}
+#: anchored families: default anchor (pandas' ``_from_name`` default; a
+#: bare "HYE" is HYE-DEC, although ``HalfYearEnd()`` starts in June)
+_ANCHORED = {"W": None, "QS": 1, "QE": 12, "HYS": 1, "HYE": 12, "YS": 1, "YE": 12}
+#: months between two anchors of the quarterly and half-yearly families
+_PERIOD_MONTHS = {"QS": 3, "QE": 3, "HYS": 6, "HYE": 6}
 _MONTHLY = {"MS", "ME"}
 #: pandas offset prefixes this calendar does not implement
 _UNSUPPORTED = {"B", "BHYE", "BHYS", "BME", "BMS", "BQE", "BQS", "BYE", "BYS", "C",
-                "CBME", "CBMS", "HYE", "HYS", "LWOM", "RE", "REQ", "SME", "SMS", "WOM",
+                "CBME", "CBMS", "LWOM", "RE", "REQ", "SME", "SMS", "WOM",
                 "bh", "cbh", "ns"}
 #: pandas' ``_lite_rule_alias`` and ``_dont_uppercase``
 _LITE_ALIAS = {"W": "W-SUN", "QE": "QE-DEC", "YE": "YE-DEC", "YS": "YS-JAN", "BYE": "BYE-DEC",
@@ -74,9 +77,9 @@ _OPATTERN = re.compile(r"([+\-]?\d*|[+\-]?\d*\.\d*)\s*([A-Za-z]+([\-][\dA-Za-z\-
 @dataclass(frozen=True)
 class Offset:
     """One offset: ``kind`` is a tick unit (us, ms, s, min, h), "D", "W",
-    "MS", "ME", "QS", "QE", "YS" or "YE"; ``anchor`` is the weekday (0 =
-    Monday) of "W" and the (starting) month of the quarterly and yearly
-    kinds."""
+    "MS", "ME", "QS", "QE", "HYS", "HYE", "YS" or "YE"; ``anchor`` is the
+    weekday (0 = Monday) of "W" and the (starting) month of the quarterly,
+    half-yearly and yearly kinds."""
 
     kind: str
     n: int = 1
@@ -369,10 +372,11 @@ def _apply_wall(wall, offset):
         elif n <= 0 and day.day > compare:
             n += 1
         return _join(_shift_month(day, n, offset), rest)
-    if offset.kind in ("QS", "QE"):
-        since = day.month % 3 - offset.anchor % 3
-        quarters = _roll_qtrday(day, n, offset.anchor, offset, 3)
-        return _join(_shift_month(day, quarters * 3 - since, offset), rest)
+    if offset.kind in _PERIOD_MONTHS:
+        months = _PERIOD_MONTHS[offset.kind]
+        since = day.month % months - offset.anchor % months
+        periods = _roll_qtrday(day, n, offset.anchor, offset, months)
+        return _join(_shift_month(day, periods * months - since, offset), rest)
     years = _roll_qtrday(day, n, offset.anchor, offset, 12)
     return _join(_shift_month(day, years * 12 + offset.anchor - day.month, offset), rest)
 
@@ -386,8 +390,8 @@ def _on_offset(wall, offset):
     on_day = day.day == _offset_day(offset, day.year, day.month)
     if offset.kind in _MONTHLY:
         return on_day
-    if offset.kind in ("QS", "QE"):
-        return on_day and (day.month - offset.anchor) % 3 == 0
+    if offset.kind in _PERIOD_MONTHS:
+        return on_day and (day.month - offset.anchor) % _PERIOD_MONTHS[offset.kind] == 0
     return on_day and day.month == offset.anchor
 
 
@@ -466,6 +470,7 @@ def date_range(start, end, offset, tz=None, ambiguous="raise", nonexistent="rais
 # --- resampling (pandas' TimeGrouper) ---
 
 #: offsets whose bins pandas closes and labels on the right by default
+#: (pandas' TimeGrouper leaves HYE out: it closes on the left)
 END_TYPES = {"W", "ME", "QE", "YE"}
 
 

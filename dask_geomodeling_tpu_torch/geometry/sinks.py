@@ -6,8 +6,9 @@ characters of the request's token, as in the JAX package, so both write
 the same file names), JSON-serialized nested columns, GeoJSON
 reprojection to EPSG:4326, ``merge_files`` gathering partials (their rows
 concatenated, geo/features.py:concat).  The formats are GeoJSON,
-GeoPackage and Shapefile (io/vectorfile.py); the JAX package's other sink
-formats raise NotImplementedError naming the module that writes them.
+GeoPackage, Shapefile, GML, MapInfo MIF/MID (the .mid travels with its
+.mif), SpatiaLite and TopoJSON (io/vectorfile.py); GeoParquet and
+FlatGeobuf raise NotImplementedError naming the module that writes them.
 """
 import glob
 import json
@@ -34,10 +35,15 @@ _FORMATS = {
     "geojson": ("GeoJSON", {"force_crs": "EPSG:4326"}),
     "gpkg": ("GPKG", {}),
     "shp": ("ESRI Shapefile", {}),
+    "gml": ("GML", {}),
+    "mif": ("MapInfo MIF/MID", {}),
+    "sqlite": ("SpatiaLite", {}),
+    # TopoJSON is a GeoJSON sibling: geographic coordinates by convention
+    "topojson": ("TopoJSON", {"force_crs": "EPSG:4326"}),
 }
 
 #: the JAX package's other sink formats, which the port does not write
-_UNPORTED_FORMATS = ("gml", "parquet", "fgb", "mif", "sqlite", "topojson")
+_UNPORTED_FORMATS = ("parquet", "fgb")
 
 #: everything one partial-file write needs, planned at request-rewrite time
 _FeatureWriteSpec = namedtuple(
@@ -45,7 +51,7 @@ _FeatureWriteSpec = namedtuple(
 )
 
 
-_SIDECAR_EXTENSIONS = (".shx", ".dbf", ".prj", ".cpg")
+_SIDECAR_EXTENSIONS = (".mid", ".shx", ".dbf", ".prj", ".cpg")
 
 
 def _sidecar_pairs(source, target):

@@ -34,7 +34,10 @@ class GeometryFileSource(GeometryBlock):
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``
-      layer (str, optional): layer name (GeoPackage); default first layer
+      layer (str, optional): layer name (GeoPackage, SpatiaLite, TopoJSON;
+        GPX's waypoints/routes/tracks, OSM's points/lines/multipolygons,
+        a zipped dataset's stem); default the first layer, or all layers
+        of a GPX or OSM file
       id_field (str, optional): column to use as the feature index when the
         file has no built-in FID
     """

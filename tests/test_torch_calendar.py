@@ -2,7 +2,8 @@
 
 Every function of the calendar is held to pandas, or to the JAX package's
 pandas helpers (dask_geomodeling_tpu/raster/temporal.py), with hypothesis:
-every supported family with multiples 1-7 and every anchor, ``closed`` and
+every supported family (the half years included) with multiples 1-7 and
+every anchor, ``closed`` and
 ``label`` in {None, left, right}, the zones UTC, Europe/Amsterdam,
 America/New_York, Asia/Kolkata and Australia/Lord_Howe (a 30-minute DST
 shift), and instants around DST switches, month and year ends and
@@ -39,10 +40,10 @@ ANCHORS = [
 FAMILIES = (
     ["us", "ms", "s", "min", "h", "D", "MS", "ME"]
     + ["W-" + d for d in DAYS]
-    + [kind + "-" + m for kind in ("QS", "QE", "YS", "YE") for m in MONTHS]
+    + [kind + "-" + m for kind in ("QS", "QE", "HYS", "HYE", "YS", "YE") for m in MONTHS]
 )
 UNSUPPORTED = ["B", "C", "BME", "BMS", "CBME", "CBMS", "SME", "SMS", "BQE", "BQS", "BYE",
-               "BYS", "HYE", "HYS", "WOM-1MON", "LWOM-MON", "REQ-N-DEC-MON-1", "bh", "cbh",
+               "BYS", "WOM-1MON", "LWOM-MON", "REQ-N-DEC-MON-1", "bh", "cbh",
                "ns", "2B", "5ns"]
 SETTINGS = settings(max_examples=150, deadline=None,
                     suppress_health_check=[HealthCheck.too_slow])
@@ -119,6 +120,46 @@ def test_normalize_offset_examples(freq):
 def test_unsupported_families_raise(freq):
     expected = _pandas(pd.tseries.frequencies.to_offset, freq)
     assert expected is not ValueError  # pandas knows them
+    name = freq.lstrip("0123456789").split("-")[0]
+    with pytest.raises(NotImplementedError, match=name):
+        calendar.to_offset(freq)
+    with pytest.raises(NotImplementedError, match=name):
+        normalize_offset(freq)
+
+
+HALF_YEARS = ["HYS", "HYE", "2HYS-MAR", "HYE-JUN", "3HYE-NOV", "0.5HYS", "HYS-JUL", "1HYS",
+              "2HYE", "-1HYS", "HYE-DEC", "7HYS-DEC", "HYE-FEB", "1.5HYE", "hys", "HYS-FOO",
+              "HYE-JUN-X", "HYS2h", "12HYS-AUG"]
+
+
+@pytest.mark.parametrize("freq", HALF_YEARS)
+def test_half_year_examples(freq):
+    """freqstr, the offset strings and the resample defaults of the
+    half-year families as pandas gives them ("HYS" prints HYS-JAN, a bare
+    "HYE" is HYE-DEC, a fractional stride is a ValueError, HYE closes on
+    the left)."""
+    expected = _pandas(lambda f: pd.tseries.frequencies.to_offset(f).freqstr, freq)
+    assert _port(lambda f: calendar.to_offset(f).freqstr, freq) == expected
+    assert _port(normalize_offset, freq) == _pandas(jax_normalize_offset, freq)
+    assert _port(offset_to_timedelta, freq) == _pandas(jax_offset_to_timedelta, freq)
+    if expected is ValueError:
+        return
+    grouper = pd.Grouper(freq=freq)
+    assert calendar.default_closed_label(freq, None, None) == (grouper.closed, grouper.label)
+    if expected.startswith("-"):
+        return
+    times = [datetime(1999, 11, 3) + timedelta(days=20 * i) for i in range(40)]
+    series = pd.Series(index=times, dtype=float).tz_localize("UTC").tz_convert("Europe/Amsterdam")
+    for closed, label in (("left", "left"), ("right", "right"), ("right", "left")):
+        resampled = series.resample(freq, closed=closed, label=label).indices
+        assert calendar.resample_indices(
+            [calendar.to_us(t) for t in times], freq, closed, label,
+            ZoneInfo("Europe/Amsterdam")) == {_us(k): list(v) for k, v in resampled.items()}
+
+
+@pytest.mark.parametrize("freq", ["BHYS", "BHYE", "2BHYS-MAR", "BHYE-JUN"])
+def test_business_half_years_raise(freq):
+    assert _pandas(pd.tseries.frequencies.to_offset, freq) is not ValueError
     name = freq.lstrip("0123456789").split("-")[0]
     with pytest.raises(NotImplementedError, match=name):
         calendar.to_offset(freq)

@@ -8,8 +8,9 @@ JAX-package view and on the port's view of it (``from_reference``,
 ``device="cpu"``): the same features (geometries bitwise, the same
 values, dtypes and index), the same extents, the same file names (each
 partial file's stem is the request's token) and the same bytes (GeoJSON,
-Shapefile; GeoPackage contents).  GeometryTiler over boxes and over a
-non-rectangular request geometry plans the JAX package's pieces.
+Shapefile, GML, MIF/MID, TopoJSON; GeoPackage and SpatiaLite contents).
+GeometryTiler over boxes and over a non-rectangular request geometry
+plans the JAX package's pieces.
 """
 import os
 
@@ -33,13 +34,18 @@ from dask_geomodeling_tpu_torch.geometry.sinks import GeometryFileSink, to_file
 from dask_geomodeling_tpu_torch.io import vectorfile
 from dask_geomodeling_tpu_torch.runtime import pipeline
 from tests.test_torch_field_ops import assert_same_frame
+from tests.test_torch_vector_formats import repaired_gml_writer, same_file, sqlite_contents
 from tests.test_torch_vectorfile import _family, assert_same_read, gpkg_contents
 
-FORMATS = ["geojson", "geojsonl", "gpkg", "shp", "csv"]
+FORMATS = ["geojson", "geojsonl", "gpkg", "shp", "gml", "kml", "csv"]
 
 
 @pytest.fixture
-def root(tmp_path):
+def root(tmp_path, monkeypatch):
+    """The packages' roots; the JAX GML writer names its layer as the
+    port's does (a partial named after a token that starts with a digit
+    is no XML in the JAX package: tests/test_torch_vector_formats.py)."""
+    monkeypatch.setattr(jax_vectorfile, "_write_gml", repaired_gml_writer)
     pipeline.clear_read_cache()
     jax_pipeline.clear_read_cache()
     with jax_config.set({"geomodeling.root": str(tmp_path), "geomodeling.executor": "numpy"}), \
@@ -301,6 +307,8 @@ def _same_outputs(port_dir, jax_dir):
         ours, theirs = os.path.join(port_dir, name), os.path.join(jax_dir, name)
         if name.endswith(".gpkg"):
             assert gpkg_contents(ours) == gpkg_contents(theirs)
+        elif name.endswith(".sqlite"):
+            assert sqlite_contents(ours) == sqlite_contents(theirs)
         else:
             assert open(ours, "rb").read() == open(theirs, "rb").read(), name
 
@@ -315,7 +323,7 @@ def _sink_pair(root, source_name, ext, fields=None):
 REQUEST_ALL = dict(mode="intersects", projection="EPSG:4326")
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp"])
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
 @pytest.mark.parametrize("fields", [None, {"renamed": "value"}, {"target": "name", "v": "value"}])
 def test_sink(root, frame_file, ext, fields):
     jax_sink, port_sink = _sink_pair(root, frame_file, ext, fields)
@@ -338,10 +346,11 @@ def test_sink_validation(root, frame_file):
         GeometryFileSink(source, "out", extension="geojson", fields={"x": "nope"})
     with pytest.raises(ValueError):
         GeometryFileSink(source, "out", extension="shp", fields={"target": "nonexisting"})
-    for ext in ("gml", "parquet", "fgb", "mif", "sqlite", "topojson"):
+    for ext in ("parquet", "fgb"):
         with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/"):
             GeometryFileSink(source, "out", extension=ext)
-    assert sorted(GeometryFileSink.supported_extensions) == ["geojson", "gpkg", "shp"]
+    assert sorted(GeometryFileSink.supported_extensions) == [
+        "geojson", "gml", "gpkg", "mif", "shp", "sqlite", "topojson"]
 
 
 def test_sink_without_features_writes_nothing(root, frame_file):
@@ -352,7 +361,15 @@ def test_sink_without_features_writes_nothing(root, frame_file):
     assert not os.path.isdir(root / "port_out")
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp"])
+def _targets(root, name):
+    """(the port's, the JAX package's) target of one name, in folders of
+    their own (GML names its layer after the file)."""
+    for side in ("port_result", "jax_result"):
+        (root / side).mkdir(exist_ok=True)
+    return str(root / "port_result" / name), str(root / "jax_result" / name)
+
+
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
 def test_merge_files(root, frame_file, ext):
     """Partial files of several requests merged, against the JAX merge
     of the same partials; a single partial is copied with its sidecars."""
@@ -360,20 +377,14 @@ def test_merge_files(root, frame_file, ext):
     for box in ((0, 0, 3, 3), (3, 3, 20, 20)):
         jax_sink.get_data(geometry=jax_geometry.box(*box), **REQUEST_ALL)
         port_sink.get_data(device="cpu", geometry=geometry.box(*box), **REQUEST_ALL)
-    GeometryFileSink.merge_files(str(root / "port_out"), str(root / ("port." + ext)),
-                                 remove_source=True)
-    jax_blocks.GeometryFileSink.merge_files(str(root / "jax_out"), str(root / ("jax." + ext)))
+    ours, theirs = _targets(root, "merged." + ext)
+    GeometryFileSink.merge_files(str(root / "port_out"), ours, remove_source=True)
+    jax_blocks.GeometryFileSink.merge_files(str(root / "jax_out"), theirs)
     assert not (root / "port_out").is_dir()
-    assert_same_read(vectorfile.read_vector(str(root / ("port." + ext))),
-                     jax_vectorfile.read_vector(str(root / ("jax." + ext))))
-    if ext == "gpkg":
-        assert gpkg_contents(str(root / "port.gpkg")) == gpkg_contents(str(root / "jax.gpkg"))
-    elif ext == "shp":
-        assert _family(str(root / "port.shp")) == _family(str(root / "jax.shp"))
-    else:
-        assert (root / "port.geojson").read_bytes() == (root / "jax.geojson").read_bytes()
+    assert_same_read(vectorfile.read_vector(ours), jax_vectorfile.read_vector(theirs))
+    same_file(ours, theirs)
     with pytest.raises(IOError, match="already exists"):
-        GeometryFileSink.merge_files(str(root / "port_out"), str(root / ("port." + ext)))
+        GeometryFileSink.merge_files(str(root / "port_out"), ours)
     with pytest.raises(IOError, match="No source files"):
         GeometryFileSink.merge_files(str(root / "nothing"), str(root / ("none." + ext)))
 
@@ -394,24 +405,19 @@ def test_merge_keeps_int_and_bool_columns_across_tiles(root):
     assert port["features"]["flag"].dtype == bool
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp"])
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
 @pytest.mark.parametrize("tile_size", [None, 4.0])
 def test_to_file(root, frame_file, ext, tile_size):
     jax_source = jax_blocks.GeometryFileSource(frame_file)
     jax_view = jax_source.set("double", jax_source["value"] * 2)
-    jax_view.to_file(str(root / ("jax." + ext)), tile_size=tile_size, projection="EPSG:4326")
+    ours, theirs = _targets(root, "export." + ext)
+    jax_view.to_file(theirs, tile_size=tile_size, projection="EPSG:4326")
     port_view = from_reference(jax_view.serialize())
-    to_file(port_view, str(root / ("port." + ext)), tile_size=tile_size,
-            projection="EPSG:4326", device="cpu")
-    port_read = vectorfile.read_vector(str(root / ("port." + ext)))
+    to_file(port_view, ours, tile_size=tile_size, projection="EPSG:4326", device="cpu")
+    port_read = vectorfile.read_vector(ours)
     assert len(port_read) == 3
-    assert_same_read(port_read, jax_vectorfile.read_vector(str(root / ("jax." + ext))))
-    if ext == "geojson":
-        assert (root / "port.geojson").read_bytes() == (root / "jax.geojson").read_bytes()
-    elif ext == "gpkg":
-        assert gpkg_contents(str(root / "port.gpkg")) == gpkg_contents(str(root / "jax.gpkg"))
-    else:
-        assert _family(str(root / "port.shp")) == _family(str(root / "jax.shp"))
+    assert_same_read(port_read, jax_vectorfile.read_vector(theirs))
+    same_file(ours, theirs)
 
 
 def test_to_file_dry_run_and_temporary_directory(root, frame_file):

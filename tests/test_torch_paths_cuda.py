@@ -18,6 +18,8 @@ layers against the CPU, the phase at small size and the launch counters
 under eight threads; the auto-routing phase over a small sheet and a
 512^2 headline source; the building-rings export of the footprints
 inside a 256 m square against the CPU, and its phase at that size; the
+building-formats phase over 400 footprints (16 GML tiles, the square's
+nine formats) and each format's view on the card against the CPU; the
 border-reproject view (a 512^2 EPSG:25832 source through JSON, 1024^2 in
 EPSG:28992) and each crs-families view at 256^2 against the CPU, the
 crs-families phase with its NTv2 request at that size, the Cumulative
@@ -474,6 +476,62 @@ def test_building_rings_phase_on_card(file_paths, tmp_path):
     assert numbers["tiles"] == 4
     assert launches["gaussian_blur"] == 2 * numbers["tiles"]
     assert launches["moving_max"] == 0
+
+
+def _formats_folder(file_paths, tmp_path, count=400, tile=128.0):
+    """The sheet, and building-heights' GeoPackage export of ``count``
+    footprints over it in ``tile`` m tiles on the card (``heights.gpkg``
+    in ``tmp_path``, as check_building_formats expects it)."""
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+
+    _, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    bbox = R.RasterFileSource(sheet).geometry.bounds
+    gpkg = chip_smoke.write_buildings(str(tmp_path), bbox, count)
+    to_file(chip_smoke.build_buildings_view(gpkg, sheet), str(tmp_path / "heights.gpkg"),
+            tile_size=tile, projection="EPSG:28992", mode="centroid", device=_card())
+    return sheet, bbox
+
+
+@pytest.mark.cuda
+def test_building_formats_phase_on_card(file_paths, tmp_path):
+    """chip_smoke's phase at small size: every check of the full run."""
+    device = _card()
+    sheet, _ = _formats_folder(file_paths, tmp_path)
+    launches, numbers = chip_smoke.check_building_formats(
+        "card", device, str(tmp_path), sheet, side=256.0, tile=128.0, count=400)
+    assert numbers["tiles"] == 16
+    assert launches["gaussian_blur"] == numbers["tiles"] + len(chip_smoke.FORMAT_ROUND)
+    assert launches["moving_max"] == 0
+    assert sorted(numbers["formats"]) == sorted(f[0] for f in chip_smoke.FORMAT_ROUND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [f[0] for f in chip_smoke.FORMAT_ROUND])
+def test_format_aggregate_on_card_equals_cpu(file_paths, tmp_path, fmt):
+    """Each format's building view over the square: the card's answer
+    against the CPU's, every field bitwise but h_mean within a rounding
+    step where float64 atomics move the unrounded mean."""
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+
+    device = _card()
+    _, paths = file_paths
+    sheet = paths["file-read"][0].store.url
+    bbox = R.RasterFileSource(sheet).geometry.bounds
+    area = chip_smoke.rings_area(bbox, 256.0)
+    square = chip_smoke.square_frame(bbox, area, 400)
+    _, name, layer, crs = [f for f in chip_smoke.FORMAT_ROUND if f[0] == fmt][0]
+    path = str(tmp_path / name)
+    chip_smoke.write_format(fmt, square, path, crs)
+    view = chip_smoke.build_buildings_view(path, sheet, layer=layer,
+                                           buffer=chip_smoke.GPX_BUFFER if fmt == "gpx" else None)
+    request = dict(mode="centroid", geometry=box(*area), projection="EPSG:28992")
+    card = chip_smoke.frame_rows(view.get_data(device=device, **request)["features"])
+    cpu = chip_smoke.frame_rows(view.get_data(device="cpu", **request)["features"])
+    assert len(card) == len(square) > 20
+    differ = chip_smoke.compare_heights(fmt, card, cpu, lambda fids: [
+        0 if abs(card[f]["h_mean"] - cpu[f]["h_mean"]) <= 0.0100001 else 2 for f in fids])
+    assert len(differ) <= 2
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@
   jax, pandas, bench, benchmarks, matplotlib or Pillow (an AST scan), and
   running the port's paths, a WMS GetMap and a legend, routed requests
   under the profiler, the pooled scheduler with its spill, the
-  building-rings view, the border-reproject and crs-families views (an
+  building-rings view, the building view over one file of each vector
+  format of the building-formats path and its GML and SpatiaLite export
+  through ``to_file``, the border-reproject and crs-families views (an
   NTv2 grid included), the Cumulative nestings and an integer JSON view
   included, loads none of them, and opens no file of the JAX package:
   the EPSG table it reads is its own copy (a subprocess, with an audit
@@ -185,6 +187,21 @@ def test_port_never_imports_jax():
             "to_file(cs.build_rings_view(rings, sheet), folder + '/rings.geojson', fields=fields,",
             "        geometry=box(*area), mode='centroid', projection='EPSG:28992', device='cpu')",
             "assert len(read_vector(folder + '/rings.geojson')) == n > 0",
+            "square = cs.square_frame(bbox, area, 24)",
+            "for fmt, name, layer, crs in cs.FORMAT_ROUND:",
+            "    cs.write_format(fmt, square, folder + '/' + name, crs)",
+            "    view = cs.build_buildings_view(folder + '/' + name, sheet, layer=layer,",
+            "                                   buffer=cs.GPX_BUFFER if fmt == 'gpx' else None)",
+            "    got = view.get_data(device='cpu', mode='centroid', geometry=box(*area),",
+            "                        projection='EPSG:28992')['features']",
+            "    assert len(got) == len(square) > 0, fmt",
+            "from dask_geomodeling_tpu_torch.io.vectorfile import write_vector",
+            "write_vector(cs.building_frame(bbox, 24), folder + '/buildings.gml', layer='pand')",
+            "view = cs.build_buildings_view(folder + '/buildings.gml', sheet)",
+            "for ext in ('gml', 'sqlite'):",
+            "    to_file(view, folder + '/formats.' + ext, tile_size=60.0, projection='EPSG:28992',",
+            "            mode='centroid', device='cpu')",
+            "    assert len(read_vector(folder + '/formats.' + ext)) > 15, ext",
             "view, loaded = cs.build_border_view(128)",
             "assert loaded.token == view.token",
             "request = cs.border_request(loaded, 256)",

@@ -392,6 +392,24 @@ def test_resample_directions(direction, frequency, timezone):
     agree(view, dict(request, mode="time"))
 
 
+@pytest.mark.parametrize("frequency, timezone", [("HYS", "UTC"), ("HYS", "Europe/Amsterdam"),
+                                                 ("2HYE-MAR", "UTC")])
+def test_half_year_frequencies(frequency, timezone):
+    """Resample and TemporalAggregate at the half-year families: 40
+    frames 20 days apart span two years."""
+    source = random_source("float32", 40, time_first=datetime(1999, 11, 3), step=timedelta(days=20),
+                           seed=6)
+    request = stat_request(datetime(1999, 11, 3), datetime(2002, 1, 1))
+    resampled = R.Resample(source, frequency, direction="backward", timezone=timezone)
+    assert agree(resampled, request, tile=3, batch=4)["values"].shape[0] > 1
+    agree(resampled, dict(request, mode="time"))
+    for statistic in ("mean", "max", "count"):
+        aggregated = R.TemporalAggregate(source, frequency, statistic=statistic,
+                                         timezone=timezone)
+        assert agree(aggregated, request, tile=3, batch=4)["values"].shape[0] > 1
+    agree(aggregated, dict(request, mode="time"))
+
+
 def test_cumulative_path_view():
     """chip_smoke.py's temporal-cumulative view at a small size: Shift,
     Resample, a daily reset in Amsterdam and Snap, with the nested

@@ -8,7 +8,8 @@ GeoPackage's contents are equal (its schema, every row, the geometry
 blobs, the gpkg_* tables but the write time, the R-tree entries).  Then
 the R-tree bbox read, unicode text and special floats, the DBF code pages
 and date fields of tests/test_geometry_sources_sinks.py, the unported
-extensions, and the read cache's stamp.
+extensions (FlatGeobuf and GeoParquet; the other formats are in
+tests/test_torch_vector_formats.py), and the read cache's stamp.
 """
 import os
 import sqlite3
@@ -342,8 +343,7 @@ def test_csv_numeric_columns_and_legacy_crs(tmp_path):
     assert_same_read(vectorfile.read_vector(str(legacy)), jax_vectorfile.read_vector(str(legacy)))
 
 
-@pytest.mark.parametrize("ext", ["gml", "kml", "kmz", "gpx", "zip", "topojson", "sqlite", "mif",
-                                 "dxf", "osm", "fgb", "parquet", "geoparquet"])
+@pytest.mark.parametrize("ext", ["fgb", "parquet", "geoparquet"])
 def test_unported_extensions_raise_naming_their_module(tmp_path, ext):
     port, _ = frames()
     path = str(tmp_path / ("x." + ext))
@@ -351,9 +351,8 @@ def test_unported_extensions_raise_naming_their_module(tmp_path, ext):
                  lambda: vectorfile.read_vector(path)):
         with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/"):
             call()
-    if ext in ("fgb", "parquet", "geoparquet"):
-        with pytest.raises(NotImplementedError, match="card machine lacks"):
-            vectorfile.read_vector(path)
+    with pytest.raises(NotImplementedError, match="card machine lacks"):
+        vectorfile.read_vector(path)
     with pytest.raises(NotImplementedError, match="Unsupported"):
         vectorfile.read_vector(str(tmp_path / "x.xyz"))
 
