@@ -33,9 +33,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    no twin raises, a 64^2 corner equals compute_host bit for bit, and 16
    tiles spread over the request differ from it in at most 5e-4 of their
    cells;
-4b. border-reproject: the headline's chain over a 4096^2
-   float32 source of 2 m cells (the 8192 m square of an 8192^2 source of
-   1 m, cut to a quarter of its cells for the JSON leg's time) in
+4b. border-reproject: the headline's chain over a 2048^2
+   float32 source of 4 m cells (the 8192 m square of an 8192^2 source of
+   1 m, cut to a sixteenth of its cells for the JSON leg's time) in
    EPSG:25832 (ETRS89 / UTM 32N) over Gronau, sent
    through to_json and Block.from_json as a service registers a layer
    (the token kept; its data comes back float64), asked for its
@@ -67,7 +67,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    medians in Amsterdam across the switch to summer time, 4096^2 x 48
    frames; the moving-max kernel launches on it) and temporal-cumulative
    (Snap, Cumulative with a daily reset in Amsterdam, Resample, Shift);
-   sources with 5% nodata; and the 90th percentile on a 64^2 crop within
+   sources with 5% nodata; 8 sampled tiles, not 16, for the two 48-frame
+   paths; and the 90th percentile on a 64^2 crop within
    rtol 1e-6, its differing cells counted.  A zone the system zone
    database lacks fails the run;
 8. the tiled geometry paths (build_geometry_paths), with the checks of
@@ -116,11 +117,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    file-read view, style terrain, 0-10) and ahn-hillshade
    (HillShade(RasterFileSource), gray, 0-255); a slippy map's GetMap
    traffic (every 256^2 EPSG:3857 XYZ tile of zooms 14 and 15 over the
-   sheet and the middle 9 of zoom 16's 18 rows, PNG) through urllib in
+   sheet and the middle 3 of zoom 16's 18 rows, PNG) through urllib in
    four passes: cold (read caches cleared, no
    result cache), warm, fill (the 256 MiB result cache of wms_serve) and
    hit (byte-identical PNGs, no Gaussian launch); p50/p99/max latency a
-   layer and pass; 32 sampled tiles a layer against compute_host (at
+   layer and pass; 16 sampled tiles a layer against compute_host (at
    most 5e-4 of the warped source cells differing, outside their reach
    ahn-smooth bitwise and ahn-hillshade within 1 in at most 1e-3 of the
    cells, every pixel whose value agrees coloured as the host's render
@@ -136,8 +137,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    request's cell in EPSG:3857: 8 requests of each edge 64, 128, 256,
    512, 1024 and 2048 px a view, at windows drawn from a seed, in one
    seeded, interleaved order, the router exploring from an empty table
-   whose state file lives in the temporary folder; every card-routed
-   answer against compute_host (tile by tile above one 512^2 tile, as
+   whose state file lives in the temporary folder; the first card-routed
+   answer of each view and edge against compute_host (tile by tile above one 512^2 tile, as
    the card runs it; the file-read view bitwise, HillShade
    within 1 in at most 1e-3 of its cells, the headline at most 5e-4 of
    its cells differing); per view and edge the routes taken, the
@@ -147,7 +148,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    status.snapshot(); a 2048^2 request under the Profiler and
    torch_trace (a non-empty Chrome trace);
 10e. building-rings (check_building_rings): the building-heights
-   footprints inside a 1400 m square of the sheet (about 1,250, cut from
+   footprints inside an 800 m square of the sheet (about 400, cut from
    the sheet's 20,000: the host buffer costs tens of ms a footprint),
    written with a beschrijving of key=value lines; the view
    (build_rings_view) buffers each by 10 m, subtracts the footprint,
@@ -155,7 +156,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ring (the Gaussian and the device zonal plane), merges (left) the
    footprint's own mean, parses two keys, takes a field difference and
    clips each ring to its tile (Intersection); exported by to_file in
-   1000 m tiles, timed under a phase clock (buffer, difference, vector
+   400 m tiles (RINGS_TILE), timed under a phase clock (buffer, difference, vector
    read, zonal, sink); one tile against compute_host and a 300 m
    sub-area exported as GeoJSON byte-identical to the host's export;
 10f. building-formats (check_building_formats): the 20,000 footprints
@@ -169,9 +170,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    EPSG:4326), OSM (write_osm, layer multipolygons) and GPX (the outer
    rings as tracks through a 1 m Buffer), each read back through
    GeometryFileSource and asked once for the whole square on the card:
-   every format equal to compute_host of its view, the ones that keep RD
-   coordinates to the GML view's answer as well; one Gaussian launch per
+   the ones that keep RD coordinates equal to the GML view's answer, the
+   others to compute_host of their view; one Gaussian launch per
    tile and per format;
+10g. dem-formats (check_dem_formats): a synthetic SRTM1 tile over
+   Eindhoven and Nijmegen, N51E005.hgt (3601^2 int16 metres, smooth
+   terrain, noise and voids), under Classify(MovingMax(Smooth(source,
+   100 m), 3), bins) (build_dem_view): (a) asked whole at its own grid
+   in EPSG:4326 in 512^2 tiles, every tile bitwise equal to compute_host,
+   the Gaussian's integer entry and the moving max launched on its int16
+   frames; (b) asked in RD New at 4096^2 of 25 m, with the checks of 6
+   and the headline's 5e-4 share; (c) the heights written as DTED, ENVI
+   (.bil), Surfer, SAGA and Idrisi at 3601^2 and, decimated to SRTM3's
+   1201^2, as an .hgt, an Esri ASCII grid and XYZ: each read back and
+   asked once on the card, 8 sampled tiles bitwise to compute_host, the
+   integer formats' answers equal to the .hgt view's; write, read, card
+   and host seconds a format; both kernels on int16 frames of (b)'s and
+   (a)'s batch shapes torch.equal to their plain versions;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -184,7 +199,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    same function (CUDA events), and the least time the card could take;
    the Gaussian is timed at three paths' shapes, on a uint8 batch (the
    integer entry) and at the building-heights and wms-serving paths'
-   single planes, one kernel record each.
+   single planes, and both kernels on dem-formats' int16 batch, one
+   kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -243,6 +259,9 @@ BATCH = 64
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 17e12
+# integer comparisons: 64 INT32 lanes a multiprocessor (half the FP32
+# lanes), 132 multiprocessors at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 # --- the views, with the port's own classes ---
@@ -455,9 +474,9 @@ def make_source(px, seed=0, bands=1, time_first=datetime(2000, 1, 1), nodata_sha
                 nodata_block=(0, 0)):
     """benchmarks/run.py:make_source: float32 uniform [0, 200), hourly
     frames when bands > 1.  With ``nodata_share``, that share of the cells,
-    drawn by a PCG64 generator of the same seed, holds nodata.  Drawn band
-    by band (the same numbers as one (bands, px, px) draw) to keep the
-    host's transient memory to one band.  With ``nodata_block`` = (frames,
+    drawn by a PCG64 generator of the same seed, holds nodata.  Drawn in
+    blocks of rows (the same numbers as one (bands, px, px) draw) to keep
+    the host's transient memory in the cache.  With ``nodata_block`` = (frames,
     size), the first ``frames`` frames hold nodata in the top-left size^2
     square as well."""
     from dask_geomodeling_tpu_torch.raster import MemorySource
@@ -465,12 +484,16 @@ def make_source(px, seed=0, bands=1, time_first=datetime(2000, 1, 1), nodata_sha
     rng = np.random.RandomState(seed)
     nodata = np.finfo(np.float32).max
     data = np.empty((bands, px, px), np.float32)
+    rows = 256  # draws of 256 rows: the same numbers, in the cache
     for band in range(bands):
-        data[band] = rng.rand(px, px) * 200
+        for row in range(0, px, rows):
+            data[band, row:row + rows] = rng.rand(min(rows, px - row), px) * 200
     if nodata_share:
         cells = np.random.default_rng(seed)
         for band in range(bands):
-            data[band][cells.random((px, px), dtype=np.float32) < nodata_share] = nodata
+            for row in range(0, px, rows):
+                block = data[band, row:row + rows]
+                block[cells.random(block.shape, dtype=np.float32) < nodata_share] = nodata
     frames, size = nodata_block
     data[:frames, :size, :size] = nodata
     return MemorySource(
@@ -1538,21 +1561,26 @@ def check_moving_max(device):
 
 def time_moving_max(planes):
     """The kernel at size 3, its plain version and the library yardstick
-    (max_pool2d, bitwise equal at size 3) on ``planes`` (CUDA events), and
-    the bound."""
+    (max_pool2d, bitwise equal at size 3; it has no CUDA kernel for
+    integers, so an int16 batch is pooled as its float32 copy, which holds
+    every int16 exactly) on ``planes`` (CUDA events), and the bound: the
+    comparisons at the float32 rate, or for integers at the int32 rate."""
     import torch
     import torch.nn.functional as F
 
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.ops.stencils import moving_max_reference
 
+    floating = planes.dtype.is_floating_point
+    pooled_planes = planes if floating else planes.float()
+
     def library():
-        return F.max_pool2d(planes[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
+        return F.max_pool2d(pooled_planes[:, None], kernel_size=3, stride=1, padding=1)[:, 0]
 
     got = cuda_stencils.moving_max(planes, 3)
     pooled = library()
     torch.cuda.synchronize()
-    check(torch.equal(got, pooled), "moving_max differs from max_pool2d at size 3")
+    check(torch.equal(got, pooled.to(planes.dtype)), "moving_max differs from max_pool2d at size 3")
     print("kernel check: moving_max %s size 3 equal to max_pool2d(3, stride 1, padding 1)"
           % (tuple(planes.shape),))
     del got, pooled
@@ -1561,7 +1589,7 @@ def time_moving_max(planes):
     library_ms = cuda_ms(library, 20)
     n_bytes = 2 * planes.numel() * planes.element_size()
     ops = planes.numel() * 8  # a 3x3 window: 8 comparisons per output
-    bound_ms, bound_by = bound(n_bytes, ops, FP32_OPS_PER_S)
+    bound_ms, bound_by = bound(n_bytes, ops, FP32_OPS_PER_S if floating else INT32_OPS_PER_S)
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, shape=list(planes.shape))
 
@@ -1747,7 +1775,7 @@ def compare_cells(port, host, no_data_value):
 
 
 def check_algebra_path(label, device, view, request, interpolation, corner, host_nodes=0,
-                       share=0.0, sigma_groups=False):
+                       share=0.0, sigma_groups=False, sampled_tiles=16):
     """One raster-algebra, temporal, tiled geometry or file path at full
     size; returns (host Mpx/s, the evaluate_tiled values).  Every node that returns pixels runs on the
     card but ``host_nodes`` per tile (Rasterize's, which has no twin): the
@@ -1755,7 +1783,7 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
     on the host while planning; the tiles run in as many batches as a
     MemorySource's would (more where a cross-CRS Smooth's sigma differs
     between tile rows, ``sigma_groups``), the Gaussian launched once per
-    batch; a 64^2 corner and 16 sampled tiles are held to compute_host:
+    batch; a 64^2 corner and ``sampled_tiles`` tiles are held to compute_host:
     bitwise (at most ``share`` of the cells differing, the headline's rule
     for a cross-CRS nearest warp), or for the cross-CRS bilinear path
     within BILINEAR_ATOL with at most BILINEAR_FILL_SHARE of the cells
@@ -1807,7 +1835,7 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
               "%s: a node ran on the host" % label)
         crop_cells = compare_cells(card_crop, host_values(view, crop), result["no_data_value"])
 
-        sampled = list(range(0, len(tiles), len(tiles) // 16))[:16]
+        sampled = list(range(0, len(tiles), len(tiles) // sampled_tiles))[:sampled_tiles]
         t0 = time.perf_counter()
         host_tiles = [host_values(view, tiles[k]) for k in sampled]
         host_s = time.perf_counter() - t0
@@ -1878,7 +1906,11 @@ def agg_matrix(frame, column="agg"):
 #: in float64 with atomics on the card, so they stay within one float32
 #: ulp of the host's sequential sums after the rounding to float32
 ZONAL_EXACT = ("median", "p90", "max", "count-above")
-ZONAL_HOST_BUDGET_S = 90.0
+#: the requests after mean and median are held to compute_host whole only
+#: while the host's seconds so far stay under a third of this (60: the
+#: mean's and median's 25-29 s send p90 to the sub-area too; at 90 its
+#: whole request took 18.5 s of a script that must end within 700 s)
+ZONAL_HOST_BUDGET_S = 60.0
 
 
 def compare_zonal(name, port, host):
@@ -2612,13 +2644,13 @@ WMS_ZOOMS = (14, 15, 16)
 WMS_TILE = 256
 WMS_ORIGIN = 20037508.342789244  # half the web Mercator world's width
 #: the last zoom is cut to this many of its tile rows, the middle ones
-#: (the phase's time budget: all 18 rows took 129.5 s on an NVIDIA H100
-#: 80GB HBM3 at 700 W, PERF.md section 4)
-WMS_LAST_ZOOM_ROWS = 9
+#: (the phase's time budget: all 18 rows took 129.5 s and 9 rows 97.2 s
+#: on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 4)
+WMS_LAST_ZOOM_ROWS = 3
 #: wms_serve.main's result cache
 WMS_CACHE_BYTES = 256 * 2**20
 #: tiles a layer held to compute_host, spread over the zooms
-WMS_SAMPLE = 32
+WMS_SAMPLE = 16
 WMS_FEATURE_INFO = 16
 WMS_THREADS = 4
 WMS_CONCURRENT_TILES = 64
@@ -3254,8 +3286,10 @@ def check_auto_routing(card, device, folder, sheet, headline_view, headline_req,
     (auto_views) and ``per_edge`` requests of each edge (auto_requests:
     144 at the defaults), the router
     exploring from an empty table whose state file lives in ``folder``;
-    every route taken, the Gaussian launches per route, each card-routed
-    answer against compute_host; the table's final rates and settled
+    every route taken, the Gaussian launches per route, the first
+    card-routed answer of each view and edge against compute_host (every
+    one until the host's 19 s of it had to fit the script into 700 s);
+    the table's final rates and settled
     routes per view and edge; after save and a reseeded reset, one
     request per key takes its settled route; status.snapshot(), and a
     request of the largest edge under the Profiler and torch_trace.  Returns
@@ -3302,7 +3336,7 @@ def check_auto_routing(card, device, folder, sheet, headline_view, headline_req,
                 entry["seconds"][route].append(seconds)
                 launches["gaussian_blur"] += cuda_stencils.launches
                 launches["moving_max"] += cuda_stencils.moving_max_launches
-                if route == "torch":
+                if route == "torch" and entry["torch"] == 1:
                     t0 = time.perf_counter()
                     host = host_answer(view, request, config.get("geomodeling.tile-size"))
                     host_s += time.perf_counter() - t0
@@ -3390,9 +3424,14 @@ def check_auto_routing(card, device, folder, sheet, headline_view, headline_req,
 # --- the building-rings phase ---
 
 #: the building-rings path: the building-heights footprints inside a
-#: RINGS_SIDE^2 (about 2 km^2) sub-area of the sheet, buffered by
+#: RINGS_SIDE^2 sub-area of the sheet (about 400 of them; 1400 m and
+#: 1209 footprints took 48.6 s of the phase, and building-formats' round
+#: over the same square 56.66 s of compute_host), buffered by
 #: RINGS_DISTANCE m, minus the footprint, simplified at RINGS_SIMPLIFY m
-RINGS_SIDE = 1400.0
+RINGS_SIDE = 800.0
+#: the rings' export tiles: a quarter of the square, so that rings are
+#: clipped across tile borders as over 1400 m in 1000 m tiles
+RINGS_TILE = 400.0
 RINGS_DISTANCE = 10.0
 RINGS_SIMPLIFY = 0.25
 RINGS_SUB = 300.0
@@ -3506,7 +3545,7 @@ def rings_clock():
     ])
 
 
-def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=BUILDING_TILE,
+def check_building_rings(card, device, folder, sheet, side=RINGS_SIDE, tile=RINGS_TILE,
                          sub_size=RINGS_SUB, count=BUILDINGS):
     """The building-rings phase: the rings view (build_rings_view) over
     the footprints inside a side^2 sub-area of the sheet, exported by
@@ -3759,10 +3798,10 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
     (``heights.gpkg`` in ``folder``), one tile to compute_host.  (b) The
     footprints of the rings' side^2 square in each format of ``formats``,
     read back through GeometryFileSource (GPX's tracks through a 1 m
-    Buffer) and asked once for the whole square on the card: each equal
-    to compute_host of its view, and the formats that keep RD coordinates
-    to the GML view's answer row for row as well (a round trip through
-    degrees moves vertices in their last bits).  Returns ({kernel:
+    Buffer) and asked once for the whole square on the card: the formats
+    that keep RD coordinates equal to the GML view's answer row for row,
+    the others (a round trip through degrees moves vertices in their last
+    bits) to compute_host of their view.  Returns ({kernel:
     launches of the path}, the numbers)."""
     from dask_geomodeling_tpu_torch import compute_host
     from dask_geomodeling_tpu_torch.core.tokens import tokenize
@@ -3904,35 +3943,38 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
         round_launches["moving_max"] += cuda_stencils.moving_max_launches
         check(cuda_stencils.launches == 1, "building-formats %s: %d Gaussian launches"
               % (fmt, cuda_stencils.launches))
-        t0 = time.perf_counter()
-        host = compute_host(*fmt_view.get_compute_graph(**request))["features"]
-        fmt_host_s = time.perf_counter() - t0
         check(len(features) == len(square), "building-formats %s: %d rows for the square's %d "
               "footprints" % (fmt, len(features), len(square)))
         ulps = mean_ulps([fmt_mean], request, device)
-        differ = compare_heights("building-formats " + fmt, frame_rows(features),
-                                 frame_rows(host), ulps)
-        against = "compute_host"
         if crs in (projection, None):
-            # RD kept exactly: the GML view's answers too (a shapefile
-            # turns its outer rings clockwise: the geometry's WKB and the
-            # area's last bits differ, the height fields do not)
+            # RD kept exactly: held to the GML view's answers, not to
+            # compute_host (a shapefile turns its outer rings clockwise:
+            # the geometry's WKB and the area's last bits differ, the
+            # height fields do not)
             fields = HEIGHT_FIELDS if fmt != "zip" else ("h_mean", "h_p90", "relief")
             labels = features.index.values.tolist()
             fids = dict(zip(labels, format_fids(fmt, features, square.index.values.tolist())))
-            differ += compare_heights(
+            differ = compare_heights(
                 "building-formats %s against the GML view" % fmt,
                 height_rows(features, labels, fields),
                 {label: {k: reference_rows[fids[label]][k] for k in fields} for label in labels},
                 ulps)
-            against += " and the GML view's %s" % "/".join(fields)
+            against, fmt_host_s = "the GML view's %s" % "/".join(fields), None
+        else:
+            t0 = time.perf_counter()
+            host = compute_host(*fmt_view.get_compute_graph(**request))["features"]
+            fmt_host_s = time.perf_counter() - t0
+            differ = compare_heights("building-formats " + fmt, frame_rows(features),
+                                     frame_rows(host), ulps)
+            against = "compute_host"
         numbers[fmt] = dict(rows=len(features), rows_read=rows_read, write_s=fmt_write_s,
                             read_s=fmt_read_s, card_s=card_s, host_s=fmt_host_s,
                             h_mean_rows_differing=len(differ), bytes=os.path.getsize(path))
         print("building-formats %s: %d rows (read %d), write %.3f s, read %.3f s, card %.3f s, "
-              "host %.3f s; equal to %s (h_mean differing in %d rows) [%s]"
-              % (fmt, len(features), rows_read, fmt_write_s, fmt_read_s, card_s, fmt_host_s,
-                 against, len(differ), card))
+              "host %s; equal to %s (h_mean differing in %d rows) [%s]"
+              % (fmt, len(features), rows_read, fmt_write_s, fmt_read_s, card_s,
+                 "not run" if fmt_host_s is None else "%.3f s" % fmt_host_s, against,
+                 len(differ), card))
     for kernel, n in round_launches.items():
         launches[kernel] += n
     total_s = time.perf_counter() - started
@@ -3946,37 +3988,395 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
         square=len(square), formats=numbers, phase_s=total_s)
 
 
-def compare_tiles(label, device, view, request, share=HEADLINE_SHARE):
-    """``view`` over ``request`` through evaluate_tiled on the card, held
-    tile by tile to compute_host (a stencil's answer depends on the
-    request window): at most ``share`` of the cells differing.  Returns
-    (Gaussian launches, differing cells, cells)."""
-    from dask_geomodeling_tpu_torch import evaluate_tiled
-    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+# --- dem-formats: an SRTM tile and the plain-grid formats ---
+
+#: the SRTM1 tile over Eindhoven and Nijmegen: 1 arc-second, node-registered
+DEM_NAME = "N51E005.hgt"
+DEM_CORNER = (5, 51)  # longitude, latitude of its south-west corner
+DEM_N = 3601
+#: the SRTM3 decimation the text formats take (a real SRTM3 tile's size)
+DEM_TEXT_N = 1201
+DEM_NODATA = -32768
+DEM_SMOOTH_M = 100.0  # about three cells of 31 m
+DEM_BINS = [10, 20, 30, 40, 60, 80]
+#: (b): the tile's footprint in RD New at 25 m cells
+DEM_RD_PX = 4096
+DEM_RD_CELL = 25.0
+DEM_SAMPLED = 8  # tiles a format is held to compute_host on
+DEM_FORMATS = ("dt2", "bil", "grd", "sgrd", "rst", "asc", "xyz")
+
+
+def dem_heights(n=DEM_N, seed=15):
+    """Synthetic SRTM heights (int16 metres, rows north to south) over
+    N51E005: a plain rising eastward from about 15 to 40 m, the moraine
+    near Nijmegen in the north-east up to about 90 m, a valley, 1.5 m of
+    noise, and six rectangles of voids (-32768)."""
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0.0, 1.0, n)
+    y, x = t[:, None], t[None, :]
+    heights = (15 + 25 * x + 55 * np.exp(-((x - 0.85) ** 2 + (y - 0.15) ** 2) / 0.01)
+               - 8 * np.exp(-((y - 0.3 - 0.2 * x) ** 2) / 0.002)
+               + 3 * np.sin(40 * x) * np.cos(31 * y) + rng.normal(0, 1.5, (n, n)))
+    heights = np.rint(heights).astype(np.int16)
+    for _ in range(6):
+        r, c = rng.randint(0, n - 40, 2)
+        h, w = rng.randint(3, 40, 2)
+        heights[r:r + h, c:c + w] = DEM_NODATA
+    return heights
+
+
+def dem_geo_transform(n):
+    """The GDAL geotransform of an n^2 SRTM tile at DEM_CORNER (io/dem.py)."""
+    res = 1.0 / (n - 1)
+    lon, lat = DEM_CORNER
+    return (lon - res / 2, res, 0.0, lat + 1 + res / 2, 0.0, -res)
+
+
+def dem_request(n):
+    """The tile's own n^2 grid in EPSG:4326."""
+    x0, dx, _, y0, _, dy = dem_geo_transform(n)
+    return dict(mode="vals", projection="EPSG:4326", width=n, height=n,
+                bbox=(x0, y0 + dy * n, x0 + dx * n, y0))
+
+
+def dem_rd_request(n=DEM_N, px=DEM_RD_PX, cell=DEM_RD_CELL):
+    """A px^2 request of ``cell`` m in EPSG:28992 centred on the tile."""
+    from dask_geomodeling_tpu_torch.geo import transform_extent
+
+    x1, y1, x2, y2 = transform_extent(dem_request(n)["bbox"], "EPSG:4326", "EPSG:28992")
+    cx, cy = round((x1 + x2) / 2), round((y1 + y2) / 2)
+    half = px * cell / 2
+    return dict(mode="vals", projection="EPSG:28992", width=px, height=px,
+                bbox=(cx - half, cy - half, cx + half, cy + half))
+
+
+def write_dted(path, heights):
+    """A DTED file of ``heights`` (rows north to south) at DEM_CORNER:
+    the UHL, DSI and ACC records and one data record per longitude
+    column, south to north in sign-magnitude int16 with its checksum;
+    voids become DTED's -32767.  Both intervals are 1 arc-second, so
+    the grid is the SRTM1 tile's (a level 2 file at 51 degrees north
+    would take 2 arc-seconds of longitude)."""
+    n_rows, n_cols = heights.shape
+    lon, lat = DEM_CORNER
+    uhl = bytearray(b" " * 80)
+    uhl[0:4] = b"UHL1"
+    uhl[4:12] = b"%03d0000E" % lon
+    uhl[12:20] = b"%03d0000N" % lat
+    uhl[20:24] = b"%04d" % round(36000 / (n_cols - 1))
+    uhl[24:28] = b"%04d" % round(36000 / (n_rows - 1))
+    uhl[47:51] = b"%04d" % n_cols
+    uhl[51:55] = b"%04d" % n_rows
+    columns = heights[::-1].T.astype(np.int32)  # (cols, south->north)
+    columns[columns == DEM_NODATA] = -32767
+    magnitude = np.ascontiguousarray(np.where(columns < 0, -columns | 0x8000, columns), ">u2")
+    records = np.zeros((n_cols, 12 + 2 * n_rows), np.uint8)
+    records[:, 0] = 0xAA
+    index = np.arange(n_cols, dtype=">u4").view(np.uint8).reshape(n_cols, 4)
+    records[:, 1:4] = index[:, 1:]  # the block count
+    records[:, 4:6] = index[:, 2:]  # the longitude count
+    records[:, 8:-4] = magnitude.view(np.uint8).reshape(n_cols, -1)
+    checksum = records[:, :-4].astype(np.uint64).sum(axis=1).astype(">u4")
+    records[:, -4:] = checksum.view(np.uint8).reshape(n_cols, 4)
+    with open(path, "wb") as f:
+        f.write(bytes(uhl) + b"DSIU" + b" " * 644 + b"ACC " + b" " * 2696)
+        f.write(records.tobytes())
+
+
+def write_idrisi(path, heights, geo_transform):
+    """An Idrisi pair: ``path`` (.rst, little-endian int16 rows north to
+    south) and its .rdc, edge-registered, in latlong."""
+    n_rows, n_cols = heights.shape
+    x0, dx, _, y0, _, dy = geo_transform
+    heights.astype("<i2").tofile(path)
+    with open(os.path.splitext(path)[0] + ".rdc", "w") as f:
+        f.write("file format : IDRISI Raster A.1\nfile title  : %s\ndata type   : integer\n"
+                "file type   : binary\ncolumns     : %d\nrows        : %d\n"
+                "ref. system : latlong\nref. units  : deg\nunit dist.  : 1.0\n"
+                "min. X      : %r\nmax. X      : %r\nmin. Y      : %r\nmax. Y      : %r\n"
+                "flag value  : %d\nflag def'n  : missing data\n"
+                % (os.path.basename(path), n_cols, n_rows, x0, x0 + dx * n_cols,
+                   y0 + dy * n_rows, y0, DEM_NODATA))
+
+
+def write_ascii_grid(path, heights, geo_transform):
+    """An Esri ASCII grid of ``heights`` (corner-registered header)."""
+    n_rows, n_cols = heights.shape
+    x0, dx, _, y0, _, dy = geo_transform
+    with open(path, "w") as f:
+        f.write("ncols %d\nnrows %d\nxllcorner %r\nyllcorner %r\ncellsize %r\n"
+                "NODATA_value %d\n" % (n_cols, n_rows, x0, y0 + dy * n_rows, dx, DEM_NODATA))
+        f.write("\n".join(" ".join(row) for row in heights.astype(str)) + "\n")
+
+
+def write_xyz(path, heights, geo_transform):
+    """XYZ records of ``heights``' cell centres, row by row from the
+    north, the voids left out (the reader fills the gaps with nodata)."""
+    n_rows, n_cols = heights.shape
+    x0, dx, _, y0, _, dy = geo_transform
+    xs = ["%r" % (x0 + dx * (c + 0.5)) for c in range(n_cols)]
+    with open(path, "w") as f:
+        for r in range(n_rows):
+            y = "%r" % (y0 + dy * (r + 0.5))
+            f.write("".join("%s %s %d\n" % (x, y, z) for x, z in zip(xs, heights[r].tolist())
+                            if z != DEM_NODATA))
+
+
+def write_dem_format(fmt, folder, heights):
+    """Write ``heights`` as ``fmt`` into ``folder``; returns the file name
+    a RasterFileSource reads.  The port's writers where it has one
+    (write_envi as .bil, write_surfer, write_saga), the others composed."""
+    from dask_geomodeling_tpu_torch.io.envi import write_envi
+    from dask_geomodeling_tpu_torch.io.simplegrids import write_saga, write_surfer
+
+    n = heights.shape[0]
+    gt = dem_geo_transform(n)
+    name = DEM_NAME if (fmt, n) == ("hgt", DEM_N) else "N51E005_%d.%s" % (n, fmt)
+    path = os.path.join(folder, name)
+    if fmt == "hgt":
+        heights.astype(">i2").tofile(path)
+    elif fmt == "dt2":
+        write_dted(path, heights)
+    elif fmt == "bil":
+        write_envi(path, heights[None], geo_transform=gt, projection="EPSG:4326",
+                   no_data_value=DEM_NODATA)
+    elif fmt == "grd":
+        write_surfer(path, heights[None], gt, no_data_value=DEM_NODATA)
+    elif fmt == "sgrd":
+        write_saga(path, heights[None], gt, no_data_value=DEM_NODATA)
+    elif fmt == "rst":
+        write_idrisi(path, heights, gt)
+    elif fmt == "asc":
+        write_ascii_grid(path, heights, gt)
+    elif fmt == "xyz":
+        write_xyz(path, heights, gt)
+    else:
+        raise ValueError(fmt)
+    return name
+
+
+def build_dem_view(name):
+    """Classify(MovingMax(Smooth(RasterFileSource(name), 100 m), 3), bins):
+    height classes of the smoothed local maximum."""
+    from dask_geomodeling_tpu_torch import raster as port
+
+    source = port.RasterFileSource(name)
+    return port.Classify(port.MovingMax(port.Smooth(source, DEM_SMOOTH_M), 3), DEM_BINS)
+
+
+def dem_frames(view, request, tiles_in_batch, label):
+    """(the Gaussian's frame shape, the moving max's, the sigma, ``label``)
+    in a batch of ``tiles_in_batch`` of ``request``'s first tile: MovingMax
+    grows the tile by 1 on each side, Smooth that by its margin."""
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
-    before = cuda_stencils.launches
+    sy, sx = smooth_sigma(view, tile_requests(request, TILE)[0][0])
+    my, mx = int(round(3 * sy)), int(round(3 * sx))
+    return ((tiles_in_batch, TILE + 2 + 2 * my, TILE + 2 + 2 * mx),
+            (tiles_in_batch, TILE + 2, TILE + 2), (sy, sx), label)
+
+
+def check_dem_kernels(device, frames):
+    """Both kernels on int16 frames of each of the dem-formats batch shapes
+    ``frames`` ([(Gaussian shape, moving-max shape, sigma, label)]),
+    torch.equal to their plain versions; returns the records' numbers at
+    the first."""
+    import torch
+
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import (
+        gaussian_blur_reference,
+        moving_max_reference,
+    )
+
+    rng = np.random.RandomState(16)
+    records = None
+    for gaussian_shape, moving_shape, sigma, label in frames:
+        planes = torch.from_numpy(rng.randint(0, 120, gaussian_shape).astype(np.int16)).to(device)
+        got = cuda_stencils.gaussian_blur(planes, *sigma, 0)
+        want = gaussian_blur_reference(planes, *sigma, 0)
+        check(got.dtype == torch.int16 and torch.equal(got, want),
+              "gaussian_blur's integer entry differs from its plain version at %s" % label)
+        gaussian_err = float((got.double() - want.double()).abs().max())
+        maxima = torch.from_numpy(rng.randint(0, 120, moving_shape).astype(np.int16)).to(device)
+        maxima[:, ::97, ::89] = np.iinfo(np.int16).min  # MovingMax's stand-in for nodata
+        got_max = cuda_stencils.moving_max(maxima, 3)
+        want_max = moving_max_reference(maxima, 3)
+        check(got_max.dtype == torch.int16 and torch.equal(got_max, want_max),
+              "moving_max differs from its plain version at %s" % label)
+        max_err = float((got_max.int() - want_max.int()).abs().max())
+        print("kernel check: gaussian_blur integer storage int16 %s sigma=(%.6f, %.6f) and "
+              "moving_max int16 %s size 3, %s: equal=True max_abs_err=%r, %r"
+              % (gaussian_shape, sigma[0], sigma[1], moving_shape, label, gaussian_err, max_err))
+        del got, want, got_max, want_max
+        if records is None:
+            records = (dict(time_gaussian(planes, sigma), max_abs_err=gaussian_err,
+                            path="dem-formats (int16)"),
+                       dict(time_moving_max(maxima), max_abs_err=max_err,
+                            path="dem-formats (int16)"))
+    return records
+
+
+def check_dem_formats(card, device, folder, n=DEM_N, text_n=DEM_TEXT_N, rd_px=DEM_RD_PX,
+                      rd_cell=DEM_RD_CELL):
+    """The dem-formats phase.  (a) A synthetic SRTM1 tile, N51E005.hgt
+    (n^2 int16 metres), under build_dem_view, asked whole at its own grid
+    in EPSG:4326 in 512^2 tiles: every tile bitwise equal to compute_host,
+    the Gaussian's integer entry and the moving max launched on its int16
+    frames.  (b) The same view asked in RD New (rd_px^2 of rd_cell m over
+    the tile), within HEADLINE_SHARE of compute_host (check_algebra_path).
+    (c) The same heights written as DTED, ENVI (.bil), Surfer, SAGA and
+    Idrisi at n^2, and at the SRTM3 decimation (text_n^2) as an .hgt, an
+    Esri ASCII grid and XYZ: each read back and asked once on the card at
+    its own grid, sampled tiles bitwise to compute_host, and the integer
+    formats' whole answer equal to the .hgt view's of the same size (a
+    Surfer grid holds float64).  Returns ({kernel: launches of the
+    path}, the numbers, the kernels' numbers)."""
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    started = time.perf_counter()
+    launches = {"gaussian_blur": 0, "moving_max": 0}
+    numbers = {}
+    with config.set({"geomodeling.root": folder}):
+        heights = dem_heights(n)
+        t0 = time.perf_counter()
+        name = write_dem_format("hgt", folder, heights)
+        write_s = time.perf_counter() - t0
+        pipeline.clear_read_cache()
+        t0 = time.perf_counter()
+        data = pipeline.read_geotiff_cached(os.path.join(folder, name))
+        read_s = time.perf_counter() - t0
+        check(data.array.dtype == np.int16 and np.array_equal(data.array[0], heights),
+              "dem-formats: the .hgt read back differs")
+        view = build_dem_view(name)
+        frame_dtype = view.args[0].dtype
+        check(frame_dtype == np.int16, "dem-formats: the frames are %s, not int16" % frame_dtype)
+
+        # (a) the tile at its own grid
+        request = dem_request(n)
+        values, path_launches, batches, card_s, host_s = compare_tiles(
+            "dem-formats (a) %s" % name, device, view, request, share=0.0)
+        for kernel, count in path_launches.items():
+            check(count > 0, "dem-formats: %s did not launch on the int16 frames" % kernel)
+            launches[kernel] += count
+        tiles = tile_requests(request, TILE)[0]
+        native_frames = dem_frames(view, request, -(-len(tiles) // batches),
+                                   "the native grid's first batch")
+        numbers["hgt"] = dict(n=n, write_s=write_s, read_s=read_s, card_s=card_s, host_s=host_s,
+                              batches=batches, bytes=data.array.nbytes)
+        answers = {n: values}
+
+        # (b) the tile in RD New
+        rd_request = dem_rd_request(n, rd_px, rd_cell)
+        cuda_stencils.reset_launches()
+        t0 = time.perf_counter()
+        rd_host, _ = check_algebra_path(
+            "dem-formats (b) RD", device, view, rd_request, "nearest",
+            (rd_request["bbox"][0], rd_request["bbox"][3]), share=HEADLINE_SHARE)
+        numbers["rd"] = dict(seconds=time.perf_counter() - t0, host_mpx_per_s=rd_host)
+        for kernel, count in (("gaussian_blur", cuda_stencils.launches),
+                              ("moving_max", cuda_stencils.moving_max_launches)):
+            check(count > 0, "dem-formats (b): %s did not launch" % kernel)
+            launches[kernel] += count
+        rd_frames = dem_frames(view, rd_request, BATCH, "the RD batch")
+
+        # (c) the formats, the text ones at the SRTM3 decimation
+        text_heights = heights[:: (n - 1) // (text_n - 1), :: (n - 1) // (text_n - 1)]
+        for fmt in ("hgt",) + DEM_FORMATS:
+            grid = text_heights if fmt in ("hgt", "asc", "xyz") else heights
+            size = grid.shape[0]
+            t0 = time.perf_counter()
+            name = write_dem_format(fmt, folder, grid)
+            fmt_write_s = time.perf_counter() - t0
+            path = os.path.join(folder, name)
+            pipeline.clear_read_cache()
+            t0 = time.perf_counter()
+            data = pipeline.read_geotiff_cached(path)
+            fmt_read_s = time.perf_counter() - t0
+            fmt_request = dem_request(size)
+            tiles = tile_requests(fmt_request, TILE)[0]
+            sampled = list(range(0, len(tiles), max(1, len(tiles) // DEM_SAMPLED)))[:DEM_SAMPLED]
+            values, fmt_launches, _, fmt_card_s, fmt_host_s = compare_tiles(
+                "dem-formats (c) %s" % name, device, build_dem_view(name), fmt_request,
+                share=0.0, sampled=sampled)
+            for kernel, count in fmt_launches.items():
+                launches[kernel] += count
+            answers.setdefault(size, values)
+            integer = data.array.dtype.kind in "iu"
+            check(not integer or np.array_equal(values, answers[size]),
+                  "dem-formats %s: the answer differs from the .hgt view's" % fmt)
+            # the format's files (a pair's header too), removed once measured
+            stem = os.path.splitext(name)[0] + "."
+            files = [os.path.join(folder, f) for f in os.listdir(folder) if f.startswith(stem)]
+            n_bytes = sum(os.path.getsize(f) for f in files)
+            for f in files:
+                os.remove(f)
+            numbers[fmt if grid is heights else fmt + "3"] = dict(
+                n=size, dtype=str(data.array.dtype), write_s=fmt_write_s, read_s=fmt_read_s,
+                card_s=fmt_card_s, host_s=fmt_host_s, bytes=n_bytes)
+            print("dem-formats %s: %d^2 %s, %d bytes, write %.3f s, read %.3f s, card %.3f s, "
+                  "host %.3f s (%d tiles); equal to compute_host%s [%s]"
+                  % (fmt, size, data.array.dtype, n_bytes, fmt_write_s, fmt_read_s, fmt_card_s,
+                     fmt_host_s, len(sampled), " and to the .hgt view's answer" if integer else "",
+                     card))
+    pipeline.clear_read_cache()
+    kernels = check_dem_kernels(device, [rd_frames, native_frames])
+    total_s = time.perf_counter() - started
+    print("dem-formats: %d Gaussian and %d moving-max launches on the path; the phase %.1f s "
+          "[%s]" % (launches["gaussian_blur"], launches["moving_max"], total_s, card))
+    numbers["phase_s"] = total_s
+    return launches, numbers, kernels
+
+
+def compare_tiles(label, device, view, request, share=HEADLINE_SHARE, sampled=None):
+    """``view`` over ``request`` through evaluate_tiled on the card, held
+    tile by tile to compute_host (a stencil's answer depends on the
+    request window), every tile or those of ``sampled``: at most ``share``
+    of the cells differing.  Returns (the values, {kernel: launches},
+    batches, card s, host s)."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import evaluate_tiled
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    before = (cuda_stencils.launches, cuda_stencils.moving_max_launches,
+              tile_runtime.batches_run)
+    t0 = time.perf_counter()
     result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
-    launched = cuda_stencils.launches - before
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {"gaussian_blur": cuda_stencils.launches - before[0],
+                "moving_max": cuda_stencils.moving_max_launches - before[1]}
+    batches = tile_runtime.batches_run - before[2]
     values = result["values"]
     tiles, nx = tile_requests(request, TILE)
+    picks = range(len(tiles)) if sampled is None else sampled
     differing = cells = 0
-    for k, tile in enumerate(tiles):
+    t0 = time.perf_counter()
+    for k in picks:
         (rows, cols), (host_rows, host_cols) = tile_cells(
             k, nx, request["width"], request["height"], TILE)
-        host = host_values(view, tile)[:, host_rows, host_cols]
+        host = host_values(view, tiles[k])[:, host_rows, host_cols]
         differing += int(np.count_nonzero(values[:, rows, cols] != host))
         cells += host.size
+    host_s = time.perf_counter() - t0
     data_share = float((values != result["no_data_value"]).mean())
-    print("%s: %s %s, %d tiles, %d Gaussian launches, data in %.4f of the cells; %d of %d "
-          "cells differ from compute_host (share %r)" % (label, values.shape, values.dtype,
-                                                         len(tiles), launched, data_share,
-                                                         differing, cells, differing / cells))
+    print("%s: %s %s, %d tiles in %d batches, %d Gaussian and %d moving-max launches, card "
+          "%.3f s, data in %.4f of the cells; %d tiles against compute_host (%.3f s): %d of %d "
+          "cells differ (share %r)" % (label, values.shape, values.dtype, len(tiles), batches,
+                                       launches["gaussian_blur"], launches["moving_max"], card_s,
+                                       data_share, len(picks), host_s, differing, cells,
+                                       differing / cells))
     check(values.shape == (1, request["height"], request["width"]), "%s: output shape" % label)
-    check(launched > 0, "%s: the Gaussian did not launch" % label)
+    check(launches["gaussian_blur"] > 0, "%s: the Gaussian did not launch" % label)
     check(data_share > 0.01, "%s: output is all nodata" % label)
     check(differing <= share * cells, "%s: differing share above %g" % (label, share))
-    return launched, differing, cells
+    return values, launches, batches, card_s, host_s
 
 
 def check_crs_families(device, folder, px=FAMILY_PX):
@@ -3992,7 +4392,7 @@ def check_crs_families(device, folder, px=FAMILY_PX):
     for label, projection, place in CRS_FAMILIES:
         view, request = build_family_view(projection, place, px)
         launched += compare_tiles("crs-families %s (%s)" % (label, projection[:24]), device,
-                                  view, request)[0]
+                                  view, request)[1]["gaussian_blur"]
     grid = os.path.join(folder, "amersfoort.gsb")
     write_amersfoort_grid(grid)
     view, request = build_family_view(*NTV2_PLACE, px)
@@ -4002,7 +4402,7 @@ def check_crs_families(device, folder, px=FAMILY_PX):
     with config.set({"geomodeling.ntv2-grids": {"Amersfoort": grid}}):
         shifted = transform_points(*centre, "EPSG:3857", "EPSG:28992")
         launched += compare_tiles("crs-families ntv2 (EPSG:28992, Amersfoort grid)", device,
-                                  view, request)[0]
+                                  view, request)[1]["gaussian_blur"]
     moved = float(np.hypot(shifted[0][0] - helmert[0][0], shifted[1][0] - helmert[1][0]))
     print("crs-families ntv2: the grid moves the request's centre by %.4f m from the "
           "Helmert answer" % moved)
@@ -4010,11 +4410,12 @@ def check_crs_families(device, folder, px=FAMILY_PX):
     return launched
 
 
-#: border-reproject's source: 4096^2 cells of 2 m over the 8192 m square
+#: border-reproject's source: 2048^2 cells of 4 m over the 8192 m square
 #: an 8192^2 source of 1 m covered (its 17-digit floats took 77 s through
-#: JSON on the card machine; a quarter of the cells take a quarter)
-BORDER_PX = 4096
-BORDER_CELL = 2.0
+#: JSON on the card machine, 4096^2 of 2 m 17-22 s; a sixteenth of the
+#: cells take a sixteenth)
+BORDER_PX = 2048
+BORDER_CELL = 4.0
 
 
 def check_border(px=BORDER_PX, cell=BORDER_CELL):
@@ -4278,8 +4679,10 @@ def run_phases(card, device, folder, mark):
     mark("building the temporal sources")
     for label, (view, request, interpolation, corner) in temporal.items():
         cuda_stencils.reset_launches()
+        # the 48-frame paths' host takes about a second a tile: 8 tiles
         algebra_host[label], _ = check_algebra_path(
-            label, device, view, request, interpolation, corner)
+            label, device, view, request, interpolation, corner,
+            sampled_tiles=16 if label == "temporal-mean" else 8)
         launches[label] = {"gaussian_blur": cuda_stencils.launches,
                            "moving_max": cuda_stencils.moving_max_launches}
     check(launches["temporal-median"]["moving_max"] > 0,
@@ -4359,6 +4762,10 @@ def run_phases(card, device, folder, mark):
     check(launches["building-formats"]["gaussian_blur"] > 0,
           "building-formats: the Gaussian did not launch")
     mark("the building-formats path")
+    launches["dem-formats"], dem, dem_kernels = check_dem_formats(card, device, folder)
+    gaussian.append(dem_kernels[0])
+    moving.append(dem_kernels[1])
+    mark("the dem-formats path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -4386,6 +4793,7 @@ def run_phases(card, device, folder, mark):
     timings["auto-routing"] = auto
     timings["building-rings"] = rings
     timings["building-formats"] = formats
+    timings["dem-formats"] = dem
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -227,34 +227,9 @@ def write_png_bytes(values):
     )
 
 
-def _sidecar_projection(path):
-    """The CRS of a sidecar: GDAL's PAM (<path>.aux.xml) SRS before the
-    .prj file; EPSG:4326 without either (the JAX package's
-    io/asciigrid.py:_sidecar_projection)."""
-    from dask_geomodeling_tpu_torch.geo.crs import get_epsg_or_wkt
-    from dask_geomodeling_tpu_torch.io.geotiff import _pam_overrides
-
-    pam_srs, _ = _pam_overrides(path)
-    if pam_srs is not None:
-        try:
-            return get_epsg_or_wkt(pam_srs)
-        except Exception:
-            return pam_srs
-    for ext in (".prj", ".PRJ"):
-        prj = os.path.splitext(path)[0] + ext
-        if os.path.exists(prj):
-            with open(prj) as stream:
-                text = stream.read().strip()
-            if text:
-                try:
-                    return get_epsg_or_wkt(text)
-                except Exception:
-                    return text
-    return "EPSG:4326"
-
-
 def read_png(path):
     """Read a PNG file into a RasterData payload."""
+    from dask_geomodeling_tpu_torch.io.asciigrid import _sidecar_projection
     from dask_geomodeling_tpu_torch.io.geotiff import _pam_overrides
     from dask_geomodeling_tpu_torch.raster.sources import RasterData
 

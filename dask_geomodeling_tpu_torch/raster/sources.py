@@ -4,7 +4,8 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 ``RasterSourceBase`` with its numpy ``process`` (the requested time window
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
-``RasterFileSource`` (GeoTIFF and VRT; its other formats raise
+``RasterFileSource`` (GeoTIFF, VRT, PNG and the plain-grid formats of
+``runtime/pipeline.py:whole_file_reader``; its other formats raise
 NotImplementedError naming the JAX module that reads them), and the twin
 of ``_source_process_jax``.  Both the process and the twin resample as
 ``geomodeling.warp-interpolation`` says ("nearest" or "bilinear").
@@ -380,7 +381,9 @@ class MemorySource(RasterSourceBase):
 
 
 class RasterFileSource(RasterSourceBase):
-    """A raster source reading a GeoTIFF or a VRT mosaic from a path.
+    """A raster source reading a raster file from a path: a GeoTIFF, a VRT
+    mosaic, or a format that decodes whole (PNG, SRTM ``.hgt``, DTED, Esri
+    ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI).
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``
@@ -411,7 +414,10 @@ class RasterFileSource(RasterSourceBase):
         try:
             return self._info
         except AttributeError:
-            from dask_geomodeling_tpu_torch.runtime.pipeline import check_ported_format
+            from dask_geomodeling_tpu_torch.runtime.pipeline import (
+                check_ported_format,
+                whole_file_reader,
+            )
 
             path = safe_abspath(self.url)
             check_ported_format(path)
@@ -419,7 +425,7 @@ class RasterFileSource(RasterSourceBase):
                 from dask_geomodeling_tpu_torch.io.vrt import read_vrt_info
 
                 self._info = read_vrt_info(path)
-            elif path.lower().endswith(".png"):
+            elif whole_file_reader(path) is not None:
                 # no header reader: the whole-file read cache decodes it
                 from dask_geomodeling_tpu_torch.io.geotiff import GeoTIFFInfo
                 from dask_geomodeling_tpu_torch.runtime.pipeline import read_geotiff_cached

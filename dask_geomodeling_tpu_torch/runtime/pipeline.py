@@ -1,15 +1,18 @@
 """The host read caches of raster and vector files.
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
-VRT and PNG: ``read_geotiff_cached`` decodes a whole file into an mtime-validated
-LRU, and ``read_geotiff_window_cached`` one pixel window of a large file
-(block-wise, optionally of an overview level) into another.  Both are
-keyed by ``(path, variable)`` plus the window, on lookup and on store
-alike, so every tile of a request that reads one unchanged file gets the
-same decoded array (the JAX package looks the whole-file entry up by the
-path and stores it by ``(path, variable)``, so its lookups never hit).  A
-rewrite of the file changes its stamp (mtime and size) and is decoded
-again.
+VRT, PNG and the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
+Surfer, SAGA, Idrisi, ENVI): ``read_geotiff_cached`` decodes a whole
+file into an mtime-validated LRU, choosing the reader by suffix in the
+JAX package's order, and ``read_geotiff_window_cached`` one pixel window
+of a large GeoTIFF or VRT (block-wise, optionally of an overview level)
+into another.  Both are keyed by ``(path, variable)`` plus the window, on
+lookup and on store alike, so every tile of a request that reads one
+unchanged file gets the same decoded array (the JAX package looks the
+whole-file entry up by the path and stores it by ``(path, variable)``, so
+its lookups never hit).  A rewrite of the file changes its stamp (mtime
+and size) and is decoded again; an ENVI pair's stamp holds both files',
+so a rewrite of the header alone is seen too.
 
 ``read_vector_cached`` parses a whole vector file into a third LRU, keyed
 by ``(path, layer)`` on lookup and store and validated by the same stamp;
@@ -30,6 +33,7 @@ __all__ = [
     "read_vector_cached",
     "clear_read_cache",
     "check_ported_format",
+    "whole_file_reader",
 ]
 
 _CACHE_LOCK = threading.Lock()
@@ -41,35 +45,66 @@ _VECTOR_CACHE = OrderedDict()
 _VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
-#: JAX module that reads each
+#: JAX module that reads each (an ``.img`` is HFA by its magic)
 _UNPORTED_FORMATS = {
-    (".asc", ".agr", ".xyz"): "io/asciigrid.py",
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
     (".ntf", ".nitf"): "io/nitf.py",
     (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5"): "io/netcdf.py",
     (".hdf", ".h4", ".hdf4"): "io/hdf4.py",
-    (".hgt", ".dt0", ".dt1", ".dt2"): "io/dem.py",
     (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
     (".zarr",): "io/zarr.py",
-    (".grd", ".sgrd", ".sdat", ".rst"): "io/simplegrids.py",
     (".mbtiles",): "io/mbtiles.py",
     (".gpkg",): "io/gpkg_raster.py",
-    (".img",): "io/hfa.py or io/envi.py",
-    (".hdr", ".bsq", ".bil", ".bip", ".envi"): "io/envi.py",
 }
+
+
+def _is_hfa(path):
+    try:
+        with open(path, "rb") as stream:
+            return stream.read(16) == b"EHFA_HEADER_TAG\x00"
+    except OSError:
+        return False
 
 
 def check_ported_format(path):
     """Raise NotImplementedError when ``path`` names a raster format the
-    port does not read (every format but GeoTIFF, VRT and PNG)."""
+    port does not read."""
     lower = path.lower()
-    for suffixes, module in _UNPORTED_FORMATS.items():
+    module = next((m for suffixes, m in _UNPORTED_FORMATS.items() if lower.endswith(suffixes)),
+                  None)
+    if module is None and lower.endswith(".img") and _is_hfa(path):
+        module = "io/hfa.py"
+    if module is not None:
+        raise NotImplementedError(
+            "reading %s is not ported: dask_geomodeling_tpu/%s reads it"
+            % (os.path.basename(path), module)
+        )
+
+
+def whole_file_reader(path):
+    """The reader of a format that decodes whole, chosen by suffix in the
+    JAX package's order (``.img``, ``.dat`` and ``.raw`` are ENVI when a
+    header sits beside them), or None for GeoTIFF and VRT."""
+    from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, png, simplegrids
+
+    lower = path.lower()
+    for suffixes, reader in (
+        ((".asc", ".agr"), asciigrid.read_ascii_grid),
+        ((".xyz",), asciigrid.read_xyz),
+        ((".png",), png.read_png),
+        ((".hgt",), dem.read_hgt),
+        ((".dt0", ".dt1", ".dt2"), dem.read_dted),
+        ((".grd",), simplegrids.read_surfer),
+        ((".sgrd", ".sdat"), simplegrids.read_saga),
+        ((".rst",), simplegrids.read_idrisi),
+        ((".hdr", ".bsq", ".bil", ".bip", ".envi"), envi.read_envi),
+    ):
         if lower.endswith(suffixes):
-            raise NotImplementedError(
-                "reading %s is not ported: dask_geomodeling_tpu/%s reads it"
-                % (os.path.basename(path), module)
-            )
+            return reader
+    if lower.endswith((".img", ".dat", ".raw")) and envi.has_envi_header(path):
+        return envi.read_envi
+    return None
 
 
 def _file_stamp(path):
@@ -95,21 +130,27 @@ def _cached(cache, size, key, stamp, read):
     return data
 
 
+def _envi_stamp(path):
+    """The stamps of both files of the ENVI pair that ``path`` is half of."""
+    from dask_geomodeling_tpu_torch.io.envi import _paths_of
+
+    return tuple(_file_stamp(p) for p in _paths_of(path))
+
+
 def read_geotiff_cached(path, variable=None):
-    """Read a whole GeoTIFF (or VRT mosaic) through an mtime-validated LRU
-    keyed by ``(path, variable)``; ``variable`` is kept in the key as the
-    JAX package keeps it (multi-variable containers are not ported)."""
+    """Read a whole raster file (GeoTIFF, VRT mosaic or a format of
+    ``whole_file_reader``) through an mtime-validated LRU keyed by
+    ``(path, variable)``; ``variable`` is kept in the key as the JAX
+    package keeps it (multi-variable containers are not ported)."""
+    from dask_geomodeling_tpu_torch.io.envi import read_envi
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
-    from dask_geomodeling_tpu_torch.io.png import read_png
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt
 
     path = os.path.abspath(path)
     check_ported_format(path)
-    lower = path.lower()
-    read = read_vrt if lower.endswith(".vrt") else read_png if lower.endswith(".png") else read_geotiff
-    return _cached(
-        _READ_CACHE, _READ_CACHE_SIZE, (path, variable), _file_stamp(path), partial(read, path)
-    )
+    read = whole_file_reader(path) or (read_vrt if path.lower().endswith(".vrt") else read_geotiff)
+    stamp = _envi_stamp(path) if read is read_envi else _file_stamp(path)
+    return _cached(_READ_CACHE, _READ_CACHE_SIZE, (path, variable), stamp, partial(read, path))
 
 
 def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=None):

@@ -351,10 +351,13 @@ def test_window_cache(root, monkeypatch):
     assert len(decodes) == 2
 
 
-@pytest.mark.parametrize("name, module", [("a.asc", "io/asciigrid.py"), ("a.nc", "io/netcdf.py"),
-                                          ("a.zarr", "io/zarr.py"), ("a.grib2", "io/grib.py")])
+@pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.nc", "io/netcdf.py"),
+                                          ("a.zarr", "io/zarr.py"), ("a.grib2", "io/grib.py"),
+                                          ("a.mbtiles", "io/mbtiles.py"),
+                                          ("hfa.img", "io/hfa.py")])
 def test_unported_format_names_its_module(root, name, module):
-    (root / name).write_bytes(b"not read")
+    # an .img is HFA by its magic (an ENVI pair's .img is read)
+    (root / name).write_bytes(b"EHFA_HEADER_TAG\x00" if name.endswith(".img") else b"not read")
     source = port.RasterFileSource(name)
     with pytest.raises(NotImplementedError, match=module):
         source.info

@@ -23,7 +23,9 @@ nine formats) and each format's view on the card against the CPU; the
 border-reproject view (a 512^2 EPSG:25832 source through JSON, 1024^2 in
 EPSG:28992) and each crs-families view at 256^2 against the CPU, the
 crs-families phase with its NTv2 request at that size, the Cumulative
-nestings and the integer JSON phase.  This file imports nothing of JAX
+nestings and the integer JSON phase; the dem-formats view at 512^2 over
+an int16 SRTM tile against the CPU and compute_host, and the phase over a
+1441^2 tile.  This file imports nothing of JAX
 or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -612,3 +614,41 @@ def test_nesting_and_json_integer_phases_on_card():
     device = _card()
     chip_smoke.check_nesting(device)
     chip_smoke.check_json_integer(device, px=256)
+
+
+@pytest.mark.cuda
+def test_dem_formats_view_on_card(tmp_path):
+    """chip_smoke's dem-formats view at 512^2 over a 513^2 SRTM tile: the
+    card's answer bitwise to the CPU's and to compute_host, both kernels
+    launched on its int16 frames."""
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+
+    device = _card()
+    n = 513
+    with config.set({"geomodeling.root": str(tmp_path)}):
+        name = chip_smoke.write_dem_format("hgt", str(tmp_path), chip_smoke.dem_heights(n))
+        view = chip_smoke.build_dem_view(name)
+        assert view.args[0].dtype == np.int16
+        x1, y1, x2, y2 = chip_smoke.dem_request(n)["bbox"]
+        cell = (x2 - x1) / n
+        request = dict(mode="vals", projection="EPSG:4326", width=512, height=512,
+                       bbox=(x1 + cell, y1, x2, y2 - cell))
+        cuda_stencils.reset_launches()
+        card = evaluate_tiled(view, request, tile_size=512, batch=1, device=device)["values"]
+        assert cuda_stencils.launches == 1 and cuda_stencils.moving_max_launches == 1
+        cpu = evaluate_tiled(view, request, tile_size=512, batch=1, device="cpu")["values"]
+        np.testing.assert_array_equal(card, cpu)
+        np.testing.assert_array_equal(card, compute_host(*view.get_compute_graph(**request))["values"])
+
+
+@pytest.mark.cuda
+def test_dem_formats_phase_on_card(tmp_path):
+    """chip_smoke's phase at small size (a 1441^2 tile, the text formats at
+    481^2, RD at 2048^2 of 60 m): every check of the full run."""
+    device = _card()
+    launches, numbers, kernels = chip_smoke.check_dem_formats(
+        "card", device, str(tmp_path), n=1441, text_n=481, rd_px=2048, rd_cell=60.0)
+    assert launches["gaussian_blur"] > 0 and launches["moving_max"] > 0
+    assert sorted(numbers) == sorted(["hgt", "rd", "hgt3", "asc3", "xyz3", "phase_s"]
+                                     + [f for f in chip_smoke.DEM_FORMATS if f not in ("asc", "xyz")])
+    assert [k["path"] for k in kernels] == ["dem-formats (int16)"] * 2
