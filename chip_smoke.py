@@ -93,6 +93,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the checks of 6, the crop and a sampled tile at the nodata block, an
    edge tile sampled) and file-reproject (a 4096^2 sub-area in EPSG:3857,
    at most 5e-4 of the cells differing, as the headline); then
+   zarr-store (check_zarr_store): the sheet written as an xarray-style
+   Zarr v2 store of 512^2 zlib chunks (write_sheet_zarr), file-read's
+   view and request over it with the checks of 6 (8 sampled tiles, no
+   second get_data run), bitwise, every cell
+   equal to file-read's, every tile read chunk-wise by window and
+   ``info`` decoding no data chunk (the seconds of the stamp, the store's
+   metadata and the chunk reads inside "plan"), to_zarr of a 2048^2
+   sub-area read back equal to the card's answer in EPSG:28992, and a
+   chunk rewritten in place seen by a cached window read; then
    file-export (check_file_export): to_file in 2048^2 tiles (35 files, a
    Gaussian launch each), the VRT read back window by window equal to the
    files and to file-read but within the Gaussian's reach of a 512^2 tile
@@ -117,7 +126,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    file-read view, style terrain, 0-10) and ahn-hillshade
    (HillShade(RasterFileSource), gray, 0-255); a slippy map's GetMap
    traffic (every 256^2 EPSG:3857 XYZ tile of zooms 14 and 15 over the
-   sheet and the middle 3 of zoom 16's 18 rows, PNG) through urllib in
+   sheet and the middle one of zoom 16's 18 rows, PNG) through urllib in
    four passes: cold (read caches cleared, no
    result cache), warm, fill (the 256 MiB result cache of wms_serve) and
    hit (byte-identical PNGs, no Gaussian launch); p50/p99/max latency a
@@ -131,7 +140,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    naming the JAX package's classes answered 400; four threads rendering
    64 tiles as the serial render does, one Gaussian launch per
    ahn-smooth tile; a phase split of the sampled tiles and a profiled
-   warm pass, apart from the timed ones;
+   warm pass of ahn-smooth, apart from the timed ones;
 10d. auto-routing (check_auto_routing): geomodeling.executor "auto" over
    the two WMS layers at the sheet's grid and the headline view at its
    request's cell in EPSG:3857: 8 requests of each edge 64, 128, 256,
@@ -965,6 +974,90 @@ def build_file_paths(sheet, reproject_px=FILE_SUB_PX):
     }
 
 
+#: the zarr-store path: the sheet as an xarray-style Zarr v2 group store
+#: of ZARR_CHUNK^2 zlib chunks, its data array ZARR_VARIABLE; to_zarr
+#: exports a ZARR_SUB_PX^2 sub-area of the file-read view
+ZARR_CHUNK = 512
+ZARR_VARIABLE = "elevation"
+ZARR_SUB_PX = 2048
+
+
+def write_sheet_zarr(folder, sheet, chunk=ZARR_CHUNK, name="sheet.zarr"):
+    """Write the sheet at ``sheet`` (a GeoTIFF of write_sheet) to
+    ``folder``/``name`` as xarray writes a DataArray: a consolidated v2
+    group store with the data array ZARR_VARIABLE in chunk^2 zlib chunks
+    (level 1, "." keys, edge chunks padded with the fill), 1-D ``x`` and
+    ``y`` arrays of cell centres (``y`` descending), ``grid_mapping``
+    naming a ``spatial_ref`` array with the CRS's WKT, and ``_FillValue``
+    the sheet's nodata.  The chunks compress on a thread pool.  Returns
+    (path, bytes written)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dask_geomodeling_tpu_torch.geo.crs import get_sr
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+
+    data = read_geotiff(sheet)
+    values = data.array[0]
+    height, width = values.shape
+    nodata = float(data.no_data_value)
+    p, a, _, q, _, d = data.geo_transform
+    root = os.path.join(folder, name)
+
+    def meta(shape, chunks, dtype, compressor, fill):
+        return {"zarr_format": 2, "shape": list(shape), "chunks": list(chunks), "dtype": dtype,
+                "compressor": compressor, "fill_value": fill, "order": "C", "filters": None,
+                "dimension_separator": "."}
+
+    coords = {"x": p + a * (np.arange(width) + 0.5), "y": q + d * (np.arange(height) + 0.5)}
+    arrays = {
+        ZARR_VARIABLE: (meta(values.shape, (chunk, chunk), "<f4", {"id": "zlib", "level": 1},
+                             nodata),
+                        {"_ARRAY_DIMENSIONS": ["y", "x"], "_FillValue": nodata,
+                         "grid_mapping": "spatial_ref", "long_name": "elevation", "units": "m"}),
+        "spatial_ref": (meta((), (), "<i4", None, 0),
+                        {"_ARRAY_DIMENSIONS": [],
+                         "spatial_ref": get_sr(data.projection).ExportToWkt()}),
+    }
+    for axis, centres in coords.items():
+        arrays[axis] = (meta(centres.shape, centres.shape, "<f8", None, None),
+                        {"_ARRAY_DIMENSIONS": [axis]})
+    metadata = {".zgroup": {"zarr_format": 2}, ".zattrs": {}}
+    for array_name, (array_meta, attrs) in arrays.items():
+        os.makedirs(os.path.join(root, array_name))
+        for key, document in ((".zarray", array_meta), (".zattrs", attrs)):
+            metadata[array_name + "/" + key] = document
+            with open(os.path.join(root, array_name, key), "w") as f:
+                json.dump(document, f)
+    for key in (".zgroup", ".zattrs"):
+        with open(os.path.join(root, key), "w") as f:
+            json.dump(metadata[key], f)
+    with open(os.path.join(root, ".zmetadata"), "w") as f:
+        json.dump({"metadata": metadata, "zarr_consolidated_format": 1}, f)
+    written = [np.zeros((), "<i4").tobytes()]
+    with open(os.path.join(root, "spatial_ref", "0"), "wb") as f:
+        f.write(written[0])
+    for axis, centres in coords.items():
+        written.append(centres.astype("<f8").tobytes())
+        with open(os.path.join(root, axis, "0"), "wb") as f:
+            f.write(written[-1])
+    cols = -(-width // chunk)
+
+    def write_chunk(index):
+        i, j = divmod(index, cols)
+        block = np.full((chunk, chunk), nodata, np.float32)
+        part = values[i * chunk : (i + 1) * chunk, j * chunk : (j + 1) * chunk]
+        block[: part.shape[0], : part.shape[1]] = part
+        payload = zlib.compress(block.tobytes(), 1)
+        with open(os.path.join(root, ZARR_VARIABLE, "%d.%d" % (i, j)), "wb") as f:
+            f.write(payload)
+        return len(payload)
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        chunk_bytes = sum(pool.map(write_chunk, range(-(-height // chunk) * cols)))
+    return root, chunk_bytes + sum(len(b) for b in written)
+
+
 #: the building-heights path: synthetic BAG-like building footprints
 #: ("panden") over the sheet at a Dutch suburban density, 640 a km^2
 #: (20,000 over the sheet's 31.25 km^2), one to a grid cell, exported in
@@ -1775,7 +1868,8 @@ def compare_cells(port, host, no_data_value):
 
 
 def check_algebra_path(label, device, view, request, interpolation, corner, host_nodes=0,
-                       share=0.0, sigma_groups=False, sampled_tiles=16):
+                       share=0.0, sigma_groups=False, sampled_tiles=16, first_run=None,
+                       routed=True):
     """One raster-algebra, temporal, tiled geometry or file path at full
     size; returns (host Mpx/s, the evaluate_tiled values).  Every node that returns pixels runs on the
     card but ``host_nodes`` per tile (Rasterize's, which has no twin): the
@@ -1787,7 +1881,12 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
     bitwise (at most ``share`` of the cells differing, the headline's rule
     for a cross-CRS nearest warp), or for the cross-CRS bilinear path
     within BILINEAR_ATOL with at most BILINEAR_FILL_SHARE of the cells
-    nodata in one and data in the other."""
+    nodata in one and data in the other.  ``first_run``, a (clock,
+    phase_seconds dict) pair, times the first run alone: under the clock
+    (a PhaseClock), its phases added to the dict.  ``routed`` False skips
+    the second whole run, get_data's, held equal to evaluate_tiled."""
+    import contextlib
+
     from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.runtime import executor
@@ -1802,8 +1901,11 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
         host_runs = executor.host_node_runs
         batches = tile_runtime.batches_run
         gaussians = cuda_stencils.launches
+        clock, phases = first_run or (contextlib.nullcontext(), None)
         t0 = time.perf_counter()
-        result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+        with clock:
+            result = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                                    phase_seconds=phases)
         first_s = time.perf_counter() - t0
         batches = tile_runtime.batches_run - batches
         gaussians = cuda_stencils.launches - gaussians
@@ -1823,8 +1925,9 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
               % (label, gaussians, batches))
         check(data_share > 0.01, "%s: output is all nodata" % label)
 
-        routed = get_data(view, device=device, **request)
-        check(np.array_equal(routed["values"], values), "%s: get_data differs from evaluate_tiled" % label)
+        if routed:
+            check(np.array_equal(get_data(view, device=device, **request)["values"], values),
+                  "%s: get_data differs from evaluate_tiled" % label)
         x1, y1, x2, y2 = request["bbox"]
         cx, cy = corner
         crop = dict(request, width=64, height=64, bbox=(
@@ -1906,11 +2009,14 @@ def agg_matrix(frame, column="agg"):
 #: in float64 with atomics on the card, so they stay within one float32
 #: ulp of the host's sequential sums after the rounding to float32
 ZONAL_EXACT = ("median", "p90", "max", "count-above")
-#: the requests after mean and median are held to compute_host whole only
-#: while the host's seconds so far stay under a third of this (60: the
-#: mean's and median's 25-29 s send p90 to the sub-area too; at 90 its
-#: whole request took 18.5 s of a script that must end within 700 s)
-ZONAL_HOST_BUDGET_S = 60.0
+#: the requests after mean are held to compute_host whole only while the
+#: host's seconds so far stay under a third of this (30: the mean's 11-12
+#: s send the median to the sub-area too, whose whole request took
+#: 17.2 s; at 90 p90's whole request took 18.5 s)
+ZONAL_HOST_BUDGET_S = 30.0
+#: the sub-area's side in parcel cells (16 cells took 1.8-8.9 s of host a
+#: request on an NVIDIA H100 80GB HBM3 machine, 8 cells 1.2-7.4 s)
+ZONAL_SUB_CELLS = 8
 
 
 def compare_zonal(name, port, host):
@@ -2086,15 +2192,15 @@ def check_zonal(device, card, raster):
              ", ".join("%s %.4f ms" % kv for kv in plane_ms.items())))
     del raster, labels
 
-    # against compute_host: the whole request for mean and median, the
-    # others whole while the host's time allows, else over a sub-area
-    host_s = {}
+    # against compute_host: the whole request for mean, the others whole
+    # while the host's time allows, else over a sub-area
+    host_s, host_whole = {}, {}
     spent = 0.0
     for name in ["mean", "median", "p90", "max", "sum", "count-above", "mean-3857"]:
         view, request = views[name]
-        sub = spent > ZONAL_HOST_BUDGET_S / 3 and name not in ("mean", "median")
+        sub = spent > ZONAL_HOST_BUDGET_S / 3 and name != "mean"
         if sub:
-            request = zonal_request(16, request["projection"])  # 16 x 16 cells, top left
+            request = zonal_request(ZONAL_SUB_CELLS, request["projection"])  # top left
             port_result = view.get_data(device=device, **request)
         else:
             port_result = port[name]
@@ -2102,11 +2208,13 @@ def check_zonal(device, card, raster):
         host = compute_host(*view.get_compute_graph(**request))
         host_s[name] = time.perf_counter() - t0
         spent += host_s[name]
+        host_whole[name] = not sub
         differing, beyond, cells = compare_zonal(name, port_result, host)
         exact = name in ZONAL_EXACT
         print("zonal %s: %s%d features x frames: %d differ from compute_host, %d beyond one "
               "float32 ulp (%s; host %.2f s)"
-              % (name, "sub-area of 16 x 16 cells, " if sub else "whole request, ", cells,
+              % (name, "sub-area of %d x %d cells, " % (ZONAL_SUB_CELLS, ZONAL_SUB_CELLS)
+                 if sub else "whole request, ", cells,
                  differing, beyond, "bitwise" if exact else "within one float32 ulp",
                  host_s[name]))
         check(beyond == 0 and (differing == 0 or not exact),
@@ -2126,15 +2234,17 @@ def check_zonal(device, card, raster):
         profiled_s, busy_ms = device_busy_ms(lambda: view.get_data(device=device, **request))
         idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
         rate = width * height * depth / 1e6 / median_s
-        host_rate = width * height * depth / 1e6 / host_s[name]
+        # the host's rate over the whole request only (else over a sub-area)
+        host_rate = width * height * depth / 1e6 / host_s[name] if host_whole[name] else None
         numbers[name].update(runs_s=runs, s_per_request=median_s, mpx_frames_per_s=rate,
                              host_s=host_s[name], host_mpx_frames_per_s=host_rate,
                              device_busy_ms=busy_ms, idle_share=idle)
         print("timing [%s] zonal %s: %.4f s per request (median of 3: %s), %.3f Mpx x frames/s; "
-              "compute_host %.3f s, %.3f Mpx x frames/s; profiled run %.4f s, device busy %s, "
-              "idle share %s"
+              "compute_host %.3f s (%s), %s Mpx x frames/s; profiled run %.4f s, device busy "
+              "%s, idle share %s"
               % (card, name, median_s, ", ".join("%.4f" % r for r in runs), rate, host_s[name],
-                 host_rate, profiled_s,
+                 "whole request" if host_whole[name] else "sub-area",
+                 "not measured" if host_rate is None else "%.3f" % host_rate, profiled_s,
                  "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
                  "not measured" if idle is None else "%.4f" % idle))
     numbers["phases_s"] = phases
@@ -2274,6 +2384,161 @@ def check_file_export(card, device, view, request, folder, read_values):
                           host_mpx_per_s=host_px / 1e6 / host_s, files=len(names),
                           mosaic_read_s=read_s, mosaic_batches=batches, cog_s=cog_s,
                           border_cells_differing=int(differ.sum()))
+
+
+def zarr_clock():
+    """A PhaseClock over a Zarr store's window reads: the store stamp's
+    walk, the store's metadata, the coordinate arrays, the chunk reads
+    (file reads, inflate on the codec's pool, copy; the coordinate
+    arrays' reads too), the window reads in all (the cache's misses), the
+    window lookups (its hits too), and any whole-store read."""
+    from dask_geomodeling_tpu_torch.io import zarr as zarr_io
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    return PhaseClock([(pipeline, "_zarr_stamp", "stamp"), (zarr_io, "_open_store", "store open"),
+                       (zarr_io, "_grid_centers", "coordinates"),
+                       (zarr_io, "_read_array", "chunk reads"),
+                       (zarr_io, "read_zarr_window", "window reads"),
+                       (pipeline, "read_geotiff_window_cached", "window lookups"),
+                       (zarr_io, "read_zarr", "whole reads")])
+
+
+def check_zarr_store(card, device, folder, sheet, file_read, read_values, sub_px=ZARR_SUB_PX,
+                     sampled_tiles=8):
+    """The zarr-store phase: (a) the sheet written as a chunked group store
+    (write_sheet_zarr); (b) zarr-read, file-read's view and request over
+    the store with the checks of check_algebra_path (bitwise), every cell
+    equal to file-read's ``read_values``, every tile read by window (no
+    whole-store read, no whole-read cache entry) and ``info`` decoding no
+    data chunk; (c) to_zarr of a sub_px^2 sub-area of the file-read view on
+    the card, read back whole through RasterFileSource equal to the card's
+    answer and to file-read's, its CRS EPSG:28992; (d) a chunk rewritten
+    in place: a window read cached before gives the new values.  Returns
+    (launches, numbers); removes the stores."""
+    import zlib
+
+    from dask_geomodeling_tpu_torch import get_data
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.io import zarr as zarr_io
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth, to_zarr
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    file_view, request, interpolation, corner = file_read
+    t0 = time.perf_counter()
+    store, store_bytes = write_sheet_zarr(folder, sheet)
+    write_s = time.perf_counter() - t0
+    print("zarr-store: the sheet written as %s (%d^2 zlib chunks, consolidated) in %.2f s, "
+          "%.1f MB [%s]" % (os.path.basename(store), ZARR_CHUNK, write_s, store_bytes / 1e6, card))
+    cuda_stencils.reset_launches()
+
+    # (b) the header from the metadata and the coordinate arrays alone
+    source = RasterFileSource(store)
+    decoded = []
+    read_array = zarr_io._read_array
+    zarr_io._read_array = lambda path, *a, **k: decoded.append(path) or read_array(path, *a, **k)
+    try:
+        t0 = time.perf_counter()
+        info = source.info
+        info_s = time.perf_counter() - t0
+    finally:
+        zarr_io._read_array = read_array
+    check(sorted(os.path.basename(path) for path in decoded) == ["x", "y"],
+          "zarr-store: info read %s" % decoded)
+    check(source.projection == "EPSG:28992" and tuple(source.geo_transform)
+          == tuple(file_view.store.geo_transform) and (info.width, info.height)
+          == (request["width"], request["height"]), "zarr-store: the store's grid")
+    check(source._file_read_plan(request) is not None, "zarr-store: the read is not windowed")
+    view = Smooth(source, 3)
+    clock, phases = zarr_clock(), {}
+    host_rate, values = check_algebra_path("zarr-read", device, view, request, interpolation,
+                                           corner, share=0.0, sampled_tiles=sampled_tiles,
+                                           first_run=(clock, phases), routed=False)
+    read_launches = cuda_stencils.launches
+    check(read_launches > 0, "zarr-read: the Gaussian did not launch")
+    n_tiles = len(tile_requests(request, TILE)[0])
+    # the program's first tile plans twice: n_tiles + 1 lookups
+    check(clock.calls["window lookups"] == n_tiles + 1 and clock.calls["whole reads"] == 0
+          and not any(key[0] == store for key in pipeline._READ_CACHE),
+          "zarr-read: %d window lookups and %d whole reads for %d tiles"
+          % (clock.calls["window lookups"], clock.calls["whole reads"], n_tiles))
+    differ = int(np.count_nonzero(values != read_values))
+    check(differ == 0, "zarr-read: %d cells differ from file-read" % differ)
+    del values
+    plan_split = dict(clock.seconds)
+    plan = ", ".join("%s %.4f s" % (name, seconds) for name, seconds in plan_split.items()
+                     if name != "whole reads")
+    print("zarr-read: info in %.4f s from the metadata and the coordinates (no data chunk); "
+          "every cell equal to file-read's; %d tiles, %d window reads, none whole; first run "
+          "%s; within plan: %s [%s]" % (info_s, n_tiles, clock.calls["window reads"], ", ".join(
+              "%s %.4f s" % kv for kv in phases.items()), plan, card))
+
+    # (c) to_zarr of a sub-area, read back whole
+    sub = sheet_sub_area(request, sub_px)
+    sub_request = dict(mode="vals", bbox=sub, projection="EPSG:28992", width=sub_px,
+                       height=sub_px)
+    target = os.path.join(folder, "sub.zarr")
+    t0 = time.perf_counter()
+    to_zarr(file_view, target, device=device, **sub_request)
+    export_s = time.perf_counter() - t0
+    back = RasterFileSource(target)
+    check(back.projection == "EPSG:28992", "to_zarr: the store's CRS reads %r"
+          % back.projection[:60])
+    limit = config.get("geomodeling.windowed-read-limit")
+    check((back._file_read_plan(sub_request) is None) == (sub_px**2 <= limit),
+          "to_zarr: the read back is not as windowed-read-limit says")
+    t0 = time.perf_counter()
+    read_back = get_data(back, device=device, **sub_request)["values"]
+    read_back_s = time.perf_counter() - t0
+    card_answer = get_data(file_view, device=device, **sub_request)["values"]
+    x1, _, _, y2 = request["bbox"]
+    row = int(round((y2 - sub[3]) / SHEET_CELL))
+    col = int(round((sub[0] - x1) / SHEET_CELL))
+    check(np.array_equal(read_back, card_answer), "to_zarr: the store differs from the card's "
+          "answer")
+    check(np.array_equal(read_back, read_values[:, row : row + sub_px, col : col + sub_px]),
+          "to_zarr: the store differs from file-read")
+    print("to_zarr: %d^2 of the file-read view exported in %.3f s (%.3f Mpx/s), read back whole "
+          "in %.3f s, equal to the card's answer and to file-read's, CRS EPSG:28992 [%s]"
+          % (sub_px, export_s, sub_px**2 / 1e6 / export_s, read_back_s, card))
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+
+    # (d) the store stamp: a chunk rewritten in place is seen
+    i, j = 1, 1
+    side = ZARR_CHUNK * SHEET_CELL
+    chunk_request = dict(mode="vals", projection="EPSG:28992", width=ZARR_CHUNK,
+                         height=ZARR_CHUNK, bbox=(x1 + j * side, y2 - (i + 1) * side,
+                                                  x1 + (j + 1) * side, y2 - i * side))
+    before = get_data(source, device=device, **chunk_request)["values"]
+    with zarr_clock() as clock:
+        calls = clock.calls["window reads"]
+        check(np.array_equal(get_data(source, device=device, **chunk_request)["values"], before)
+              and clock.calls["window reads"] == calls, "zarr-store: the window was not cached")
+        chunk_path = os.path.join(store, ZARR_VARIABLE, "%d.%d" % (i, j))
+        with open(chunk_path, "rb") as f:
+            old = np.frombuffer(zlib.decompress(f.read()), np.float32).reshape(
+                ZARR_CHUNK, ZARR_CHUNK)
+        new = np.where(old == SHEET_NODATA, old, old + np.float32(100))
+        with open(chunk_path, "wb") as f:
+            f.write(zlib.compress(new.tobytes(), 1))
+        after = get_data(source, device=device, **chunk_request)["values"]
+        check(clock.calls["window reads"] == calls + 1, "zarr-store: the rewrite was not read")
+    check(np.array_equal(after[0], new) and not np.array_equal(after, before),
+          "zarr-store: a cached window read missed the rewritten chunk")
+    print("zarr-store: chunk %d.%d rewritten in place: the cached window read again, the new "
+          "values seen" % (i, j))
+    shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(target, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_t0
+    print("zarr-store: the phase %.2f s [%s]" % (phase_s, card))
+    return launches, dict(write_s=write_s, store_mb=store_bytes / 1e6, info_s=info_s,
+                          host_mpx_per_s=host_rate, phases_s=phases,
+                          plan_split_s=plan_split, tiles=n_tiles,
+                          to_zarr_s=export_s, read_back_s=read_back_s, phase_s=phase_s,
+                          gaussian_launches_read=read_launches)
 
 
 class PhaseClock:
@@ -2644,9 +2909,10 @@ WMS_ZOOMS = (14, 15, 16)
 WMS_TILE = 256
 WMS_ORIGIN = 20037508.342789244  # half the web Mercator world's width
 #: the last zoom is cut to this many of its tile rows, the middle ones
-#: (the phase's time budget: all 18 rows took 129.5 s and 9 rows 97.2 s
-#: on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 4)
-WMS_LAST_ZOOM_ROWS = 3
+#: (the phase's time budget: all 18 rows took 129.5 s, 9 rows 97.2 s and
+#: 3 rows 52.0-75.9 s on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+#: section 4)
+WMS_LAST_ZOOM_ROWS = 1
 #: wms_serve.main's result cache
 WMS_CACHE_BYTES = 256 * 2**20
 #: tiles a layer held to compute_host, spread over the zooms
@@ -3174,8 +3440,10 @@ def check_wms_serving(card, device, sheet, zooms=WMS_ZOOMS, sample=WMS_SAMPLE,
             wms_other_requests(client, device, layers, tiles, picks, os.path.dirname(sheet))
             numbers["threaded"] = wms_threaded(layers, tiles)
             numbers["phases_ms"], plane = wms_split(card, layers, tiles, picks, device, cold)
-            profiled_s, busy_ms = device_busy_ms(
-                lambda: wms_pass(client, layers, tiles, "profiled warm", card))
+            # ahn-smooth's warm pass alone (both layers' took 14.3 s on an
+            # NVIDIA H100 80GB HBM3 machine)
+            profiled_s, busy_ms = device_busy_ms(lambda: wms_pass(
+                client, {"ahn-smooth": layers["ahn-smooth"]}, tiles, "profiled warm", card))
     finally:
         client.close()
         unregister_layers()
@@ -4720,6 +4988,9 @@ def run_phases(card, device, folder, mark):
             read_values = values
         del values
     mark("the file-read and file-reproject paths")
+    launches["zarr-store"], zarr_store = check_zarr_store(card, device, folder, sheet,
+                                                          files["file-read"], read_values)
+    mark("the zarr-store path")
     view, request, _, _ = files["file-read"]
     launches["file-export"], export = check_file_export(card, device, view, request, folder,
                                                         read_values)
@@ -4788,6 +5059,7 @@ def run_phases(card, device, folder, mark):
         with interpolation_set(interpolation):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
     timings["file-export"] = export
+    timings["zarr-store"] = zarr_store
     timings["building-heights"] = buildings
     timings["wms-serving"] = wms
     timings["auto-routing"] = auto

@@ -55,4 +55,9 @@ from dask_geomodeling_tpu_torch.raster.temporal import (  # noqa: F401
     TemporalSum,
 )
 from dask_geomodeling_tpu_torch.raster.parallelize import RasterTiler  # noqa: F401
-from dask_geomodeling_tpu_torch.raster.sinks import RasterFileSink, to_cog, to_file  # noqa: F401
+from dask_geomodeling_tpu_torch.raster.sinks import (  # noqa: F401
+    RasterFileSink,
+    to_cog,
+    to_file,
+    to_zarr,
+)

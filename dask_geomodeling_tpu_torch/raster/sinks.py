@@ -1,14 +1,17 @@
-"""Raster sinks: RasterFileSink and the exports ``to_file`` and ``to_cog``.
+"""Raster sinks: RasterFileSink and the exports ``to_file``, ``to_cog`` and
+``to_zarr``.
 
 Counterpart of dask_geomodeling_tpu/raster/sinks.py: each vals request
 writes one deflate-compressed tiled GeoTIFF named by the first 7
 characters of the request's token, so a re-run writes the same files;
 ``to_file`` runs the sink under a RasterTiler and merges the tiles into a
-VRT; ``to_cog`` writes one cloud-optimized GeoTIFF.  The sink is a host
+VRT; ``to_cog`` writes one cloud-optimized GeoTIFF and ``to_zarr`` one
+consolidated Zarr v2 group store.  The sink is a host
 process over fetched inputs (``torch_fetch_inputs``): ``compute_torch``
 copies its source's device result to the host once per subrequest, and
 the writer is the JAX package's, copied (io/geotiff.py), so the port
-writes the same names and the same bytes.  ``to_zarr`` is not ported.
+writes the same names and the same bytes (the Zarr writer is io/zarr.py's
+copy).
 """
 import glob
 import os
@@ -23,7 +26,7 @@ from dask_geomodeling_tpu_torch.geo.safefiles import safe_abspath, safe_file_url
 from dask_geomodeling_tpu_torch.raster.base import BaseSingle, RasterBlock
 from dask_geomodeling_tpu_torch.raster.parallelize import RasterTiler
 
-__all__ = ["RasterFileSink", "to_file", "to_cog"]
+__all__ = ["RasterFileSink", "to_file", "to_cog", "to_zarr"]
 
 #: everything one tile write needs, planned at request-rewrite time
 _TileWriteSpec = namedtuple("_TileWriteSpec", ["directory", "stem", "bbox", "projection"])
@@ -159,6 +162,29 @@ def to_cog(source, url, overviews=None, overview_resampling="nearest", device=No
         cog=True,
         overviews=overviews,
         overview_resampling=overview_resampling,
+    )
+
+
+def to_zarr(source, url, device=None, **request):
+    """Export a RasterBlock as a consolidated Zarr v2 group store (the
+    cloud-native xarray interchange layout; one chunk an array).  Missing
+    request fields default to the source's native grid, as in
+    :func:`to_cog`; the request runs on ``device`` (see ``get_data``)."""
+    from dask_geomodeling_tpu_torch.io.zarr import write_zarr
+
+    request = _native_request(source, request)
+    path = safe_abspath(url)
+    data = source.get_data(device=device, **request)
+    if data is None or "values" not in data:
+        raise ValueError("The source returned no data for this request")
+    height, width = np.asarray(data["values"]).shape[1:]
+    fill = data["no_data_value"]
+    write_zarr(
+        path,
+        np.asarray(data["values"]),
+        geo_transform=tuple(GeoTransform.from_bbox(request["bbox"], height, width)),
+        projection=request["projection"],
+        no_data_value=None if fill is None else float(fill),
     )
 
 

@@ -4,18 +4,20 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 ``RasterSourceBase`` with its numpy ``process`` (the requested time window
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
-``RasterFileSource`` (GeoTIFF, VRT, PNG and the plain-grid formats of
-``runtime/pipeline.py:whole_file_reader``; its other formats raise
-NotImplementedError naming the JAX module that reads them), and the twin
+``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, PNG and the
+plain-grid formats of ``runtime/pipeline.py:whole_file_reader``; its
+other formats raise NotImplementedError naming the JAX module that reads
+them), and the twin
 of ``_source_process_jax``.  Both the process and the twin resample as
 ``geomodeling.warp-interpolation`` says ("nearest" or "bilinear").
 
 A payload read whole (a MemorySource's array, a small file through the
 read cache) is moved to the device once (``to_device``) and stays
 resident across tiles and batches, as the JAX executor keeps it in HBM.
-A file above ``geomodeling.windowed-read-limit`` is read window by
-window: each tile's plan carries the window its bbox touches, with the
-window's own float64 geotransform.  The twin takes those windows per tile
+A GeoTIFF, VRT or Zarr store above ``geomodeling.windowed-read-limit``
+is read window by window (a store chunk by chunk): each tile's plan
+carries the window its bbox touches, with the window's own float64
+geotransform.  The twin takes those windows per tile
 (``torch_dynamic``): a batch's windows are stacked, padded to the largest,
 and each tile is indexed as the numpy process indexes its own window, so
 windowed tiles share batches as a MemorySource's do and stay bitwise.
@@ -382,15 +384,16 @@ class MemorySource(RasterSourceBase):
 
 class RasterFileSource(RasterSourceBase):
     """A raster source reading a raster file from a path: a GeoTIFF, a VRT
-    mosaic, or a format that decodes whole (PNG, SRTM ``.hgt``, DTED, Esri
-    ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI).
+    mosaic, a Zarr v2 store (a directory), or a format that decodes whole
+    (PNG, SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi,
+    ENVI).
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``
       time_first (int or datetime): timestamp of the first frame (ms)
       time_delta (int or timedelta): frame spacing (ms), default 5 minutes
-      variable (str): data variable of multi-variable containers, which
-        the port does not read; kept in the view and the cache keys
+      variable (str): data variable of multi-variable containers (a Zarr
+        store's array; the largest when None); kept in the cache keys
     """
 
     def __init__(self, url, time_first=0, time_delta=300000, variable=None):
@@ -421,7 +424,12 @@ class RasterFileSource(RasterSourceBase):
 
             path = safe_abspath(self.url)
             check_ported_format(path)
-            if path.lower().endswith(".vrt"):
+            if path.lower().endswith(".zarr"):
+                # from the metadata: a large store decodes no chunk for it
+                from dask_geomodeling_tpu_torch.io.zarr import read_zarr_info
+
+                self._info = read_zarr_info(path, self.variable)
+            elif path.lower().endswith(".vrt"):
                 from dask_geomodeling_tpu_torch.io.vrt import read_vrt_info
 
                 self._info = read_vrt_info(path)
@@ -523,16 +531,18 @@ class RasterFileSource(RasterSourceBase):
 
     def _file_read_plan(self, request):
         """``(level, (row0, row1, col0, col1))`` for a vals request, or
-        None for the plain whole-file read: a file above
-        ``geomodeling.windowed-read-limit`` decodes only the blocks of the
-        request's source-CRS bbox plus a 2-pixel margin, and with
-        ``geomodeling.use-overviews`` a request at 2x or more coarser
-        resolution reads the best overview level of a GeoTIFF."""
+        None for the plain whole-file read: a GeoTIFF, VRT or Zarr store
+        above ``geomodeling.windowed-read-limit`` decodes only the blocks
+        (a store's chunks) of the request's source-CRS bbox plus a 2-pixel
+        margin, and with ``geomodeling.use-overviews`` a request at 2x or
+        more coarser resolution reads the best overview level of a
+        GeoTIFF."""
         if request is None:
             return None
         path = safe_abspath(self.url)
-        vrt = path.lower().endswith(".vrt")
-        if not (vrt or path.lower().endswith((".tif", ".tiff"))):
+        # VRTs and Zarr stores have no overview levels
+        chunked_store = path.lower().endswith((".zarr", ".vrt"))
+        if not (chunked_store or path.lower().endswith((".tif", ".tiff"))):
             return None
         info = self.info
 
@@ -553,7 +563,7 @@ class RasterFileSource(RasterSourceBase):
         level = 0
         level_w, level_h = info.width, info.height
         gt = tuple(self.geo_transform)
-        if not vrt and config.get("geomodeling.use-overviews", False):
+        if not chunked_store and config.get("geomodeling.use-overviews", False):
             level, level_w, level_h = self._overview_choice(bbox, request)
             if level:
                 fx = info.width / float(level_w)

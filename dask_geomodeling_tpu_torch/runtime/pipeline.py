@@ -1,18 +1,21 @@
 """The host read caches of raster and vector files.
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
-VRT, PNG and the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
-Surfer, SAGA, Idrisi, ENVI): ``read_geotiff_cached`` decodes a whole
-file into an mtime-validated LRU, choosing the reader by suffix in the
-JAX package's order, and ``read_geotiff_window_cached`` one pixel window
-of a large GeoTIFF or VRT (block-wise, optionally of an overview level)
-into another.  Both are keyed by ``(path, variable)`` plus the window, on
-lookup and on store alike, so every tile of a request that reads one
-unchanged file gets the same decoded array (the JAX package looks the
-whole-file entry up by the path and stores it by ``(path, variable)``, so
-its lookups never hit).  A rewrite of the file changes its stamp (mtime
-and size) and is decoded again; an ENVI pair's stamp holds both files',
-so a rewrite of the header alone is seen too.
+VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
+Surfer, SAGA, Idrisi, ENVI) and Zarr v2 stores: ``read_geotiff_cached``
+decodes a whole file or store into an mtime-validated LRU, choosing the
+reader by suffix in the JAX package's order, and
+``read_geotiff_window_cached`` one pixel window of a large GeoTIFF, VRT
+or Zarr store (block- or chunk-wise, a GeoTIFF optionally of an overview
+level) into another.  Both are keyed by ``(path, variable)`` plus the
+window, on lookup and on store alike, so every tile of a request that
+reads one unchanged file gets the same decoded array (the JAX package
+looks the whole-file entry up by the path and stores it by ``(path,
+variable)``, so its lookups never hit); ``variable`` selects a Zarr
+store's data array.  A rewrite of the file changes its stamp (mtime and
+size) and is decoded again; an ENVI pair's stamp holds both files', so a
+rewrite of the header alone is seen too, and a Zarr store's a walk of
+its entries (``_zarr_stamp``), so a chunk rewritten in a subdirectory is.
 
 ``read_vector_cached`` parses a whole vector file into a third LRU, keyed
 by ``(path, layer)`` on lookup and store and validated by the same stamp;
@@ -45,7 +48,8 @@ _VECTOR_CACHE = OrderedDict()
 _VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
-#: JAX module that reads each (an ``.img`` is HFA by its magic)
+#: JAX module that reads each (an ``.img`` is HFA by its magic); the port
+#: reads GeoTIFF, VRT, Zarr stores and the formats of ``whole_file_reader``
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
@@ -53,7 +57,6 @@ _UNPORTED_FORMATS = {
     (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5"): "io/netcdf.py",
     (".hdf", ".h4", ".hdf4"): "io/hdf4.py",
     (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
-    (".zarr",): "io/zarr.py",
     (".mbtiles",): "io/mbtiles.py",
     (".gpkg",): "io/gpkg_raster.py",
 }
@@ -137,37 +140,106 @@ def _envi_stamp(path):
     return tuple(_file_stamp(p) for p in _paths_of(path))
 
 
+#: entry budget for the zarr stamp walk; stores with more files fold a
+#: coarse per-directory stamp instead of per-entry mtimes
+_ZARR_STAMP_LIMIT = 8192
+
+
+def _zarr_stamp(root):
+    """(count, newest mtime_ns, total size) over the store's files.
+
+    A bounded walk: chunk rewrites inside subdirectories bump neither the
+    root directory's mtime nor any metadata document.  Enormous chunk
+    trees stop at the entry budget and return a coarse directory-level
+    stamp: creations and deletions are still detected there; only
+    in-place chunk rewrites beyond the budget can go unseen.  The JAX
+    package's walk, entry for entry, but each entry is stat-ed relative
+    to its directory's descriptor (``fstatat``), not by its whole path:
+    the walk runs on every cache lookup, and a lookup by path is costly
+    on network and 9p file systems.
+    """
+    count = 0
+    newest = 0
+    total = 0
+    stack = [root]
+    while stack:
+        directory = stack.pop()
+        try:
+            fd = os.open(directory, os.O_RDONLY | os.O_DIRECTORY)
+        except OSError:
+            continue
+        try:
+            with os.scandir(fd) as entries:
+                for entry in entries:
+                    count += 1
+                    if count > _ZARR_STAMP_LIMIT:
+                        return ("coarse", count, newest, total)
+                    try:
+                        st = entry.stat(follow_symlinks=False)
+                    except OSError:
+                        continue
+                    newest = max(newest, st.st_mtime_ns)
+                    total += st.st_size
+                    if entry.is_dir(follow_symlinks=False):
+                        stack.append(os.path.join(directory, entry.name))
+        except OSError:
+            continue
+        finally:
+            os.close(fd)
+    return (count, newest, total)
+
+
+def _store_stamp(path):
+    """A ``.zarr`` directory's stamp: its own and the walk of its entries
+    (a ``.zarr`` file's own stamp), as the JAX package's ``_raster_stamp``
+    gives it."""
+    stamp = _file_stamp(path)
+    return (stamp, _zarr_stamp(path)) if os.path.isdir(path) else stamp
+
+
 def read_geotiff_cached(path, variable=None):
-    """Read a whole raster file (GeoTIFF, VRT mosaic or a format of
-    ``whole_file_reader``) through an mtime-validated LRU keyed by
-    ``(path, variable)``; ``variable`` is kept in the key as the JAX
-    package keeps it (multi-variable containers are not ported)."""
+    """Read a whole raster file (GeoTIFF, VRT mosaic, Zarr store or a
+    format of ``whole_file_reader``) through an mtime-validated LRU keyed
+    by ``(path, variable)``; ``variable`` selects a Zarr store's data
+    array and is kept in the key for every format, as the JAX package
+    keeps it."""
     from dask_geomodeling_tpu_torch.io.envi import read_envi
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt
+    from dask_geomodeling_tpu_torch.io.zarr import read_zarr
 
     path = os.path.abspath(path)
     check_ported_format(path)
+    key = (path, variable)
+    if path.lower().endswith(".zarr"):
+        return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _store_stamp(path),
+                       partial(read_zarr, path, variable))
     read = whole_file_reader(path) or (read_vrt if path.lower().endswith(".vrt") else read_geotiff)
     stamp = _envi_stamp(path) if read is read_envi else _file_stamp(path)
-    return _cached(_READ_CACHE, _READ_CACHE_SIZE, (path, variable), stamp, partial(read, path))
+    return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, stamp, partial(read, path))
 
 
 def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=None):
     """Read one pixel window of a large GeoTIFF (block-level decode,
-    optionally of an overview level) or VRT through an mtime-validated LRU
-    keyed by ``(path, window, level, variable)``."""
+    optionally of an overview level), VRT or Zarr store (chunk-level
+    decode of ``variable``) through an mtime-validated LRU keyed by
+    ``(path, window, level, variable)``."""
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_window
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt_window
+    from dask_geomodeling_tpu_torch.io.zarr import read_zarr_window
 
     path = os.path.abspath(path)
     check_ported_format(path)
     key = (path, int(row0), int(row1), int(col0), int(col1), int(level), variable)
-    if path.lower().endswith(".vrt"):
+    stamp = _file_stamp(path)
+    if path.lower().endswith(".zarr"):
+        stamp = _store_stamp(path)
+        read = partial(read_zarr_window, path, row0, row1, col0, col1, variable=variable)
+    elif path.lower().endswith(".vrt"):
         read = partial(read_vrt_window, path, row0, row1, col0, col1)
     else:
         read = partial(read_geotiff_window, path, row0, row1, col0, col1, level=level)
-    return _cached(_WINDOW_CACHE, _WINDOW_CACHE_SIZE, key, _file_stamp(path), read)
+    return _cached(_WINDOW_CACHE, _WINDOW_CACHE_SIZE, key, stamp, read)
 
 
 def read_vector_cached(path, layer=None):

@@ -352,7 +352,7 @@ def test_window_cache(root, monkeypatch):
 
 
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.nc", "io/netcdf.py"),
-                                          ("a.zarr", "io/zarr.py"), ("a.grib2", "io/grib.py"),
+                                          ("a.h5", "io/netcdf.py"), ("a.grib2", "io/grib.py"),
                                           ("a.mbtiles", "io/mbtiles.py"),
                                           ("hfa.img", "io/hfa.py")])
 def test_unported_format_names_its_module(root, name, module):

@@ -25,7 +25,7 @@ EPSG:28992) and each crs-families view at 256^2 against the CPU, the
 crs-families phase with its NTv2 request at that size, the Cumulative
 nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
-1441^2 tile.  This file imports nothing of JAX
+1441^2 tile; the zarr-store phase over the 1024^2 sheet.  This file imports nothing of JAX
 or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -301,6 +301,26 @@ def test_file_export_on_card(file_paths, tmp_path):
         np.testing.assert_array_equal(read_back, cpu_back)
 
 
+@pytest.mark.cuda
+def test_zarr_store_phase_on_card(file_paths, tmp_path):
+    """chip_smoke's zarr-store phase over the 1024^2 sheet as a store of
+    512^2 chunks, the limit lowered: 4 tiles read by window, every check of
+    the full run (the to_zarr sub-area 512^2, read back by window)."""
+    import os
+
+    device = _card()
+    folder, paths = file_paths
+    view, request, _, _ = paths["file-read"]
+    with config.set(FILE_LIMIT):
+        read_values = evaluate_tiled(view, request, tile_size=chip_smoke.TILE,
+                                     batch=chip_smoke.BATCH, device=device)["values"]
+        launches, numbers = chip_smoke.check_zarr_store(
+            "card", device, str(tmp_path), os.path.join(folder, "sheet.tif"),
+            paths["file-read"], read_values, sub_px=512, sampled_tiles=4)
+    assert launches["gaussian_blur"] >= 3  # the run, get_data's run and the to_zarr request
+    assert numbers["tiles"] == 4 and numbers["plan_split_s"]["whole reads"] == 0.0
+
+
 # --- building-heights at small size ---
 
 
@@ -404,7 +424,8 @@ def test_wms_serving_phase_on_card(wms_sheet):
     four-thread render included."""
     device = _card()
     with config.set({"geomodeling.windowed-read-limit": 10**5}):
-        launches, numbers = chip_smoke.check_wms_serving("card", device, wms_sheet, sample=8)
+        launches, numbers = chip_smoke.check_wms_serving("card", device, wms_sheet, sample=8,
+                                                         last_zoom_rows=3)
     assert launches["gaussian_blur"] == numbers["tiles_per_layer"] == 12
     assert launches["moving_max"] == 0
     assert numbers["gaussian_launches"]["hit"] == 0

@@ -140,6 +140,17 @@ def test_port_never_imports_jax():
             "evaluate_tiled(view, request, tile_size=128, batch=2, device='cpu')",
             "view.to_file(folder + '/out.vrt', tile_size=128, device='cpu')",
             "assert len(os.listdir(folder + '/tiles')) == 6",
+            "store, _ = cs.write_sheet_zarr(folder, sheet, chunk=64)",
+            "from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth, to_zarr",
+            "zarr_view = Smooth(RasterFileSource(store), 3)",
+            "out = evaluate_tiled(zarr_view, request, tile_size=128, batch=2, device='cpu')",
+            "assert out['values'].shape == (1, 200, 300)",
+            "to_zarr(zarr_view, folder + '/sub.zarr', device='cpu', **request)",
+            "back = RasterFileSource(folder + '/sub.zarr')",
+            "assert back.projection == 'EPSG:28992'",
+            "import numpy as np",
+            "assert np.array_equal(back.get_data(device='cpu', **request)['values'],",
+            "                      zarr_view.get_data(device='cpu', **request)['values'])",
             "from dask_geomodeling_tpu_torch.geometry.sinks import to_file",
             "from dask_geomodeling_tpu_torch.io.vectorfile import read_vector",
             "from dask_geomodeling_tpu_torch.raster import RasterFileSource",
