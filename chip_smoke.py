@@ -91,7 +91,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    file-read (the whole sheet at its grid, 500 tiles read window by
    window: at most 8 batches, the Gaussian once per batch, bitwise with
    the checks of 6, the crop and a sampled tile at the nodata block, an
-   edge tile sampled) and file-reproject (a 4096^2 sub-area in EPSG:3857,
+   edge tile sampled; no second whole run through get_data, which
+   file-reproject holds to evaluate_tiled for the same view) and file-reproject (a 4096^2 sub-area in EPSG:3857,
    at most 5e-4 of the cells differing, as the headline); then
    zarr-store (check_zarr_store): the sheet written as an xarray-style
    Zarr v2 store of 512^2 zlib chunks (write_sheet_zarr), file-read's
@@ -196,6 +197,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    integer formats' answers equal to the .hgt view's; write, read, card
    and host seconds a format; both kernels on int16 frames of (b)'s and
    (a)'s batch shapes torch.equal to their plain versions;
+10h. netcdf-radar (check_netcdf_radar): a day of a rain radar's 5-minute
+   frames over the Netherlands, 288 records of 500^2 cells of 1 km in RD
+   New, as a hand-built CDF-2 file (write_radar_netcdf: int16 rain packed
+   with a scale_factor and 5% fill, int8 quality and the time interleaving
+   record by record, y ascending, the CRS from a grid mapping's
+   epsg_code), under Smooth(TemporalAggregate(source, "1h", sum), 3 km)
+   (build_radar_view): (a) 4096^2 of 100 m over three afternoon hours (36
+   frames, 3 bands) in 64 tiles, with the checks of 6 bitwise on 8 sampled
+   tiles, the zoom-mode Gaussian's two launches a batch and its batch
+   shape, the whole decode and the first run timed; (b) the same request
+   read by window under a lowered geomodeling.windowed-read-limit, bitwise
+   the whole-file answer; (c) the quality variable's view on a tile
+   against compute_host and unlike the rain's, info of both equal to the
+   whole decode; (d) write_netcdf of one hourly sum over 1024^2, packed
+   int16, read back within half a packing step; (e) the h5py gate on an
+   HDF5 .nc4 and an HDF4 .hdf naming its JAX module; the Gaussian at the
+   path's batch shape torch.equal to its plain version;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -208,8 +226,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    same function (CUDA events), and the least time the card could take;
    the Gaussian is timed at three paths' shapes, on a uint8 batch (the
    integer entry) and at the building-heights and wms-serving paths'
-   single planes, and both kernels on dem-formats' int16 batch, one
-   kernel record each.
+   single planes, both kernels on dem-formats' int16 batch and the
+   Gaussian on netcdf-radar's zoom-mode batch, one kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -1058,6 +1076,189 @@ def write_sheet_zarr(folder, sheet, chunk=ZARR_CHUNK, name="sheet.zarr"):
     return root, chunk_bytes + sum(len(b) for b in written)
 
 
+#: the netcdf-radar path: a day of a weather radar's 5-minute rain
+#: accumulations over the Netherlands (a composite of 1 km cells in RD New,
+#: RADAR_SIZE^2) in a CDF-2 file, as radar archives hand them out; its
+#: hourly sums of three hours of an afternoon, smoothed over 3 km, asked at
+#: RADAR_PX^2 of 100 m, and under a RADAR_WINDOW_LIMIT windowed-read limit
+RADAR_DAY = datetime(2021, 7, 14)
+RADAR_RECORDS = 288
+RADAR_STEP = timedelta(minutes=5)
+RADAR_SIZE = 500
+RADAR_CELL = 1000.0
+RADAR_ORIGIN = (-110000.0, 700000.0)  # the grid's north-west corner
+RADAR_SCALE = 0.01  # mm a packed step
+RADAR_FILL = -32767
+RADAR_FILL_SHARE = 0.05
+RADAR_HOURS = (13, 16)
+RADAR_SMOOTH_M = 3000.0
+RADAR_PX = 4096
+RADAR_REQUEST_CELL = 100.0
+RADAR_WINDOW_LIMIT = 100000
+RADAR_EXPORT_PX = 1024
+#: nc_type -> big-endian numpy dtype, for the hand-built netCDF files
+NC_TYPES = {1: ">i1", 2: "S1", 3: ">i2", 4: ">i4", 5: ">f4", 6: ">f8"}
+
+
+def write_classic_netcdf(path, dims, variables, numrecs, gatts=(), version=2,
+                         numrecs_field=None):
+    """Write a netCDF classic file by hand, in one buffered write: CDF-1
+    (``version`` 1, 32-bit offsets) or CDF-2 (2, 64-bit offsets).  ``dims``
+    is [(name, length)], length 0 the UNLIMITED (record) dimension;
+    ``variables`` is [(name, dimids, atts, nc_type, values)], a record
+    variable's ``values`` holding ``numrecs`` records; ``atts`` and
+    ``gatts`` are [(name, value)], a str stored as NC_CHAR and an (nc_type,
+    numbers) pair as numbers.  The fixed variables come first, each padded
+    to 4 bytes, then the records: each holds every record variable's slab
+    padded to 4, or the bare slab where one variable records.
+    ``numrecs_field`` replaces the header's record count (0xFFFFFFFF, the
+    STREAMING sentinel).  Returns the bytes written."""
+    import struct
+
+    def pad(n):
+        return -(-n // 4) * 4
+
+    def u4(value):
+        return struct.pack(">I", value)
+
+    def name(text):
+        raw = text.encode()
+        return u4(len(raw)) + raw.ljust(pad(len(raw)), b"\0")
+
+    def att_list(atts):
+        if not atts:
+            return u4(0) + u4(0)
+        blob = u4(0x0C) + u4(len(atts))
+        for key, value in atts:
+            if isinstance(value, str):
+                nc_type, raw, count = 2, value.encode(), len(value.encode())
+            else:
+                nc_type, numbers = value
+                raw = np.asarray(numbers, NC_TYPES[nc_type]).tobytes()
+                count = len(raw) // np.dtype(NC_TYPES[nc_type]).itemsize
+            blob += name(key) + u4(nc_type) + u4(count) + raw.ljust(pad(len(raw)), b"\0")
+        return blob
+
+    record = [bool(dimids) and dims[dimids[0]][1] == 0 for _, dimids, _, _, _ in variables]
+    slabs = [int(np.prod([dims[d][1] for d in dimids[int(rec):]])) * np.dtype(
+        NC_TYPES[nc_type]).itemsize for (_, dimids, _, nc_type, _), rec in zip(variables, record)]
+    n_record = sum(record)
+
+    def header(begins):
+        blob = b"CDF" + bytes([version])
+        blob += u4(numrecs if numrecs_field is None else numrecs_field)
+        blob += u4(0x0A) + u4(len(dims)) + b"".join(name(n) + u4(length) for n, length in dims)
+        blob += att_list(list(gatts))
+        blob += u4(0x0B) + u4(len(variables))
+        for (vname, dimids, atts, nc_type, _), slab, begin in zip(variables, slabs, begins):
+            blob += name(vname) + u4(len(dimids)) + b"".join(u4(d) for d in dimids)
+            blob += att_list(list(atts)) + u4(nc_type) + u4(pad(slab))
+            blob += struct.pack(">Q" if version == 2 else ">I", begin)
+        return blob
+
+    offset = len(header([0] * len(variables)))
+    begins = [0] * len(variables)
+    for k, (slab, rec) in enumerate(zip(slabs, record)):
+        if not rec:
+            begins[k] = offset
+            offset += pad(slab)
+    records_at, stride = offset, 0
+    for k, (slab, rec) in enumerate(zip(slabs, record)):
+        if rec:
+            begins[k] = records_at + stride
+            stride += pad(slab) if n_record > 1 else slab
+    buffer = np.zeros(records_at + numrecs * stride, np.uint8)
+    head = header(begins)
+    buffer[: len(head)] = np.frombuffer(head, np.uint8)
+    if numrecs:
+        records = buffer[records_at:].reshape(numrecs, stride)
+    for (_, _, _, nc_type, values), slab, rec, begin in zip(variables, slabs, record, begins):
+        raw = np.ascontiguousarray(values, NC_TYPES[nc_type])
+        if not rec:
+            buffer[begin : begin + slab] = raw.reshape(-1).view(np.uint8)
+        elif numrecs:
+            at = begin - records_at
+            records[:, at : at + slab] = raw.reshape(numrecs, -1).view(np.uint8)
+    with open(path, "wb") as f:
+        f.write(buffer)
+    return buffer.size
+
+
+def radar_frames(records, size, seed):
+    """(precipitation, quality): 5-minute rain in RADAR_SCALE mm steps,
+    int16, north-up, showers of 25 km cells over a dry 70% of the map with
+    small noise, RADAR_FILL in RADAR_FILL_SHARE of the cells; the radar's
+    quality index in percent, int8."""
+    rng = np.random.default_rng(seed)
+    cells = -(-size // 25)
+    showers = np.where(rng.random((records, cells, cells)) < 0.7, 0,
+                       rng.gamma(0.6, 40.0, (records, cells, cells))).astype(np.int16)
+    rain = np.repeat(np.repeat(showers, 25, axis=1), 25, axis=2)[:, :size, :size]
+    rain += rng.integers(0, 4, rain.shape, dtype=np.int16)
+    rain[rng.random(rain.shape, dtype=np.float32) < RADAR_FILL_SHARE] = RADAR_FILL
+    quality = rng.integers(40, 101, rain.shape, dtype=np.int8)
+    return rain, quality
+
+
+def write_radar_netcdf(folder, records=RADAR_RECORDS, size=RADAR_SIZE, seed=21, name="radar.nc"):
+    """Write a day of radar frames (radar_frames) to ``folder``/``name`` as
+    a CDF-2 file (write_classic_netcdf): ``time`` UNLIMITED with ``records``
+    records, ``y`` and ``x`` of ``size`` cells of RADAR_CELL m from
+    RADAR_ORIGIN in EPSG:28992; float64 cell centres, ``y`` ascending (the
+    rows stored south-up); three record variables interleaving record by
+    record: ``time`` (float64, minutes since the first frame),
+    ``precipitation`` (NC_SHORT, ``scale_factor`` RADAR_SCALE, ``add_offset``
+    0, ``_FillValue`` RADAR_FILL) and ``quality`` (NC_BYTE); both name the
+    ``grid_mapping`` ``projection``, a scalar NC_INT whose ``epsg_code`` is
+    its only georeferencing.  Returns (path, bytes written)."""
+    rain, quality = radar_frames(records, size, seed)
+    x0, y_top = RADAR_ORIGIN
+    xs = x0 + RADAR_CELL * (np.arange(size) + 0.5)
+    ys = y_top - RADAR_CELL * size + RADAR_CELL * (np.arange(size) + 0.5)
+    minutes = np.arange(records) * RADAR_STEP.total_seconds() / 60
+    mapping = [("grid_mapping", "projection")]
+    variables = [
+        ("x", [2], [("standard_name", "projection_x_coordinate"), ("units", "m")], 6, xs),
+        ("y", [1], [("standard_name", "projection_y_coordinate"), ("units", "m")], 6, ys),
+        ("projection", [], [("epsg_code", "EPSG:28992")], 4, np.zeros(1)),
+        ("time", [0], [("units", "minutes since %s" % RADAR_DAY.isoformat(" "))], 6, minutes),
+        ("precipitation", [0, 1, 2], [
+            ("long_name", "precipitation"), ("units", "mm"), ("scale_factor", (5, [RADAR_SCALE])),
+            ("add_offset", (5, [0.0])), ("_FillValue", (3, [RADAR_FILL]))] + mapping, 3,
+         rain[:, ::-1]),
+        ("quality", [0, 1, 2], [("long_name", "quality"), ("units", "percent")] + mapping, 1,
+         quality[:, ::-1]),
+    ]
+    path = os.path.join(folder, name)
+    written = write_classic_netcdf(
+        path, [("time", 0), ("y", size), ("x", size)], variables, records,
+        gatts=[("Conventions", "CF-1.6"), ("title", "synthetic rain radar, 5-minute sums")])
+    return path, written
+
+
+def build_radar_view(path, variable=None):
+    """Smooth(TemporalAggregate(RasterFileSource, "1h", sum), RADAR_SMOOTH_M):
+    hourly rain sums of the radar file, smoothed over a few km."""
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth, TemporalAggregate
+
+    source = RasterFileSource(path, time_first=RADAR_DAY,
+                              time_delta=int(RADAR_STEP.total_seconds() * 1000), variable=variable)
+    return Smooth(TemporalAggregate(source, "1h", statistic="sum"), RADAR_SMOOTH_M)
+
+
+def radar_request(size=RADAR_SIZE, px=RADAR_PX, cell=RADAR_REQUEST_CELL, hours=RADAR_HOURS):
+    """px^2 cells of ``cell`` m in EPSG:28992 in the middle of a size^2 radar
+    grid, over the frames from ``hours[0]`` of RADAR_DAY up to ``hours[1]``
+    (the stop is the last frame's time: the hourly bins are whole)."""
+    x0, y_top = RADAR_ORIGIN
+    cx, cy = x0 + size * RADAR_CELL / 2, y_top - size * RADAR_CELL / 2
+    half = px * cell / 2
+    return dict(mode="vals", bbox=(cx - half, cy - half, cx + half, cy + half),
+                projection="EPSG:28992", width=px, height=px,
+                start=RADAR_DAY + timedelta(hours=hours[0]),
+                stop=RADAR_DAY + timedelta(hours=hours[1]) - RADAR_STEP)
+
+
 #: the building-heights path: synthetic BAG-like building footprints
 #: ("panden") over the sheet at a Dutch suburban density, 640 a km^2
 #: (20,000 over the sheet's 31.25 km^2), one to a grid cell, exported in
@@ -1869,7 +2070,7 @@ def compare_cells(port, host, no_data_value):
 
 def check_algebra_path(label, device, view, request, interpolation, corner, host_nodes=0,
                        share=0.0, sigma_groups=False, sampled_tiles=16, first_run=None,
-                       routed=True):
+                       routed=True, gaussian_launches=1):
     """One raster-algebra, temporal, tiled geometry or file path at full
     size; returns (host Mpx/s, the evaluate_tiled values).  Every node that returns pixels runs on the
     card but ``host_nodes`` per tile (Rasterize's, which has no twin): the
@@ -1877,7 +2078,8 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
     on the host while planning; the tiles run in as many batches as a
     MemorySource's would (more where a cross-CRS Smooth's sigma differs
     between tile rows, ``sigma_groups``), the Gaussian launched once per
-    batch; a 64^2 corner and ``sampled_tiles`` tiles are held to compute_host:
+    batch (``gaussian_launches`` times: twice for a radius above the fused
+    launch's limit, a zoom-mode Smooth's); a 64^2 corner and ``sampled_tiles`` tiles are held to compute_host:
     bitwise (at most ``share`` of the cells differing, the headline's rule
     for a cross-CRS nearest warp), or for the cross-CRS bilinear path
     within BILINEAR_ATOL with at most BILINEAR_FILL_SHARE of the cells
@@ -1921,8 +2123,8 @@ def check_algebra_path(label, device, view, request, interpolation, corner, host
                  program.on_host.count(False), program.on_host.count(True), data_share))
         check(batches == -(-len(tiles) // BATCH) or (sigma_groups and batches <= len(tiles) // 8),
               "%s: tiles split into more batches" % label)
-        check(gaussians in (0, batches), "%s: %d Gaussian launches for %d batches"
-              % (label, gaussians, batches))
+        check(gaussians in (0, gaussian_launches * batches),
+              "%s: %d Gaussian launches for %d batches" % (label, gaussians, batches))
         check(data_share > 0.01, "%s: output is all nodata" % label)
 
         if routed:
@@ -2539,6 +2741,221 @@ def check_zarr_store(card, device, folder, sheet, file_read, read_values, sub_px
                           plan_split_s=plan_split, tiles=n_tiles,
                           to_zarr_s=export_s, read_back_s=read_back_s, phase_s=phase_s,
                           gaussian_launches_read=read_launches)
+
+
+def netcdf_clock():
+    """A PhaseClock over a netCDF file's reads: the whole decodes (the file
+    read, the header, the record slabs, the CF assembly), the record slabs
+    and the CF assembly apart, and the window reads."""
+    from dask_geomodeling_tpu_torch.io import netcdf as netcdf_io
+
+    return PhaseClock([(netcdf_io, "read_netcdf", "whole reads"),
+                       (netcdf_io, "_read_var", "record slabs"),
+                       (netcdf_io, "_assemble_raster", "CF assembly"),
+                       (netcdf_io, "read_netcdf_window", "window reads")])
+
+
+class gaussian_calls:
+    """The (shape, dtype, sigma) of every Gaussian that Smooth's twin asks
+    for while installed, in ``calls``."""
+
+    def __enter__(self):
+        from dask_geomodeling_tpu_torch.raster import spatial
+
+        self.calls, self.blur = [], spatial.gaussian_blur
+
+        def blur(planes, sigma_y, sigma_x, fill):
+            self.calls.append((tuple(planes.shape), planes.dtype, (sigma_y, sigma_x)))
+            return self.blur(planes, sigma_y, sigma_x, fill)
+
+        spatial.gaussian_blur = blur
+        return self
+
+    def __exit__(self, *exc):
+        from dask_geomodeling_tpu_torch.raster import spatial
+
+        spatial.gaussian_blur = self.blur
+        return False
+
+
+def check_netcdf_radar(card, device, folder, records=RADAR_RECORDS, size=RADAR_SIZE,
+                       px=RADAR_PX, hours=RADAR_HOURS, window_limit=RADAR_WINDOW_LIMIT,
+                       sampled_tiles=8, export_px=RADAR_EXPORT_PX):
+    """The netcdf-radar phase over a day of radar frames in a CDF-2 file
+    (write_radar_netcdf), build_radar_view at radar_request: (a) info, a
+    whole decode (timed under netcdf_clock), then the request through
+    evaluate_tiled with the checks of check_algebra_path (bitwise, 8
+    sampled tiles, no second get_data run), its first run's phases, the
+    Gaussian's launches and the batch it was given; (b) the same request
+    read by window under ``window_limit``, bitwise the whole-file answer,
+    no second decode; (c) the ``quality`` variable's view on one tile
+    against compute_host and unlike the rain's, and ``info`` of both
+    variables equal to the whole decode and to the file's grid; (d)
+    write_netcdf of the first hourly sum over an export_px^2 corner,
+    packed int16 with a scale_factor, read back through RasterFileSource
+    within half a packing step; (e) an HDF5 file under ``.nc4`` raising the
+    h5py gate (NotImplementedError naming h5py) without h5py and OSError
+    with it, and an HDF4 ``.hdf`` NotImplementedError naming io/hdf4.py.
+    Returns (launches, numbers, (the Gaussian's batch shape, sigma));
+    removes the files."""
+    import importlib.util
+
+    from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.io.netcdf import write_netcdf
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    path, written = write_radar_netcdf(folder, records, size)
+    write_s = time.perf_counter() - t0
+    print("netcdf-radar: %d 5-minute frames of %d^2 (int16 rain, int8 quality) written as a "
+          "CDF-2 file in %.2f s, %.1f MB [%s]" % (records, size, write_s, written / 1e6, card))
+    view = build_radar_view(path)
+    source = view.args[0].args[0]
+    request = radar_request(size, px, hours=hours)
+    tiles, _ = tile_requests(request, TILE)
+
+    # (a) the header (a whole decode, kept in the read cache), then the path
+    with netcdf_clock() as clock:
+        t0 = time.perf_counter()
+        info = source.info
+        decode_s = time.perf_counter() - t0
+    decode = dict(clock.seconds)
+    check(clock.calls["whole reads"] == 1, "netcdf-radar: info decoded %d times"
+          % clock.calls["whole reads"])
+    cuda_stencils.reset_launches()
+    phases, spy = {}, gaussian_calls()
+    host_rate, values = check_algebra_path(
+        "netcdf-radar", device, view, request, "nearest", (request["bbox"][0], request["bbox"][3]),
+        share=0.0, sampled_tiles=sampled_tiles, first_run=(spy, phases), routed=False,
+        gaussian_launches=2)
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    check(launches["gaussian_blur"] > 0, "netcdf-radar: the Gaussian did not launch")
+    check(values.shape == (3, px, px) and values.dtype == np.float32,
+          "netcdf-radar: %s %s, not 3 hourly float32 bands" % (values.shape, values.dtype))
+    check(len(spy.calls) == -(-len(tiles) // BATCH), "netcdf-radar: %d Gaussians for %d tiles"
+          % (len(spy.calls), len(tiles)))
+    planes, _, sigma = spy.calls[0]
+    run_s = sum(phases.values())
+    print("netcdf-radar: info %.3f s (a whole decode: record slabs %.3f s, CF assembly %.3f s); "
+          "%d tiles, %d frames into %d hourly sums, Gaussian %d launches on %s sigma (%.4f, "
+          "%.4f); first run %s, %.3f Mpx/s [%s]" % (
+              decode_s, decode["record slabs"], decode["CF assembly"], len(tiles),
+              (request["stop"] - request["start"]) // RADAR_STEP + 1, values.shape[0],
+              launches["gaussian_blur"], planes, sigma[0], sigma[1],
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), px * px / 1e6 / run_s, card))
+
+    # (b) read by window: the same answer, no second decode
+    with config.set({"geomodeling.windowed-read-limit": window_limit}):
+        check(source._file_read_plan(tiles[0]) is not None, "netcdf-radar: the read is not "
+              "windowed under the limit")
+        with netcdf_clock() as clock:
+            t0 = time.perf_counter()
+            windowed = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH,
+                                      device=device)["values"]
+            windowed_s = time.perf_counter() - t0
+    check(np.array_equal(windowed, values), "netcdf-radar: the windowed answer differs")
+    check(clock.calls["whole reads"] == 0 and clock.calls["window reads"] >= len(tiles),
+          "netcdf-radar: %d whole and %d window reads by window"
+          % (clock.calls["whole reads"], clock.calls["window reads"]))
+    del windowed
+    print("netcdf-radar: by window (windowed-read-limit %d) in %.3f s, %d window reads, no "
+          "decode, bitwise the whole-file answer" % (window_limit, windowed_s,
+                                                     clock.calls["window reads"]))
+
+    # (c) the other record variable, and info of both
+    tile = tiles[len(tiles) // 2]
+    quality = build_radar_view(path, "quality")
+    card_quality = get_data(quality, device=device, **tile)["values"]
+    host_quality = host_values(quality, tile)
+    check(card_quality.dtype == host_quality.dtype and np.array_equal(card_quality, host_quality),
+          "netcdf-radar: the quality view differs from compute_host")
+    check(not np.array_equal(card_quality, get_data(view, device=device, **tile)["values"]),
+          "netcdf-radar: the quality view answers the rain's")
+    expected = dict(width=size, height=size, bands=records, projection="EPSG:28992",
+                    geo_transform=(RADAR_ORIGIN[0], RADAR_CELL, 0.0, RADAR_ORIGIN[1], 0.0,
+                                   -RADAR_CELL))
+    for variable, dtype, nodata in ((None, "float32", float(np.finfo(np.float32).max)),
+                                    ("quality", "int8", 127.0)):
+        got = RasterFileSource(path, variable=variable).info
+        whole = pipeline.read_geotiff_cached(path, variable)
+        check((got.width, got.height, got.bands, got.dtype, tuple(got.geo_transform),
+               got.no_data_value, got.projection)
+              == (whole.array.shape[2], whole.array.shape[1], whole.array.shape[0],
+                  str(whole.array.dtype), tuple(whole.geo_transform), whole.no_data_value,
+                  whole.projection)
+              == (expected["width"], expected["height"], expected["bands"], dtype,
+                  expected["geo_transform"], nodata, expected["projection"]),
+              "netcdf-radar: info of %s differs from the whole decode" % variable)
+    print("netcdf-radar: quality (%s) on a tile equal to compute_host, unlike the rain; info of "
+          "both equal to the whole decode" % card_quality.dtype)
+
+    # (d) one hourly sum over a corner, packed int16, read back
+    x1, _, _, y2 = request["bbox"]
+    cell = RADAR_REQUEST_CELL
+    sub = (x1, y2 - export_px * cell, x1 + export_px * cell, y2)
+    sub_request = dict(request, bbox=sub, width=export_px, height=export_px)
+    hourly = get_data(view, device=device, **sub_request)
+    sums, nodata = hourly["values"][0], hourly["no_data_value"]
+    packed = np.where(sums == nodata, RADAR_FILL, np.round(sums / RADAR_SCALE)).astype(np.int16)
+    target = os.path.join(folder, "hourly.nc")
+    t0 = time.perf_counter()
+    write_netcdf(target, packed, (sub[0], cell, 0.0, sub[3], 0.0, -cell),
+                 projection="EPSG:28992", no_data_value=RADAR_FILL, scale_factor=RADAR_SCALE)
+    export_s = time.perf_counter() - t0
+    back = get_data(RasterFileSource(target), device=device, mode="vals", bbox=sub,
+                    projection="EPSG:28992", width=export_px, height=export_px)
+    data = sums != nodata
+    err = float(np.abs(back["values"][0][data] - sums[data]).max()) if data.any() else 0.0
+    check(np.array_equal(back["values"][0] == back["no_data_value"], ~data)
+          and err <= RADAR_SCALE / 2 * 1.001,
+          "netcdf-radar: the packed export differs by %r" % err)
+    print("netcdf-radar: write_netcdf of one hourly sum over %d^2 (int16, scale_factor %g) in "
+          "%.3f s, read back within %r of the card's sums" % (export_px, RADAR_SCALE, export_s,
+                                                              err))
+
+    # (e) the gates
+    hdf5 = os.path.join(folder, "gate.nc4")
+    hdf4 = os.path.join(folder, "gate.hdf")
+    with open(hdf5, "wb") as f:
+        f.write(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
+    with open(hdf4, "wb") as f:
+        f.write(b"\x0e\x03\x13\x01" + b"\0" * 64)
+    has_h5py = importlib.util.find_spec("h5py") is not None
+
+    def raised_by(call):
+        try:
+            call()
+        except (NotImplementedError, OSError) as e:
+            return e
+        return None
+
+    raised = raised_by(lambda: RasterFileSource(hdf5).info)
+    check(isinstance(raised, OSError) if has_h5py else
+          isinstance(raised, NotImplementedError) and "h5py" in str(raised),
+          "netcdf-radar: an HDF5 .nc4 raised %r" % raised)
+    for call in (lambda: RasterFileSource(hdf4).info, lambda: pipeline.read_geotiff_cached(hdf4)):
+        hdf4_error = raised_by(call)
+        check(isinstance(hdf4_error, NotImplementedError) and "io/hdf4.py" in str(hdf4_error),
+              "netcdf-radar: an HDF4 .hdf raised %r" % hdf4_error)
+    print("netcdf-radar: gates: an HDF5 .nc4 raised %s (h5py %s), an HDF4 .hdf "
+          "NotImplementedError naming io/hdf4.py" % (type(raised).__name__,
+                                                      "present" if has_h5py else "missing"))
+    for name in (path, target, hdf5, hdf4):
+        os.remove(name)
+    pipeline.clear_read_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print("netcdf-radar: the phase %.2f s [%s]" % (phase_s, card))
+    return launches, dict(write_s=write_s, file_mb=written / 1e6, info_decode_s=decode_s,
+                          decode_split_s=decode, host_mpx_per_s=host_rate, phases_s=phases,
+                          mpx_per_s=px * px / 1e6 / run_s, windowed_s=windowed_s,
+                          export_s=export_s, export_err=err, phase_s=phase_s,
+                          tiles=len(tiles)), (planes, sigma)
 
 
 class PhaseClock:
@@ -4978,10 +5395,12 @@ def run_phases(card, device, folder, mark):
     file_host = {}
     for label, (view, request, interpolation, corner) in files.items():
         cuda_stencils.reset_launches()
+        # file-read runs no second whole run (get_data against
+        # evaluate_tiled): file-reproject holds it for the same view
         file_host[label], values = check_algebra_path(
             label, device, view, request, interpolation, corner,
             share=0.0 if label == "file-read" else HEADLINE_SHARE,
-            sigma_groups=label == "file-reproject")
+            sigma_groups=label == "file-reproject", routed=label != "file-read")
         launches[label] = {"gaussian_blur": cuda_stencils.launches,
                            "moving_max": cuda_stencils.moving_max_launches}
         if label == "file-read":
@@ -5037,6 +5456,19 @@ def run_phases(card, device, folder, mark):
     gaussian.append(dem_kernels[0])
     moving.append(dem_kernels[1])
     mark("the dem-formats path")
+    launches["netcdf-radar"], radar, (radar_planes, radar_sigma) = check_netcdf_radar(
+        card, device, folder)
+    planes = torch.from_numpy((rng.rand(*radar_planes) * 5).astype(np.float32)).to(device)
+    got = cuda_stencils.gaussian_blur(planes, *radar_sigma, 0)
+    want = gaussian_blur_reference(planes, *radar_sigma, 0)
+    check(torch.equal(got, want), "gaussian_blur differs from its plain version at the "
+          "netcdf-radar batch")
+    err = float((got - want).abs().max())
+    print("kernel check: gaussian_blur netcdf-radar batch %s sigma=(%.6f, %.6f) equal=True "
+          "max_abs_err=%r" % (tuple(planes.shape), radar_sigma[0], radar_sigma[1], err))
+    gaussian.append(dict(time_gaussian(planes, radar_sigma), max_abs_err=err, path="netcdf-radar"))
+    del planes, got, want
+    mark("the netcdf-radar path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -5066,6 +5498,7 @@ def run_phases(card, device, folder, mark):
     timings["building-rings"] = rings
     timings["building-formats"] = formats
     timings["dem-formats"] = dem
+    timings["netcdf-radar"] = radar
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -4,7 +4,7 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 ``RasterSourceBase`` with its numpy ``process`` (the requested time window
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
-``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, PNG and the
+``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, netCDF, PNG and the
 plain-grid formats of ``runtime/pipeline.py:whole_file_reader``; its
 other formats raise NotImplementedError naming the JAX module that reads
 them), and the twin
@@ -14,8 +14,10 @@ of ``_source_process_jax``.  Both the process and the twin resample as
 A payload read whole (a MemorySource's array, a small file through the
 read cache) is moved to the device once (``to_device``) and stays
 resident across tiles and batches, as the JAX executor keeps it in HBM.
-A GeoTIFF, VRT or Zarr store above ``geomodeling.windowed-read-limit``
-is read window by window (a store chunk by chunk): each tile's plan
+A GeoTIFF, VRT, Zarr store or netCDF file above
+``geomodeling.windowed-read-limit`` is read window by window (a store or a
+netCDF-4 file chunk by chunk, a classic netCDF file as slices of its
+cached whole decode): each tile's plan
 carries the window its bbox touches, with the window's own float64
 geotransform.  The twin takes those windows per tile
 (``torch_dynamic``): a batch's windows are stacked, padded to the largest,
@@ -384,16 +386,19 @@ class MemorySource(RasterSourceBase):
 
 class RasterFileSource(RasterSourceBase):
     """A raster source reading a raster file from a path: a GeoTIFF, a VRT
-    mosaic, a Zarr v2 store (a directory), or a format that decodes whole
-    (PNG, SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi,
-    ENVI).
+    mosaic, a Zarr v2 store (a directory), a netCDF file (classic CDF-1 or
+    CDF-2, or netCDF-4/HDF5 where h5py is importable: ``.nc``, ``.cdf``,
+    ``.nc3``, ``.nc4``, ``.h5``, ``.hdf5``, and an ``.hdf``, ``.h4`` or
+    ``.hdf4`` that is no HDF4 file), or a format that decodes whole (PNG,
+    SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI).
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``
       time_first (int or datetime): timestamp of the first frame (ms)
       time_delta (int or timedelta): frame spacing (ms), default 5 minutes
       variable (str): data variable of multi-variable containers (a Zarr
-        store's array; the largest when None); kept in the cache keys
+        store's array, a netCDF file's variable; the largest when None);
+        kept in the cache keys
     """
 
     def __init__(self, url, time_first=0, time_delta=300000, variable=None):
@@ -419,6 +424,7 @@ class RasterFileSource(RasterSourceBase):
         except AttributeError:
             from dask_geomodeling_tpu_torch.runtime.pipeline import (
                 check_ported_format,
+                is_netcdf,
                 whole_file_reader,
             )
 
@@ -429,6 +435,11 @@ class RasterFileSource(RasterSourceBase):
                 from dask_geomodeling_tpu_torch.io.zarr import read_zarr_info
 
                 self._info = read_zarr_info(path, self.variable)
+            elif is_netcdf(path):
+                # a netCDF-4 file's from its metadata and coordinates
+                from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf_info
+
+                self._info = read_netcdf_info(path, self.variable)
             elif path.lower().endswith(".vrt"):
                 from dask_geomodeling_tpu_torch.io.vrt import read_vrt_info
 
@@ -531,17 +542,20 @@ class RasterFileSource(RasterSourceBase):
 
     def _file_read_plan(self, request):
         """``(level, (row0, row1, col0, col1))`` for a vals request, or
-        None for the plain whole-file read: a GeoTIFF, VRT or Zarr store
-        above ``geomodeling.windowed-read-limit`` decodes only the blocks
-        (a store's chunks) of the request's source-CRS bbox plus a 2-pixel
+        None for the plain whole-file read: a GeoTIFF, VRT, Zarr store or
+        netCDF file above ``geomodeling.windowed-read-limit`` decodes only
+        the blocks (a store's or a netCDF-4 file's chunks) of the request's
+        source-CRS bbox plus a 2-pixel
         margin, and with ``geomodeling.use-overviews`` a request at 2x or
         more coarser resolution reads the best overview level of a
         GeoTIFF."""
         if request is None:
             return None
         path = safe_abspath(self.url)
-        # VRTs and Zarr stores have no overview levels
-        chunked_store = path.lower().endswith((".zarr", ".vrt"))
+        from dask_geomodeling_tpu_torch.runtime.pipeline import is_netcdf
+
+        # VRTs, Zarr stores and netCDF files have no overview levels
+        chunked_store = path.lower().endswith((".zarr", ".vrt")) or is_netcdf(path)
         if not (chunked_store or path.lower().endswith((".tif", ".tiff"))):
             return None
         info = self.info

@@ -2,20 +2,24 @@
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
 VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
-Surfer, SAGA, Idrisi, ENVI) and Zarr v2 stores: ``read_geotiff_cached``
-decodes a whole file or store into an mtime-validated LRU, choosing the
-reader by suffix in the JAX package's order, and
-``read_geotiff_window_cached`` one pixel window of a large GeoTIFF, VRT
-or Zarr store (block- or chunk-wise, a GeoTIFF optionally of an overview
-level) into another.  Both are keyed by ``(path, variable)`` plus the
-window, on lookup and on store alike, so every tile of a request that
-reads one unchanged file gets the same decoded array (the JAX package
-looks the whole-file entry up by the path and stores it by ``(path,
-variable)``, so its lookups never hit); ``variable`` selects a Zarr
-store's data array.  A rewrite of the file changes its stamp (mtime and
-size) and is decoded again; an ENVI pair's stamp holds both files', so a
-rewrite of the header alone is seen too, and a Zarr store's a walk of
-its entries (``_zarr_stamp``), so a chunk rewritten in a subdirectory is.
+Surfer, SAGA, Idrisi, ENVI), Zarr v2 stores and netCDF (classic, and
+netCDF-4/HDF5 where h5py is importable): ``read_geotiff_cached`` decodes
+a whole file or store into an mtime-validated LRU, choosing the reader
+by suffix in the JAX package's order (an ``.hdf``, ``.h4`` or ``.hdf4``
+by its magic: HDF4 is not ported, anything else is read as netCDF), and
+``read_geotiff_window_cached`` one pixel window of a large GeoTIFF, VRT,
+Zarr store or netCDF file (block- or chunk-wise, a GeoTIFF optionally of
+an overview level; a classic netCDF file's window is a slice of its
+cached whole decode) into another.  Both are keyed by ``(path,
+variable)`` plus the window, on lookup and on store alike, so every tile
+of a request that reads one unchanged file gets the same decoded array
+(the JAX package looks the whole-file entry up by the path and stores it
+by ``(path, variable)``, so its lookups never hit); ``variable`` selects
+a Zarr store's or a netCDF file's data variable.  A rewrite of the file
+changes its stamp (mtime and size) and is decoded again; an ENVI pair's
+stamp holds both files', so a rewrite of the header alone is seen too,
+and a Zarr store's a walk of its entries (``_zarr_stamp``), so a chunk
+rewritten in a subdirectory is.
 
 ``read_vector_cached`` parses a whole vector file into a third LRU, keyed
 by ``(path, layer)`` on lookup and store and validated by the same stamp;
@@ -36,6 +40,7 @@ __all__ = [
     "read_vector_cached",
     "clear_read_cache",
     "check_ported_format",
+    "is_netcdf",
     "whole_file_reader",
 ]
 
@@ -48,24 +53,28 @@ _VECTOR_CACHE = OrderedDict()
 _VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
-#: JAX module that reads each (an ``.img`` is HFA by its magic); the port
-#: reads GeoTIFF, VRT, Zarr stores and the formats of ``whole_file_reader``
+#: JAX module that reads each (an ``.img`` is HFA, and an ``.hdf``,
+#: ``.h4`` or ``.hdf4`` HDF4, by its magic); the port reads GeoTIFF, VRT,
+#: Zarr stores, netCDF and the formats of ``whole_file_reader``
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
     (".ntf", ".nitf"): "io/nitf.py",
-    (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5"): "io/netcdf.py",
-    (".hdf", ".h4", ".hdf4"): "io/hdf4.py",
     (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
     (".mbtiles",): "io/mbtiles.py",
     (".gpkg",): "io/gpkg_raster.py",
 }
+_NETCDF_SUFFIXES = (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5")
+#: HDF4 by its magic, HDF5 (read as netCDF-4) otherwise
+_HDF_SUFFIXES = (".hdf", ".h4", ".hdf4")
+_HFA_MAGIC = b"EHFA_HEADER_TAG\x00"
+_HDF4_MAGIC = b"\x0e\x03\x13\x01"
 
 
-def _is_hfa(path):
+def _has_magic(path, magic):
     try:
         with open(path, "rb") as stream:
-            return stream.read(16) == b"EHFA_HEADER_TAG\x00"
+            return stream.read(len(magic)) == magic
     except OSError:
         return False
 
@@ -76,13 +85,21 @@ def check_ported_format(path):
     lower = path.lower()
     module = next((m for suffixes, m in _UNPORTED_FORMATS.items() if lower.endswith(suffixes)),
                   None)
-    if module is None and lower.endswith(".img") and _is_hfa(path):
+    if module is None and lower.endswith(".img") and _has_magic(path, _HFA_MAGIC):
         module = "io/hfa.py"
+    if module is None and lower.endswith(_HDF_SUFFIXES) and _has_magic(path, _HDF4_MAGIC):
+        module = "io/hdf4.py"
     if module is not None:
         raise NotImplementedError(
             "reading %s is not ported: dask_geomodeling_tpu/%s reads it"
             % (os.path.basename(path), module)
         )
+
+
+def is_netcdf(path):
+    """Whether ``path`` is read as netCDF: by its suffix, once
+    ``check_ported_format`` has let it pass (an HDF4 file raises there)."""
+    return path.lower().endswith(_NETCDF_SUFFIXES + _HDF_SUFFIXES)
 
 
 def whole_file_reader(path):
@@ -198,13 +215,14 @@ def _store_stamp(path):
 
 
 def read_geotiff_cached(path, variable=None):
-    """Read a whole raster file (GeoTIFF, VRT mosaic, Zarr store or a
-    format of ``whole_file_reader``) through an mtime-validated LRU keyed
-    by ``(path, variable)``; ``variable`` selects a Zarr store's data
-    array and is kept in the key for every format, as the JAX package
-    keeps it."""
+    """Read a whole raster file (GeoTIFF, VRT mosaic, Zarr store, netCDF
+    file or a format of ``whole_file_reader``) through an mtime-validated
+    LRU keyed by ``(path, variable)``; ``variable`` selects a Zarr store's
+    or a netCDF file's data variable and is kept in the key for every
+    format, as the JAX package keeps it."""
     from dask_geomodeling_tpu_torch.io.envi import read_envi
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt
     from dask_geomodeling_tpu_torch.io.zarr import read_zarr
 
@@ -214,6 +232,9 @@ def read_geotiff_cached(path, variable=None):
     if path.lower().endswith(".zarr"):
         return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _store_stamp(path),
                        partial(read_zarr, path, variable))
+    if is_netcdf(path):
+        return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _file_stamp(path),
+                       partial(read_netcdf, path, variable))
     read = whole_file_reader(path) or (read_vrt if path.lower().endswith(".vrt") else read_geotiff)
     stamp = _envi_stamp(path) if read is read_envi else _file_stamp(path)
     return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, stamp, partial(read, path))
@@ -221,10 +242,12 @@ def read_geotiff_cached(path, variable=None):
 
 def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=None):
     """Read one pixel window of a large GeoTIFF (block-level decode,
-    optionally of an overview level), VRT or Zarr store (chunk-level
-    decode of ``variable``) through an mtime-validated LRU keyed by
-    ``(path, window, level, variable)``."""
+    optionally of an overview level), VRT, Zarr store (chunk-level decode
+    of ``variable``) or netCDF file (of ``variable``: a netCDF-4 file's
+    chunks, a classic file's cached whole decode sliced) through an
+    mtime-validated LRU keyed by ``(path, window, level, variable)``."""
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_window
+    from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf_window
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt_window
     from dask_geomodeling_tpu_torch.io.zarr import read_zarr_window
 
@@ -235,6 +258,8 @@ def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=N
     if path.lower().endswith(".zarr"):
         stamp = _store_stamp(path)
         read = partial(read_zarr_window, path, row0, row1, col0, col1, variable=variable)
+    elif is_netcdf(path):
+        read = partial(read_netcdf_window, path, row0, row1, col0, col1, variable=variable)
     elif path.lower().endswith(".vrt"):
         read = partial(read_vrt_window, path, row0, row1, col0, col1)
     else:

@@ -25,8 +25,9 @@ EPSG:28992) and each crs-families view at 256^2 against the CPU, the
 crs-families phase with its NTv2 request at that size, the Cumulative
 nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
-1441^2 tile; the zarr-store phase over the 1024^2 sheet.  This file imports nothing of JAX
-or pandas, so it runs where neither is installed.
+1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
+phase over a small radar file.  This file imports nothing of JAX or
+pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
 
@@ -319,6 +320,25 @@ def test_zarr_store_phase_on_card(file_paths, tmp_path):
             paths["file-read"], read_values, sub_px=512, sampled_tiles=4)
     assert launches["gaussian_blur"] >= 3  # the run, get_data's run and the to_zarr request
     assert numbers["tiles"] == 4 and numbers["plan_split_s"]["whole reads"] == 0.0
+
+
+@pytest.mark.cuda
+def test_netcdf_radar_phase_on_card(tmp_path):
+    """chip_smoke's netcdf-radar phase over 36 frames of a 120^2 radar grid,
+    1024^2 of 100 m in 256^2 tiles: every check of the full run (the
+    windowed run under a limit of 1000 cells, the 256^2 export)."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        launches, numbers, (planes, sigma) = chip_smoke.check_netcdf_radar(
+            "card", device, str(tmp_path), records=36, size=120, px=1024, hours=(0, 3),
+            window_limit=1000, sampled_tiles=4, export_px=256)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
+    assert numbers["tiles"] == 16 and planes == (24, 256, 256)
+    assert numbers["export_err"] <= chip_smoke.RADAR_SCALE / 2 * 1.001
 
 
 # --- building-heights at small size ---

@@ -682,11 +682,15 @@ def test_zarr_stamp_as_the_jax_package(tmp_path, monkeypatch, limit):
 
 
 def test_netcdf_still_names_its_module(tmp_path):
-    """The netCDF reader is not ported: every netCDF suffix raises."""
+    """Every netCDF suffix reads a CDF-1 file through the read cache, as
+    the JAX package's reads it."""
+    from dask_geomodeling_tpu.io.netcdf import write_netcdf
+
+    values = np.arange(12, dtype="f4").reshape(1, 3, 4)
     for suffix in (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5"):
-        (tmp_path / ("a" + suffix)).write_bytes(b"CDF\x01")
-        with pytest.raises(NotImplementedError, match="io/netcdf.py"):
-            pipeline.read_geotiff_cached(str(tmp_path / ("a" + suffix)))
+        path = str(tmp_path / ("a" + suffix))
+        write_netcdf(path, values, (0.0, 1.0, 0.0, 3.0, 0.0, -1.0), no_data_value=-1.0)
+        assert_same(pipeline.read_geotiff_cached(path), jax_pipeline.read_geotiff_cached(path))
 
 
 # --- chip_smoke's zarr-store helper, small ---
