@@ -82,9 +82,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    cell over the temporal-mean view, MockGeometry's copy as the source):
    AggregateRaster's mean, median, p90 and max, a coarsened sum, the
    threshold variant's count and the mean requested in EPSG:3857, on the
-   card against compute_host (count, max, median and p90 bitwise, sum
-   and mean within one float32 ulp, the uncovered sets equal; the mean's
-   label planes bitwise to the host scanline's), seconds per request,
+   card against compute_host over an 8 x 8-cell sub-area (count, max,
+   median and p90 bitwise, sum and mean within one float32 ulp; the whole
+   mean request's label planes bitwise to the host scanline's and the
+   uncovered sets equal), seconds per request,
    the phases of one run, the device plane's CUDA-event times, the idle
    share and the peak memory;
 10. the file paths (build_file_paths), Smooth(RasterFileSource(sheet), 3):
@@ -214,20 +215,37 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    int16, read back within half a packing step; (e) the h5py gate on an
    HDF5 .nc4 and an HDF4 .hdf naming its JAX module; the Gaussian at the
    path's batch shape torch.equal to its plain version;
+10i. hfa-roughness (check_hfa_roughness): a land-use grid in the style of
+   LGN over a water board's 40 x 30 km, 8000 x 6000 uint8 classes of 5 m
+   in RD New (lgn_classes: parcels of about 20 x 60 cells of about 40 LGN
+   classes, towns of built-up classes cell by cell, class 0 the sea over a
+   tenth), written with the port's write_hfa in 64^2 blocks, every block
+   whose ESRI-GRID-RLE form is shorter spliced into it (splice_rle), and a
+   PAM sidecar (lgn.img.aux.xml) whose attribute table gives each class
+   but two a Manning's n (write_lgn); under Smooth(Reclassify(source, the
+   table's MANNING, select=True), 25 m) (build_lgn_view), asked whole at
+   its own grid: 192 tiles in batches of 64, with the checks of 6 bitwise
+   on 8 sampled tiles; info and the whole decode timed (every spliced
+   block decoded once, no second read); the friction on a coast tile
+   nodata exactly at class 0 and the unlisted classes; a rewritten
+   sidecar changes the next view's answer, as compute_host's; Mpx/s,
+   median of 3 runs, and their phases; the Gaussian's first launch on the
+   path torch.equal to its plain version on the same frames;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
    Classify at and beside their thresholds, bitwise;
 12. timing, per tiled path (border-reproject's plan seconds beside the
-   headline's): median of 3 evaluate_tiled runs (Mpx/s), the
-   numpy host rate on the sampled tiles, one run's seconds per phase, one
+   headline's): median of 3 evaluate_tiled runs (Mpx/s) and the median
+   run's seconds per phase, the numpy host rate on the sampled tiles, one
    profiled run's device busy time and idle share; per kernel at its
    path's shape, the kernel, its plain version and one PyTorch call of the
    same function (CUDA events), and the least time the card could take;
    the Gaussian is timed at three paths' shapes, on a uint8 batch (the
    integer entry) and at the building-heights and wms-serving paths'
-   single planes, both kernels on dem-formats' int16 batch and the
-   Gaussian on netcdf-radar's zoom-mode batch, one kernel record each.
+   single planes, both kernels on dem-formats' int16 batch, and the
+   Gaussian on netcdf-radar's zoom-mode batch and on hfa-roughness' float64
+   batch, one kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -240,6 +258,7 @@ the end.
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1259,6 +1278,215 @@ def radar_request(size=RADAR_SIZE, px=RADAR_PX, cell=RADAR_REQUEST_CELL, hours=R
                 stop=RADAR_DAY + timedelta(hours=hours[1]) - RADAR_STEP)
 
 
+#: the hfa-roughness path: a land-use grid in the style of LGN (the Dutch
+#: national land-use grid, here at 5 m) over a water board's 40 x 30 km in
+#: RD New, an ERDAS Imagine file of 64^2 blocks, most of them ESRI-GRID-RLE
+#: compressed, with a PAM raster attribute table giving each class a
+#: Manning's n; reclassified to friction and smoothed over 25 m (sigma 5/3
+#: px, radius 7)
+LGN_WIDTH = 8000
+LGN_HEIGHT = 6000
+LGN_CELL = 5.0
+LGN_ORIGIN = (80000.0, 480000.0)  # the grid's north-west corner, EPSG:28992
+LGN_GEO_TRANSFORM = (LGN_ORIGIN[0], LGN_CELL, 0.0, LGN_ORIGIN[1], 0.0, -LGN_CELL)
+LGN_PARCEL = (20, 60)  # rows and columns of a typical parcel
+LGN_SEA_SHARE = 0.1
+LGN_TOWNS = 12
+LGN_TOWN_SIDE = 480  # the largest town's side, px
+LGN_SMOOTH_M = 25.0
+LGN_SAMPLED = 8
+#: (code, name, Manning's n in s/m^(1/3)) of the classes drawn, after
+#: LGN's legend
+LGN_CLASSES = (
+    (1, "agrarisch gras", 0.035), (2, "mais", 0.05), (3, "aardappelen", 0.04),
+    (4, "bieten", 0.04), (5, "granen", 0.045), (6, "overige landbouwgewassen", 0.04),
+    (8, "glastuinbouw", 0.1), (9, "boomgaarden", 0.08), (10, "bloembollen", 0.035),
+    (11, "loofbos", 0.12), (12, "naaldbos", 0.12), (16, "zoet water", 0.025),
+    (17, "zout water", 0.025), (18, "bebouwing in primair bebouwd gebied", 0.15),
+    (19, "bebouwing in secundair bebouwd gebied", 0.12),
+    (20, "bos in primair bebouwd gebied", 0.1), (22, "bos in secundair bebouwd gebied", 0.1),
+    (23, "gras in primair bebouwd gebied", 0.035), (24, "kale grond in bebouwd gebied", 0.025),
+    (25, "hoofdwegen en spoorwegen", 0.02), (26, "bebouwing in buitengebied", 0.15),
+    (28, "gras in secundair bebouwd gebied", 0.035), (30, "kwelders", 0.05),
+    (31, "open zand in kustgebied", 0.025), (32, "duinen met lage vegetatie", 0.045),
+    (33, "duinen met hoge vegetatie", 0.08), (34, "duinheide", 0.05),
+    (35, "open stuifzand en/of rivierzand", 0.025), (36, "heide", 0.05),
+    (37, "matig vergraste heide", 0.045), (38, "sterk vergraste heide", 0.04),
+    (39, "hoogveen", 0.05), (40, "bos in hoogveengebied", 0.1),
+    (41, "overige moerasvegetatie", 0.06), (42, "rietvegetatie", 0.07),
+    (43, "bos in moerasgebied", 0.1), (45, "natuurgraslanden", 0.04),
+    (61, "boomkwekerijen", 0.07), (62, "fruitkwekerijen", 0.07),
+)
+#: the built-up classes, drawn cell by cell in the towns
+LGN_URBAN = (18, 19, 20, 22, 23, 24, 25, 26)
+#: classes in the grid that the attribute table leaves out: nodata after
+#: the reclassification, as class 0 (the sea) is
+LGN_UNLISTED = (61, 62)
+
+
+def lgn_classes(width=LGN_WIDTH, height=LGN_HEIGHT, seed=23):
+    """(height, width) uint8 land-use classes: bands of about LGN_PARCEL[0]
+    rows cut into parcels of about LGN_PARCEL[1] columns, each one class
+    of LGN_CLASSES but the built-up ones (agrarian grass the most common);
+    LGN_TOWNS squares of up to LGN_TOWN_SIDE cells (half the grid's
+    shorter side at most) of built-up classes drawn cell by cell, whose
+    blocks do not compress; class 0, the
+    sea, west of a wavy coastline over about LGN_SEA_SHARE of the grid."""
+    rng = np.random.RandomState(seed)
+    codes = np.array([c for c, _, _ in LGN_CLASSES if c not in LGN_URBAN], np.uint8)
+    weights = np.where(codes == 1, 20.0, 1.0)
+    weights /= weights.sum()
+    rows, cols = LGN_PARCEL
+    grid = np.empty((height, width), np.uint8)
+    row = 0
+    while row < height:
+        band = rng.randint(rows // 2, rows * 3 // 2 + 1)
+        widths = rng.randint(cols // 2, cols * 3 // 2 + 1, width // (cols // 2) + 1)
+        parcels = rng.choice(codes, len(widths), p=weights)
+        grid[row : row + band] = np.repeat(parcels, widths)[:width]
+        row += band
+    for _ in range(LGN_TOWNS):
+        side = min(rng.randint(LGN_TOWN_SIDE // 2, LGN_TOWN_SIDE + 1), min(height, width) // 2)
+        r0, c0 = rng.randint(0, height - side + 1), rng.randint(0, width - side + 1)
+        grid[r0 : r0 + side, c0 : c0 + side] = rng.choice(
+            np.array(LGN_URBAN, np.uint8), (side, side))
+    coast = width * LGN_SEA_SHARE * (1 + 0.2 * np.sin(np.arange(height) / (height / 9.0)))
+    grid[np.arange(width)[None, :] < coast[:, None]] = 0
+    return grid
+
+
+def lgn_rat(classes):
+    """The raster attribute table of LGN_CLASSES but LGN_UNLISTED: VALUE
+    (int, minmax), CLASS_NAME (string, name), MANNING (float, generic) and
+    COUNT (int, pixelcount, the class's cells in ``classes``)."""
+    counts = np.bincount(classes.ravel(), minlength=256)
+    return {"fields": [{"name": "VALUE", "type": "int", "usage": "minmax"},
+                       {"name": "CLASS_NAME", "type": "string", "usage": "name"},
+                       {"name": "MANNING", "type": "float", "usage": "generic"},
+                       {"name": "COUNT", "type": "int", "usage": "pixelcount"}],
+            "rows": [[code, name, n, int(counts[code])] for code, name, n in LGN_CLASSES
+                     if code not in LGN_UNLISTED]}
+
+
+def rle_blocks(blocks):
+    """The ESRI-GRID-RLE form of each row of ``blocks`` (blocks of integer
+    values, one a row; GDAL's hfaband.cpp layout): the minimum (int32),
+    the number of runs (int32), the offset of the values (uint32) and their
+    bit width (one byte), then each run's length in one to four bytes (the
+    top two bits of the first count the bytes that follow, big-endian),
+    then each run's value less the minimum in the least width of 0, 1, 2,
+    4, 8, 16 or 32 bits (sub-byte widths packed from the least significant
+    bit, wider ones big-endian).  The runs of all blocks are found at once;
+    only the bytes are joined block by block.  Returns a list of bytes."""
+    blocks = np.asarray(blocks)
+    n, size = blocks.shape
+    minimum = blocks.min(axis=1).astype(np.int64)
+    change = np.ones((n, size), bool)
+    np.not_equal(blocks[:, 1:], blocks[:, :-1], out=change[:, 1:])
+    starts = np.flatnonzero(change)  # every block's first cell starts a run
+    block = starts // size
+    first = np.searchsorted(block, np.arange(n + 1))  # each block's first run
+    counts = np.diff(np.append(starts, n * size))
+    runs = blocks.ravel()[starts].astype(np.int64) - minimum[block]
+    widths = np.array([0, 1, 2, 4, 8, 16, 32])
+    n_bits = widths[np.searchsorted(1 << widths, np.maximum.reduceat(runs, first[:-1]),
+                                    side="right")]
+    extra = (counts >= 1 << 6).astype(np.int64) + (counts >= 1 << 14) + (counts >= 1 << 22)
+    run = np.repeat(np.arange(len(counts)), extra + 1)
+    ends = np.cumsum(extra + 1)
+    nth = np.arange(len(run)) - np.repeat(ends - extra - 1, extra + 1)
+    count_bytes = ((counts[run] >> (8 * (extra[run] - nth))) & 0xFF
+                   | np.where(nth == 0, extra[run] << 6, 0)).astype(np.uint8)
+    ends = np.concatenate(([0], ends))[first]  # each block's first count byte
+    payloads = []
+    for b in range(n):
+        values, bits = runs[first[b] : first[b + 1]], int(n_bits[b])
+        if bits == 0:
+            packed = b""
+        elif bits < 8:
+            per_byte = 8 // bits
+            padded = np.zeros(-(-len(values) // per_byte) * per_byte, np.int64)
+            padded[: len(values)] = values
+            packed = (padded.reshape(-1, per_byte) << np.arange(0, 8, bits)).sum(axis=1)
+            packed = packed.astype(np.uint8).tobytes()
+        else:
+            packed = values.astype({8: np.uint8, 16: ">u2", 32: ">u4"}[bits]).tobytes()
+        head = count_bytes[ends[b] : ends[b + 1]].tobytes()
+        payloads.append(struct.pack("<iiIB", minimum[b], len(values), 13 + len(head), bits)
+                        + head + packed)
+    return payloads
+
+
+def splice_rle(path):
+    """Rewrite every block of the first layer of the HFA file ``path`` (as
+    write_hfa writes it: uncompressed, 8 to 32 bits a pixel) whose
+    ESRI-GRID-RLE form (rle_blocks) is shorter into that form, in place:
+    the payload at the block's offset, its size at its block info + 6 and
+    the compression flag at + 12.  Returns (blocks spliced, blocks)."""
+    from dask_geomodeling_tpu_torch.io import hfa
+
+    handle = hfa._HFAFile(path)
+    layer = handle.root.find(name="Layer_1")
+    dms = layer.find(name="RasterDMS")
+    info_ptr, n_blocks = dms.get("blockinfo"), dms.get("numvirtualblocks")
+    per_block = dms.get("numobjectsperblock")
+    dtype = np.dtype(hfa._PIXEL_DTYPES[layer.get("pixelType")]).newbyteorder("<")
+    info_size = handle.dictionary.type_size("Edms_VirtualBlockInfo")
+    infos = info_ptr + info_size * np.arange(n_blocks)
+    offsets = [struct.unpack_from("<i", handle.raw, base + 2)[0] for base in infos]
+    blocks = np.stack([np.frombuffer(handle.raw, dtype, per_block, offset) for offset in offsets])
+    raw = bytearray(handle.raw)
+    spliced = 0
+    for base, offset, payload in zip(infos, offsets, rle_blocks(blocks)):
+        if len(payload) < per_block * dtype.itemsize:
+            raw[offset : offset + len(payload)] = payload
+            struct.pack_into("<iHH", raw, int(base) + 6, len(payload), 1, 1)
+            spliced += 1
+    with open(path, "wb") as f:
+        f.write(raw)
+    return spliced, n_blocks
+
+
+def write_lgn(folder, width=LGN_WIDTH, height=LGN_HEIGHT):
+    """Write lgn_classes to ``folder``/lgn.img with the port's write_hfa
+    (64^2 blocks, class 0 the Eimg_NonInitializedValue, LGN_CELL m from
+    LGN_ORIGIN in EPSG:28992), splice the blocks that compress into
+    ESRI-GRID-RLE (splice_rle), and write lgn_rat beside it as a PAM
+    sidecar.  Returns (path, classes, (blocks spliced, blocks))."""
+    from dask_geomodeling_tpu_torch.io.hfa import write_hfa
+    from dask_geomodeling_tpu_torch.io.pam import write_raster_attribute_table
+
+    classes = lgn_classes(width, height)
+    path = os.path.join(folder, "lgn.img")
+    write_hfa(path, classes[np.newaxis], geo_transform=LGN_GEO_TRANSFORM,
+              projection="EPSG:28992", no_data_value=0)
+    blocks = splice_rle(path)
+    write_raster_attribute_table(path, lgn_rat(classes))
+    return path, classes, blocks
+
+
+def build_lgn_view(path):
+    """Smooth(Reclassify(RasterFileSource(path), the RAT's MANNING by
+    class, select=True), LGN_SMOOTH_M): the friction map of a 2D flood
+    model, smoothed; the RAT is read from the sidecar as the view is
+    built."""
+    from dask_geomodeling_tpu_torch.io.pam import (
+        rat_as_reclassify_data,
+        read_raster_attribute_table,
+    )
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Reclassify, Smooth
+
+    data = rat_as_reclassify_data(read_raster_attribute_table(path), "MANNING")
+    return Smooth(Reclassify(RasterFileSource(path), data, select=True), LGN_SMOOTH_M)
+
+
+def lgn_request(width=LGN_WIDTH, height=LGN_HEIGHT):
+    """The whole grid at its own cells in EPSG:28992."""
+    x0, y_top = LGN_ORIGIN
+    return dict(mode="vals", bbox=(x0, y_top - height * LGN_CELL, x0 + width * LGN_CELL, y_top),
+                projection="EPSG:28992", width=width, height=height)
+
+
 #: the building-heights path: synthetic BAG-like building footprints
 #: ("panden") over the sheet at a Dutch suburban density, 640 a km^2
 #: (20,000 over the sheet's 31.25 km^2), one to a grid cell, exported in
@@ -2211,13 +2439,10 @@ def agg_matrix(frame, column="agg"):
 #: in float64 with atomics on the card, so they stay within one float32
 #: ulp of the host's sequential sums after the rounding to float32
 ZONAL_EXACT = ("median", "p90", "max", "count-above")
-#: the requests after mean are held to compute_host whole only while the
-#: host's seconds so far stay under a third of this (30: the mean's 11-12
-#: s send the median to the sub-area too, whose whole request took
-#: 17.2 s; at 90 p90's whole request took 18.5 s)
-ZONAL_HOST_BUDGET_S = 30.0
-#: the sub-area's side in parcel cells (16 cells took 1.8-8.9 s of host a
-#: request on an NVIDIA H100 80GB HBM3 machine, 8 cells 1.2-7.4 s)
+#: the side in parcel cells of the sub-area over which each request is
+#: held to compute_host (16 cells took 1.8-8.9 s of host a request on an
+#: NVIDIA H100 80GB HBM3 machine, 8 cells 1.2-7.4 s; the mean's whole
+#: request 11-14 s, its label planes are held to the host scanline whole)
 ZONAL_SUB_CELLS = 8
 
 
@@ -2335,10 +2560,10 @@ def time_rasterize_wkt(device, view, request):
 
 def check_zonal(device, card, raster):
     """The zonal phase: build_zonal_views over ``raster`` on the card,
-    each request against compute_host (count, max, median and p90
-    bitwise, sum and mean within one float32 ulp), the label planes of
-    the mean request bitwise to the host scanline's and its covered set
-    equal; seconds per request, the phases of one run, the device's busy
+    each request against compute_host over a sub-area of ZONAL_SUB_CELLS^2
+    parcel cells (count, max, median and p90 bitwise, sum and mean within
+    one float32 ulp), the label planes of the whole mean request bitwise
+    to the host scanline's and its covered set equal; seconds per request, the phases of one run, the device's busy
     time and idle share and the peak memory.  Returns the numbers."""
     import torch
 
@@ -2348,19 +2573,18 @@ def check_zonal(device, card, raster):
 
     views = build_zonal_views(raster)
     numbers = {}
-    port = {}
     host_runs = executor.host_node_runs
     for name, (view, request) in views.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        port[name] = view.get_data(device=device, **request)
+        features = view.get_data(device=device, **request)["features"]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         numbers[name] = dict(first_s=seconds, peak_gib=peak)
         print("zonal %s: %d features on the card in %.3f s (first run), peak memory %.3f GiB"
-              % (name, len(port[name]["features"]), seconds, peak))
+              % (name, len(features), seconds, peak))
     check(executor.host_node_runs == host_runs, "zonal: a node returning pixels ran on the host")
 
     # the phases, the label planes and the covered set of the mean request
@@ -2394,31 +2618,21 @@ def check_zonal(device, card, raster):
              ", ".join("%s %.4f ms" % kv for kv in plane_ms.items())))
     del raster, labels
 
-    # against compute_host: the whole request for mean, the others whole
-    # while the host's time allows, else over a sub-area
-    host_s, host_whole = {}, {}
-    spent = 0.0
+    # against compute_host over a sub-area (top left)
+    host_s = {}
     for name in ["mean", "median", "p90", "max", "sum", "count-above", "mean-3857"]:
         view, request = views[name]
-        sub = spent > ZONAL_HOST_BUDGET_S / 3 and name != "mean"
-        if sub:
-            request = zonal_request(ZONAL_SUB_CELLS, request["projection"])  # top left
-            port_result = view.get_data(device=device, **request)
-        else:
-            port_result = port[name]
+        request = zonal_request(ZONAL_SUB_CELLS, request["projection"])
+        port_result = view.get_data(device=device, **request)
         t0 = time.perf_counter()
         host = compute_host(*view.get_compute_graph(**request))
         host_s[name] = time.perf_counter() - t0
-        spent += host_s[name]
-        host_whole[name] = not sub
         differing, beyond, cells = compare_zonal(name, port_result, host)
         exact = name in ZONAL_EXACT
-        print("zonal %s: %s%d features x frames: %d differ from compute_host, %d beyond one "
-              "float32 ulp (%s; host %.2f s)"
-              % (name, "sub-area of %d x %d cells, " % (ZONAL_SUB_CELLS, ZONAL_SUB_CELLS)
-                 if sub else "whole request, ", cells,
-                 differing, beyond, "bitwise" if exact else "within one float32 ulp",
-                 host_s[name]))
+        print("zonal %s: sub-area of %d x %d cells, %d features x frames: %d differ from "
+              "compute_host, %d beyond one float32 ulp (%s; host %.2f s)"
+              % (name, ZONAL_SUB_CELLS, ZONAL_SUB_CELLS, cells, differing, beyond,
+                 "bitwise" if exact else "within one float32 ulp", host_s[name]))
         check(beyond == 0 and (differing == 0 or not exact),
               "zonal %s differs from compute_host" % name)
 
@@ -2436,18 +2650,13 @@ def check_zonal(device, card, raster):
         profiled_s, busy_ms = device_busy_ms(lambda: view.get_data(device=device, **request))
         idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
         rate = width * height * depth / 1e6 / median_s
-        # the host's rate over the whole request only (else over a sub-area)
-        host_rate = width * height * depth / 1e6 / host_s[name] if host_whole[name] else None
         numbers[name].update(runs_s=runs, s_per_request=median_s, mpx_frames_per_s=rate,
-                             host_s=host_s[name], host_mpx_frames_per_s=host_rate,
-                             device_busy_ms=busy_ms, idle_share=idle)
+                             host_s=host_s[name], device_busy_ms=busy_ms, idle_share=idle)
         print("timing [%s] zonal %s: %.4f s per request (median of 3: %s), %.3f Mpx x frames/s; "
-              "compute_host %.3f s (%s), %s Mpx x frames/s; profiled run %.4f s, device busy "
-              "%s, idle share %s"
+              "compute_host %.3f s on the sub-area; profiled run %.4f s, device busy %s, idle "
+              "share %s"
               % (card, name, median_s, ", ".join("%.4f" % r for r in runs), rate, host_s[name],
-                 "whole request" if host_whole[name] else "sub-area",
-                 "not measured" if host_rate is None else "%.3f" % host_rate, profiled_s,
-                 "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
+                 profiled_s, "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
                  "not measured" if idle is None else "%.4f" % idle))
     numbers["phases_s"] = phases
     numbers["device_plane_ms"] = plane_ms
@@ -2757,16 +2966,20 @@ def netcdf_clock():
 
 class gaussian_calls:
     """The (shape, dtype, sigma) of every Gaussian that Smooth's twin asks
-    for while installed, in ``calls``."""
+    for while installed, in ``calls``, and the first call's (planes,
+    result, sigma, fill) in ``first``."""
 
     def __enter__(self):
         from dask_geomodeling_tpu_torch.raster import spatial
 
-        self.calls, self.blur = [], spatial.gaussian_blur
+        self.calls, self.first, self.blur = [], None, spatial.gaussian_blur
 
         def blur(planes, sigma_y, sigma_x, fill):
             self.calls.append((tuple(planes.shape), planes.dtype, (sigma_y, sigma_x)))
-            return self.blur(planes, sigma_y, sigma_x, fill)
+            result = self.blur(planes, sigma_y, sigma_x, fill)
+            if self.first is None:
+                self.first = (planes, result, (sigma_y, sigma_x), fill)
+            return result
 
         spatial.gaussian_blur = blur
         return self
@@ -2956,6 +3169,162 @@ def check_netcdf_radar(card, device, folder, records=RADAR_RECORDS, size=RADAR_S
                           mpx_per_s=px * px / 1e6 / run_s, windowed_s=windowed_s,
                           export_s=export_s, export_err=err, phase_s=phase_s,
                           tiles=len(tiles)), (planes, sigma)
+
+
+def hfa_clock():
+    """A PhaseClock over an HFA file's reads: the whole reads and the
+    ESRI-GRID-RLE blocks they decode."""
+    from dask_geomodeling_tpu_torch.io import hfa as hfa_io
+
+    return PhaseClock([(hfa_io, "read_hfa", "whole reads"),
+                       (hfa_io, "_rle_decode", "RLE blocks")])
+
+
+def check_hfa_roughness(card, device, folder, width=LGN_WIDTH, height=LGN_HEIGHT,
+                        sampled_tiles=LGN_SAMPLED):
+    """The hfa-roughness phase over a land-use grid (write_lgn: an ERDAS
+    Imagine file with ESRI-GRID-RLE blocks and a PAM attribute table),
+    build_lgn_view at lgn_request: info, a whole decode (timed under
+    hfa_clock, every spliced block decoded once), then the request through
+    evaluate_tiled with the checks of check_algebra_path (bitwise, 8
+    sampled tiles, no second get_data run) and no second read of the file;
+    the reclassified friction on a tile at the coast, on the card, nodata
+    exactly where the class is 0 or not in the table and the table's
+    Manning's n elsewhere; a rewritten sidecar changes the next view's
+    answer, as compute_host's; the Gaussian's first launch on the path
+    torch.equal to its plain version on the same frames; time_path's
+    numbers.  Returns (launches, numbers, the Gaussian's kernel record
+    numbers); removes the files."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import get_data
+    from dask_geomodeling_tpu_torch.io.pam import (
+        read_raster_attribute_table,
+        write_raster_attribute_table,
+    )
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    path, classes, (spliced, blocks) = write_lgn(folder, width, height)
+    write_s = time.perf_counter() - t0
+    file_mb = os.path.getsize(path) / 1e6
+    print("hfa-roughness: %d x %d uint8 land-use classes of %g m in EPSG:28992 written with "
+          "write_hfa in 64^2 blocks, %d of %d spliced into ESRI-GRID-RLE, with a PAM attribute "
+          "table of %d classes: %.1f MB in %.2f s [%s]" % (
+              width, height, LGN_CELL, spliced, blocks,
+              len(LGN_CLASSES) - len(LGN_UNLISTED), file_mb, write_s, card))
+    check(0 < spliced < blocks, "hfa-roughness: %d of %d blocks compressed, not a mix"
+          % (spliced, blocks))
+    # the header: a whole decode, kept in the read cache for the view
+    with hfa_clock() as clock:
+        t0 = time.perf_counter()
+        info = RasterFileSource(path).info
+        decode_s = time.perf_counter() - t0
+    view = build_lgn_view(path)
+    reclassified = view.args[0]
+    source = reclassified.args[0]
+    request = lgn_request(width, height)
+    tiles, nx = tile_requests(request, TILE)
+    check(clock.calls["whole reads"] == 1 and clock.calls["RLE blocks"] == spliced,
+          "hfa-roughness: info made %d whole reads of %d RLE blocks, not 1 of %d"
+          % (clock.calls["whole reads"], clock.calls["RLE blocks"], spliced))
+    got = (info.width, info.height, info.bands, info.dtype, info.projection,
+           info.no_data_value, tuple(info.geo_transform))
+    check(got == (width, height, 1, "uint8", "EPSG:28992", 0.0, LGN_GEO_TRANSFORM)
+          and source.fillvalue == 0 and np.array_equal(
+              pipeline.read_geotiff_cached(path).array[0], classes),
+          "hfa-roughness: info %r, fill %r" % (got, source.fillvalue))
+    print("hfa-roughness: info (a whole decode, %d RLE blocks) in %.3f s: %d x %d %s, %s, "
+          "fill %d from Eimg_NonInitializedValue; the decode equals the classes written"
+          % (clock.calls["RLE blocks"], decode_s, info.width, info.height, info.dtype,
+             info.projection, source.fillvalue))
+
+    # the path: read whole once (above), never again, nor by window
+    cuda_stencils.reset_launches()
+    phases, spy = {}, gaussian_calls()
+    with hfa_clock() as clock:
+        host_rate, values = check_algebra_path(
+            "hfa-roughness", device, view, request, "nearest",
+            (request["bbox"][0], request["bbox"][3]), share=0.0, sampled_tiles=sampled_tiles,
+            first_run=(spy, phases), routed=False)
+    launches = {"gaussian_blur": cuda_stencils.launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    check(launches["gaussian_blur"] > 0, "hfa-roughness: the Gaussian did not launch")
+    check(clock.calls["whole reads"] == 0, "hfa-roughness: the file was read again")
+    check(source._file_read_plan(tiles[0]) is None, "hfa-roughness: the read is windowed")
+    check(values.shape == (1, height, width) and values.dtype == np.float64,
+          "hfa-roughness: %s %s, not one float64 band" % (values.shape, values.dtype))
+    check(len(spy.calls) == -(-len(tiles) // BATCH), "hfa-roughness: %d Gaussians for %d tiles"
+          % (len(spy.calls), len(tiles)))
+    planes, path_result, sigma, fill = spy.first
+    first_mpx = width * height / 1e6 / sum(phases.values())
+    print("hfa-roughness: %d tiles, Gaussian %d launches on %s %s sigma (%.4f, %.4f); first "
+          "run %s, %.3f Mpx/s [%s]" % (
+              len(tiles), launches["gaussian_blur"], tuple(planes.shape),
+              str(planes.dtype).replace("torch.", ""), sigma[0], sigma[1],
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), first_mpx, card))
+
+    # the friction on a tile at the coast (the middle row's, in the tile
+    # column of the coastline's mean): nodata exactly at class 0 and the
+    # classes the table leaves out, the table's n elsewhere
+    k = (len(tiles) // nx // 2) * nx + int(width * LGN_SEA_SHARE) // TILE
+    (rows, cols), (tile_rows, tile_cols) = tile_cells(k, nx, width, height, TILE)
+    tile_classes = classes[rows, cols]
+    friction = get_data(reclassified, device=device, **tiles[k])
+    cells = friction["values"][0][tile_rows, tile_cols]
+    missing = np.isin(tile_classes, (0,) + LGN_UNLISTED)
+    manning = np.zeros(256)
+    for code, _, n in LGN_CLASSES:
+        manning[code] = n
+    check(missing.any() and not missing.all()
+          and np.array_equal(cells == friction["no_data_value"], missing)
+          and np.array_equal(cells[~missing], manning[tile_classes[~missing]]),
+          "hfa-roughness: the friction on tile %d is not the table's" % k)
+
+    # a rewritten sidecar: the next view reclassifies with the new table,
+    # in which the tile's most common listed class has twice its n
+    rat = read_raster_attribute_table(path)
+    before = get_data(view, device=device, **tiles[k])["values"]
+    common = int(np.bincount(tile_classes[~missing]).argmax())
+    rat["rows"] = [row[:2] + [row[2] * 2] + row[3:] if row[0] == common else row
+                   for row in rat["rows"]]
+    write_raster_attribute_table(path, rat)
+    rewritten = build_lgn_view(path)
+    after = get_data(rewritten, device=device, **tiles[k])["values"]
+    check(not np.array_equal(after, before)
+          and np.array_equal(after, host_values(rewritten, tiles[k])),
+          "hfa-roughness: the rewritten table did not change the answer as compute_host's")
+    print("hfa-roughness: the friction on coast tile %d nodata in its %d cells of class 0 or "
+          "unlisted, the table's n elsewhere; class %d's n doubled in the sidecar changes the "
+          "next view's answer, equal to compute_host" % (k, int(missing.sum()), common))
+
+    timing = time_path("hfa-roughness", card, view, request, device, host_rate)
+
+    # the Gaussian's first launch on the path against its plain version
+    want = gaussian_blur_reference(planes, *sigma, fill)
+    check(torch.equal(path_result, want), "gaussian_blur differs from its plain version on the "
+          "hfa-roughness path's frames")
+    err = float((path_result - want).abs().max())
+    print("kernel check: gaussian_blur hfa-roughness batch %s %s sigma=(%.6f, %.6f), the "
+          "path's own frames: equal=True max_abs_err=%r" % (
+              tuple(planes.shape), str(planes.dtype).replace("torch.", ""), sigma[0], sigma[1],
+              err))
+    kernel = dict(time_gaussian(planes, sigma), max_abs_err=err, path="hfa-roughness")
+    del planes, path_result, want, spy
+    os.remove(path)
+    os.remove(path + ".aux.xml")
+    pipeline.clear_read_cache()
+    phase_s = time.perf_counter() - phase_t0
+    print("hfa-roughness: the phase %.2f s [%s]" % (phase_s, card))
+    return launches, dict(timing, write_s=write_s, file_mb=file_mb, rle_blocks=spliced,
+                          blocks=blocks, decode_s=decode_s, first_phases_s=phases,
+                          tiles=len(tiles), phase_s=phase_s,
+                          gaussian_batch=kernel["shape"]), kernel
 
 
 class PhaseClock:
@@ -5239,26 +5608,24 @@ def time_path(label, card, view, request, device, host_rate):
 
     from dask_geomodeling_tpu_torch import evaluate_tiled
 
-    runs = []
+    runs, run_phases = [], []
     for _ in range(3):
+        run_phases.append({})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device)
+        evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                       phase_seconds=run_phases[-1])
         runs.append(time.perf_counter() - t0)
-    mpx = request["width"] * request["height"] / 1e6
-    rate = mpx / sorted(runs)[1]
-    phases = {}
-    t0 = time.perf_counter()
-    evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
-                   phase_seconds=phases)
-    phased_s = time.perf_counter() - t0
+    median = sorted(range(3), key=runs.__getitem__)[1]
+    rate = request["width"] * request["height"] / 1e6 / runs[median]
+    phases = run_phases[median]
     profiled_s, busy_ms = device_busy_ms(lambda: evaluate_tiled(
         view, request, tile_size=TILE, batch=BATCH, device=device))
     idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
-    print("timing [%s] %s: port %.3f Mpx/s (median of 3: %s s); numpy host %.3f Mpx/s on 16 tiles"
-          % (card, label, rate, ", ".join("%.3f" % r for r in runs), host_rate))
-    print("timing [%s] %s: phases of one run (synchronised, %.4f s in all): %s"
-          % (card, label, phased_s, ", ".join("%s %.4f s" % kv for kv in phases.items())))
+    print("timing [%s] %s: port %.3f Mpx/s (median of 3: %s s); numpy host %.3f Mpx/s on the "
+          "sampled tiles" % (card, label, rate, ", ".join("%.3f" % r for r in runs), host_rate))
+    print("timing [%s] %s: phases of the median run (synchronised): %s"
+          % (card, label, ", ".join("%s %.4f s" % kv for kv in phases.items())))
     print("timing [%s] %s: profiled run %.4f s, device busy %s, idle share %s"
           % (card, label, profiled_s,
              "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
@@ -5469,6 +5836,10 @@ def run_phases(card, device, folder, mark):
     gaussian.append(dict(time_gaussian(planes, radar_sigma), max_abs_err=err, path="netcdf-radar"))
     del planes, got, want
     mark("the netcdf-radar path")
+    launches["hfa-roughness"], roughness, roughness_kernel = check_hfa_roughness(
+        card, device, folder)
+    gaussian.append(roughness_kernel)
+    mark("the hfa-roughness path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -5499,6 +5870,7 @@ def run_phases(card, device, folder, mark):
     timings["building-formats"] = formats
     timings["dem-formats"] = dem
     timings["netcdf-radar"] = radar
+    timings["hfa-roughness"] = roughness
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -2,9 +2,10 @@
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
 VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
-Surfer, SAGA, Idrisi, ENVI), Zarr v2 stores and netCDF (classic, and
-netCDF-4/HDF5 where h5py is importable): ``read_geotiff_cached`` decodes
-a whole file or store into an mtime-validated LRU, choosing the reader
+Surfer, SAGA, Idrisi, ENVI), ERDAS Imagine (HFA) ``.img`` files, Zarr v2
+stores and netCDF (classic, and netCDF-4/HDF5 where h5py is importable):
+``read_geotiff_cached`` decodes a whole file or store into an
+mtime-validated LRU, choosing the reader
 by suffix in the JAX package's order (an ``.hdf``, ``.h4`` or ``.hdf4``
 by its magic: HDF4 is not ported, anything else is read as netCDF), and
 ``read_geotiff_window_cached`` one pixel window of a large GeoTIFF, VRT,
@@ -53,9 +54,9 @@ _VECTOR_CACHE = OrderedDict()
 _VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
-#: JAX module that reads each (an ``.img`` is HFA, and an ``.hdf``,
-#: ``.h4`` or ``.hdf4`` HDF4, by its magic); the port reads GeoTIFF, VRT,
-#: Zarr stores, netCDF and the formats of ``whole_file_reader``
+#: JAX module that reads each (an ``.hdf``, ``.h4`` or ``.hdf4`` is HDF4
+#: by its magic); the port reads GeoTIFF, VRT, Zarr stores, netCDF and the
+#: formats of ``whole_file_reader``
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
@@ -85,8 +86,6 @@ def check_ported_format(path):
     lower = path.lower()
     module = next((m for suffixes, m in _UNPORTED_FORMATS.items() if lower.endswith(suffixes)),
                   None)
-    if module is None and lower.endswith(".img") and _has_magic(path, _HFA_MAGIC):
-        module = "io/hfa.py"
     if module is None and lower.endswith(_HDF_SUFFIXES) and _has_magic(path, _HDF4_MAGIC):
         module = "io/hdf4.py"
     if module is not None:
@@ -104,9 +103,10 @@ def is_netcdf(path):
 
 def whole_file_reader(path):
     """The reader of a format that decodes whole, chosen by suffix in the
-    JAX package's order (``.img``, ``.dat`` and ``.raw`` are ENVI when a
-    header sits beside them), or None for GeoTIFF and VRT."""
-    from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, png, simplegrids
+    JAX package's order (an ``.img`` is HFA by its magic; ``.img``,
+    ``.dat`` and ``.raw`` are ENVI when a header sits beside them), or
+    None for GeoTIFF and VRT."""
+    from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, hfa, png, simplegrids
 
     lower = path.lower()
     for suffixes, reader in (
@@ -122,6 +122,8 @@ def whole_file_reader(path):
     ):
         if lower.endswith(suffixes):
             return reader
+    if lower.endswith(".img") and _has_magic(path, _HFA_MAGIC):
+        return hfa.read_hfa
     if lower.endswith((".img", ".dat", ".raw")) and envi.has_envi_header(path):
         return envi.read_envi
     return None

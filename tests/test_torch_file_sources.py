@@ -351,16 +351,16 @@ def test_window_cache(root, monkeypatch):
     assert len(decodes) == 2
 
 
-MAGIC = {".img": b"EHFA_HEADER_TAG\x00", ".hdf": b"\x0e\x03\x13\x01"}
+MAGIC = {".hdf": b"\x0e\x03\x13\x01"}
 
 
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.ntf", "io/nitf.py"),
                                           ("hdf4.hdf", "io/hdf4.py"), ("a.grib2", "io/grib.py"),
                                           ("a.mbtiles", "io/mbtiles.py"),
-                                          ("hfa.img", "io/hfa.py")])
+                                          ("a.jpg", "io/jpeg.py")])
 def test_unported_format_names_its_module(root, name, module):
-    # an .img is HFA and an .hdf HDF4 by its magic (an ENVI pair's .img
-    # and an HDF5 or classic netCDF file's .hdf are read)
+    # an .hdf is HDF4 by its magic (an HDF5 or classic netCDF file's .hdf
+    # is read)
     (root / name).write_bytes(MAGIC.get(os.path.splitext(name)[1], b"not read"))
     source = port.RasterFileSource(name)
     with pytest.raises(NotImplementedError, match=module):

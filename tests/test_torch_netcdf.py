@@ -29,10 +29,12 @@ from hypothesis import strategies as st
 
 import chip_smoke
 from dask_geomodeling_tpu import raster as jax_raster
+from dask_geomodeling_tpu.geo import crs as jax_crs
 from dask_geomodeling_tpu.io import netcdf as jax_netcdf
 from dask_geomodeling_tpu.runtime import pipeline as jax_pipeline
 from dask_geomodeling_tpu_torch import evaluate_tiled
 from dask_geomodeling_tpu_torch import raster as port_raster
+from dask_geomodeling_tpu_torch.geo import crs as port_crs
 from dask_geomodeling_tpu_torch.io import netcdf
 from dask_geomodeling_tpu_torch.runtime import pipeline
 from tests.test_torch_file_sources import assert_agrees, both_configs
@@ -43,6 +45,7 @@ from tests.test_torch_raster_formats import (
     _kit,
     assert_same,
     run_both,
+    same_crs_history,
 )
 from tests.test_torch_zarr import error, info_fields
 
@@ -382,6 +385,32 @@ H5_CASES = {
 def test_jax_case(tmp_path, name):
     """One case of tests/test_png_netcdf.py's netCDF tests, in each package."""
     run_nc(tmp_path, JAX_CASES[name])
+
+
+#: the ESRI sinusoidal WKT of tests/test_crs_universal.py's MODIS case
+ESRI_SINUSOIDAL = (
+    'PROJCS["Sinusoidal",GEOGCS["GCS_Undefined",'
+    'DATUM["D_Undefined",SPHEROID["User_Defined_Spheroid",'
+    '6371007.181,0]],PRIMEM["Greenwich",0],'
+    'UNIT["Degree",0.0174532925199433]],'
+    'PROJECTION["Sinusoidal"],PARAMETER["central_meridian",0],'
+    'PARAMETER["false_easting",0],PARAMETER["false_northing",0],'
+    'UNIT["Meter",1]]'
+)
+
+
+def test_jax_case_after_a_jax_only_parse(tmp_path):
+    """The non-EPSG CRS case passes after the JAX package alone has parsed
+    an ESRI WKT on the same sphere: that parse interns the sphere under
+    its datum's name in the JAX package's tables only, so the JAX writer
+    would name the sinusoidal CRS after it and the port would not, had
+    ``run_both`` not given both packages the same CRS history."""
+    with same_crs_history():
+        jax_crs.get_sr(ESRI_SINUSOIDAL)
+        assert any(key.startswith("D_Undefined|custom:") for key in jax_crs.DATUMS)
+        assert not any(key.startswith("D_Undefined|") for key in port_crs.DATUMS)
+        run_nc(tmp_path, _non_epsg_crs_roundtrip)
+        assert any(key.startswith("D_Undefined|custom:") for key in jax_crs.DATUMS)
 
 
 @needs_h5py

@@ -26,7 +26,8 @@ crs-families phase with its NTv2 request at that size, the Cumulative
 nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
 1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
-phase over a small radar file.  This file imports nothing of JAX or
+phase over a small radar file; the hfa-roughness phase over a 1024 x 768
+land-use grid.  This file imports nothing of JAX or
 pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -339,6 +340,23 @@ def test_netcdf_radar_phase_on_card(tmp_path):
     assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
     assert numbers["tiles"] == 16 and planes == (24, 256, 256)
     assert numbers["export_err"] <= chip_smoke.RADAR_SCALE / 2 * 1.001
+
+
+@pytest.mark.cuda
+def test_hfa_roughness_phase_on_card(tmp_path):
+    """chip_smoke's hfa-roughness phase over a 1024 x 768 land-use grid in
+    256^2 tiles, batches of 8: every check of the full run."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        launches, numbers, kernel = chip_smoke.check_hfa_roughness(
+            "card", device, str(tmp_path), width=1024, height=768, sampled_tiles=4)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
+    assert numbers["tiles"] == 12 and 0 < numbers["rle_blocks"] < numbers["blocks"] == 192
+    assert kernel["shape"] == [8, 266, 266] and kernel["max_abs_err"] == 0.0  # a 5 px margin
 
 
 # --- building-heights at small size ---

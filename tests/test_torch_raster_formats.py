@@ -13,10 +13,12 @@ writes the JAX writer's bytes and round-trips under hypothesis (Surfer,
 SAGA, ENVI, and ENVI files in each interleave and byte order); a view
 over every suffix comes across with ``from_reference`` and answers the
 JAX numpy executor bitwise; an ENVI pair's cache stamp sees a rewritten
-header; an HFA ``.img`` still names its JAX module.  chip_smoke.py's
+header; an HFA ``.img`` reads as the JAX package's, and a stub with its
+magic raises the same error.  chip_smoke.py's
 dem-formats view over a small tile in each format it writes answers the
 JAX numpy executor bitwise.
 """
+import contextlib
 import os
 import struct
 import types
@@ -34,13 +36,14 @@ from dask_geomodeling_tpu.geo import crs as jax_crs
 from dask_geomodeling_tpu.io import asciigrid as jax_asciigrid
 from dask_geomodeling_tpu.io import dem as jax_dem
 from dask_geomodeling_tpu.io import envi as jax_envi
+from dask_geomodeling_tpu.io import hfa as jax_hfa
 from dask_geomodeling_tpu.io import simplegrids as jax_simplegrids
 from dask_geomodeling_tpu.io.geotiff import write_geotiff as jax_write_geotiff
 from dask_geomodeling_tpu.runtime import pipeline as jax_pipeline
 from dask_geomodeling_tpu_torch import raster as port_raster
 from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.geo import crs as port_crs
-from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, simplegrids
+from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, hfa, simplegrids
 from dask_geomodeling_tpu_torch.runtime import pipeline
 from tests.test_asciigrid import ASC
 from tests.test_dem import build_dted
@@ -92,20 +95,55 @@ def _files(root):
                   for d, _, names in os.walk(root) for f in names)
 
 
+@contextlib.contextmanager
+def same_crs_history():
+    """Both packages' CRS layers from the same history while it is open.
+
+    Each layer interns a datum it does not know in its module-level
+    ``DATUMS`` and ``ELLIPSOIDS`` under a ``custom:`` key, named after the
+    first CRS that used the ellipsoid, and later parses with that
+    ellipsoid reuse the key: a file written with such a CRS carries the
+    name of whichever parse came first in the process.  This sets aside
+    the interned entries of both layers and clears the caches of parsed
+    CRSes (``get_sr``, ``get_transform_func``), so that both packages
+    start from their built-in tables; on leaving, both tables are put
+    back as they were and the caches cleared again, so no parse of the
+    case outlives it."""
+    saved = []
+    for crs in (jax_crs, port_crs):
+        tables = (crs.DATUMS, crs.ELLIPSOIDS)
+        saved.append((crs, tables, [dict(table) for table in tables]))
+        for table in tables:
+            for key in [k for k in table if "custom:" in k]:
+                del table[key]
+        crs.get_sr.cache_clear()
+        crs.get_transform_func.cache_clear()
+    try:
+        yield
+    finally:
+        for crs, tables, copies in saved:
+            for table, copy in zip(tables, copies):
+                table.clear()
+                table.update(copy)
+            crs.get_sr.cache_clear()
+            crs.get_transform_func.cache_clear()
+
+
 def run_both(tmp_path, case):
     """Run ``case(kit, root)`` for the JAX package in ``tmp_path/jax`` and
-    for the port in ``tmp_path/port`` (each its ``geomodeling.root``):
-    the same files come out, byte for byte, and the same results; returns
-    the port's."""
+    for the port in ``tmp_path/port`` (each its ``geomodeling.root``),
+    both from the same CRS history (``same_crs_history``): the same files
+    come out, byte for byte, and the same results; returns the port's."""
     results = {}
-    for side in ("jax", "port"):
-        root = tmp_path / side
-        root.mkdir()
-        kit = _kit(side == "port")
-        pipeline.clear_read_cache()
-        jax_pipeline.clear_read_cache()
-        with kit.config.set({"geomodeling.root": str(root)}):
-            results[side] = case(kit, root)
+    with same_crs_history():
+        for side in ("jax", "port"):
+            root = tmp_path / side
+            root.mkdir()
+            kit = _kit(side == "port")
+            pipeline.clear_read_cache()
+            jax_pipeline.clear_read_cache()
+            with kit.config.set({"geomodeling.root": str(root)}):
+                results[side] = case(kit, root)
     names = _files(tmp_path / "jax")
     assert names == _files(tmp_path / "port")
     for name in names:
@@ -964,29 +1002,40 @@ def test_envi_stamp_sees_a_rewritten_header(tmp_path):
 
 
 def test_img_hfa_and_envi_and_dat_dispatch(tmp_path):
-    """An HFA .img names io/hfa.py; an ENVI pair's .img, .dat and .raw read
-    as ENVI; a .dat or .img without a header reads as a GeoTIFF, as the
-    JAX package's dispatch does."""
+    """An HFA .img reads as the JAX package's, and a 64-byte stub with
+    HFA's magic raises the same error in both packages; an ENVI pair's
+    .img, .dat and .raw read as ENVI; a .dat or .img without a header
+    reads as a GeoTIFF, as the JAX package's dispatch does."""
     pipeline.clear_read_cache()
-    (tmp_path / "hfa.img").write_bytes(b"EHFA_HEADER_TAG\x00" + bytes(64))
-    with config.set({"geomodeling.root": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="io/hfa.py"):
-            port_raster.RasterFileSource("hfa.img").info
-    with pytest.raises(NotImplementedError, match="io/hfa.py"):
-        pipeline.read_geotiff_cached(str(tmp_path / "hfa.img"))
+    jax_pipeline.clear_read_cache()
     values = (np.arange(35, dtype=np.int16) - 9).reshape(1, 5, 7)
     gt = (135000.0, 0.5, 0.0, 456000.0, 0.0, -0.5)
+    jax_hfa.write_hfa(str(tmp_path / "h.img"), values, geo_transform=gt,
+                      projection="EPSG:28992", no_data_value=-9.0)
+    assert pipeline.whole_file_reader(str(tmp_path / "h.img")) is hfa.read_hfa
+    (tmp_path / "stub.img").write_bytes(b"EHFA_HEADER_TAG\x00" + bytes(64))
+    raised = []
+    for package_raster, package_pipeline, package_config in (
+            (port_raster, pipeline, config), (jax_raster, jax_pipeline, jax_config)):
+        with package_config.set({"geomodeling.root": str(tmp_path)}):
+            for read in (lambda: package_raster.RasterFileSource("stub.img").info,
+                         lambda: package_pipeline.read_geotiff_cached(
+                             str(tmp_path / "stub.img"))):
+                with pytest.raises(ValueError, match="HFA version") as error:
+                    read()
+                raised.append(str(error.value))
+    assert raised[:2] == raised[2:]
     for name in ("e.img", "e.dat", "e.raw"):
         envi.write_envi(str(tmp_path / name), values, geo_transform=gt, projection="EPSG:28992")
     for name in ("t.img", "t.dat"):
         jax_write_geotiff(str(tmp_path / name), values, gt, "EPSG:28992", -9.0)
-    for name in ("e.img", "e.dat", "e.raw", "t.img", "t.dat"):
+    for name in ("h.img", "e.img", "e.dat", "e.raw", "t.img", "t.dat"):
         assert_same(pipeline.read_geotiff_cached(str(tmp_path / name)),
                     jax_pipeline.read_geotiff_cached(str(tmp_path / name)))
     assert pipeline.whole_file_reader(str(tmp_path / "e.dat")) is envi.read_envi
     assert pipeline.whole_file_reader(str(tmp_path / "t.dat")) is None
     with both_configs({"geomodeling.root": str(tmp_path)}):
-        for name in ("e.dat", "t.dat"):
+        for name in ("h.img", "e.dat", "t.dat"):
             jax_source = jax_raster.RasterFileSource(name)
             assert_agrees(jax_source, _source_request(jax_source))
     pipeline.clear_read_cache()
