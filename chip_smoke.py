@@ -82,7 +82,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    cell over the temporal-mean view, MockGeometry's copy as the source):
    AggregateRaster's mean, median, p90 and max, a coarsened sum, the
    threshold variant's count and the mean requested in EPSG:3857, on the
-   card against compute_host over an 8 x 8-cell sub-area (count, max,
+   card against compute_host over an 8 x 8-cell sub-area, every
+   request's truth from one compute graph whose shared nodes run once
+   (zonal_host_truths; count, max,
    median and p90 bitwise, sum and mean within one float32 ulp; the whole
    mean request's label planes bitwise to the host scanline's and the
    uncovered sets equal), seconds per request,
@@ -231,6 +233,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sidecar changes the next view's answer, as compute_host's; Mpx/s,
    median of 3 runs, and their phases; the Gaussian's first launch on the
    path torch.equal to its plain version on the same frames;
+10j. tile-pyramids (check_tile_pyramids): hfa-roughness' chain over the
+   same land use delivered as raster tile pyramids, the attribute table
+   passed in (a pyramid has no PAM sidecar; build_pyramid_view): (a)
+   hfa-roughness' classes as a GeoPackage of 256^2 PNG tiles in RD New
+   (write_lgn_gpkg, the port's write_gpkg_raster), asked at
+   hfa-roughness' request: info and the first run decode the file once,
+   every tile once; no windowed read; a 64^2 corner and a sampled tile
+   bitwise to compute_host; every cell equal to hfa-roughness' answer;
+   the Gaussian once a batch, its first launch torch.equal to its plain
+   version; Mpx/s, median of 3 runs; (b) the land use drawn at the size
+   of the zoom-14 tile-aligned Web Mercator box around the request's
+   footprint, written as MBTiles (write_lgn_mbtiles, the port's
+   write_mbtiles), asked at the same RD New request (a cross-CRS nearest
+   read): 8 sampled tiles within 5e-4 of compute_host, the decoded
+   mosaic equal to the classes written (the TMS row flip), one run
+   timed; (c) (a)'s view pickled and unpickled keeps its token and
+   answers a tile as the original does on the card; (d) a GeoPackage of
+   features, a JPEG tile and an MBTiles of vector tiles refused with the
+   JAX package's errors;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -1359,7 +1380,10 @@ def lgn_rat(classes):
     """The raster attribute table of LGN_CLASSES but LGN_UNLISTED: VALUE
     (int, minmax), CLASS_NAME (string, name), MANNING (float, generic) and
     COUNT (int, pixelcount, the class's cells in ``classes``)."""
-    counts = np.bincount(classes.ravel(), minlength=256)
+    flat = classes.reshape(-1)
+    counts = np.zeros(256, np.int64)
+    for start in range(0, flat.size, 1 << 16):  # a slice at a time: bincount copies to intp
+        counts += np.bincount(flat[start : start + (1 << 16)], minlength=256)
     return {"fields": [{"name": "VALUE", "type": "int", "usage": "minmax"},
                        {"name": "CLASS_NAME", "type": "string", "usage": "name"},
                        {"name": "MANNING", "type": "float", "usage": "generic"},
@@ -2442,7 +2466,9 @@ ZONAL_EXACT = ("median", "p90", "max", "count-above")
 #: the side in parcel cells of the sub-area over which each request is
 #: held to compute_host (16 cells took 1.8-8.9 s of host a request on an
 #: NVIDIA H100 80GB HBM3 machine, 8 cells 1.2-7.4 s; the mean's whole
-#: request 11-14 s, its label planes are held to the host scanline whole)
+#: request 11-14 s, its label planes are held to the host scanline whole).
+#: MockGeometry ignores the bbox, so each sub-area request reads the
+#: raster over every parcel: zonal_host_truths computes that read once
 ZONAL_SUB_CELLS = 8
 
 
@@ -2558,6 +2584,22 @@ def time_rasterize_wkt(device, view, request):
     return cuda_ms(lambda: _rasterize_wkt_torch(data, dict(tiles[0], bbox=bbox)), 5)
 
 
+def zonal_host_truths(requests):
+    """compute_host's answers to ``requests``, {name: (view, request)},
+    from one compute graph: get_compute_graph keys a node by its block's
+    token and its request, so a node that several requests share (the
+    parcels' features, the raster read of one grid) is computed once.
+    Returns ({name: answer}, the graph's nodes)."""
+    from dask_geomodeling_tpu_torch import compute_host
+
+    graph, keys = {}, {}
+    for name, (view, request) in requests.items():
+        graph, keys[name] = view.get_compute_graph(cached_compute_graph=graph, **request)
+    nodes = len(graph)
+    graph["zonal-host-truths"] = (lambda *answers: answers,) + tuple(keys.values())
+    return dict(zip(keys, compute_host(graph, "zonal-host-truths"))), nodes
+
+
 def check_zonal(device, card, raster):
     """The zonal phase: build_zonal_views over ``raster`` on the card,
     each request against compute_host over a sub-area of ZONAL_SUB_CELLS^2
@@ -2567,7 +2609,6 @@ def check_zonal(device, card, raster):
     time and idle share and the peak memory.  Returns the numbers."""
     import torch
 
-    from dask_geomodeling_tpu_torch import compute_host
     from dask_geomodeling_tpu_torch.geo import rasterize_geoseries
     from dask_geomodeling_tpu_torch.runtime import executor
 
@@ -2618,23 +2659,26 @@ def check_zonal(device, card, raster):
              ", ".join("%s %.4f ms" % kv for kv in plane_ms.items())))
     del raster, labels
 
-    # against compute_host over a sub-area (top left)
-    host_s = {}
-    for name in ["mean", "median", "p90", "max", "sum", "count-above", "mean-3857"]:
-        view, request = views[name]
-        request = zonal_request(ZONAL_SUB_CELLS, request["projection"])
+    # against compute_host over a sub-area (top left), every request's
+    # truth from one graph
+    sub = {name: (views[name][0], zonal_request(ZONAL_SUB_CELLS, views[name][1]["projection"]))
+           for name in ["mean", "median", "p90", "max", "sum", "count-above", "mean-3857"]}
+    t0 = time.perf_counter()
+    hosts, host_nodes = zonal_host_truths(sub)
+    host_s = time.perf_counter() - t0
+    print("zonal: compute_host of the %d sub-area requests from one graph of %d nodes in %.2f s"
+          % (len(sub), host_nodes, host_s))
+    for name, (view, request) in sub.items():
         port_result = view.get_data(device=device, **request)
-        t0 = time.perf_counter()
-        host = compute_host(*view.get_compute_graph(**request))
-        host_s[name] = time.perf_counter() - t0
-        differing, beyond, cells = compare_zonal(name, port_result, host)
+        differing, beyond, cells = compare_zonal(name, port_result, hosts[name])
         exact = name in ZONAL_EXACT
         print("zonal %s: sub-area of %d x %d cells, %d features x frames: %d differ from "
-              "compute_host, %d beyond one float32 ulp (%s; host %.2f s)"
+              "compute_host, %d beyond one float32 ulp (%s)"
               % (name, ZONAL_SUB_CELLS, ZONAL_SUB_CELLS, cells, differing, beyond,
-                 "bitwise" if exact else "within one float32 ulp", host_s[name]))
+                 "bitwise" if exact else "within one float32 ulp"))
         check(beyond == 0 and (differing == 0 or not exact),
               "zonal %s differs from compute_host" % name)
+    del hosts
 
     # timing: median of 3 runs of mean and median, device busy time
     for name in ("mean", "median"):
@@ -2651,14 +2695,14 @@ def check_zonal(device, card, raster):
         idle = None if busy_ms is None else 1 - busy_ms / 1e3 / profiled_s
         rate = width * height * depth / 1e6 / median_s
         numbers[name].update(runs_s=runs, s_per_request=median_s, mpx_frames_per_s=rate,
-                             host_s=host_s[name], device_busy_ms=busy_ms, idle_share=idle)
+                             device_busy_ms=busy_ms, idle_share=idle)
         print("timing [%s] zonal %s: %.4f s per request (median of 3: %s), %.3f Mpx x frames/s; "
-              "compute_host %.3f s on the sub-area; profiled run %.4f s, device busy %s, idle "
-              "share %s"
-              % (card, name, median_s, ", ".join("%.4f" % r for r in runs), rate, host_s[name],
+              "profiled run %.4f s, device busy %s, idle share %s"
+              % (card, name, median_s, ", ".join("%.4f" % r for r in runs), rate,
                  profiled_s, "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
                  "not measured" if idle is None else "%.4f" % idle))
     numbers["phases_s"] = phases
+    numbers["sub_area_host_s"] = host_s
     numbers["device_plane_ms"] = plane_ms
     numbers["grid"] = [width, height, depth]
     return numbers
@@ -3194,7 +3238,8 @@ def check_hfa_roughness(card, device, folder, width=LGN_WIDTH, height=LGN_HEIGHT
     answer, as compute_host's; the Gaussian's first launch on the path
     torch.equal to its plain version on the same frames; time_path's
     numbers.  Returns (launches, numbers, the Gaussian's kernel record
-    numbers); removes the files."""
+    numbers, {"classes", "values": the first run's answer} for
+    tile-pyramids); removes the files."""
     import torch
 
     from dask_geomodeling_tpu_torch import get_data
@@ -3324,7 +3369,311 @@ def check_hfa_roughness(card, device, folder, width=LGN_WIDTH, height=LGN_HEIGHT
     return launches, dict(timing, write_s=write_s, file_mb=file_mb, rle_blocks=spliced,
                           blocks=blocks, decode_s=decode_s, first_phases_s=phases,
                           tiles=len(tiles), phase_s=phase_s,
-                          gaussian_batch=kernel["shape"]), kernel
+                          gaussian_batch=kernel["shape"]), kernel, dict(classes=classes,
+                                                                      values=values)
+
+
+#: the tile-pyramids path: the hfa-roughness land use as raster tile
+#: pyramids, a GeoPackage of 256^2 PNG tiles in RD New and MBTiles at
+#: zoom 14 (cells of 9.55 m in EPSG:3857, about 5.9 m on the ground here)
+PYRAMID_TILE = 256
+PYRAMID_ZOOM = 14
+PYRAMID_SAMPLED = 8
+MERCATOR_ORIGIN = 20037508.342789244  # half the Web Mercator world's width
+
+
+def write_lgn_gpkg(folder, classes, name="lgn.gpkg"):
+    """Write ``classes`` (rows, columns of uint8) to ``folder``/``name``
+    with the port's write_gpkg_raster: PYRAMID_TILE^2 PNG tiles of
+    LGN_CELL m from LGN_ORIGIN in EPSG:28992, the last column and row of
+    tiles padded with class 0.  Returns the path."""
+    from dask_geomodeling_tpu_torch.io.gpkg_raster import write_gpkg_raster
+
+    path = os.path.join(folder, name)
+    write_gpkg_raster(path, classes[np.newaxis], LGN_GEO_TRANSFORM, projection="EPSG:28992",
+                      tile_size=PYRAMID_TILE)
+    return path
+
+
+def mercator_box(request, zoom=PYRAMID_ZOOM, tile=PYRAMID_TILE):
+    """The geo_transform, width and height of the smallest box of whole
+    zoom-``zoom`` Web Mercator tiles around the footprint of
+    ``request`` (its bbox transformed into EPSG:3857 by the port)."""
+    import math
+
+    from dask_geomodeling_tpu_torch.geo import Extent
+
+    x1, y1, x2, y2 = Extent(request["bbox"], request["projection"]).transformed(
+        "EPSG:3857").bbox
+    cell = 2 * MERCATOR_ORIGIN / (tile << zoom)
+    span = tile * cell
+    col0, col1 = (math.floor((x1 + MERCATOR_ORIGIN) / span),
+                  math.ceil((x2 + MERCATOR_ORIGIN) / span))
+    row0, row1 = (math.floor((MERCATOR_ORIGIN - y2) / span),
+                  math.ceil((MERCATOR_ORIGIN - y1) / span))
+    geo_transform = (-MERCATOR_ORIGIN + col0 * span, cell, 0.0,
+                     MERCATOR_ORIGIN - row0 * span, 0.0, -cell)
+    return geo_transform, (col1 - col0) * tile, (row1 - row0) * tile
+
+
+def write_lgn_mbtiles(folder, request, zoom=PYRAMID_ZOOM, name="lgn.mbtiles"):
+    """Draw lgn_classes at the size of mercator_box(request, zoom) and
+    write them to ``folder``/``name`` with the port's write_mbtiles (one
+    zoom level of PNG tiles, TMS rows).  Returns (path, classes,
+    geo_transform)."""
+    from dask_geomodeling_tpu_torch.io.mbtiles import write_mbtiles
+
+    geo_transform, width, height = mercator_box(request, zoom)
+    classes = lgn_classes(width, height)
+    path = os.path.join(folder, name)
+    write_mbtiles(path, classes[np.newaxis], geo_transform, projection="EPSG:3857", name="lgn",
+                  tile_size=PYRAMID_TILE)
+    return path, classes, geo_transform
+
+
+def build_pyramid_view(path, classes):
+    """build_lgn_view's chain over the pyramid at ``path``, the table
+    lgn_rat(classes) passed in: a tile pyramid carries no PAM sidecar."""
+    from dask_geomodeling_tpu_torch.io.pam import rat_as_reclassify_data
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Reclassify, Smooth
+
+    data = rat_as_reclassify_data(lgn_rat(classes), "MANNING")
+    return Smooth(Reclassify(RasterFileSource(path), data, select=True), LGN_SMOOTH_M)
+
+
+def pyramid_clock():
+    """A PhaseClock over the tile pyramids' reads: the whole reads of a
+    GeoPackage and of an MBTiles file, and the tiles they decode."""
+    from dask_geomodeling_tpu_torch.io import gpkg_raster, mbtiles
+
+    return PhaseClock([(gpkg_raster, "read_gpkg_raster", "gpkg reads"),
+                       (mbtiles, "read_mbtiles", "mbtiles reads"),
+                       (gpkg_raster, "_decode_tile", "tiles decoded")])
+
+
+def pyramid_refusals(folder):
+    """RasterFileSource.info over (a GeoPackage of features, an MBTiles
+    file whose one tile is a JPEG, an MBTiles file of vector tiles): the
+    (exception type, message) of each."""
+    import sqlite3
+
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.io.mbtiles import write_mbtiles
+    from dask_geomodeling_tpu_torch.io.vectorfile import write_vector
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    features = os.path.join(folder, "features.gpkg")
+    write_vector(GeoDataFrame({"geometry": [box(*LGN_ORIGIN, LGN_ORIGIN[0] + 5, LGN_ORIGIN[1] + 5)],
+                               "code": [1]}, crs="EPSG:28992"), features)
+    jpeg = os.path.join(folder, "jpeg.mbtiles")
+    geo_transform = mercator_box(lgn_request(1, 1))[0]
+    write_mbtiles(jpeg, np.zeros((1, PYRAMID_TILE, PYRAMID_TILE), np.uint8), geo_transform)
+    con = sqlite3.connect(jpeg)
+    # a JPEG's start of image and JFIF header: the port decodes no JPEG
+    con.execute("UPDATE tiles SET tile_data = ?", (b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64),))
+    con.commit()
+    con.close()
+    vector = os.path.join(folder, "vector.mbtiles")
+    con = sqlite3.connect(vector)
+    con.execute("CREATE TABLE metadata (name TEXT, value TEXT)")
+    con.execute("INSERT INTO metadata VALUES ('format', 'pbf')")
+    con.commit()
+    con.close()
+    answers = []
+    for path in (features, jpeg, vector):
+        try:
+            RasterFileSource(path).info
+            answers.append((None, None))
+        except Exception as e:  # the answer is the exception
+            answers.append((type(e), str(e)))
+        os.remove(path)
+    return answers
+
+
+def check_tile_pyramids(card, device, folder, lgn, sampled_tiles=PYRAMID_SAMPLED):
+    """The tile-pyramids phase: (a) ``lgn["classes"]`` (hfa-roughness') as
+    a GeoPackage (write_lgn_gpkg), build_pyramid_view at lgn_request: info
+    and the first run one whole decode of every tile once (pyramid_clock),
+    no windowed read, the checks of check_algebra_path (a 64^2 corner and
+    one sampled tile bitwise, no second get_data run), every cell equal to
+    ``lgn["values"]`` (hfa-roughness' answer; both are taken out of ``lgn``
+    once used, so that their memory is freed before the timed runs), the
+    Gaussian once a batch and its
+    first launch torch.equal to its plain version, time_path's numbers; (b)
+    the same chain over write_lgn_mbtiles at the same request, a cross-CRS
+    nearest read: the decoded mosaic equal to the classes drawn, north and
+    south strips included, the checks of check_algebra_path with at most
+    HEADLINE_SHARE of ``sampled_tiles`` tiles' cells off compute_host, the
+    first run's phases; (c) (a)'s view through pickle: the same class and
+    token, one tile's answer on the card equal to the original's; (d)
+    pyramid_refusals, each the JAX package's error.  Returns (launches,
+    numbers); removes the files."""
+    import pickle
+
+    import torch
+
+    from dask_geomodeling_tpu_torch import get_data
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    classes = lgn.pop("classes")
+    height, width = classes.shape
+    request = lgn_request(width, height)
+    corner = (request["bbox"][0], request["bbox"][3])
+    tiles, nx = tile_requests(request, TILE)
+    batches = -(-len(tiles) // BATCH)
+    batches_before = tile_runtime.batches_run
+    numbers = {}
+
+    # (a) the GeoPackage in RD New
+    t0 = time.perf_counter()
+    path = write_lgn_gpkg(folder, classes)
+    numbers["gpkg_write_s"] = time.perf_counter() - t0
+    numbers["gpkg_mb"] = os.path.getsize(path) / 1e6
+    n_tiles = -(-width // PYRAMID_TILE) * -(-height // PYRAMID_TILE)
+    phases, spy = {}, gaussian_calls()
+    with pyramid_clock() as clock:
+        # Reclassify reads the source's dtype, so its info, as it is built
+        t0 = time.perf_counter()
+        view = build_pyramid_view(path, classes)
+        source = view.args[0].args[0]
+        info = source.info
+        numbers["gpkg_info_s"] = time.perf_counter() - t0
+        mosaic = pipeline.read_geotiff_cached(path).array
+        got = (info.width, info.height, info.bands, info.dtype, info.projection,
+               info.no_data_value, tuple(info.geo_transform))
+        check(got == (-(-width // PYRAMID_TILE) * PYRAMID_TILE,
+                      -(-height // PYRAMID_TILE) * PYRAMID_TILE, 1, "uint8", "EPSG:28992", None,
+                      LGN_GEO_TRANSFORM)
+              and np.array_equal(mosaic[0, :height, :width], classes)
+              and not mosaic[0, height:].any() and not mosaic[0, :, width:].any(),
+              "gpkg-landuse: info %r, or the mosaic is not the classes padded with 0" % (got,))
+        del classes, mosaic
+        cuda_stencils.reset_launches()
+        host_rate, values = check_algebra_path(
+            "gpkg-landuse", device, view, request, "nearest", corner, share=0.0, sampled_tiles=1,
+            first_run=(spy, phases), routed=False)
+    gpkg_launches = cuda_stencils.launches
+    check(clock.calls["gpkg reads"] == 1 and clock.calls["tiles decoded"] == n_tiles,
+          "gpkg-landuse: info and the run made %d whole reads of %d tiles, not 1 of %d"
+          % (clock.calls["gpkg reads"], clock.calls["tiles decoded"], n_tiles))
+    check(gpkg_launches > 0, "gpkg-landuse: the Gaussian did not launch")
+    check(source._file_read_plan(tiles[0]) is None, "gpkg-landuse: the read is windowed")
+    check(len(spy.calls) == batches, "gpkg-landuse: %d Gaussians for %d tiles"
+          % (len(spy.calls), len(tiles)))
+    expected = lgn.pop("values")
+    check(values.shape == expected.shape and values.dtype == expected.dtype
+          and np.array_equal(values, expected),
+          "gpkg-landuse: %d cells differ from hfa-roughness' answer"
+          % np.count_nonzero(values != expected))
+    dtype = str(values.dtype)
+    del expected, values
+    planes, path_result, sigma, fill = spy.first
+    want = gaussian_blur_reference(planes, *sigma, fill)
+    check(torch.equal(path_result, want), "gaussian_blur differs from its plain version on the "
+          "gpkg-landuse path's frames")
+    numbers["gpkg_first_phases_s"] = phases
+    print("gpkg-landuse: %d x %d classes as %d PNG tiles of %d^2 in EPSG:28992, %.1f MB written "
+          "in %.2f s; info (a whole decode of every tile once) %.3f s; %d tiles, Gaussian %d "
+          "launches on %s %s, its first torch.equal to its plain version; first run %s; every "
+          "cell of the %s answer equal to hfa-roughness' [%s]" % (
+              width, height, n_tiles, PYRAMID_TILE, numbers["gpkg_mb"], numbers["gpkg_write_s"],
+              numbers["gpkg_info_s"], len(tiles), gpkg_launches, tuple(planes.shape),
+              str(planes.dtype).replace("torch.", ""),
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), dtype, card))
+    del planes, path_result, want, spy
+
+    # (c) the view through pickle, before its timing
+    copy = pickle.loads(pickle.dumps(view))
+    k = len(tiles) // 2
+    original = torch.from_numpy(get_data(view, device=device, **tiles[k])["values"])
+    unpickled = torch.from_numpy(get_data(copy, device=device, **tiles[k])["values"])
+    check(type(copy) is type(view) and copy.token == view.token
+          and torch.equal(unpickled, original),
+          "tile-pyramids: the unpickled view differs from the original")
+    print("tile-pyramids: gpkg-landuse's view pickled (%d bytes) and unpickled: token %s kept, "
+          "tile %d on the card equal to the original's" % (
+              len(pickle.dumps(view)), copy.token, k))
+    timing = time_path("gpkg-landuse", card, view, request, device, host_rate)
+    os.remove(path)
+    pipeline.clear_read_cache()
+
+    # (b) MBTiles at zoom 14, read into RD New
+    t0 = time.perf_counter()
+    path, mb_classes, geo_transform = write_lgn_mbtiles(folder, request)
+    numbers["mbtiles_write_s"] = time.perf_counter() - t0
+    numbers["mbtiles_mb"] = os.path.getsize(path) / 1e6
+    mb_height, mb_width = mb_classes.shape
+    phases, spy = {}, gaussian_calls()
+    with pyramid_clock() as clock:
+        t0 = time.perf_counter()
+        view = build_pyramid_view(path, mb_classes)
+        source = view.args[0].args[0]
+        info = source.info
+        numbers["mbtiles_info_s"] = time.perf_counter() - t0
+        cuda_stencils.reset_launches()
+        host_rate, values = check_algebra_path(
+            "mbtiles-landuse", device, view, request, "nearest", corner, share=HEADLINE_SHARE,
+            sampled_tiles=sampled_tiles, first_run=(spy, phases), routed=False)
+    mbtiles_launches = cuda_stencils.launches
+    del values
+    mosaic = pipeline.read_geotiff_cached(path).array[0]
+    n_tiles = mb_width * mb_height // PYRAMID_TILE**2
+    got = (info.width, info.height, info.bands, info.dtype, info.projection,
+           info.no_data_value, info.metadata)
+    check(got == (mb_width, mb_height, 1, "uint8", "EPSG:3857", None, ["lgn"])
+          and np.allclose(info.geo_transform, geo_transform, rtol=1e-12),
+          "mbtiles-landuse: info %r %r" % (got, info.geo_transform))
+    strip = PYRAMID_TILE
+    check(np.array_equal(mosaic[:strip], mb_classes[:strip])
+          and np.array_equal(mosaic[-strip:], mb_classes[-strip:])
+          and np.array_equal(mosaic, mb_classes),
+          "mbtiles-landuse: the mosaic's strips are not the classes drawn (the TMS row flip)")
+    check(clock.calls["mbtiles reads"] == 1 and clock.calls["tiles decoded"] == n_tiles,
+          "mbtiles-landuse: info and the run made %d whole reads of %d tiles, not 1 of %d"
+          % (clock.calls["mbtiles reads"], clock.calls["tiles decoded"], n_tiles))
+    check(mbtiles_launches > 0, "mbtiles-landuse: the Gaussian did not launch")
+    check(source._file_read_plan(tiles[0]) is None, "mbtiles-landuse: the read is windowed")
+    check(len(spy.calls) == batches, "mbtiles-landuse: %d Gaussians for %d tiles"
+          % (len(spy.calls), len(tiles)))
+    numbers["mbtiles_first_phases_s"] = phases
+    print("mbtiles-landuse: %d x %d classes as %d PNG tiles of zoom %d (%.6f m cells) in "
+          "EPSG:3857, x %.0f-%.0f m, y %.0f-%.0f m, %.1f MB written in %.2f s; info (a whole "
+          "decode) %.3f s, the mosaic equal to the classes drawn, its north and south strips "
+          "too (TMS rows); asked in EPSG:28992: Gaussian %d launches; first run %s [%s]" % (
+              mb_width, mb_height, n_tiles, PYRAMID_ZOOM, geo_transform[1], geo_transform[0],
+              geo_transform[0] + mb_width * geo_transform[1],
+              geo_transform[3] + mb_height * geo_transform[5], geo_transform[3],
+              numbers["mbtiles_mb"], numbers["mbtiles_write_s"], numbers["mbtiles_info_s"],
+              mbtiles_launches, ", ".join("%s %.4f s" % kv for kv in phases.items()), card))
+    del mosaic, spy
+    os.remove(path)
+    pipeline.clear_read_cache()
+
+    # (d) the refusals
+    refusals = pyramid_refusals(folder)
+    expected_refusals = [(OSError, "No tile layers in '"), (NotImplementedError, "io/gpkg_raster.py"),
+                         (OSError, "vector tiles")]
+    for (kind, message), (want_kind, fragment) in zip(refusals, expected_refusals):
+        check(kind is want_kind and fragment in message,
+              "tile-pyramids: a refusal raised %r %r, not %s naming %r"
+              % (kind, message, want_kind.__name__, fragment))
+    print("tile-pyramids: refused with the JAX package's errors: %s" % "; ".join(
+        "%s: %s" % (kind.__name__, message) for kind, message in refusals))
+
+    numbers["batches_run"] = tile_runtime.batches_run - batches_before
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("tile-pyramids: tiles.batches_run %d; the phase %.2f s [%s]"
+          % (numbers["batches_run"], numbers["phase_s"], card))
+    launches = {"gaussian_blur": gpkg_launches + mbtiles_launches,
+                "moving_max": cuda_stencils.moving_max_launches}
+    return launches, dict(timing, **numbers)
 
 
 class PhaseClock:
@@ -5836,10 +6185,12 @@ def run_phases(card, device, folder, mark):
     gaussian.append(dict(time_gaussian(planes, radar_sigma), max_abs_err=err, path="netcdf-radar"))
     del planes, got, want
     mark("the netcdf-radar path")
-    launches["hfa-roughness"], roughness, roughness_kernel = check_hfa_roughness(
+    launches["hfa-roughness"], roughness, roughness_kernel, lgn = check_hfa_roughness(
         card, device, folder)
     gaussian.append(roughness_kernel)
     mark("the hfa-roughness path")
+    launches["tile-pyramids"], pyramids = check_tile_pyramids(card, device, folder, lgn)
+    mark("the tile-pyramids path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -5871,6 +6222,7 @@ def run_phases(card, device, folder, mark):
     timings["dem-formats"] = dem
     timings["netcdf-radar"] = radar
     timings["hfa-roughness"] = roughness
+    timings["tile-pyramids"] = pyramids
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -1,4 +1,4 @@
-from dask_geomodeling_tpu_torch.core.tokens import tokenize  # noqa: F401
+from dask_geomodeling_tpu_torch.core.tokens import register_normalizer, tokenize  # noqa: F401
 from dask_geomodeling_tpu_torch.core.graphs import (  # noqa: F401
     Block,
     DummyBlock,

@@ -238,6 +238,11 @@ class Block:
     def name(self):
         return "{}_{}".format(type(self).__name__, self.token)
 
+    def __reduce__(self):
+        # pickled as (construct, (graph, name, False)): validation skipped,
+        # the token kept from the key
+        return construct, self.get_graph() + (False,)
+
     @classmethod
     def get_import_path(cls):
         """The import path serialized graphs name this class by; it must

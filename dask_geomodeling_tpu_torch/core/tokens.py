@@ -4,7 +4,9 @@ Counterpart of dask_geomodeling_tpu/core/tokens.py:tokenize: values are
 normalised to a canonical byte stream and hashed with BLAKE2b-128, giving
 a 32-char hex token that is the same across processes and runs, so Block
 names serve as graph keys.  Objects without a canonical form get a random
-token (dask's semantics), unless they define ``__token__``.
+token (dask's semantics), unless a normalizer is registered for their
+class (``register_normalizer``, looked up along the MRO before anything
+else an object offers) or they define ``__token__``.
 """
 import dataclasses
 import datetime
@@ -16,13 +18,35 @@ import warnings
 
 import numpy as np
 
-__all__ = ["tokenize"]
+__all__ = ["tokenize", "normalize_token", "register_normalizer"]
+
+_NORMALIZERS = {}
+
+
+def register_normalizer(cls):
+    """Class decorator registry: ``@register_normalizer(MyType)`` makes
+    the decorated function's result stand for an instance of ``MyType``
+    (or of a subclass) in its token."""
+
+    def decorator(func):
+        _NORMALIZERS[cls] = func
+        return func
+
+    return decorator
 
 
 def tokenize(*args):
     """Return a 32-char hex token that is deterministic in the arguments."""
     h = hashlib.blake2b(digest_size=16)
     _feed(h, args)
+    return h.hexdigest()
+
+
+def normalize_token(value):
+    """The token of a single value (``tokenize(value)`` hashes the tuple
+    of its arguments)."""
+    h = hashlib.blake2b(digest_size=16)
+    _feed(h, value)
     return h.hexdigest()
 
 
@@ -94,6 +118,8 @@ def _feed(h, value):
         value,
         (types.FunctionType, types.BuiltinFunctionType, types.MethodType),
     ):
+        # plain functions hash by qualname; callable instances fall through
+        # to _feed_object, where a registered normalizer or __token__ wins
         _feed_callable(h, value)
     else:
         _feed_object(h, value)
@@ -110,6 +136,13 @@ def _feed_callable(h, value):
 
 
 def _feed_object(h, value):
+    # the registry along the MRO first, as dask dispatches
+    for cls in type(value).__mro__:
+        func = _NORMALIZERS.get(cls)
+        if func is not None:
+            h.update(b"\x00O")
+            _feed(h, func(value))
+            return
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         h.update(b"\x00C")
         _feed(

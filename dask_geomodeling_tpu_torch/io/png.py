@@ -38,6 +38,10 @@ def _read_chunks(raw):
 
 def _unfilter(raw, height, stride, bpp):
     """Undo the per-scanline filters; returns (height, stride) bytes."""
+    if len(raw) >= height * (stride + 1):
+        lines = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(height, stride + 1)
+        if not lines[:, 0].any():  # every line unfiltered (the writer's): no loop
+            return lines[:, 1:].copy()
     out = np.empty((height, stride), np.uint8)
     pos = 0
     prev = np.zeros(stride, np.uint16)

@@ -4,8 +4,9 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 ``RasterSourceBase`` with its numpy ``process`` (the requested time window
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
-``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, netCDF, PNG and the
-plain-grid formats of ``runtime/pipeline.py:whole_file_reader``; its
+``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, netCDF, PNG, the
+plain-grid formats and the tile pyramids of
+``runtime/pipeline.py:whole_file_reader``; its
 other formats raise NotImplementedError naming the JAX module that reads
 them), and the twin
 of ``_source_process_jax``.  Both the process and the twin resample as
@@ -390,7 +391,9 @@ class RasterFileSource(RasterSourceBase):
     CDF-2, or netCDF-4/HDF5 where h5py is importable: ``.nc``, ``.cdf``,
     ``.nc3``, ``.nc4``, ``.h5``, ``.hdf5``, and an ``.hdf``, ``.h4`` or
     ``.hdf4`` that is no HDF4 file), or a format that decodes whole (PNG,
-    SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI).
+    SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI,
+    ERDAS Imagine, MBTiles, a GeoPackage's tile layer: a ``.gpkg`` is
+    always read as tiles here, a GeoPackage of features raising).
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``

@@ -2,7 +2,9 @@
 
 Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
 VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
-Surfer, SAGA, Idrisi, ENVI), ERDAS Imagine (HFA) ``.img`` files, Zarr v2
+Surfer, SAGA, Idrisi, ENVI), the tile pyramids (MBTiles and the
+GeoPackage tile layers: a ``.gpkg`` given to a raster reader is always
+read as tiles), ERDAS Imagine (HFA) ``.img`` files, Zarr v2
 stores and netCDF (classic, and netCDF-4/HDF5 where h5py is importable):
 ``read_geotiff_cached`` decodes a whole file or store into an
 mtime-validated LRU, choosing the reader
@@ -56,14 +58,13 @@ _VECTOR_CACHE_SIZE = 16
 #: file suffixes of the raster formats the port does not read, and the
 #: JAX module that reads each (an ``.hdf``, ``.h4`` or ``.hdf4`` is HDF4
 #: by its magic); the port reads GeoTIFF, VRT, Zarr stores, netCDF and the
-#: formats of ``whole_file_reader``
+#: formats of ``whole_file_reader``, the tile pyramids among them (a JPEG
+#: or WebP tile in them raises, naming io/gpkg_raster.py)
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
     (".ntf", ".nitf"): "io/nitf.py",
     (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
-    (".mbtiles",): "io/mbtiles.py",
-    (".gpkg",): "io/gpkg_raster.py",
 }
 _NETCDF_SUFFIXES = (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5")
 #: HDF4 by its magic, HDF5 (read as netCDF-4) otherwise
@@ -106,7 +107,9 @@ def whole_file_reader(path):
     JAX package's order (an ``.img`` is HFA by its magic; ``.img``,
     ``.dat`` and ``.raw`` are ENVI when a header sits beside them), or
     None for GeoTIFF and VRT."""
-    from dask_geomodeling_tpu_torch.io import asciigrid, dem, envi, hfa, png, simplegrids
+    from dask_geomodeling_tpu_torch.io import (
+        asciigrid, dem, envi, gpkg_raster, hfa, mbtiles, png, simplegrids,
+    )
 
     lower = path.lower()
     for suffixes, reader in (
@@ -118,6 +121,8 @@ def whole_file_reader(path):
         ((".grd",), simplegrids.read_surfer),
         ((".sgrd", ".sdat"), simplegrids.read_saga),
         ((".rst",), simplegrids.read_idrisi),
+        ((".mbtiles",), mbtiles.read_mbtiles),
+        ((".gpkg",), gpkg_raster.read_gpkg_raster),
         ((".hdr", ".bsq", ".bil", ".bip", ".envi"), envi.read_envi),
     ):
         if lower.endswith(suffixes):

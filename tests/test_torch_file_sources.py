@@ -11,7 +11,9 @@ dtype's range, a VRT mosaic and a 5-band temporal file.  ``evaluate_tiled``
 over a windowed source is bitwise to compute_host tile by tile and runs
 as many batches as over a MemorySource of the same array.  The whole-file
 cache decodes once per file and stamp (the JAX package's never hits) and
-sees a rewrite.
+sees a rewrite.  A GeoPackage's tile layer and an MBTiles file go to their
+readers, decode each tile once and are never read by window; a
+GeoPackage of features raises the JAX package's error.
 """
 import os
 from datetime import datetime, timedelta
@@ -356,7 +358,7 @@ MAGIC = {".hdf": b"\x0e\x03\x13\x01"}
 
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.ntf", "io/nitf.py"),
                                           ("hdf4.hdf", "io/hdf4.py"), ("a.grib2", "io/grib.py"),
-                                          ("a.mbtiles", "io/mbtiles.py"),
+                                          ("a.gif", "io/jpeg.py"),
                                           ("a.jpg", "io/jpeg.py")])
 def test_unported_format_names_its_module(root, name, module):
     # an .hdf is HDF4 by its magic (an HDF5 or classic netCDF file's .hdf
@@ -367,6 +369,60 @@ def test_unported_format_names_its_module(root, name, module):
         source.info
     with pytest.raises(NotImplementedError, match=module):
         pipeline.read_geotiff_cached(str(root / name))
+
+
+def _pyramid(root, name):
+    from dask_geomodeling_tpu.io.gpkg_raster import write_gpkg_raster
+    from dask_geomodeling_tpu.io.mbtiles import write_mbtiles
+
+    values = (np.arange(40 * 70) % 251).astype("u1").reshape(1, 40, 70)
+    if name.endswith(".gpkg"):
+        write_gpkg_raster(str(root / name), values, (ORIGIN[0], CELL, 0.0, ORIGIN[1], 0.0, -CELL),
+                          projection="EPSG:28992", tile_size=32)
+    else:
+        res = 2 * 20037508.342789244 / (256 * 2**14)
+        write_mbtiles(str(root / name), values, (-20037508.342789244 + 8400 * 256 * res, res, 0.0,
+                                                 20037508.342789244 - 5390 * 256 * res, 0.0, -res))
+    return values
+
+
+@pytest.mark.parametrize("name, module, reader", [("a.gpkg", "gpkg_raster", "read_gpkg_raster"),
+                                                  ("a.mbtiles", "mbtiles", "read_mbtiles")])
+def test_tile_pyramids_read_whole(root, name, module, reader, monkeypatch):
+    """A GeoPackage's tile layer and an MBTiles file go to their readers
+    in the read cache and in info alike, decode once per stamp and are
+    never read by window; a GeoPackage of features raises the JAX
+    package's error."""
+    from dask_geomodeling_tpu_torch.io import gpkg_raster, mbtiles
+
+    values = _pyramid(root, name)
+    reader = getattr({"gpkg_raster": gpkg_raster, "mbtiles": mbtiles}[module], reader)
+    path = str(root / name)
+    assert pipeline.whole_file_reader(path) is reader
+    decodes = []
+    monkeypatch.setattr(gpkg_raster, "_decode_tile",
+                        lambda blob, decode=gpkg_raster._decode_tile: decodes.append(1)
+                        or decode(blob))
+    source = port.RasterFileSource(name)
+    request = vals(bbox=source.geometry.bounds, width=35, height=20)
+    with both_configs({"geomodeling.windowed-read-limit": 10}):
+        assert source._file_read_plan(request) is None
+        first = pipeline.read_geotiff_cached(path)
+        assert source.info.width == first.array.shape[2] and pipeline.read_geotiff_cached(
+            path) is first
+    assert len(decodes) == first.array.shape[1] * first.array.shape[2] // (
+        32 * 32 if name.endswith(".gpkg") else 256 * 256)
+    np.testing.assert_array_equal(first.array[:, :40, :70], values)
+    if name.endswith(".gpkg"):
+        (root / "features.gpkg").write_bytes((root / name).read_bytes())
+        import sqlite3
+
+        con = sqlite3.connect(str(root / "features.gpkg"))
+        con.execute("UPDATE gpkg_contents SET data_type = 'features'")
+        con.commit()
+        con.close()
+        with pytest.raises(IOError, match="No tile layers in '"):
+            port.RasterFileSource("features.gpkg").info
 
 
 URLS = ["a.tif", "sub/../a.tif", "/elsewhere/a.tif", "file:///elsewhere/b.tif", "file://rel.tif"]

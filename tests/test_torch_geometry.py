@@ -256,6 +256,51 @@ def test_mock_geometry_matches_the_factory(mode, projection):
     assert compute_host(*port.get_compute_graph(**port_request)).keys() == actual.keys()
 
 
+def test_zonal_host_truths_from_one_graph():
+    """chip_smoke.zonal_host_truths: each zonal request's answer from one
+    merged compute graph is its own compute_host answer, and the requests
+    share their nodes (the features, the raster read of one grid), so the
+    merged graph is smaller than theirs together; a view's token is
+    computed once, not again for each request's graph."""
+    from datetime import datetime, timedelta
+
+    from dask_geomodeling_tpu_torch.core import tokens
+    from dask_geomodeling_tpu_torch.raster import MemorySource
+
+    data = (np.arange(4 * 300 * 300) % 97).astype("f4").reshape(4, 300, 300)
+    raster = MemorySource(data, no_data_value=96.0, projection="EPSG:28992", pixel_size=1.0,
+                          pixel_origin=(136990.0, 454010.0), time_first=datetime(2000, 1, 1),
+                          time_delta=timedelta(hours=1))
+    views = chip_smoke.build_zonal_views(raster, grid=4, small=2)
+    sub = {name: (view, chip_smoke.zonal_request(2, request["projection"]))
+           for name, (view, request) in views.items()}
+    hosts, nodes = chip_smoke.zonal_host_truths(sub)
+    separate = 0
+    for name, (view, request) in sub.items():
+        graph, key = view.get_compute_graph(**request)
+        separate += len(graph)
+        expected = compute_host(graph, key)["features"]
+        actual = hosts[name]["features"]
+        assert len(expected) > 0 and list(actual.index.values) == list(expected.index.values)
+        np.testing.assert_array_equal(chip_smoke.agg_matrix(actual),
+                                      chip_smoke.agg_matrix(expected))
+    assert nodes < separate
+    # the parcels' token: hashed for a new view's first graph, not again
+    fed = []
+    feed = tokens._feed
+    tokens._feed = lambda h, value: fed.append(1) or feed(h, value)
+    try:
+        fresh, request = chip_smoke.build_zonal_views(raster, grid=4, small=2)["mean"]
+        fresh.get_compute_graph(**request)
+        first = len(fed)
+        fresh.get_compute_graph(**request)
+        again = len(fed) - first
+    finally:
+        tokens._feed = feed
+    vertices = sum(len(polygon) for polygon in fresh.args[0].args[0])
+    assert first > 2 * vertices and again < vertices / 4
+
+
 @pytest.mark.parametrize("mode", ["intersects", "centroid", "extent"])
 def test_geometry_wkt_source(mode):
     wkt = WKTS[7]

@@ -26,7 +26,7 @@ crs-families phase with its NTv2 request at that size, the Cumulative
 nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
 1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
-phase over a small radar file; the hfa-roughness phase over a 1024 x 768
+phase over a small radar file; the hfa-roughness and tile-pyramids phases over a 1024 x 768
 land-use grid.  This file imports nothing of JAX or
 pandas, so it runs where neither is installed.
 """
@@ -350,13 +350,34 @@ def test_hfa_roughness_phase_on_card(tmp_path):
     tile, batch = chip_smoke.TILE, chip_smoke.BATCH
     chip_smoke.TILE, chip_smoke.BATCH = 256, 8
     try:
-        launches, numbers, kernel = chip_smoke.check_hfa_roughness(
+        launches, numbers, kernel, lgn = chip_smoke.check_hfa_roughness(
             "card", device, str(tmp_path), width=1024, height=768, sampled_tiles=4)
     finally:
         chip_smoke.TILE, chip_smoke.BATCH = tile, batch
     assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
     assert numbers["tiles"] == 12 and 0 < numbers["rle_blocks"] < numbers["blocks"] == 192
     assert kernel["shape"] == [8, 266, 266] and kernel["max_abs_err"] == 0.0  # a 5 px margin
+    assert lgn["classes"].shape == (768, 1024) and lgn["values"].shape == (1, 768, 1024)
+
+
+@pytest.mark.cuda
+def test_tile_pyramids_phase_on_card(tmp_path):
+    """chip_smoke's tile-pyramids phase after hfa-roughness over a 1024 x
+    768 land-use grid in 256^2 tiles, batches of 8: every check of the
+    full run, the GeoPackage's answer equal to the .img's."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        lgn = chip_smoke.check_hfa_roughness(
+            "card", device, str(tmp_path), width=1024, height=768, sampled_tiles=4)[3]
+        launches, numbers = chip_smoke.check_tile_pyramids(
+            "card", device, str(tmp_path), lgn, sampled_tiles=4)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 4 and launches["moving_max"] == 0
+    assert numbers["batches_run"] >= 4 and numbers["gpkg_mb"] > 0 < numbers["mbtiles_mb"]
+    assert lgn == {}  # the classes and the answer taken once used
 
 
 # --- building-heights at small size ---
