@@ -120,7 +120,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1000 m tiles (GeometryTiler over GeometryFileSink GeoPackages, merged):
    every building whose centroid lies strictly inside a tile, each once;
    two tiles equal to compute_host (h_mean within one float32 ulp before
-   rounding); the export again through the GeoPackage's R-tree; a 1000 m
+   rounding); the export again through the GeoPackage's R-tree over a
+   block of 3 x 3 of its tiles (all 35 until PR 20); a 1000 m
    sub-area exported untiled as GeoJSON and as a Shapefile equal to the
    host's export; one Gaussian launch per tile, the phases, the device
    busy time and idle share;
@@ -215,7 +216,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    against compute_host and unlike the rain's, info of both equal to the
    whole decode; (d) write_netcdf of one hourly sum over 1024^2, packed
    int16, read back within half a packing step; (e) the h5py gate on an
-   HDF5 .nc4 and an HDF4 .hdf naming its JAX module; the Gaussian at the
+   HDF5 .nc4, and an HDF4 .hdf of no data set reaching the HDF4 reader
+   and its ValueError; the Gaussian at the
    path's batch shape torch.equal to its plain version;
 10i. hfa-roughness (check_hfa_roughness): a land-use grid in the style of
    LGN over a water board's 40 x 30 km, 8000 x 6000 uint8 classes of 5 m
@@ -252,6 +254,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    answers a tile as the original does on the card; (d) a GeoPackage of
    features, a JPEG tile and an MBTiles of vector tiles refused with the
    JAX package's errors;
+10k. modis-ndvi (check_modis_ndvi): a synthetic MOD13Q1-style 16-day
+   vegetation index tile, h18v03 (the Netherlands to the Baltic), 4800^2
+   cells of 231.66 m in the MODIS sinusoidal grid, as an HDF4 file in the
+   SD API's layout (write_modis_hdf4: NDVI, EVI and pixel reliability,
+   int16 with _FillValue and scale_factor, each a chunked element of kind
+   5 in 480^2 deflate chunks; StructMetadata.0's sinusoidal grid), under
+   Classify(Smooth(source, 500 m), NDVI bins) (build_modis_view) with the
+   windowed-read limit lowered below the tile: info from the header alone;
+   (a) the tile's own grid in 512^2 tiles, each read by window decoding
+   only the chunks it touches, every tile bitwise to compute_host, the
+   Gaussian on float64 frames once a batch, its first launch torch.equal
+   to its plain version; sampled windows equal to a whole read_hdf4,
+   which holds the values written and the sinusoidal georeference; (b)
+   the Netherlands in RD New at 100 m (2800 x 3300), with the checks of 6
+   and the headline's 5e-4 share; a truncated and an empty file raise the
+   reader's ValueError;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -285,6 +303,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 from datetime import datetime, timedelta
 
 import numpy as np
@@ -3052,7 +3071,8 @@ def check_netcdf_radar(card, device, folder, records=RADAR_RECORDS, size=RADAR_S
     packed int16 with a scale_factor, read back through RasterFileSource
     within half a packing step; (e) an HDF5 file under ``.nc4`` raising the
     h5py gate (NotImplementedError naming h5py) without h5py and OSError
-    with it, and an HDF4 ``.hdf`` NotImplementedError naming io/hdf4.py.
+    with it, and an HDF4 ``.hdf`` of no data set the HDF4 reader's
+    ValueError.
     Returns (launches, numbers, (the Gaussian's batch shape, sigma));
     removes the files."""
     import importlib.util
@@ -3188,7 +3208,7 @@ def check_netcdf_radar(card, device, folder, records=RADAR_RECORDS, size=RADAR_S
     def raised_by(call):
         try:
             call()
-        except (NotImplementedError, OSError) as e:
+        except (NotImplementedError, OSError, ValueError) as e:
             return e
         return None
 
@@ -3196,13 +3216,15 @@ def check_netcdf_radar(card, device, folder, records=RADAR_RECORDS, size=RADAR_S
     check(isinstance(raised, OSError) if has_h5py else
           isinstance(raised, NotImplementedError) and "h5py" in str(raised),
           "netcdf-radar: an HDF5 .nc4 raised %r" % raised)
+    # an .hdf with HDF4's magic reaches the HDF4 reader, not the netCDF one
     for call in (lambda: RasterFileSource(hdf4).info, lambda: pipeline.read_geotiff_cached(hdf4)):
         hdf4_error = raised_by(call)
-        check(isinstance(hdf4_error, NotImplementedError) and "io/hdf4.py" in str(hdf4_error),
+        check(isinstance(hdf4_error, ValueError)
+              and str(hdf4_error).startswith("HDF4 file contains no 2-D/3-D data sets"),
               "netcdf-radar: an HDF4 .hdf raised %r" % hdf4_error)
-    print("netcdf-radar: gates: an HDF5 .nc4 raised %s (h5py %s), an HDF4 .hdf "
-          "NotImplementedError naming io/hdf4.py" % (type(raised).__name__,
-                                                      "present" if has_h5py else "missing"))
+    print("netcdf-radar: gates: an HDF5 .nc4 raised %s (h5py %s), an HDF4 .hdf the HDF4 "
+          "reader's ValueError: %s" % (type(raised).__name__,
+                                       "present" if has_h5py else "missing", hdf4_error))
     for name in (path, target, hdf5, hdf4):
         os.remove(name)
     pipeline.clear_read_cache()
@@ -3676,6 +3698,500 @@ def check_tile_pyramids(card, device, folder, lgn, sampled_tiles=PYRAMID_SAMPLED
     return launches, dict(timing, **numbers)
 
 
+#: the modis-ndvi path: a MOD13Q1-style 16-day vegetation index tile,
+#: h18v03 (the Netherlands, the North Sea and Germany to the Baltic), in
+#: the MODIS sinusoidal grid, as an HDF4 file: three int16 scientific data
+#: sets of the SD API in 480^2 chunks
+MODIS_TILE = "h18v03"
+MODIS_SIZE = 4800
+MODIS_CHUNK = 480
+MODIS_RADIUS = 6371007.181  # the MODIS sinusoidal sphere
+MODIS_UPPER_LEFT = (0.0, 6671703.118)
+MODIS_LOWER_RIGHT = (1111950.519667, 5559752.598333)
+MODIS_PROJECTION = "+proj=sinu +R=6371007.18 +lon_0=0 +x_0=0 +y_0=0 +units=m +no_defs"
+MODIS_SETS = ("250m 16 days NDVI", "250m 16 days EVI", "250m 16 days pixel reliability")
+MODIS_FILL = -3000
+MODIS_SCALE = 0.0001
+MODIS_DEFLATE_LEVEL = 6
+#: the pixel-reliability set's chunks szip-coded (the other MODIS layout,
+#: through the system libsz): not on the card's machine, which has no
+#: libsz (nor libaec), so its chunks are deflate too; the CPU tests write
+#: them with szip
+MODIS_SZIP = False
+#: szip's parameters for big-endian int16 cells: nearest neighbour
+#: preprocessing, entropy coding, most significant byte first, K13
+MODIS_SZIP_OPTIONS = 32 | 4 | 16 | 1
+MODIS_SZIP_BLOCK = 32
+MODIS_SMOOTH_M = 500.0
+MODIS_BINS = [0.2, 0.4, 0.6, 0.8]  # NDVI classes: bare, sparse, open, dense, closed canopy
+#: (b): the Netherlands in RD New at 100 m
+MODIS_RD_BBOX = (10000.0, 300000.0, 290000.0, 630000.0)
+MODIS_RD_CELL = 100.0
+#: below the tile's cells, so that each request tile reads its window
+MODIS_WINDOW_LIMIT = 1000000
+MODIS_SAMPLED = 8
+MODIS_COMPOSITE = datetime(2021, 7, 12)  # A2021193, the composite's first day
+
+HDF4_MAGIC = b"\x0e\x03\x13\x01"
+#: HDF4 tags (htags.h) and the special-element flag
+HDF4_TAGS = dict(compressed=40, chunk=61, nt=106, sdd=701, sd=702, ndg=720, vh=1962, vs=1963,
+                 vg=1965)
+HDF4_SPECIAL = 0x4000
+
+
+def modis_fields(size=MODIS_SIZE, seed=25):
+    """The stored int16 NDVI, EVI and pixel reliability of the tile (rows
+    north to south): smooth vegetation over land with a little noise, the
+    North Sea west of a wavy coast and a Baltic bay in the north-east at
+    the fill value, and cloud patches at the fill value (reliability 3,
+    cloudy, there; 0 or 1 on land)."""
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    y, x = t[:, None], t[None, :]
+    ndvi = (0.55 + 0.2 * np.sin(7 * x + 3 * y) * np.cos(5 * y - 2 * x)
+            + 0.1 * np.sin(23 * x) * np.sin(19 * y))
+    ndvi = ndvi + rng.normal(0, 0.02, (size, size)).astype(np.float32)
+    evi = 0.6 * ndvi + rng.normal(0, 0.01, (size, size)).astype(np.float32)
+    coast = 0.27 + 0.25 * np.clip(0.6 - y, 0, None) + 0.02 * np.sin(25 * y)
+    water = (x < coast) | ((x - 0.85) ** 2 + (y - 0.15) ** 2 < 0.03)
+    cloud = np.zeros((size, size), bool)
+    for _ in range(40):
+        cy, cx = rng.rand(2)
+        ry, rx = 0.005 + 0.025 * rng.rand(2)
+        rows = slice(max(0, int((cy - ry) * size)), int((cy + ry) * size) + 1)
+        cols = slice(max(0, int((cx - rx) * size)), int((cx + rx) * size) + 1)
+        cloud[rows, cols] |= (((y[rows] - cy) / ry) ** 2 + ((x[:, cols] - cx) / rx) ** 2) < 1
+    fill = water | cloud
+    stored = []
+    for index in (ndvi, evi):
+        values = np.rint(np.clip(index, -0.2, 1.0) / MODIS_SCALE).astype(np.int16)
+        values[fill] = MODIS_FILL
+        stored.append(values)
+    reliability = (ndvi < 0.3).astype(np.int16)
+    reliability[cloud] = 3
+    reliability[water] = MODIS_FILL
+    return stored + [reliability]
+
+
+def modis_struct_metadata(size=MODIS_SIZE):
+    """The tile's StructMetadata.0 (HDF-EOS ODL): one sinusoidal grid."""
+    return "\n".join([
+        "GROUP=SwathStructure", "END_GROUP=SwathStructure", "GROUP=GridStructure",
+        "\tGROUP=GRID_1", '\t\tGridName="MODIS_Grid_16DAY_250m_500m_VI"',
+        "\t\tXDim=%d" % size, "\t\tYDim=%d" % size,
+        "\t\tUpperLeftPointMtrs=(%.6f,%.6f)" % MODIS_UPPER_LEFT,
+        "\t\tLowerRightMtrs=(%.6f,%.6f)" % MODIS_LOWER_RIGHT,
+        "\t\tProjection=GCTP_SNSOID",
+        "\t\tProjParams=(%.6f,0,0,0,0,0,0,0,0,0,0,0,0)" % MODIS_RADIUS,
+        "\t\tSphereCode=-1", "\t\tGridOrigin=HDFE_GD_UL",
+        "\tEND_GROUP=GRID_1", "END_GROUP=GridStructure", "GROUP=PointStructure",
+        "END_GROUP=PointStructure", "END", ""])
+
+
+def hdf4_vdata(name, vclass, fields, records):
+    """A Vdata's header (DFTAG_VH) and records (DFTAG_VS), fully
+    interlaced: ``fields`` is [(name, number type, byte size, order)],
+    ``records`` the packed record bytes."""
+    recsize = sum(size for _, _, size, _ in fields)
+    header = struct.pack(">hihh", 0, len(records), recsize, len(fields))
+    offsets = np.cumsum([0] + [size for _, _, size, _ in fields])[:-1]
+    for column in ([f[1] for f in fields], [f[2] for f in fields], offsets,
+                   [f[3] for f in fields]):
+        header += struct.pack(">%dh" % len(fields), *column)
+    for text in [f[0] for f in fields] + [name, vclass]:
+        header += struct.pack(">h", len(text)) + text.encode("latin-1")
+    header += struct.pack(">HHhh", 0, 0, 3, 0)
+    return header, b"".join(records)
+
+
+def hdf4_attribute(name, value):
+    """An SD attribute as the SD API writes it: a one-field ``Attr0.0``
+    Vdata of a string, an int16 or a float64."""
+    if isinstance(value, str):
+        data, nt, size = value.encode("latin-1"), 4, len(value)
+        return hdf4_vdata(name, "Attr0.0", [("VALUES", nt, size, size)], [data])
+    dtype, nt = (">i2", 22) if isinstance(value, int) else (">f8", 6)
+    item = np.dtype(dtype).itemsize
+    return hdf4_vdata(name, "Attr0.0", [("VALUES", nt, item, 1)],
+                      [np.array(value, dtype).tobytes()])
+
+
+def hdf4_vgroup(name, vclass, members):
+    """A Vgroup (DFTAG_VG) of [(tag, ref)] members."""
+    body = struct.pack(">h", len(members))
+    body += struct.pack(">%dH" % len(members), *[tag for tag, _ in members])
+    body += struct.pack(">%dH" % len(members), *[ref for _, ref in members])
+    for text in (name, vclass):
+        body += struct.pack(">H", len(text)) + text.encode("latin-1")
+    return body + struct.pack(">HHH", 0, 0, 3)
+
+
+def hdf4_bytes(objects):
+    """A whole HDF4 file: the magic, one DD block listing ``objects``
+    ([(tag, ref, bytes)]) and their bytes in that order."""
+    start = 4 + 6 + 12 * len(objects)
+    entries, offset = [], start
+    for tag, ref, data in objects:
+        entries.append(struct.pack(">HHii", tag, ref, offset, len(data)))
+        offset += len(data)
+    return b"".join([HDF4_MAGIC, struct.pack(">hi", len(objects), 0)] + entries
+                    + [data for _, _, data in objects])
+
+
+def modis_chunk(values, szip):
+    """(coder's description tail, coder id, coded bytes) of one chunk:
+    deflate at level 6, or szip through the system libsz."""
+    raw = values.astype(">i2").tobytes()
+    if not szip:
+        return struct.pack(">H", MODIS_DEFLATE_LEVEL), 4, zlib.compress(raw, MODIS_DEFLATE_LEVEL)
+    from dask_geomodeling_tpu_torch.io.ccsds import szip_compress
+
+    coded = szip_compress(raw, MODIS_SZIP_OPTIONS, 16, MODIS_SZIP_BLOCK, values.shape[1])
+    return (struct.pack(">iiiii", values.size, values.shape[1], MODIS_SZIP_OPTIONS, 16,
+                        MODIS_SZIP_BLOCK), 5, coded)
+
+
+def write_modis_hdf4(folder, size=MODIS_SIZE, chunk=MODIS_CHUNK, seed=25, kind=5,
+                     szip=MODIS_SZIP, name=None):
+    """The tile as an HDF4 file in the SD API's layout: each set an NT,
+    an SDD, a chunked SD of ``chunk``^2 chunks (special element ``kind``:
+    5, the HDF4 library's, whose description record holds its length; 6,
+    the JAX reader's layout without it) listed in an ``_HDF_CHK_TBL_``
+    Vdata, each chunk a compressed special element (deflate at level 6;
+    the reliability set's szip when ``szip``), an NDG, and a ``Var0.0``
+    Vgroup with its long_name, units, _FillValue, scale_factor and
+    add_offset; the StructMetadata.0 global attribute.  The chunks are
+    coded in threads.  Returns (path, the stored sets)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    T = HDF4_TAGS
+    sets = modis_fields(size, seed)
+    grid = -(-size // chunk)
+    objects, members, ref = [], [], 1
+    jobs = []
+    for index, values in enumerate(sets):
+        padded = np.full((grid * chunk, grid * chunk), MODIS_FILL, np.int16)
+        padded[:size, :size] = values
+        coded_by_szip = szip and index == 2
+        jobs += [(index, ci, cj, padded[ci * chunk:(ci + 1) * chunk, cj * chunk:(cj + 1) * chunk],
+                  coded_by_szip) for ci in range(grid) for cj in range(grid)]
+    with ThreadPoolExecutor(8) as pool:
+        coded = list(pool.map(lambda job: modis_chunk(job[3], job[4]), jobs))
+    chunks_of = {}
+    for (index, ci, cj, block, _), (info, coder, data) in zip(jobs, coded):
+        chunks_of.setdefault(index, []).append((ci, cj, block.nbytes, info, coder, data))
+    for index, values in enumerate(sets):
+        sds = ref
+        objects.append((T["nt"], sds, bytes([1, 22, 16, 1])))  # int16, big-endian
+        objects.append((T["sdd"], sds, struct.pack(">h2i", 2, size, size)
+                        + struct.pack(">HH", T["nt"], sds) * 3))
+        records = []
+        ref += 1
+        for ci, cj, nbytes, info, coder, data in chunks_of[index]:
+            desc = struct.pack(">HHiHHH", 3, 0, nbytes, ref, 0, coder) + info
+            objects.append((T["chunk"] | HDF4_SPECIAL, ref, desc))
+            objects.append((T["compressed"], ref, data))
+            records.append(struct.pack(">iiHH", ci, cj, T["chunk"], ref))
+            ref += 1
+        table = ref
+        header, body = hdf4_vdata("_HDF_CHK_TBL_%d" % index, "_HDF_CHK_TBL_",
+                                  [("origin", 24, 8, 2), ("chk_tag", 23, 2, 1),
+                                   ("chk_ref", 23, 2, 1)], records)
+        objects += [(T["vh"], table, header), (T["vs"], table, body)]
+        ref += 1
+        fill = np.array(MODIS_FILL, ">i2").tobytes()
+        record = struct.pack(">BiiiiHHHHi", 0, 0, size * size * 2, chunk * chunk * 2, 2,
+                             T["vh"], table, 1, 0, 2)
+        record += struct.pack(">iii", 0, size, chunk) * 2 + struct.pack(">i", len(fill)) + fill
+        lead = struct.pack(">Hi", 5, len(record)) if kind == 5 else struct.pack(">H", kind)
+        objects.append((T["sd"] | HDF4_SPECIAL, sds, lead + record))
+        objects.append((T["ndg"], sds, struct.pack(">4H", T["sdd"], sds, T["sd"], sds)))
+        attributes = [(T["ndg"], sds)]
+        for key, value in (("long_name", MODIS_SETS[index]),
+                           ("units", "NDVI" if index == 0 else "EVI" if index == 1 else "rank"),
+                           ("_FillValue", MODIS_FILL), ("scale_factor", MODIS_SCALE),
+                           ("add_offset", 0.0)):
+            header, body = hdf4_attribute(key, value)
+            objects += [(T["vh"], ref, header), (T["vs"], ref, body)]
+            attributes.append((T["vh"], ref))
+            ref += 1
+        objects.append((T["vg"], ref, hdf4_vgroup(MODIS_SETS[index], "Var0.0", attributes)))
+        members.append((T["vg"], ref))
+        ref += 1
+    header, body = hdf4_attribute("StructMetadata.0", modis_struct_metadata(size))
+    objects += [(T["vh"], ref, header), (T["vs"], ref, body)]
+    members.append((T["vh"], ref))
+    objects.append((T["vg"], ref + 1, hdf4_vgroup("MOD13Q1.hdf", "CDF0.0", members)))
+    path = os.path.join(folder, name or "MOD13Q1.A2021193.%s.061.hdf" % MODIS_TILE)
+    with open(path, "wb") as f:
+        f.write(hdf4_bytes(objects))
+    return path, sets
+
+
+def modis_geo_transform(size=MODIS_SIZE):
+    """The tile's GDAL geotransform, from its StructMetadata.0 corners."""
+    (ulx, uly), (lrx, lry) = MODIS_UPPER_LEFT, MODIS_LOWER_RIGHT
+    return (ulx, (lrx - ulx) / size, 0.0, uly, 0.0, (lry - uly) / size)
+
+
+def build_modis_view(path):
+    """Classify(Smooth(RasterFileSource(path), 500 m), NDVI bins): the
+    vegetation classes of the smoothed index; the source's first frame,
+    at MODIS_COMPOSITE, is NDVI."""
+    from dask_geomodeling_tpu_torch import raster as port
+
+    source = port.RasterFileSource(path, time_first=MODIS_COMPOSITE)
+    return port.Classify(port.Smooth(source, MODIS_SMOOTH_M), MODIS_BINS)
+
+
+def modis_request(size=MODIS_SIZE):
+    """(a): the tile's own size^2 grid in its sinusoidal CRS, NDVI."""
+    (ulx, uly), (lrx, lry) = MODIS_UPPER_LEFT, MODIS_LOWER_RIGHT
+    return dict(mode="vals", projection=MODIS_PROJECTION, width=size, height=size,
+                bbox=(ulx, lry, lrx, uly), start=MODIS_COMPOSITE, stop=MODIS_COMPOSITE)
+
+
+def modis_rd_request(bbox=MODIS_RD_BBOX, cell=MODIS_RD_CELL):
+    """(b): the Netherlands in RD New at ``cell`` m, NDVI."""
+    x1, y1, x2, y2 = bbox
+    return dict(mode="vals", projection="EPSG:28992", bbox=bbox,
+                width=int(round((x2 - x1) / cell)), height=int(round((y2 - y1) / cell)),
+                start=MODIS_COMPOSITE, stop=MODIS_COMPOSITE)
+
+
+def hdf4_clock():
+    """A PhaseClock over an HDF4 file's reads: whole reads and window
+    reads."""
+    from dask_geomodeling_tpu_torch.io import hdf4
+
+    return PhaseClock([(hdf4, "read_hdf4", "whole reads"),
+                       (hdf4, "read_hdf4_window", "window reads")])
+
+
+class chunk_decodes:
+    """The compressed elements (an HDF4 file's chunks) decoded while
+    installed, in ``count``: they decode on the codec's thread pool, so a
+    PhaseClock's nesting count would not hold."""
+
+    def __enter__(self):
+        from dask_geomodeling_tpu_torch.io import hdf4
+
+        self.calls, self.original = [], hdf4._File._compressed
+
+        def counted(file, desc):
+            self.calls.append(None)  # list.append is atomic
+            return self.original(file, desc)
+
+        hdf4._File._compressed = counted
+        return self
+
+    @property
+    def count(self):
+        return len(self.calls)
+
+    def __exit__(self, *exc):
+        from dask_geomodeling_tpu_torch.io import hdf4
+
+        hdf4._File._compressed = self.original
+        return False
+
+
+def chunks_touched(window, chunk=MODIS_CHUNK):
+    """The chunks a (row0, row1, col0, col1) window touches."""
+    row0, row1, col0, col1 = window
+    return (-(-row1 // chunk) - row0 // chunk) * (-(-col1 // chunk) - col0 // chunk)
+
+
+def check_modis_ndvi(card, device, folder, size=MODIS_SIZE, chunk=MODIS_CHUNK,
+                     window_limit=MODIS_WINDOW_LIMIT, rd_bbox=MODIS_RD_BBOX,
+                     sampled_tiles=MODIS_SAMPLED):
+    """The modis-ndvi phase over a MOD13Q1-style tile (write_modis_hdf4:
+    HDF4, chunked element kind 5, deflate chunks), build_modis_view under
+    a geomodeling.windowed-read-limit of ``window_limit`` cells: ``info``
+    from the header, no chunk decoded (hdf4_clock); (a) the tile's own
+    grid (modis_request) through evaluate_tiled, its first run timed under
+    the clock: every tile read by window, the chunks decoded those its
+    window touches in each of the three sets, no whole
+    read, the Gaussian once a batch (a batch a sigma) on float64 frames,
+    its first launch torch.equal to its plain version; every tile of that
+    run bitwise to compute_host; sampled windows equal to the matching
+    slices of a whole read_hdf4, which holds the values written and the
+    tile's sinusoidal georeference; (b) the Netherlands in RD New
+    (modis_rd_request) with the checks of check_algebra_path, at most
+    HEADLINE_SHARE of the cells off compute_host; malformed files raise
+    the reader's ValueError.  Returns (launches, numbers); removes the
+    files."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import evaluate_tiled
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.io import hdf4
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    numbers = {}
+    t0 = time.perf_counter()
+    path, sets = write_modis_hdf4(folder, size, chunk)
+    numbers["write_s"] = time.perf_counter() - t0
+    numbers["file_mb"] = os.path.getsize(path) / 1e6
+    grid = -(-size // chunk)
+    print("modis-ndvi: %s, %d^2 cells of %.6f m in the MODIS sinusoidal grid, %d int16 sets in "
+          "%d^2 chunks (%d a set, special element kind 5), deflate at level %d, %.1f MB written "
+          "in %.2f s [%s]" % (MODIS_TILE, size, modis_geo_transform(size)[1], len(sets), chunk,
+                              grid * grid, MODIS_DEFLATE_LEVEL, numbers["file_mb"],
+                              numbers["write_s"], card))
+    pipeline.clear_read_cache()
+    launches = {"gaussian_blur": 0, "moving_max": 0}
+    with config.set({"geomodeling.windowed-read-limit": window_limit}):
+        view = build_modis_view(path)
+        source = view.args[0].args[0]
+        with hdf4_clock() as clock, chunk_decodes() as decodes:
+            t0 = time.perf_counter()
+            info = source.info
+            numbers["info_s"] = time.perf_counter() - t0
+        check(not any(clock.calls.values()) and decodes.count == 0,
+              "modis-ndvi: info read %r and decoded %d chunks" % (clock.calls, decodes.count))
+        got = (info.width, info.height, info.bands, info.dtype, info.projection,
+               tuple(info.geo_transform), info.no_data_value, info.metadata)
+        check(got == (size, size, 3, "float64", MODIS_PROJECTION, modis_geo_transform(size),
+                      float(np.finfo(np.float32).max), list(MODIS_SETS)),
+              "modis-ndvi: info %r" % (got,))
+        print("modis-ndvi: info from the header in %.4f s, no chunk decoded: %d^2, %d bands "
+              "%s, %s, geotransform %r, sets %s" % (numbers["info_s"], info.width, info.bands,
+                                                    info.dtype, info.projection,
+                                                    tuple(info.geo_transform), info.metadata))
+
+        # (a) the tile's own grid, its first run under the clock
+        request = modis_request(size)
+        tiles, nx = tile_requests(request, TILE)
+        windows = [source._file_read_plan(tile) for tile in tiles]
+        check(all(plan is not None and plan[0] == 0 for plan in windows),
+              "modis-ndvi: a tile is not read by window")
+        touched = sum(chunks_touched(window, chunk) for _, window in windows) * len(sets)
+        phases, spy = {}, gaussian_calls()
+        cuda_stencils.reset_launches()
+        batches = tile_runtime.batches_run
+        with hdf4_clock() as clock, chunk_decodes() as decodes, spy:
+            t0 = time.perf_counter()
+            first = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                                   phase_seconds=phases)["values"]
+            numbers["first_run_s"] = time.perf_counter() - t0
+        # the Smooth's sigma differs in its last digits between tile
+        # columns (the cells are not square in floating point): a batch
+        # for each sigma
+        batches = tile_runtime.batches_run - batches
+        launches["gaussian_blur"] += cuda_stencils.launches
+        check(clock.calls["whole reads"] == 0 and clock.calls["window reads"] == len(tiles)
+              and decodes.count == touched,
+              "modis-ndvi: the first run made %r decoding %d chunks, not %d window reads of %d "
+              "chunks" % (clock.calls, decodes.count, len(tiles), touched))
+        check(cuda_stencils.launches == batches == len(spy.calls) and batches < len(tiles),
+              "modis-ndvi: %d Gaussian launches, %d calls for %d batches"
+              % (cuda_stencils.launches, len(spy.calls), batches))
+        planes, path_result, sigma, fill = spy.first
+        check(planes.dtype == torch.float64, "modis-ndvi: the frames are %s" % planes.dtype)
+        want = gaussian_blur_reference(planes, *sigma, fill)
+        check(torch.equal(path_result, want), "gaussian_blur differs from its plain version on "
+              "the modis-ndvi path's frames")
+        err = float((path_result - want).abs().max())
+        numbers["first_phases_s"] = phases
+        numbers["read_s"] = clock.seconds["window reads"]
+        print("modis-ndvi (a): first run %.3f s (%s), %d window reads decoding %d chunks on "
+              "the codec's pool (%.3f s in the window reads), Gaussian %d launches on "
+              "%s float64 sigma (%.4f, %.4f), the first torch.equal to its plain version "
+              "(max_abs_err %r), %d batches [%s]" % (
+                  numbers["first_run_s"], ", ".join("%s %.4f s" % kv for kv in phases.items()),
+                  len(tiles), touched, numbers["read_s"],
+                  cuda_stencils.launches, tuple(planes.shape), sigma[0], sigma[1], err, batches,
+                  card))
+        del planes, path_result, want, spy
+        # every tile of the first run bitwise to compute_host, the last
+        # first: the window cache holds the run's last 64 windows
+        t0 = time.perf_counter()
+        differing = 0
+        for k in reversed(range(len(tiles))):
+            tile = tiles[k]
+            (rows, cols), (host_rows, host_cols) = tile_cells(k, nx, size, size, TILE)
+            host = host_values(view, tile)[:, host_rows, host_cols]
+            differing += int(np.count_nonzero(first[:, rows, cols] != host))
+        numbers["host_s"] = time.perf_counter() - t0
+        check(first.shape == (1, size, size) and differing == 0,
+              "modis-ndvi (a): %r, %d cells differ from compute_host" % (first.shape, differing))
+        print("modis-ndvi (a): every tile (%d) against compute_host (%.3f s): 0 of %d cells "
+              "differ; classes %s" % (len(tiles), numbers["host_s"], first.size, np.bincount(
+                  first.ravel(), minlength=len(MODIS_BINS) + 1).tolist()))
+        del first
+
+        # the windows against a whole read, which holds what was written
+        t0 = time.perf_counter()
+        whole = hdf4.read_hdf4(path)
+        numbers["whole_read_s"] = time.perf_counter() - t0
+        for band, stored in enumerate(sets):
+            expected = np.where(stored == MODIS_FILL, np.finfo(np.float32).max,
+                                MODIS_SCALE * (stored.astype(np.float64) - 0.0))
+            check(np.array_equal(whole.array[band], expected),
+                  "modis-ndvi: the whole read's %s differs from the values written"
+                  % MODIS_SETS[band])
+        check(whole.projection == MODIS_PROJECTION
+              and tuple(whole.geo_transform) == modis_geo_transform(size),
+              "modis-ndvi: the georeference %r %r" % (whole.projection, whole.geo_transform))
+        rng = np.random.RandomState(26)
+        for _ in range(4):
+            row0, col0 = rng.randint(0, size - 1, 2)
+            row1, col1 = row0 + rng.randint(1, 700), col0 + rng.randint(1, 700)
+            part = hdf4.read_hdf4_window(path, row0, row1, col0, col1)
+            check(np.array_equal(part.array, whole.array[:, row0:row1, col0:col1]),
+                  "modis-ndvi: the window %r differs from the whole read"
+                  % ((row0, row1, col0, col1),))
+        del whole
+        print("modis-ndvi: a whole read_hdf4 in %.3f s equals the values written (scale_factor "
+              "%g, fill at the float32 maximum) and 4 sampled windows; %s and the h18v03 "
+              "geotransform" % (numbers["whole_read_s"], MODIS_SCALE, MODIS_PROJECTION))
+
+        # (b) the Netherlands in RD New
+        rd_request = modis_rd_request(rd_bbox)
+        cuda_stencils.reset_launches()
+        t0 = time.perf_counter()
+        numbers["rd_host_mpx_per_s"], _ = check_algebra_path(
+            "modis-ndvi (b) RD", device, view, rd_request, "nearest",
+            (rd_request["bbox"][0], rd_request["bbox"][3]), share=HEADLINE_SHARE,
+            sigma_groups=True, sampled_tiles=sampled_tiles, routed=False)
+        numbers["rd_s"] = time.perf_counter() - t0
+        check(cuda_stencils.launches > 0, "modis-ndvi (b): the Gaussian did not launch")
+        launches["gaussian_blur"] += cuda_stencils.launches
+
+    # malformed files: the reader's ValueError
+    errors = []
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    for name, body in (("truncated.hdf", head), ("empty.hdf", HDF4_MAGIC + bytes(64))):
+        bad = os.path.join(folder, name)
+        with open(bad, "wb") as f:
+            f.write(body)
+        try:
+            RasterFileSource(bad).info
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+        os.remove(bad)
+    check(errors[0] is not None and errors[0].startswith("Corrupt or truncated HDF4 file")
+          and errors[1] is not None and errors[1].startswith("HDF4 file contains no 2-D/3-D"),
+          "modis-ndvi: malformed files raised %r" % errors)
+    print("modis-ndvi: a truncated and an empty HDF4 file raised ValueError: %s" % "; ".join(
+        errors))
+    os.remove(path)
+    pipeline.clear_read_cache()
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("modis-ndvi: Gaussian %d launches on the path; the phase %.2f s [%s]"
+          % (launches["gaussian_blur"], numbers["phase_s"], card))
+    return launches, numbers
+
+
 class PhaseClock:
     """Seconds spent inside chosen functions while it is installed: each
     (owner, attribute) is replaced by a wrapper that adds its wall time
@@ -3836,7 +4352,8 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
                     sub_size=BUILDING_TILE):
     """The building-heights phase: per-building height statistics of the
     smoothed sheet, exported in tiles to a GeoPackage (to_file), checked
-    against compute_host and repeated through the GeoPackage's R-tree;
+    against compute_host and repeated through the GeoPackage's R-tree over
+    a block of 3 x 3 of its tiles;
     a sub-area exported untiled as GeoJSON and as a Shapefile against the
     host's export of it.  The first export is timed under the phase
     clock alone; the device busy time and idle share come from the R-tree
@@ -3875,10 +4392,10 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
-    def export(target, profiled):
+    def export(target, profiled, **geometry):
         def run():
             to_file(view, target, tile_size=tile, projection=projection, mode="centroid",
-                    device=device)
+                    device=device, **geometry)
 
         cuda_stencils.reset_launches()
         with export_clock() as clock:
@@ -3959,19 +4476,37 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
           "geometry, area, h_p90 and relief bitwise, h_mean differing in %d rows (within one "
           "float32 ulp before rounding) [%s]" % (differing, card))
 
-    # again through the GeoPackage's R-tree
+    # again through the GeoPackage's R-tree, over a block of 3 x 3 of the
+    # export's tiles (the whole extent until PR 20: 26-31 s of the phase),
+    # each tile the same square as the first export's
     # 1 MiB, below the 16 MiB default and the file (a smaller file: half its size)
     limit = min(1024 * 1024, size // 2)
+    x1, y1, x2, y2 = extent
+    n_cols, n_rows = -(-(x2 - x1) // tile), -(-(y2 - y1) // tile)
+    step_x, step_y = (x2 - x1) / n_cols, (y2 - y1) / n_rows
+    c0, r0 = max(0, n_cols // 2 - 1), max(0, n_rows // 2 - 1)
+    block = box(x1 + step_x * c0, y1 + step_y * r0, x1 + step_x * min(c0 + 3, n_cols),
+                y1 + step_y * min(r0 + 3, n_rows))
+    block_tiles = GeometryTiler(source, tile, projection).get_sources_and_requests(
+        mode="centroid", geometry=block, projection=projection)
+    in_block = np.zeros(len(centroids), bool)
+    for _, request in block_tiles:
+        bx1, by1, bx2, by2 = request["geometry"].bounds
+        in_block |= ((centroids[:, 0] > bx1) & (centroids[:, 0] < bx2)
+                     & (centroids[:, 1] > by1) & (centroids[:, 1] < by2))
     with config.set({"geomodeling.vector-windowed-read-limit": limit}):
         pipeline.clear_read_cache()
         rtree_target = os.path.join(folder, "heights_rtree.gpkg")
-        rtree_s, busy_ms, rtree_launches, rtree_clock = export(rtree_target, profiled=True)
+        rtree_s, busy_ms, rtree_launches, rtree_clock = export(rtree_target, profiled=True,
+                                                               geometry=block)
     idle = None if busy_ms is None else 1 - busy_ms / 1e3 / rtree_s
     rtree_rows = frame_rows(vectorfile.read_vector(rtree_target))
-    check(sorted(rtree_rows) == sorted(merged_rows), "building-heights: the R-tree export "
-          "holds other features")
+    check(sorted(rtree_rows) == sorted(everything.index.values[in_block].tolist()),
+          "building-heights: the R-tree export holds other features than those of its tiles")
     rounding = 0
     for fid, row in merged_rows.items():
+        if fid not in rtree_rows:
+            continue
         for column, value in row.items():
             if column == "h_mean" and repr(rtree_rows[fid][column]) != repr(value):
                 rounding += 1
@@ -3980,16 +4515,17 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
             elif column != "h_mean":
                 check(repr(rtree_rows[fid][column]) == repr(value),
                       "building-heights: the R-tree export differs in %s" % column)
-    check(rtree_clock.calls["vector read"] >= len(subrequests),
+    check(rtree_clock.calls["vector read"] >= len(block_tiles),
           "building-heights: the R-tree export read the file %d times"
           % rtree_clock.calls["vector read"])
     print("building-heights: through the R-tree (geomodeling.vector-windowed-read-limit "
-          "%d bytes): %d vector reads, the same %d features, h_mean differing in %d rows; "
-          "%.3f s under torch.profiler, %d Gaussian launches; device busy %s, idle share %s "
-          "[%s]" % (limit, rtree_clock.calls["vector read"], len(rtree_rows), rounding, rtree_s,
-                    rtree_launches["gaussian_blur"],
-                    "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
-                    "not measured" if idle is None else "%.4f" % idle, card))
+          "%d bytes) over %d of the tiles: %d vector reads, %d features, each the first "
+          "export's, h_mean differing in %d rows; %.3f s under torch.profiler, %d Gaussian "
+          "launches; device busy %s, idle share %s [%s]" % (
+              limit, len(block_tiles), rtree_clock.calls["vector read"], len(rtree_rows),
+              rounding, rtree_s, rtree_launches["gaussian_blur"],
+              "not measured" if busy_ms is None else "%.3f ms" % busy_ms,
+              "not measured" if idle is None else "%.4f" % idle, card))
 
     # a sub-area exported untiled as GeoJSON and as a Shapefile
     x1, y1, x2, y2 = extent
@@ -6191,6 +6727,8 @@ def run_phases(card, device, folder, mark):
     mark("the hfa-roughness path")
     launches["tile-pyramids"], pyramids = check_tile_pyramids(card, device, folder, lgn)
     mark("the tile-pyramids path")
+    launches["modis-ndvi"], modis = check_modis_ndvi(card, device, folder)
+    mark("the modis-ndvi path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -6223,6 +6761,7 @@ def run_phases(card, device, folder, mark):
     timings["netcdf-radar"] = radar
     timings["hfa-roughness"] = roughness
     timings["tile-pyramids"] = pyramids
+    timings["modis-ndvi"] = modis
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

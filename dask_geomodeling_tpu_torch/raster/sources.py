@@ -387,10 +387,12 @@ class MemorySource(RasterSourceBase):
 
 class RasterFileSource(RasterSourceBase):
     """A raster source reading a raster file from a path: a GeoTIFF, a VRT
-    mosaic, a Zarr v2 store (a directory), a netCDF file (classic CDF-1 or
-    CDF-2, or netCDF-4/HDF5 where h5py is importable: ``.nc``, ``.cdf``,
-    ``.nc3``, ``.nc4``, ``.h5``, ``.hdf5``, and an ``.hdf``, ``.h4`` or
-    ``.hdf4`` that is no HDF4 file), or a format that decodes whole (PNG,
+    mosaic, a Zarr v2 store (a directory), an HDF4 file (``.hdf``, ``.h4``
+    or ``.hdf4`` with HDF4's magic: its scientific data sets are the
+    frames), a netCDF file (classic CDF-1 or CDF-2, or netCDF-4/HDF5 where
+    h5py is importable: ``.nc``, ``.cdf``, ``.nc3``, ``.nc4``, ``.h5``,
+    ``.hdf5``, and an ``.hdf``, ``.h4`` or ``.hdf4`` that is no HDF4
+    file), or a format that decodes whole (PNG,
     SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI,
     ERDAS Imagine, MBTiles, a GeoPackage's tile layer: a ``.gpkg`` is
     always read as tiles here, a GeoPackage of features raising).
@@ -427,6 +429,7 @@ class RasterFileSource(RasterSourceBase):
         except AttributeError:
             from dask_geomodeling_tpu_torch.runtime.pipeline import (
                 check_ported_format,
+                is_hdf4,
                 is_netcdf,
                 whole_file_reader,
             )
@@ -438,6 +441,11 @@ class RasterFileSource(RasterSourceBase):
                 from dask_geomodeling_tpu_torch.io.zarr import read_zarr_info
 
                 self._info = read_zarr_info(path, self.variable)
+            elif is_hdf4(path):
+                # from the header: a large granule decodes no chunk for it
+                from dask_geomodeling_tpu_torch.io.hdf4 import read_hdf4_info
+
+                self._info = read_hdf4_info(path)
             elif is_netcdf(path):
                 # a netCDF-4 file's from its metadata and coordinates
                 from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf_info
@@ -545,20 +553,20 @@ class RasterFileSource(RasterSourceBase):
 
     def _file_read_plan(self, request):
         """``(level, (row0, row1, col0, col1))`` for a vals request, or
-        None for the plain whole-file read: a GeoTIFF, VRT, Zarr store or
-        netCDF file above ``geomodeling.windowed-read-limit`` decodes only
-        the blocks (a store's or a netCDF-4 file's chunks) of the request's
-        source-CRS bbox plus a 2-pixel
-        margin, and with ``geomodeling.use-overviews`` a request at 2x or
-        more coarser resolution reads the best overview level of a
-        GeoTIFF."""
+        None for the plain whole-file read: a GeoTIFF, VRT, Zarr store, HDF4
+        or netCDF file above ``geomodeling.windowed-read-limit`` decodes
+        only the blocks (a store's, an HDF4 or a netCDF-4 file's chunks) of
+        the request's source-CRS bbox plus a 2-pixel margin, and with
+        ``geomodeling.use-overviews`` a request at 2x or more coarser
+        resolution reads the best overview level of a GeoTIFF."""
         if request is None:
             return None
         path = safe_abspath(self.url)
-        from dask_geomodeling_tpu_torch.runtime.pipeline import is_netcdf
+        from dask_geomodeling_tpu_torch.runtime.pipeline import is_hdf4, is_netcdf
 
-        # VRTs, Zarr stores and netCDF files have no overview levels
-        chunked_store = path.lower().endswith((".zarr", ".vrt")) or is_netcdf(path)
+        # VRTs, Zarr stores, HDF4 and netCDF files have no overview levels
+        chunked_store = (path.lower().endswith((".zarr", ".vrt")) or is_hdf4(path)
+                         or is_netcdf(path))
         if not (chunked_store or path.lower().endswith((".tif", ".tiff"))):
             return None
         info = self.info

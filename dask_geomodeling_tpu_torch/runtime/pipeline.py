@@ -5,15 +5,15 @@ VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
 Surfer, SAGA, Idrisi, ENVI), the tile pyramids (MBTiles and the
 GeoPackage tile layers: a ``.gpkg`` given to a raster reader is always
 read as tiles), ERDAS Imagine (HFA) ``.img`` files, Zarr v2
-stores and netCDF (classic, and netCDF-4/HDF5 where h5py is importable):
-``read_geotiff_cached`` decodes a whole file or store into an
+stores, HDF4 and netCDF (classic, and netCDF-4/HDF5 where h5py is
+importable): ``read_geotiff_cached`` decodes a whole file or store into an
 mtime-validated LRU, choosing the reader
 by suffix in the JAX package's order (an ``.hdf``, ``.h4`` or ``.hdf4``
-by its magic: HDF4 is not ported, anything else is read as netCDF), and
+by its magic: HDF4 with its magic, netCDF otherwise), and
 ``read_geotiff_window_cached`` one pixel window of a large GeoTIFF, VRT,
-Zarr store or netCDF file (block- or chunk-wise, a GeoTIFF optionally of
-an overview level; a classic netCDF file's window is a slice of its
-cached whole decode) into another.  Both are keyed by ``(path,
+Zarr store, HDF4 or netCDF file (block- or chunk-wise, a GeoTIFF
+optionally of an overview level; a classic netCDF file's window is a
+slice of its cached whole decode) into another.  Both are keyed by ``(path,
 variable)`` plus the window, on lookup and on store alike, so every tile
 of a request that reads one unchanged file gets the same decoded array
 (the JAX package looks the whole-file entry up by the path and stores it
@@ -43,6 +43,7 @@ __all__ = [
     "read_vector_cached",
     "clear_read_cache",
     "check_ported_format",
+    "is_hdf4",
     "is_netcdf",
     "whole_file_reader",
 ]
@@ -56,10 +57,10 @@ _VECTOR_CACHE = OrderedDict()
 _VECTOR_CACHE_SIZE = 16
 
 #: file suffixes of the raster formats the port does not read, and the
-#: JAX module that reads each (an ``.hdf``, ``.h4`` or ``.hdf4`` is HDF4
-#: by its magic); the port reads GeoTIFF, VRT, Zarr stores, netCDF and the
-#: formats of ``whole_file_reader``, the tile pyramids among them (a JPEG
-#: or WebP tile in them raises, naming io/gpkg_raster.py)
+#: JAX module that reads each; the port reads GeoTIFF, VRT, Zarr stores,
+#: HDF4, netCDF and the formats of ``whole_file_reader``, the tile
+#: pyramids among them (a JPEG or WebP tile in them raises, naming
+#: io/gpkg_raster.py)
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
@@ -87,8 +88,6 @@ def check_ported_format(path):
     lower = path.lower()
     module = next((m for suffixes, m in _UNPORTED_FORMATS.items() if lower.endswith(suffixes)),
                   None)
-    if module is None and lower.endswith(_HDF_SUFFIXES) and _has_magic(path, _HDF4_MAGIC):
-        module = "io/hdf4.py"
     if module is not None:
         raise NotImplementedError(
             "reading %s is not ported: dask_geomodeling_tpu/%s reads it"
@@ -96,10 +95,18 @@ def check_ported_format(path):
         )
 
 
+def is_hdf4(path):
+    """Whether ``path`` is read as HDF4: an ``.hdf``, ``.h4`` or ``.hdf4``
+    with HDF4's magic."""
+    return path.lower().endswith(_HDF_SUFFIXES) and _has_magic(path, _HDF4_MAGIC)
+
+
 def is_netcdf(path):
-    """Whether ``path`` is read as netCDF: by its suffix, once
-    ``check_ported_format`` has let it pass (an HDF4 file raises there)."""
-    return path.lower().endswith(_NETCDF_SUFFIXES + _HDF_SUFFIXES)
+    """Whether ``path`` is read as netCDF: by its suffix, an ``.hdf``,
+    ``.h4`` or ``.hdf4`` only without HDF4's magic."""
+    lower = path.lower()
+    return lower.endswith(_NETCDF_SUFFIXES) or (lower.endswith(_HDF_SUFFIXES)
+                                                and not is_hdf4(path))
 
 
 def whole_file_reader(path):
@@ -222,13 +229,15 @@ def _store_stamp(path):
 
 
 def read_geotiff_cached(path, variable=None):
-    """Read a whole raster file (GeoTIFF, VRT mosaic, Zarr store, netCDF
-    file or a format of ``whole_file_reader``) through an mtime-validated
-    LRU keyed by ``(path, variable)``; ``variable`` selects a Zarr store's
+    """Read a whole raster file (GeoTIFF, VRT mosaic, Zarr store, HDF4 or
+    netCDF file or a format of ``whole_file_reader``) through an
+    mtime-validated LRU keyed by ``(path, variable)``; ``variable`` selects
+    a Zarr store's
     or a netCDF file's data variable and is kept in the key for every
     format, as the JAX package keeps it."""
     from dask_geomodeling_tpu_torch.io.envi import read_envi
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.io.hdf4 import read_hdf4
     from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt
     from dask_geomodeling_tpu_torch.io.zarr import read_zarr
@@ -239,6 +248,9 @@ def read_geotiff_cached(path, variable=None):
     if path.lower().endswith(".zarr"):
         return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _store_stamp(path),
                        partial(read_zarr, path, variable))
+    if is_hdf4(path):
+        return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _file_stamp(path),
+                       partial(read_hdf4, path))
     if is_netcdf(path):
         return _cached(_READ_CACHE, _READ_CACHE_SIZE, key, _file_stamp(path),
                        partial(read_netcdf, path, variable))
@@ -250,10 +262,12 @@ def read_geotiff_cached(path, variable=None):
 def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=None):
     """Read one pixel window of a large GeoTIFF (block-level decode,
     optionally of an overview level), VRT, Zarr store (chunk-level decode
-    of ``variable``) or netCDF file (of ``variable``: a netCDF-4 file's
-    chunks, a classic file's cached whole decode sliced) through an
-    mtime-validated LRU keyed by ``(path, window, level, variable)``."""
+    of ``variable``), HDF4 file (chunk-level decode) or netCDF file (of
+    ``variable``: a netCDF-4 file's chunks, a classic file's cached whole
+    decode sliced) through an mtime-validated LRU keyed by ``(path,
+    window, level, variable)``."""
     from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_window
+    from dask_geomodeling_tpu_torch.io.hdf4 import read_hdf4_window
     from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf_window
     from dask_geomodeling_tpu_torch.io.vrt import read_vrt_window
     from dask_geomodeling_tpu_torch.io.zarr import read_zarr_window
@@ -265,6 +279,8 @@ def read_geotiff_window_cached(path, row0, row1, col0, col1, level=0, variable=N
     if path.lower().endswith(".zarr"):
         stamp = _store_stamp(path)
         read = partial(read_zarr_window, path, row0, row1, col0, col1, variable=variable)
+    elif is_hdf4(path):
+        read = partial(read_hdf4_window, path, row0, row1, col0, col1)
     elif is_netcdf(path):
         read = partial(read_netcdf_window, path, row0, row1, col0, col1, variable=variable)
     elif path.lower().endswith(".vrt"):

@@ -353,17 +353,12 @@ def test_window_cache(root, monkeypatch):
     assert len(decodes) == 2
 
 
-MAGIC = {".hdf": b"\x0e\x03\x13\x01"}
-
-
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.ntf", "io/nitf.py"),
-                                          ("hdf4.hdf", "io/hdf4.py"), ("a.grib2", "io/grib.py"),
+                                          ("a.bmp", "io/jpeg.py"), ("a.grib2", "io/grib.py"),
                                           ("a.gif", "io/jpeg.py"),
                                           ("a.jpg", "io/jpeg.py")])
 def test_unported_format_names_its_module(root, name, module):
-    # an .hdf is HDF4 by its magic (an HDF5 or classic netCDF file's .hdf
-    # is read)
-    (root / name).write_bytes(MAGIC.get(os.path.splitext(name)[1], b"not read"))
+    (root / name).write_bytes(b"not read")
     source = port.RasterFileSource(name)
     with pytest.raises(NotImplementedError, match=module):
         source.info

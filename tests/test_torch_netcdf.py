@@ -639,17 +639,25 @@ def test_every_suffix_reads_through_the_file_source(tmp_path, suffix):
 
 @pytest.mark.parametrize("suffix", [".hdf", ".h4", ".hdf4"])
 def test_hdf4_by_its_magic_names_its_module(tmp_path, suffix):
-    """An HDF4 file (by its magic) still raises, naming the JAX module that
-    reads it, in info, both read caches and get_data."""
+    """An HDF4 file (by its magic) goes to the HDF4 reader, not to the
+    netCDF one, in info and both read caches: one of no data set raises
+    the reader's error, the JAX package's (the port read no HDF4 until
+    io/hdf4.py was ported, and raised naming it)."""
     path = tmp_path / ("a" + suffix)
     path.write_bytes(b"\x0e\x03\x13\x01" + b"\x00" * 60)
+    message = "HDF4 file contains no 2-D/3-D data sets: '%s'" % path
     with both_configs({"geomodeling.root": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="io/hdf4.py"):
-            port_raster.RasterFileSource("a" + suffix).info
-    with pytest.raises(NotImplementedError, match="io/hdf4.py"):
-        pipeline.read_geotiff_cached(str(path))
-    with pytest.raises(NotImplementedError, match="io/hdf4.py"):
-        pipeline.read_geotiff_window_cached(str(path), 0, 1, 0, 1)
+        for raster in (port_raster, jax_raster):
+            with pytest.raises(ValueError) as raised:
+                raster.RasterFileSource("a" + suffix).info
+            assert str(raised.value) == message
+    for cache in (pipeline, jax_pipeline):
+        with pytest.raises(ValueError) as raised:
+            cache.read_geotiff_cached(str(path))
+        assert str(raised.value) == message
+        with pytest.raises(ValueError) as raised:
+            cache.read_geotiff_window_cached(str(path), 0, 1, 0, 1)
+        assert str(raised.value) == message
 
 
 @needs_h5py

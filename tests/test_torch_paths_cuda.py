@@ -27,7 +27,7 @@ nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
 1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
 phase over a small radar file; the hfa-roughness and tile-pyramids phases over a 1024 x 768
-land-use grid.  This file imports nothing of JAX or
+land-use grid; the modis-ndvi phase over a 960^2 HDF4 tile.  This file imports nothing of JAX or
 pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -378,6 +378,24 @@ def test_tile_pyramids_phase_on_card(tmp_path):
     assert launches["gaussian_blur"] >= 4 and launches["moving_max"] == 0
     assert numbers["batches_run"] >= 4 and numbers["gpkg_mb"] > 0 < numbers["mbtiles_mb"]
     assert lgn == {}  # the classes and the answer taken once used
+
+
+@pytest.mark.cuda
+def test_modis_ndvi_phase_on_card(tmp_path):
+    """chip_smoke's modis-ndvi phase over a 960^2 tile in 96^2 chunks, in
+    256^2 tiles, batches of 8, read by window under a limit of 10,000
+    cells, (b) over a 512^2 box of RD New: every check of the full run."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        launches, numbers = chip_smoke.check_modis_ndvi(
+            "card", device, str(tmp_path), size=960, chunk=96, window_limit=10000,
+            rd_bbox=(100000.0, 400000.0, 151200.0, 451200.0), sampled_tiles=4)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
+    assert numbers["file_mb"] > 0 and numbers["phase_s"] > 0
 
 
 # --- building-heights at small size ---

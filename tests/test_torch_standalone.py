@@ -4,8 +4,9 @@
   jax, pandas, bench, benchmarks, matplotlib or Pillow (an AST scan), and
   running the port's paths, a WMS GetMap and a legend, routed requests
   under the profiler, the pooled scheduler with its spill, the
-  building-rings view, the building view over one file of each vector
-  format of the building-formats path and its GML and SpatiaLite export
+  building-rings view, the modis-ndvi view over chip_smoke's HDF4 tile
+  (szip-coded where libsz loads), the building view over one file of
+  each vector format of the building-formats path and its GML and SpatiaLite export
   through ``to_file``, the border-reproject and crs-families views (an
   NTv2 grid included), the Cumulative nestings and an integer JSON view
   included, loads none of them, and opens no file of the JAX package:
@@ -151,6 +152,13 @@ def test_port_never_imports_jax():
             "import numpy as np",
             "assert np.array_equal(back.get_data(device='cpu', **request)['values'],",
             "                      zarr_view.get_data(device='cpu', **request)['values'])",
+            "from dask_geomodeling_tpu_torch.io import ccsds",
+            "assert ccsds.szip_available() in (True, False)",
+            "modis, _ = cs.write_modis_hdf4(folder, 240, 48, szip=ccsds.szip_available())",
+            "with config.set({'geomodeling.windowed-read-limit': 1000}):",
+            "    out = evaluate_tiled(cs.build_modis_view(modis), cs.modis_request(240),",
+            "                         tile_size=128, batch=2, device='cpu')",
+            "assert out['values'].shape == (1, 240, 240)",
             "from dask_geomodeling_tpu_torch.geometry.sinks import to_file",
             "from dask_geomodeling_tpu_torch.io.vectorfile import read_vector",
             "from dask_geomodeling_tpu_torch.raster import RasterFileSource",
