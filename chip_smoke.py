@@ -270,6 +270,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the Netherlands in RD New at 100 m (2800 x 3300), with the checks of 6
    and the headline's 5e-4 share; a truncated and an empty file raise the
    reader's ValueError;
+10l. grib-forecast (check_grib_forecast): the cookbook's recipe 1 over 48
+   hourly rain fields of a 0.02 degree regional forecast on a grid the
+   size of ICON-D2's (1215 x 746 points from 3.94 W, stored as 356.06 E),
+   as GRIB2 (write_forecast_grib: template 3.0, APCP under template 4.8,
+   24 fields in simple packing and 24 in complex packing with second-order
+   spatial differencing in tens of thousands of groups each), under
+   Classify(Smooth(TemporalAggregate(source, 3h, sum), 3 km), bins)
+   (build_grib_view): the whole read timed and held to the values
+   written, mode "meta" to compute_host; (a) the file's own grid over the
+   48 hours, 16 three-hour sums, every tile bitwise to compute_host, the
+   Gaussian on float64 frames a batch a sigma, torch.equal to its plain
+   version; (b) recipe 1's bbox in RD New at 100 m over 24 hours with the
+   checks of 6 and the headline's 5e-4 share; recipe 1's to_cog at 500 m
+   read back equal to get_data; a truncated message and a broken section
+   length raise ValueError, template 5.40 NotImplementedError naming
+   io/grib.py; recipe 8's GRIB1 archive (IBM-float reference) under
+   MaskBelow bitwise to compute_host;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -283,8 +300,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the Gaussian is timed at three paths' shapes, on a uint8 batch (the
    integer entry) and at the building-heights and wms-serving paths'
    single planes, both kernels on dem-formats' int16 batch, and the
-   Gaussian on netcdf-radar's zoom-mode batch and on hfa-roughness' float64
-   batch, one kernel record each.
+   Gaussian on netcdf-radar's zoom-mode batch, on hfa-roughness' float64
+   batch and on grib-forecast's first float64 batches of (a) and (b), one
+   kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -4192,6 +4210,597 @@ def check_modis_ndvi(card, device, folder, size=MODIS_SIZE, chunk=MODIS_CHUNK,
     return launches, numbers
 
 
+#: the grib-forecast path (the cookbook's recipe 1): 48 hourly rain fields
+#: in the style of a convective regional model's 0.02 degree regular
+#: lat-lon output, on a grid the size of DWD's ICON-D2 regular-lat-lon
+#: domain (1215 x 746 points, 43.18-58.08 N, 3.94 W-20.34 E), as GRIB2:
+#: template 3.0 with scanning mode 0, each field APCP under product
+#: template 4.8; the first half in simple packing (5.0), the second in
+#: complex packing with second-order spatial differencing (5.3)
+GRIB_NI = 1215
+GRIB_NJ = 746
+GRIB_HOURS = 48
+#: the first (north-west) grid point and the step in micro-degrees; the
+#: longitude east of Greenwich, as producers store a grid that starts west
+#: of it (356.06 is 3.94 W)
+GRIB_LA1 = 58080000
+GRIB_LO1 = 356060000
+GRIB_STEP = 20000
+GRIB_CENTRE = 78  # Offenbach (DWD)
+GRIB_RUN = datetime(2024, 7, 14)  # the run's reference time: field k is hours k to k + 1
+GRIB_D = 1  # 0.1 mm steps
+GRIB_SMOOTH_M = 3000.0
+GRIB_BINS = [0.1, 1.0, 5.0, 10.0, 25.0]  # recipe 1's bins and 25 mm
+GRIB_AGGREGATE = "3h"
+#: (b): recipe 1's bbox in RD New at 100 m over the first GRIB_RD_HOURS;
+#: to_cog at the recipe's own 560 x 640 (500 m)
+GRIB_RD_BBOX = (0.0, 300000.0, 280000.0, 620000.0)
+GRIB_RD_CELL = 100.0
+GRIB_COG_CELL = 500.0
+GRIB_RD_HOURS = 24
+GRIB_SAMPLED = 8
+#: complex packing's groups: GRIB_GROUP points at least, up to
+#: GRIB_GROUP_MAX, drawn at random
+GRIB_GROUP = 10
+GRIB_GROUP_MAX = 60
+#: recipe 8's edition-1 archive: a 6-hour rain forecast of 250 x 200
+#: points of 0.02 degree over GRIB1_BBOX, the BDS reference an IBM float
+GRIB1_BBOX = (3.0, 50.0, 8.0, 54.0)
+GRIB1_SHAPE = (200, 250)
+GRIB1_REFERENCE = 3.75  # in 0.1 mm (D = 1)
+GRIB1_MASK_BELOW = 1.0
+
+
+def grib_sm(value, n):
+    """GRIB's sign-magnitude ``value`` in ``n`` octets."""
+    sign = 0
+    if value < 0:
+        sign, value = 1 << (8 * n - 1), -value
+    return (int(value) | sign).to_bytes(n, "big")
+
+
+def bit_lengths(values):
+    """int.bit_length of each non-negative value below 2**32."""
+    values = np.asarray(values, np.int64)
+    lengths = np.zeros(values.shape, np.int64)
+    for bit in range(32):
+        lengths += (values >> bit) > 0
+    return lengths
+
+
+def pack_bits(values, widths):
+    """The big-endian bitstream of non-negative ``values`` below 2**32 in
+    ``widths`` bits each (an array, or one width for all), padded to whole
+    octets.  One width: 8 values fill ``widths`` octets, each shifted into
+    the fixed octets that hold it; several: each value of a width above 0
+    shifted into the 5 octets from its first one, the octets summed in
+    place (the values share no bit)."""
+    values = np.asarray(values, np.int64).ravel()
+    if np.ndim(widths) == 0:
+        nbits = int(widths)
+        if nbits == 0 or values.size == 0:
+            return b""
+        rows = -(-values.size // 8)
+        cells = np.zeros(rows * 8, np.uint64)
+        cells[: values.size] = values
+        cells = cells.reshape(rows, 8)
+        octets = np.zeros((rows, nbits), np.uint64)
+        for k in range(8):
+            first, shift = divmod(k * nbits, 8)
+            span = (shift + nbits + 7) // 8
+            placed = cells[:, k] << np.uint64(8 * span - shift - nbits)
+            for j in range(span):
+                octets[:, first + j] |= (placed >> np.uint64(8 * (span - 1 - j))) & np.uint64(0xFF)
+        return octets.astype(np.uint8).tobytes()[: -(-values.size * nbits // 8)]
+    widths = np.asarray(widths, np.int64).ravel()
+    ends = np.cumsum(widths)
+    total = int(ends[-1]) if ends.size else 0
+    if total == 0:
+        return b""
+    keep = widths > 0
+    starts, widths, values = (ends - widths)[keep], widths[keep], values[keep]
+    first = starts >> 3
+    window = values.astype(np.uint64) << (40 - (starts & 7) - widths).astype(np.uint64)
+    octets = np.zeros(-(-total // 8) + 5, np.float64)
+    for k in range(5):
+        part = (window >> np.uint64(8 * (4 - k))) & np.uint64(0xFF)
+        octets += np.bincount(first + k, weights=part.astype(np.float64), minlength=octets.size)
+    return octets[: -(-total // 8)].astype(np.uint8).tobytes()
+
+
+def grib_section(number, body):
+    return struct.pack(">IB", len(body) + 5, number) + body
+
+
+def grib2_message(sections, discipline=0):
+    inner = b"".join(sections)
+    return (b"GRIB" + bytes(2) + bytes([discipline, 2]) + struct.pack(">Q", 16 + len(inner) + 4)
+            + inner + b"7777")
+
+
+def grib_identification(reference):
+    """Section 1: the centre, tables 2/1, the reference time as the start
+    of the forecast, operational forecast products."""
+    return grib_section(1, struct.pack(">HHBBB", GRIB_CENTRE, 255, 2, 1, 1) + struct.pack(
+        ">HBBBBB", reference.year, reference.month, reference.day, reference.hour,
+        reference.minute, reference.second) + bytes([0, 1]))
+
+
+def grib_latlon_grid(ni, nj, la1=GRIB_LA1, lo1=GRIB_LO1, step=GRIB_STEP):
+    """Section 3, template 3.0: ni x nj points of ``step`` micro-degrees
+    from the north-west point (la1, lo1), scanning mode 0, on shape of
+    earth 6 (the 6,371,229 m sphere)."""
+    la2, lo2 = la1 - (nj - 1) * step, (lo1 + (ni - 1) * step) % 360000000
+    template = (bytes([6]) + bytes(15) + struct.pack(">II", ni, nj) + bytes(8)
+                + grib_sm(la1, 4) + grib_sm(lo1, 4) + bytes([0x30]) + grib_sm(la2, 4)
+                + grib_sm(lo2, 4) + struct.pack(">II", step, step) + bytes([0]))
+    return grib_section(3, struct.pack(">BIBBH", 0, ni * nj, 0, 0, 0) + template)
+
+
+def grib_apcp_product(hour, reference):
+    """Section 4, template 4.8: total precipitation (0, 1, 8) accumulated
+    over the hour from ``hour`` at the surface."""
+    end = reference + timedelta(hours=hour + 1)
+    template = (struct.pack(">BBBBBHBB", 1, 8, 2, 0, 0, 0, 0, 1) + grib_sm(hour, 4)
+                + struct.pack(">BBIBBI", 1, 255, 0xFFFFFFFF, 255, 255, 0xFFFFFFFF)
+                + struct.pack(">HBBBBB", end.year, end.month, end.day, end.hour, end.minute,
+                              end.second)
+                + struct.pack(">BIBBBIBI", 1, 0, 1, 2, 1, 1, 255, 0))
+    return grib_section(4, struct.pack(">HH", 0, 8) + template)
+
+
+def grib_simple_field(stored, D=GRIB_D):
+    """(section 5 in template 5.0, section 7) of the integers ``stored``:
+    R 0, E 0, the fewest bits that hold the largest."""
+    flat = np.asarray(stored, np.int64).ravel()
+    nbits = int(flat.max()).bit_length()
+    sec5 = grib_section(5, struct.pack(">IH", flat.size, 0) + struct.pack(">f", 0.0)
+                        + grib_sm(0, 2) + grib_sm(D, 2) + bytes([nbits, 0]))
+    return sec5, grib_section(7, pack_bits(flat, nbits))
+
+
+def grib_c3_field(stored, rng, D=GRIB_D, nb=2):
+    """(section 5 in template 5.3, section 7, number of groups) of the
+    integers ``stored``, as wgrib2's ``c3`` repacking writes them: second
+    order spatial differences (the first two values in the descriptors,
+    two placeholders packed), in groups of GRIB_GROUP to GRIB_GROUP_MAX
+    points each at its minimum and the fewest bits that hold its range."""
+    flat = np.asarray(stored, np.int64).ravel()
+    npts = flat.size
+    second = flat[2:] - 2 * flat[1:-1] + flat[:-2]
+    low = int(second.min()) if second.size else 0
+    packed = np.concatenate([np.zeros(min(2, npts), np.int64), second - low])
+    lengths = rng.integers(GRIB_GROUP, GRIB_GROUP_MAX + 1, npts // GRIB_GROUP + 1)
+    ends = np.cumsum(lengths)
+    count = int(np.searchsorted(ends, npts)) + 1
+    lengths = lengths[:count].copy()
+    lengths[-1] = npts - (int(ends[count - 2]) if count > 1 else 0)
+    starts = np.cumsum(lengths) - lengths
+    refs = np.minimum.reduceat(packed, starts)
+    widths = bit_lengths(np.maximum.reduceat(packed, starts) - refs)
+    scaled = np.maximum(lengths - GRIB_GROUP, 0)
+    scaled[-1] = 0  # the last group's true length is its own octets
+    nbits, width_bits, length_bits = (int(v.max()).bit_length() for v in (refs, widths, scaled))
+    group = np.repeat(np.arange(count), lengths)
+    sec5 = grib_section(5, struct.pack(">IH", npts, 3) + struct.pack(">f", 0.0) + grib_sm(0, 2)
+                        + grib_sm(D, 2) + bytes([nbits, 0, 1, 0]) + bytes(8)
+                        + struct.pack(">IBBIBIB", count, 0, width_bits, GRIB_GROUP, 1,
+                                      int(lengths[-1]), length_bits) + bytes([2, nb]))
+    stream = b"".join([grib_sm(int(flat[0]), nb), grib_sm(int(flat[min(1, npts - 1)]), nb),
+                       grib_sm(low, nb), pack_bits(refs, nbits), pack_bits(widths, width_bits),
+                       pack_bits(scaled, length_bits),
+                       pack_bits(packed - refs[group], widths[group])])
+    return sec5, grib_section(7, stream), count
+
+
+def forecast_rain(hours=GRIB_HOURS, ni=GRIB_NI, nj=GRIB_NJ, seed=31):
+    """Hourly rain in 0.1 mm as stored integers (hours, nj, ni), rows north
+    to south: shower cells of 4-20 points' radius that drift east-north-east
+    at about 25 km an hour, grow and decay over 3-12 hours, with a little
+    texture where it rains, over a dry domain (a cell below 0.1 mm is 0)."""
+    rng = np.random.default_rng(seed)
+    n = max(8, ni * nj // 12000)
+    y0, x0 = rng.uniform(0, nj, n), rng.uniform(-ni / 4, ni, n)
+    born, life = rng.uniform(-6, hours, n), rng.uniform(3, 12, n)
+    peak, radius = rng.gamma(1.5, 40.0, n), rng.uniform(4, 20, n)
+    vy, vx = rng.normal(-4, 2, n), rng.normal(12, 3, n)
+    rain = np.zeros((hours, nj, ni), np.int64)
+    for hour in range(hours):
+        field = np.zeros((nj, ni))
+        for k in np.flatnonzero((born <= hour) & (hour < born + life)):
+            age = hour - born[k]
+            cy, cx, r = y0[k] + vy[k] * age, x0[k] + vx[k] * age, radius[k]
+            rows = np.arange(max(0, int(cy - 3 * r)), min(nj, int(cy + 3 * r) + 1))
+            cols = np.arange(max(0, int(cx - 3 * r)), min(ni, int(cx + 3 * r) + 1))
+            if rows.size and cols.size:
+                d2 = (rows[:, None] - cy) ** 2 + (cols[None, :] - cx) ** 2
+                amp = peak[k] * np.sin(np.pi * age / life[k])
+                field[rows[:, None], cols[None, :]] += amp * np.exp(-d2 / (2 * r * r))
+        wet = field >= 1.0
+        rain[hour][wet] = np.floor(field[wet]).astype(np.int64) + rng.integers(0, 4, int(wet.sum()))
+    return rain
+
+
+def write_forecast_grib(folder, ni=GRIB_NI, nj=GRIB_NJ, hours=GRIB_HOURS, seed=31,
+                        origin=(GRIB_LA1, GRIB_LO1), name="forecast.grib2"):
+    """The forecast as GRIB2 (forecast_rain) on ni x nj points from
+    ``origin`` (the north-west point's micro-degrees): one message an hour,
+    the first half in simple packing, the second in complex packing with
+    second-order spatial differencing (grib_c3_field), no bitmap.
+    Returns (path, the stored integers, the complex fields' group counts)."""
+    rain = forecast_rain(hours, ni, nj, seed)
+    rng = np.random.default_rng(seed + 1)
+    head = [grib_identification(GRIB_RUN), grib_latlon_grid(ni, nj, *origin)]
+    groups = []
+    path = os.path.join(folder, name)
+    with open(path, "wb") as f:
+        for hour in range(hours):
+            if hour < hours // 2:
+                sec5, sec7 = grib_simple_field(rain[hour])
+            else:
+                sec5, sec7, count = grib_c3_field(rain[hour], rng)
+                groups.append(count)
+            f.write(grib2_message(head + [grib_apcp_product(hour, GRIB_RUN), sec5,
+                                          grib_section(6, bytes([255])), sec7]))
+    return path, rain, groups
+
+
+def grib_values(stored, D=GRIB_D):
+    """What the reader gives for ``stored`` packed with R 0 and E 0:
+    (R + X * 2**E) / 10**D in float64."""
+    return (0.0 + stored.astype(np.float64) * (2.0 ** 0)) / (10.0 ** D)
+
+
+def ibm_float(value):
+    """``value`` as an IBM System/360 single-precision float (GRIB1's BDS
+    reference)."""
+    if value == 0:
+        return bytes(4)
+    sign = 0x80000000 if value < 0 else 0
+    value, exponent = abs(float(value)), 64
+    while value >= 1.0:
+        value, exponent = value / 16.0, exponent + 1
+    while value < 1.0 / 16.0:
+        value, exponent = value * 16.0, exponent - 1
+    mantissa = int(round(value * (1 << 24)))
+    if mantissa == 1 << 24:
+        mantissa, exponent = mantissa >> 4, exponent + 1
+    return struct.pack(">I", sign | (exponent << 24) | mantissa)
+
+
+def write_grib1_archive(folder, seed=33, name="archive.grb"):
+    """Recipe 8's GRIB edition-1 archive: one message of a 6-hour rain
+    forecast (APCP, P1 = 6 h) over GRIB1_BBOX on its 0.02 degree grid
+    (forecast_rain summed over six hours), simple packing with D = 1, E = 0
+    and the reference GRIB1_REFERENCE as an IBM float.  Returns (path, the
+    values the reader gives: (R + X) * 10**-1)."""
+    nj, ni = GRIB1_SHAPE
+    x1, y1, x2, y2 = GRIB1_BBOX
+    step = round((x2 - x1) / ni * 1e3)  # millidegrees
+    stored = forecast_rain(6, ni, nj, seed).sum(axis=0).ravel()
+    nbits = int(stored.max()).bit_length()
+    pds = ((28).to_bytes(3, "big") + bytes([2, GRIB_CENTRE, 0, 255, 0x80, 61, 1])
+           + (0).to_bytes(2, "big") + bytes([24, 7, 14, 0, 0, 1, 6, 0, 0]) + bytes(2)
+           + bytes([0, 21, 0]) + grib_sm(1, 2))
+    la1, lo1 = round(y2 * 1e3) - step // 2, round(x1 * 1e3) + step // 2
+    la2, lo2 = la1 - (nj - 1) * step, lo1 + (ni - 1) * step
+    gds = ((32).to_bytes(3, "big") + bytes([0, 255, 0]) + struct.pack(">HH", ni, nj)
+           + grib_sm(la1, 3) + grib_sm(lo1, 3) + bytes([0x80]) + grib_sm(la2, 3)
+           + grib_sm(lo2, 3) + struct.pack(">HH", step, step) + bytes([0]) + bytes(4))
+    packed = pack_bits(stored, nbits)
+    bds = bytearray(bytes(3) + bytes([(8 - stored.size * nbits % 8) % 8]) + grib_sm(0, 2)
+                    + ibm_float(GRIB1_REFERENCE) + bytes([nbits]) + packed)
+    if len(bds) % 2:
+        bds += b"\x00"
+    bds[0:3] = len(bds).to_bytes(3, "big")
+    inner = pds + gds + bytes(bds)
+    path = os.path.join(folder, name)
+    with open(path, "wb") as f:
+        f.write(b"GRIB" + (8 + len(inner) + 4).to_bytes(3, "big") + bytes([1]) + inner + b"7777")
+    values = (GRIB1_REFERENCE + stored.astype(np.float64) * 2.0 ** 0) * 10.0 ** -1
+    return path, values.reshape(nj, ni)
+
+
+def build_grib_view(path):
+    """Classify(Smooth(TemporalAggregate(RasterFileSource(path), 3h, sum),
+    3 km), recipe 1's bins and 25 mm): the classes of the smoothed
+    three-hour rain sums; the source's frames an hour apart from
+    GRIB_RUN."""
+    from dask_geomodeling_tpu_torch import raster as port
+
+    source = port.RasterFileSource(path, time_first=GRIB_RUN, time_delta=timedelta(hours=1))
+    sums = port.TemporalAggregate(source, GRIB_AGGREGATE, statistic="sum")
+    return port.Classify(port.Smooth(sums, GRIB_SMOOTH_M), GRIB_BINS)
+
+
+def grib_request(geo_transform, ni=GRIB_NI, nj=GRIB_NJ, hours=GRIB_HOURS):
+    """(a): the file's own ni x nj grid in EPSG:4326 over its ``hours``."""
+    x0, dx, _, y0, _, dy = geo_transform
+    return dict(mode="vals", projection="EPSG:4326", width=ni, height=nj,
+                bbox=(x0, y0 + nj * dy, x0 + ni * dx, y0), start=GRIB_RUN,
+                stop=GRIB_RUN + timedelta(hours=hours - 1))
+
+
+def grib_rd_request(bbox=GRIB_RD_BBOX, cell=GRIB_RD_CELL, hours=GRIB_RD_HOURS):
+    """(b): recipe 1's bbox in RD New at ``cell`` m over the first
+    ``hours``."""
+    x1, y1, x2, y2 = bbox
+    return dict(mode="vals", projection="EPSG:28992", bbox=bbox,
+                width=int(round((x2 - x1) / cell)), height=int(round((y2 - y1) / cell)),
+                start=GRIB_RUN, stop=GRIB_RUN + timedelta(hours=hours - 1))
+
+
+def grib_clock():
+    """A PhaseClock over a GRIB file's whole reads and the fields they
+    decode, by packing."""
+    from dask_geomodeling_tpu_torch.io import grib
+
+    return PhaseClock([(grib, "read_grib", "whole reads"),
+                       (grib, "_decode_simple", "simple fields"),
+                       (grib, "_decode_complex_diff", "complex fields")])
+
+
+def grib_refusals(folder, path):
+    """The errors that malformed copies of the forecast's first message
+    raise through RasterFileSource.info: truncated (ValueError), its first
+    section's length zeroed (ValueError), and a one-message file in
+    template 5.40 (NotImplementedError naming io/grib.py)."""
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+
+    with open(path, "rb") as f:
+        head = f.read(16)
+        first = head + f.read(struct.unpack(">Q", head[8:16])[0] - 16)
+    broken = bytearray(first)
+    struct.pack_into(">I", broken, 16, 0)
+    values = (np.arange(24) % 7).reshape(4, 6)
+    jpeg2000 = grib2_message([
+        grib_identification(GRIB_RUN), grib_latlon_grid(6, 4), grib_apcp_product(0, GRIB_RUN),
+        grib_section(5, struct.pack(">IH", 24, 40) + struct.pack(">f", 0.0) + grib_sm(0, 2)
+                     + grib_sm(GRIB_D, 2) + bytes([3, 0, 0, 255])),
+        grib_section(6, bytes([255])), grib_section(7, pack_bits(values, 3))])
+    raised = []
+    for name, body in (("truncated.grib2", first[: len(first) // 2]),
+                       ("broken.grib2", bytes(broken)), ("jpeg2000.grib2", jpeg2000)):
+        bad = os.path.join(folder, name)
+        with open(bad, "wb") as f:
+            f.write(body)
+        try:
+            RasterFileSource(bad).info
+            raised.append(None)
+        except (ValueError, NotImplementedError) as e:
+            raised.append(e)
+        os.remove(bad)
+    return raised
+
+
+def check_grib_forecast(card, device, folder, ni=GRIB_NI, nj=GRIB_NJ, hours=GRIB_HOURS,
+                        origin=(GRIB_LA1, GRIB_LO1), rd_bbox=GRIB_RD_BBOX, rd_cell=GRIB_RD_CELL,
+                        cog_cell=GRIB_COG_CELL, rd_hours=GRIB_RD_HOURS,
+                        sampled_tiles=GRIB_SAMPLED):
+    """The grib-forecast phase (recipe 1) over write_forecast_grib's file,
+    build_grib_view: the whole read timed under grib_clock (info decodes
+    the file once into the read cache, which every later read shares), held
+    to the values written ((R + X 2**E) / 10**D) and to the grid's
+    georeference (a west edge stored east of 180 degrees read west of
+    Greenwich); mode "meta" one string a band,
+    APCP at its forecast hour, equal to compute_host's; (a) the file's own
+    grid over every hour (grib_request) through evaluate_tiled, its first
+    run's phases timed, every tile bitwise to compute_host, the Gaussian on
+    float64 frames once a batch (a batch a sigma), its first launch
+    torch.equal to its plain version; (b) recipe 1's bbox in RD New at
+    ``rd_cell`` over the first ``rd_hours`` (grib_rd_request) with the
+    checks of check_algebra_path, at most HEADLINE_SHARE of the sampled
+    cells off compute_host, its first launch torch.equal; to_cog at
+    ``cog_cell`` read back equal to get_data; grib_refusals; recipe 8's
+    GRIB1 archive under MaskBelow bitwise to compute_host.  Returns
+    (launches, numbers, the Gaussian's records on up to BATCH planes of
+    (a)'s and (b)'s first batches, timed where the frames are on the
+    card); removes the files."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference, gaussian_weights
+    from dask_geomodeling_tpu_torch.raster import MaskBelow, RasterFileSource, to_cog
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    numbers = {}
+    t0 = time.perf_counter()
+    path, rain, groups = write_forecast_grib(folder, ni, nj, hours, origin=origin)
+    numbers["write_s"] = time.perf_counter() - t0
+    numbers["file_mb"] = os.path.getsize(path) / 1e6
+    numbers["groups"] = [min(groups), max(groups)]
+    print("grib-forecast: %d hourly APCP fields of %d x %d points of 0.02 degree (%d simple, %d "
+          "complex with second-order differencing in %d-%d groups), wet in %.4f of the cells, "
+          "%.1f MB of GRIB2 written in %.2f s [%s]" % (
+              hours, ni, nj, hours // 2, hours - hours // 2, min(groups), max(groups),
+              float((rain > 0).mean()), numbers["file_mb"], numbers["write_s"], card))
+    pipeline.clear_read_cache()
+    view = build_grib_view(path)
+    source = view.args[0].args[0].args[0]
+
+    # the whole read: info decodes the file into the read cache
+    with grib_clock() as clock:
+        t0 = time.perf_counter()
+        info = source.info
+        numbers["read_s"] = time.perf_counter() - t0
+    numbers["read_split_s"] = dict(clock.seconds)
+    check(clock.calls == {"whole reads": 1, "simple fields": hours // 2,
+                          "complex fields": hours - hours // 2},
+          "grib-forecast: info made %r" % clock.calls)
+    whole = pipeline.read_geotiff_cached(path)
+    check(whole.array.shape == (hours, nj, ni) and whole.array.dtype == np.float64
+          and all(np.array_equal(whole.array[hour], grib_values(rain[hour]))
+                  for hour in range(hours)),
+          "grib-forecast: the whole read differs from the values written")
+    x0, dx, _, y0, _, dy = whole.geo_transform
+    west = (origin[1] * 1e-6 + 180.0) % 360.0 - 180.0 - GRIB_STEP * 0.5e-6
+    check(whole.projection == "EPSG:4326" and abs(x0 - west) < 1e-9
+          and abs(dx - GRIB_STEP * 1e-6) < 1e-12
+          and abs(y0 - (origin[0] + GRIB_STEP * 0.5) * 1e-6) < 1e-9
+          and abs(dy + GRIB_STEP * 1e-6) < 1e-12
+          and (info.width, info.height, info.bands) == (ni, nj, hours),
+          "grib-forecast: georeference %r %r" % (whole.projection, whole.geo_transform))
+    print("grib-forecast: the whole read (info) %.3f s: %s; equal to the values written; "
+          "EPSG:4326, west edge %.6f, cells %.6f [%s]" % (
+              numbers["read_s"], ", ".join("%s %.3f s" % kv for kv in clock.seconds.items()),
+              x0, dx, card))
+    meta_request = dict(mode="meta", start=GRIB_RUN, stop=GRIB_RUN + timedelta(hours=hours - 1))
+    meta = get_data(source, device=device, **meta_request)["meta"]
+    check(meta == compute_host(*source.get_compute_graph(**meta_request))["meta"]
+          and len(meta) == hours
+          and all("element=APCP" in m and " forecastTime=+%dh " % k in m
+                  for k, m in enumerate(meta)),
+          "grib-forecast: meta %r" % meta[:2])
+
+    # (a) the file's own grid over every hour
+    request = grib_request(whole.geo_transform, ni, nj, hours)
+    del whole
+    tiles, nx = tile_requests(request, TILE)
+    phases, spy = {}, gaussian_calls()
+    cuda_stencils.reset_launches()
+    batches = tile_runtime.batches_run
+    with spy:
+        t0 = time.perf_counter()
+        first = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                               phase_seconds=phases)["values"]
+        numbers["first_run_s"] = time.perf_counter() - t0
+    batches = tile_runtime.batches_run - batches
+    launches_a = cuda_stencils.launches
+    check(len(spy.calls) == batches <= len(tiles) and launches_a in (batches, 2 * batches),
+          "grib-forecast (a): %d Gaussian launches, %d calls for %d batches of %d tiles"
+          % (launches_a, len(spy.calls), batches, len(tiles)))
+    planes_a, result, sigma_a, fill = spy.first
+    check(planes_a.dtype == torch.float64, "grib-forecast: the frames are %s" % planes_a.dtype)
+    want = gaussian_blur_reference(planes_a, *sigma_a, fill)
+    check(torch.equal(result, want), "gaussian_blur differs from its plain version on the "
+          "grib-forecast path's frames (a)")
+    err_a = float((result - want).abs().max())
+    del result, want
+    numbers["first_phases_s"] = phases
+    numbers["batches_a"] = batches
+    print("grib-forecast (a): %d tiles over %d hours into %d sums, first run %.3f s (%s), "
+          "Gaussian %d launches in %d batches (a batch a sigma: %s), first on %s float64, "
+          "torch.equal to its plain version [%s]" % (
+              len(tiles), hours, first.shape[0], numbers["first_run_s"],
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), launches_a, batches,
+              ", ".join("(%.4f, %.4f)" % call[2] for call in spy.calls),
+              tuple(planes_a.shape), card))
+    t0 = time.perf_counter()
+    differing = 0
+    for k, tile in enumerate(tiles):
+        (rows, cols), (host_rows, host_cols) = tile_cells(k, nx, ni, nj, TILE)
+        host = host_values(view, tile)[:, host_rows, host_cols]
+        differing += int(np.count_nonzero(first[:, rows, cols] != host))
+    numbers["host_s"] = time.perf_counter() - t0
+    check(first.shape == (hours // 3, nj, ni) and differing == 0,
+          "grib-forecast (a): %r, %d cells differ from compute_host" % (first.shape, differing))
+    print("grib-forecast (a): every tile (%d) against compute_host (%.3f s): 0 of %d cells "
+          "differ; classes %s" % (len(tiles), numbers["host_s"], first.size, np.bincount(
+              first.ravel(), minlength=len(GRIB_BINS) + 1).tolist()))
+    del first
+
+    # (b) recipe 1 in RD New
+    rd_request = grib_rd_request(rd_bbox, rd_cell, rd_hours)
+    sigma = smooth_sigma(view, tile_requests(rd_request, TILE)[0][0])
+    per_call = 1 if max(gaussian_weights(s)[1] for s in sigma) <= 8 else 2
+    cuda_stencils.reset_launches()
+    phases_b, spy_b = {}, gaussian_calls()
+    t0 = time.perf_counter()
+    numbers["rd_host_mpx_per_s"], _ = check_algebra_path(
+        "grib-forecast (b) RD", device, view, rd_request, "nearest", (rd_bbox[0], rd_bbox[3]),
+        share=HEADLINE_SHARE, sampled_tiles=sampled_tiles, first_run=(spy_b, phases_b),
+        routed=False, gaussian_launches=per_call)
+    numbers["rd_s"] = time.perf_counter() - t0
+    numbers["rd_phases_s"] = phases_b
+    launches_b = cuda_stencils.launches
+    check(launches_b > 0, "grib-forecast (b): the Gaussian did not launch")
+    planes_b, result, sigma_b, fill = spy_b.first
+    want = gaussian_blur_reference(planes_b, *sigma_b, fill)
+    check(planes_b.dtype == torch.float64 and torch.equal(result, want),
+          "gaussian_blur differs from its plain version on the grib-forecast path's frames (b)")
+    err_b = float((result - want).abs().max())
+    del result, want
+    print("grib-forecast (b): %dx%d in RD New at %g m over %d hours, %.3f s, Gaussian %d "
+          "launches on %s float64 sigma (%.4f, %.4f), torch.equal to its plain version [%s]" % (
+              rd_request["width"], rd_request["height"], rd_cell, rd_hours, numbers["rd_s"],
+              launches_b, tuple(planes_b.shape), sigma_b[0], sigma_b[1], card))
+
+    # recipe 1's to_cog, read back
+    cog_request = grib_rd_request(rd_bbox, cog_cell, rd_hours)
+    target = os.path.join(folder, "classified.tif")
+    t0 = time.perf_counter()
+    to_cog(view, target, device=device, **{k: v for k, v in cog_request.items() if k != "mode"})
+    numbers["cog_s"] = time.perf_counter() - t0
+    back = read_geotiff(target)
+    answer = get_data(view, device=device, **cog_request)
+    check(back.array.dtype == answer["values"].dtype
+          and np.array_equal(back.array, answer["values"])
+          and back.no_data_value == answer["no_data_value"],
+          "grib-forecast: the COG read back differs from get_data")
+    os.remove(target)
+    print("grib-forecast: to_cog at %dx%d (%g m) in %.3f s, read back equal to get_data"
+          % (cog_request["width"], cog_request["height"], cog_cell, numbers["cog_s"]))
+    pipeline.clear_read_cache()
+
+    # the refusals and recipe 8's GRIB1 archive
+    t0 = time.perf_counter()
+    truncated, broken, jpeg2000 = grib_refusals(folder, path)
+    check(isinstance(truncated, ValueError) and isinstance(broken, ValueError)
+          and str(broken).startswith("Corrupt GRIB section header")
+          and isinstance(jpeg2000, NotImplementedError) and "io/grib.py" in str(jpeg2000),
+          "grib-forecast: malformed files raised %r" % [truncated, broken, jpeg2000])
+    archive, archive_values = write_grib1_archive(folder)
+    read = pipeline.read_geotiff_cached(archive)
+    check(np.array_equal(read.array[0], archive_values),
+          "grib-forecast: the GRIB1 archive differs from the values written")
+    archive_source = RasterFileSource(archive)
+    meta = archive_source.get_data(mode="meta", start=None, stop=None)["meta"][0]
+    check("GRIB1" in meta and "element=APCP" in meta and "+6h" in meta,
+          "grib-forecast: the archive's meta %r" % meta)
+    wet = MaskBelow(archive_source, GRIB1_MASK_BELOW)
+    (y_cells, x_cells), (x1, y1, x2, y2) = GRIB1_SHAPE, GRIB1_BBOX
+    archive_request = dict(mode="vals", bbox=GRIB1_BBOX, projection="EPSG:4326",
+                           width=x_cells, height=y_cells)
+    card_wet = get_data(wet, device=device, **archive_request)
+    host_wet = compute_host(*wet.get_compute_graph(**archive_request))
+    check(card_wet["values"].dtype == host_wet["values"].dtype
+          and np.array_equal(card_wet["values"], host_wet["values"])
+          and card_wet["no_data_value"] == host_wet["no_data_value"]
+          and 0 < np.count_nonzero(card_wet["values"] == card_wet["no_data_value"])
+          < card_wet["values"].size,
+          "grib-forecast: the GRIB1 archive under MaskBelow differs from compute_host")
+    numbers["checks_s"] = time.perf_counter() - t0
+    print("grib-forecast: a truncated message and a broken section length raised ValueError, "
+          "template 5.40 NotImplementedError (%s); recipe 8's GRIB1 archive (%dx%d, IBM-float "
+          "reference %g) equal to the values written, %s, under MaskBelow(%g) bitwise to "
+          "compute_host (%.3f s)" % (str(jpeg2000)[:60], x_cells, y_cells, GRIB1_REFERENCE,
+                                    meta, GRIB1_MASK_BELOW, numbers["checks_s"]))
+    for name in (path, archive):
+        os.remove(name)
+    pipeline.clear_read_cache()
+
+    # timed on at most BATCH planes of each batch: cuDNN's 73 x 73
+    # convolution of (b)'s whole 336-plane batch would take seconds a call
+    kernels = []
+    if planes_a.is_cuda:
+        kernels = [dict(time_gaussian(planes[:BATCH].contiguous(), sigma), max_abs_err=err,
+                        path=label)
+                   for label, planes, sigma, err in (
+                       ("grib-forecast (a)", planes_a, sigma_a, err_a),
+                       ("grib-forecast (b)", planes_b, sigma_b, err_b))]
+    del planes_a, planes_b, spy, spy_b
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("grib-forecast: Gaussian %d launches on the path; the phase %.2f s [%s]"
+          % (launches_a + launches_b, numbers["phase_s"], card))
+    return ({"gaussian_blur": launches_a + launches_b,
+             "moving_max": cuda_stencils.moving_max_launches}, numbers, kernels)
+
+
 class PhaseClock:
     """Seconds spent inside chosen functions while it is installed: each
     (owner, attribute) is replaced by a wrapper that adds its wall time
@@ -6729,6 +7338,10 @@ def run_phases(card, device, folder, mark):
     mark("the tile-pyramids path")
     launches["modis-ndvi"], modis = check_modis_ndvi(card, device, folder)
     mark("the modis-ndvi path")
+    launches["grib-forecast"], forecast, forecast_kernels = check_grib_forecast(
+        card, device, folder)
+    gaussian.extend(forecast_kernels)
+    mark("the grib-forecast path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -6762,6 +7375,7 @@ def run_phases(card, device, folder, mark):
     timings["hfa-roughness"] = roughness
     timings["tile-pyramids"] = pyramids
     timings["modis-ndvi"] = modis
+    timings["grib-forecast"] = forecast
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

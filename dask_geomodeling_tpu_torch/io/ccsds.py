@@ -11,8 +11,8 @@ Two consumers need this coder:
   (``SZ_BufftoBuffDecompress``), exactly the library HDF4 itself links.
 - GRIB2 data representation template 5.42 ("CCSDS recompression") —
   decoded through the system ``libaec`` (``aec_buffer_decode``); the
-  template's flags octet IS libaec's flag word by WMO definition.  The
-  port reads no GRIB yet: this half has no caller until it does.
+  template's flags octet IS libaec's flag word by WMO definition
+  (io/grib.py).
 
 Each library is loaded with ctypes when the module is imported; one that
 cannot be loaded is ``None`` (``_libsz``, ``_libaec``), the import still

@@ -4,8 +4,8 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 ``RasterSourceBase`` with its numpy ``process`` (the requested time window
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
-``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, netCDF, PNG, the
-plain-grid formats and the tile pyramids of
+``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, HDF4, netCDF, PNG,
+GRIB, the plain-grid formats and the tile pyramids of
 ``runtime/pipeline.py:whole_file_reader``; its
 other formats raise NotImplementedError naming the JAX module that reads
 them), and the twin
@@ -393,9 +393,11 @@ class RasterFileSource(RasterSourceBase):
     h5py is importable: ``.nc``, ``.cdf``, ``.nc3``, ``.nc4``, ``.h5``,
     ``.hdf5``, and an ``.hdf``, ``.h4`` or ``.hdf4`` that is no HDF4
     file), or a format that decodes whole (PNG,
-    SRTM ``.hgt``, DTED, Esri ASCII and XYZ, Surfer, SAGA, Idrisi, ENVI,
-    ERDAS Imagine, MBTiles, a GeoPackage's tile layer: a ``.gpkg`` is
-    always read as tiles here, a GeoPackage of features raising).
+    SRTM ``.hgt``, DTED, GRIB editions 1 and 2 (``.grib``, ``.grib2``,
+    ``.grb``, ``.grb2``, ``.gb2``: each field a frame), Esri ASCII and
+    XYZ, Surfer, SAGA, Idrisi, ENVI, ERDAS Imagine, MBTiles, a
+    GeoPackage's tile layer: a ``.gpkg`` is always read as tiles here, a
+    GeoPackage of features raising).
 
     Args:
       url (str): path to the file, sandboxed by ``geomodeling.root``

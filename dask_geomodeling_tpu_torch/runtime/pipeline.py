@@ -4,7 +4,8 @@ Counterpart of dask_geomodeling_tpu/runtime/pipeline.py, for GeoTIFF,
 VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
 Surfer, SAGA, Idrisi, ENVI), the tile pyramids (MBTiles and the
 GeoPackage tile layers: a ``.gpkg`` given to a raster reader is always
-read as tiles), ERDAS Imagine (HFA) ``.img`` files, Zarr v2
+read as tiles), ERDAS Imagine (HFA) ``.img`` files, GRIB editions 1 and
+2 (``.grib``, ``.grib2``, ``.grb``, ``.grb2``, ``.gb2``), Zarr v2
 stores, HDF4 and netCDF (classic, and netCDF-4/HDF5 where h5py is
 importable): ``read_geotiff_cached`` decodes a whole file or store into an
 mtime-validated LRU, choosing the reader
@@ -59,13 +60,13 @@ _VECTOR_CACHE_SIZE = 16
 #: file suffixes of the raster formats the port does not read, and the
 #: JAX module that reads each; the port reads GeoTIFF, VRT, Zarr stores,
 #: HDF4, netCDF and the formats of ``whole_file_reader``, the tile
-#: pyramids among them (a JPEG or WebP tile in them raises, naming
-#: io/gpkg_raster.py)
+#: pyramids (a JPEG or WebP tile in them raises, naming
+#: io/gpkg_raster.py) and GRIB (a JPEG 2000 field raises, naming
+#: io/grib.py) among them
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
     (".ntf", ".nitf"): "io/nitf.py",
-    (".grib", ".grib2", ".grb", ".grb2", ".gb2"): "io/grib.py",
 }
 _NETCDF_SUFFIXES = (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5")
 #: HDF4 by its magic, HDF5 (read as netCDF-4) otherwise
@@ -115,7 +116,7 @@ def whole_file_reader(path):
     ``.dat`` and ``.raw`` are ENVI when a header sits beside them), or
     None for GeoTIFF and VRT."""
     from dask_geomodeling_tpu_torch.io import (
-        asciigrid, dem, envi, gpkg_raster, hfa, mbtiles, png, simplegrids,
+        asciigrid, dem, envi, gpkg_raster, grib, hfa, mbtiles, png, simplegrids,
     )
 
     lower = path.lower()
@@ -125,6 +126,7 @@ def whole_file_reader(path):
         ((".png",), png.read_png),
         ((".hgt",), dem.read_hgt),
         ((".dt0", ".dt1", ".dt2"), dem.read_dted),
+        ((".grib", ".grib2", ".grb", ".grb2", ".gb2"), grib.read_grib),
         ((".grd",), simplegrids.read_surfer),
         ((".sgrd", ".sdat"), simplegrids.read_saga),
         ((".rst",), simplegrids.read_idrisi),

@@ -354,7 +354,7 @@ def test_window_cache(root, monkeypatch):
 
 
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.ntf", "io/nitf.py"),
-                                          ("a.bmp", "io/jpeg.py"), ("a.grib2", "io/grib.py"),
+                                          ("a.bmp", "io/jpeg.py"), ("a.j2k", "io/jp2.py"),
                                           ("a.gif", "io/jpeg.py"),
                                           ("a.jpg", "io/jpeg.py")])
 def test_unported_format_names_its_module(root, name, module):

@@ -88,12 +88,14 @@ def run_hdf4(tmp_path, case):
     return run_both(tmp_path, lambda k, root: case(_h4kit(k.port), root))
 
 
-def outcome(call):
-    """What ``call()`` gives: its result, or its error's type and message."""
+def outcome(call, root=None):
+    """What ``call()`` gives: its result, or its error's type and message
+    (``root`` taken out of it)."""
     try:
         return "result", call()
     except Exception as raised:  # the same error in both packages
-        return "error", (type(raised).__name__, str(raised))
+        message = str(raised)
+        return "error", (type(raised).__name__, message.replace(str(root), "") if root else message)
 
 
 def _library():

@@ -27,8 +27,9 @@ nestings and the integer JSON phase; the dem-formats view at 512^2 over
 an int16 SRTM tile against the CPU and compute_host, and the phase over a
 1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
 phase over a small radar file; the hfa-roughness and tile-pyramids phases over a 1024 x 768
-land-use grid; the modis-ndvi phase over a 960^2 HDF4 tile.  This file imports nothing of JAX or
-pandas, so it runs where neither is installed.
+land-use grid; the modis-ndvi phase over a 960^2 HDF4 tile; the grib-forecast phase over
+320 x 75 points and six hourly GRIB2 fields.  This file imports nothing of JAX or pandas, so
+it runs where neither is installed.
 """
 from datetime import datetime, timedelta
 
@@ -396,6 +397,34 @@ def test_modis_ndvi_phase_on_card(tmp_path):
         chip_smoke.TILE, chip_smoke.BATCH = tile, batch
     assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
     assert numbers["file_mb"] > 0 and numbers["phase_s"] > 0
+
+
+#: the grib-forecast phase at a small size: 320 x 75 points of 0.02
+#: degree from 1.00 W (stored as 359.00 E) and 53.50 N, six hourly fields,
+#: (b) over a 51.2 km box of RD New inside them at 1 km
+GRIB_SMALL = dict(ni=320, nj=75, hours=6, origin=(53500000, 359000000),
+                  rd_bbox=(20000.0, 520000.0, 71200.0, 571200.0), rd_cell=1000.0,
+                  cog_cell=2000.0, rd_hours=6, sampled_tiles=1)
+
+
+@pytest.mark.cuda
+def test_grib_forecast_phase_on_card(tmp_path):
+    """chip_smoke's grib-forecast phase at GRIB_SMALL (three fields in
+    simple packing, three in complex packing with second-order spatial
+    differencing), in 64^2 tiles, batches of 8: every check of the full
+    run, and the Gaussian's records at (a)'s and (b)'s first batches."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 64, 8
+    try:
+        launches, numbers, kernels = chip_smoke.check_grib_forecast(
+            "card", device, str(tmp_path), **GRIB_SMALL)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 2 and launches["moving_max"] == 0
+    assert numbers["batches_a"] >= 1 and numbers["phase_s"] > 0
+    assert [k["path"] for k in kernels] == ["grib-forecast (a)", "grib-forecast (b)"]
+    assert all(k["max_abs_err"] == 0.0 for k in kernels)
 
 
 # --- building-heights at small size ---
