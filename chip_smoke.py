@@ -287,6 +287,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    length raise ValueError, template 5.40 NotImplementedError naming
    io/grib.py; recipe 8's GRIB1 archive (IBM-float reference) under
    MaskBelow bitwise to compute_host;
+10m. parcel-imagery (check_parcel_imagery): a commercial 4-band scene
+   (blue, green, red, near-infrared; 11 bits in 16) of 5120^2 pixels of
+   about 2 m over Flevoland as NITF 2.1 (write_scene_nitf: IMODE B in
+   1024^2 blocks, IC = NM with the north-east and south-west corner
+   blocks outside the acquisition strip masked out, ICORDS G corners at
+   whole arcseconds), its NDVI (the near-infrared band brought to the red
+   band's time by Shift, the band sum masked below 1) smoothed over 15 m,
+   clipped to the data and classified (build_scene_view): (a) info from
+   the headers and the whole read held to the values written; (b) the
+   scene's own grid in 512^2 tiles, nodata exactly on the absent blocks,
+   16 tiles bitwise to compute_host, the Gaussian on float64 frames
+   torch.equal to its plain version; (c) 4,096 field parcels of about
+   150 m in RD New (field_frame) written as FlatGeobuf with its packed
+   R-tree and read through it by GeometryFileSource above a lowered
+   geomodeling.vector-windowed-read-limit: the mean and p90 of the
+   smoothed NDVI per parcel over the scene in EPSG:4326, both over a
+   sub-area against compute_host (mean within one float32 ulp, p90
+   bitwise), a GeoPackage copy's answers there bitwise equal; (d) to_file
+   of the parcels with their mean in 3 x 3 tiles into FlatGeobuf partials
+   merged into one, read back equal to the partials, its R-tree search
+   equal to a box filter; (e) a JPEG (C3) segment, a truncated NITF and a
+   FlatGeobuf of a bad magic refused with the JAX package's errors;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -301,16 +323,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    integer entry) and at the building-heights and wms-serving paths'
    single planes, both kernels on dem-formats' int16 batch, and the
    Gaussian on netcdf-radar's zoom-mode batch, on hfa-roughness' float64
-   batch and on grib-forecast's first float64 batches of (a) and (b), one
-   kernel record each.
+   batch, on grib-forecast's first float64 batches of (a) and (b) and on
+   parcel-imagery's first float64 batch, one kernel record each.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
 port's compute_host.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Without CUDA the
 script exits non-zero before printing any result.  It imports nothing of
-JAX, pandas, matplotlib, Pillow or the JAX package, and checks that at
-the end.
+JAX, pandas, matplotlib, Pillow, flatbuffers or the JAX package, and
+checks that at the end.
 """
 import json
 import os
@@ -854,20 +876,25 @@ PARCEL_ORIGIN = (137000.0, 454000.0)  # top-left corner, EPSG:28992
 SMALL_PARCELS = 16
 
 
-def make_parcels(grid=PARCEL_GRID, small=SMALL_PARCELS, seed=5):
+def make_parcels(grid=PARCEL_GRID, small=SMALL_PARCELS, seed=5, origin=None, cell=None):
     """(polygons, properties): grid^2 star-shaped parcels of 8-64
-    vertices, then ``small`` parcels of radius 0.3 m around 1 m cell
-    corners; properties id, code (1-99) and threshold (float, 50-150)."""
+    vertices on ``cell`` m cells (PARCEL_CELL) from the north-west corner
+    ``origin`` (PARCEL_ORIGIN), radii and jitter scaled with the cell from
+    20-30 m and 2 m at PARCEL_CELL, then ``small`` parcels of radius 0.3 m
+    around 1 m cell corners; properties id, code (1-99) and threshold
+    (float, 50-150)."""
     rng = np.random.default_rng(seed)
-    x0, y0 = PARCEL_ORIGIN
+    x0, y0 = PARCEL_ORIGIN if origin is None else origin
+    cell = PARCEL_CELL if cell is None else cell
+    scale = cell / PARCEL_CELL
     polygons = []
     for j in range(grid):
         for i in range(grid):
             n = int(rng.integers(8, 65))
             angles = np.sort(rng.uniform(0, 2 * np.pi, n))
-            radii = rng.uniform(20.0, 30.0, n)
-            cx = x0 + PARCEL_CELL * (i + 0.5) + rng.uniform(-2, 2)
-            cy = y0 - PARCEL_CELL * (j + 0.5) + rng.uniform(-2, 2)
+            radii = rng.uniform(20.0, 30.0, n) * scale
+            cx = x0 + cell * (i + 0.5) + rng.uniform(-2, 2) * scale
+            cy = y0 - cell * (j + 0.5) + rng.uniform(-2, 2) * scale
             polygons.append([(float(cx + r * np.cos(t)), float(cy + r * np.sin(t)))
                              for t, r in zip(angles, radii)])
     for k in range(small):
@@ -2509,14 +2536,15 @@ ZONAL_EXACT = ("median", "p90", "max", "count-above")
 ZONAL_SUB_CELLS = 8
 
 
-def compare_zonal(name, port, host):
+def compare_zonal(name, port, host, column="agg"):
     """(cells differing, cells beyond one float32 ulp, cells): the port's
-    features against compute_host's, index and columns equal."""
+    features against compute_host's, index and columns equal, the
+    statistic in ``column``."""
     p, h = port["features"], host["features"]
     check(len(p) == len(h) and np.array_equal(p.index.values, h.index.values),
           "zonal %s: features differ" % name)
     check(sorted(p.columns) == sorted(h.columns), "zonal %s: columns differ" % name)
-    a, b = agg_matrix(p), agg_matrix(h)
+    a, b = agg_matrix(p, column), agg_matrix(h, column)
     differ = ~((a == b) | (np.isnan(a) & np.isnan(b)))
     ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32)).astype(np.float64)
     beyond = differ & ~(np.abs(a - b) <= ulp)
@@ -4798,6 +4826,601 @@ def check_grib_forecast(card, device, folder, ni=GRIB_NI, nj=GRIB_NJ, hours=GRIB
     print("grib-forecast: Gaussian %d launches on the path; the phase %.2f s [%s]"
           % (launches_a + launches_b, numbers["phase_s"], card))
     return ({"gaussian_blur": launches_a + launches_b,
+             "moving_max": cuda_stencils.moving_max_launches}, numbers, kernels)
+
+
+# the parcel-imagery phase: a commercial 4-band scene over Flevoland as
+# NITF (WorldView/Pleiades-style: 11-bit values in 16-bit words, band
+# interleaved by 1024^2 block, the corners outside the acquisition strip
+# masked), the NDVI smoothed on the card and averaged per field parcel read
+# from FlatGeobuf through its packed R-tree
+SCENE_PX = 5120
+SCENE_BLOCK = 1024
+SCENE_BANDS = ("blue", "green", "red", "nir")
+SCENE_WAVELENGTHS = ("480", "545", "660", "835")  # band centres, nm (ISUBCAT)
+SCENE_ABPP = 11
+#: the north-west pixel's centre and the arcseconds of longitude and
+#: latitude to the other corners' centres: 10.0 x 10.2 km, about 2 m a
+#: pixel, around 52.5 N, 5.5 E
+SCENE_NORTH_WEST = ((52, 32, 45), (5, 25, 35))
+SCENE_SPAN_S = (530, 330)
+SCENE_FIELD_PX = 75  # the scene's fields, about 150 m
+SCENE_TIME = datetime(2024, 6, 21, 10, 51, 12)  # the acquisition
+SCENE_BAND_STEP = timedelta(seconds=1)  # band k is the frame k steps after SCENE_TIME
+SCENE_SMOOTH_M = 15.0
+SCENE_BINS = [0.2, 0.4, 0.6, 0.8]
+#: (tile row from the north, tile column) of the 512^2 tiles held to
+#: compute_host: the edges of both absent blocks, corners and the middle
+SCENE_SAMPLED = ((0, 7), (0, 8), (1, 7), (2, 8), (2, 9), (1, 9), (7, 0), (7, 1), (8, 2), (9, 2),
+                 (9, 1), (0, 0), (4, 4), (5, 6), (9, 9), (3, 2))
+FIELD_GRID = 64
+FIELD_CELL = 150.0
+FIELD_ORIGIN = (157900.0, 506200.0)  # the fields' north-west corner, EPSG:28992
+FIELD_CROPS = ("265", "259", "2014", "256", "233", "236")  # BRP crop codes
+FIELD_CROP_P = (0.45, 0.2, 0.12, 0.1, 0.08, 0.05)
+FIELD_MAX_PIXELS = 2**26  # the aggregation grid of the whole scene: about 42 Mpx
+FIELD_EXPORT_TILE = 3500.0  # m in RD New: 3 x 3 tiles over the fields
+#: the host's sub-area, (row, column) of its north-west and south-east
+#: pixels: 600^2 pixels across the north-east absent block's corner
+SCENE_SUB = ((724, 3796), (1323, 4395))
+
+
+def nitf_field(value, n):
+    """A NITF header field: ``value`` as ASCII, left-justified in ``n``."""
+    text = str(value)
+    if len(text) > n:
+        raise ValueError("NITF field overflow: %r > %d" % (value, n))
+    return text.ljust(n).encode("latin-1")
+
+
+def nitf_number(value, n):
+    return str(int(value)).rjust(n, "0").encode("latin-1")
+
+
+def nitf_security(version, downgrade_event=False):
+    """The security fields after a classification: 167 in NITF 2.1; in
+    2.0 160 and FSDWNG, with FSDEVT after a downgrade of 999998."""
+    if version == "2.1":
+        return b" " * 167
+    return b" " * 160 + (b"999998" + b" " * 40 if downgrade_event else b" " * 6)
+
+
+def nitf_image_subheader(bands, nrows, ncols, version="2.1", pvtype="INT", nbpp=16, abpp=None,
+                         irep="MULTI", icords="G", igeolo="", ic="NC", imode="B", nbpr=1, nbpc=1,
+                         nppbh=None, nppbv=None, subcats=None, comments=0, xbands=False):
+    """A NITF image subheader (MIL-STD-2500C's field layout): ``bands``
+    bands of ``nrows`` x ``ncols`` in ``nbpr`` x ``nbpc`` blocks of
+    ``nppbh`` x ``nppbv`` pixels; IGEOLO only where ICORDS names corners
+    (in NITF 2.0, ICORDS N means none)."""
+    subcats = subcats or [""] * bands
+    body = bytearray(b"IM")
+    body += nitf_field("SCENE", 10) + nitf_field(SCENE_TIME.strftime("%Y%m%d%H%M%S"), 14)
+    body += nitf_field("", 17) + nitf_field("multispectral scene", 80) + b"U"
+    body += nitf_security(version) + b"0" + nitf_field("synthetic", 42)
+    body += nitf_number(nrows, 8) + nitf_number(ncols, 8) + nitf_field(pvtype, 3)
+    body += nitf_field(irep, 8) + nitf_field("MS", 8) + nitf_number(abpp or nbpp, 2) + b"R"
+    body += nitf_field(icords, 1)
+    if icords.strip() and not (version == "2.0" and icords == "N"):
+        body += nitf_field(igeolo, 60)
+    body += nitf_number(comments, 1) + b" " * 80 * comments
+    body += ic.encode("latin-1") + (b"" if ic in ("NC", "NM") else b"    ")  # COMRAT
+    body += nitf_number(0, 1) + nitf_number(bands, 5) if xbands else nitf_number(bands, 1)
+    for subcat in subcats:
+        body += nitf_field("", 2) + nitf_field(subcat, 6) + b"N" + nitf_field("", 3)
+        body += nitf_number(0, 1)  # NLUTS
+    body += b"0" + nitf_field(imode, 1) + nitf_number(nbpr, 4) + nitf_number(nbpc, 4)
+    body += nitf_number(nppbh or ncols, 4) + nitf_number(nppbv or nrows, 4)
+    body += nitf_number(nbpp, 2) + nitf_number(1, 3) + nitf_number(0, 3)  # NBPP IDLVL IALVL
+    body += nitf_field("0000000000", 10) + nitf_field("1.0 ", 4)  # ILOC, IMAG
+    body += nitf_number(0, 5) + nitf_number(0, 5)  # UDIDL, IXSHDL
+    return bytes(body)
+
+
+def nitf_file_header(segments, version="2.1", downgrade_event=False):
+    """A NITF file header for image segments of (subheader length, data
+    length); FL and HL computed."""
+    body = bytearray(b"NITF02.10" if version == "2.1" else b"NITF02.00")
+    body += nitf_number(3, 2) + nitf_field("BF01", 4) + nitf_field("PARCELS", 10)
+    body += nitf_field(SCENE_TIME.strftime("%Y%m%d%H%M%S"), 14) + nitf_field("scene", 80)
+    body += b"U" + nitf_security(version, downgrade_event) + nitf_number(0, 5)
+    body += nitf_number(1, 5) + b"0"  # FSCOP, FSCPYS, ENCRYP
+    body += (bytes(3) + nitf_field("", 24)) if version == "2.1" else nitf_field("", 27)
+    body += nitf_field("", 18)  # OPHONE
+    fl_at = len(body)
+    body += bytes(18) + nitf_number(len(segments), 3)
+    for subheader_length, data_length in segments:
+        body += nitf_number(subheader_length, 6) + nitf_number(data_length, 10)
+    body += b"000" * 5 + b"00000" * 2  # NUMS..NUMRES, UDHDL, XHDL
+    total = len(body) + sum(a + b for a, b in segments)
+    body[fl_at : fl_at + 18] = nitf_number(total, 12) + nitf_number(len(body), 6)
+    return bytes(body)
+
+
+def nitf_block_mask(present, record_bytes, pad_code=b"\x00\x00"):
+    """IC = NM's image data mask: the block offsets of the records in
+    ``present`` order (absent ones 0xFFFFFFFF) after the pad pixel code."""
+    offsets, at = [], 0
+    for kept in present:
+        offsets.append(at if kept else 0xFFFFFFFF)
+        at += record_bytes if kept else 0
+    head = 10 + len(pad_code) + 4 * len(offsets)
+    return (struct.pack(">IHHH", head, 4, 0, 8 * len(pad_code)) + pad_code
+            + struct.pack(">%dI" % len(offsets), *offsets))
+
+
+def scene_igeolo():
+    """ICORDS G corners of the scene, pixel centres UL, UR, LR, LL."""
+    (lat_d, lat_m, lat_s), (lon_d, lon_m, lon_s) = SCENE_NORTH_WEST
+    north, west = lat_d * 3600 + lat_m * 60 + lat_s, lon_d * 3600 + lon_m * 60 + lon_s
+    south, east = north - SCENE_SPAN_S[1], west + SCENE_SPAN_S[0]
+
+    def dms(seconds, width, hemisphere):
+        d, rest = divmod(seconds, 3600)
+        return "%0*d%02d%02d%s" % (width - 4, d, *divmod(rest, 60), hemisphere)
+
+    return "".join(dms(lat, 6, "N") + dms(lon, 7, "E")
+                   for lat, lon in ((north, west), (north, east), (south, east), (south, west)))
+
+
+def scene_geo_transform(px=SCENE_PX):
+    """The geotransform the corners give (cells between pixel centres,
+    the corner half a cell out), as io/nitf.py computes it."""
+    (lat_d, lat_m, lat_s), (lon_d, lon_m, lon_s) = SCENE_NORTH_WEST
+    west = lon_d + lon_m / 60.0 + lon_s / 3600.0
+    north = lat_d + lat_m / 60.0 + lat_s / 3600.0
+    east = lon_d + lon_m / 60.0 + (lon_s + SCENE_SPAN_S[0]) / 3600.0
+    south = lat_d + lat_m / 60.0 + (lat_s - SCENE_SPAN_S[1]) / 3600.0
+    a, e = (east - west) / (px - 1), (south - north) / (px - 1)
+    return (west - a / 2, a, 0.0, north - e / 2, 0.0, e)
+
+
+def scene_bands(px=SCENE_PX, field_px=SCENE_FIELD_PX, seed=41):
+    """(4, px, px) uint16 blue, green, red and near-infrared values in
+    0-2047: fields of ``field_px`` pixels, each its own NDVI (0.05-0.85)
+    and red level, with pixel noise."""
+    rng = np.random.default_rng(seed)
+    n = -(-px // field_px)
+    cells = np.arange(px) // field_px
+    ndvi = rng.uniform(0.05, 0.85, (n, n)).astype(np.float32)
+    gain = (1 + ndvi) / (1 - ndvi)  # near-infrared over red
+    red = rng.integers(150, 600, (n, n), dtype=np.uint16)[cells][:, cells]
+    red += rng.integers(0, 64, (px, px), dtype=np.uint16)
+    nir = np.minimum(red * gain[cells][:, cells], 2047).astype(np.uint16)
+    blue = red // 2 + rng.integers(0, 32, (px, px), dtype=np.uint16)
+    green = red - red // 4 + rng.integers(0, 32, (px, px), dtype=np.uint16)
+    return np.stack([blue, green, red, nir])
+
+
+def absent_blocks(n):
+    """The blocks outside the acquisition strip of ``n`` x ``n`` blocks,
+    (block row from the north, block column): the north-east and
+    south-west corners."""
+    return ((0, n - 1), (n - 1, 0))
+
+
+def write_scene_nitf(folder, px=SCENE_PX, block=SCENE_BLOCK, seed=41, name="scene.ntf"):
+    """scene_bands as a NITF 2.1 file: one segment, INT 16 bits of which
+    11 significant, IREP MULTI, IMODE B in ``block``^2 blocks, IC = NM
+    with absent_blocks masked out (pad pixel code 0), ICORDS G at
+    scene_igeolo's corners.  Returns (path, the values a reader gives: the
+    absent blocks 0)."""
+    values = scene_bands(px, seed=seed)
+    n = px // block
+    absent = absent_blocks(n)
+    present = [(r, c) not in absent for r in range(n) for c in range(n)]
+    record = len(SCENE_BANDS) * block * block * 2
+    mask = nitf_block_mask(present, record)
+    subheader = nitf_image_subheader(
+        len(SCENE_BANDS), px, px, abpp=SCENE_ABPP, igeolo=scene_igeolo(), ic="NM",
+        nbpr=n, nbpc=n, nppbh=block, nppbv=block, subcats=SCENE_WAVELENGTHS)
+    blocks = values.reshape(len(SCENE_BANDS), n, block, n, block).transpose(1, 3, 0, 2, 4)
+    path = os.path.join(folder, name)
+    with open(path, "wb") as f:
+        f.write(nitf_file_header([(len(subheader), len(mask) + record * sum(present))]))
+        f.write(subheader)
+        f.write(mask)
+        for k, kept in enumerate(present):
+            if kept:
+                f.write(np.ascontiguousarray(blocks[divmod(k, n)], dtype=">u2").data)
+    for r, c in absent:
+        values[:, r * block : (r + 1) * block, c * block : (c + 1) * block] = 0
+    return path, values
+
+
+def build_scene_view(path):
+    """(Classify(smooth, bins), smooth) over the scene, smooth the NDVI
+    smoothed over 15 m: the near-infrared band brought to the red band's
+    time by Shift, the band sum masked below 1 (the absent blocks' pad)
+    before the division, and the smoothed NDVI clipped to that sum's data
+    (Smooth fills nodata with 0), so the absent blocks reach the answer as
+    nodata."""
+    from dask_geomodeling_tpu_torch import raster as port
+
+    source = port.RasterFileSource(path, time_first=SCENE_TIME, time_delta=SCENE_BAND_STEP)
+    red = source
+    nir = port.Shift(source, -SCENE_BAND_STEP)
+    total = port.MaskBelow(port.Add(nir, red), 1)
+    ndvi = port.Divide(port.Subtract(nir, red), total)
+    smooth = port.Clip(port.Smooth(ndvi, SCENE_SMOOTH_M), total)
+    return port.Classify(smooth, SCENE_BINS), smooth
+
+
+def scene_request(px=SCENE_PX):
+    """The scene's own grid in EPSG:4326 at the red band's time."""
+    x0, dx, _, y0, _, dy = scene_geo_transform(px)
+    red_time = SCENE_TIME + 2 * SCENE_BAND_STEP
+    return dict(mode="vals", projection="EPSG:4326", width=px, height=px,
+                bbox=(x0, y0 + px * dy, x0 + px * dx, y0), start=red_time, stop=red_time)
+
+
+def field_frame(grid=FIELD_GRID, cell=FIELD_CELL, origin=FIELD_ORIGIN, seed=43):
+    """make_parcels' perturbed stars at ``cell`` m over ``grid``^2 cells
+    from ``origin`` in RD New, as a frame: an integer id, a BRP crop code
+    and the area in m^2."""
+    from dask_geomodeling_tpu_torch.geo.features import GeoDataFrame
+    from dask_geomodeling_tpu_torch.geo.geometry import Polygon
+
+    polygons, _ = make_parcels(grid, small=0, seed=seed, origin=origin, cell=cell)
+    rng = np.random.default_rng(seed)
+    geometries = [Polygon(p) for p in polygons]
+    return GeoDataFrame({
+        "id": np.arange(1, len(polygons) + 1),
+        "crop": list(rng.choice(FIELD_CROPS, size=len(polygons), p=FIELD_CROP_P)),
+        "area": np.array([g.area for g in geometries]),
+    }, geometry=geometries, crs="EPSG:28992")
+
+
+def field_views(parcels, smooth):
+    """{statistic: AggregateRaster} of the smoothed NDVI per parcel, in
+    EPSG:4326 at the scene's cell (the raster stays in its CRS)."""
+    from dask_geomodeling_tpu_torch.geometry import AggregateRaster
+
+    return {statistic: AggregateRaster(parcels, smooth, statistic, projection="EPSG:4326",
+                                       max_pixels=FIELD_MAX_PIXELS, column_name="ndvi_" + statistic)
+            for statistic in ("mean", "p90")}
+
+
+def field_request(bbox):
+    """mode "intersects" over ``bbox`` (EPSG:4326) at the red band's time."""
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+
+    red_time = SCENE_TIME + 2 * SCENE_BAND_STEP
+    return dict(mode="intersects", geometry=box(*bbox), projection="EPSG:4326",
+                start=red_time, stop=red_time)
+
+
+def pixel_box(geo_transform, north_west, south_east):
+    """The EPSG:4326 bbox of the pixels from ``north_west`` to
+    ``south_east`` ((row, column), inclusive)."""
+    x0, dx, _, y0, _, dy = geo_transform
+    (r1, c1), (r2, c2) = north_west, south_east
+    return (x0 + c1 * dx, y0 + (r2 + 1) * dy, x0 + (c2 + 1) * dx, y0 + r1 * dy)
+
+
+def by_id(features, column):
+    """{id: the column's value} of an answer's features (indexed by id)."""
+    return dict(zip(features.index.values.tolist(), features[column].values.tolist()))
+
+
+def rows_equal(a, b):
+    """Two rows of frame_rows equal, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (isinstance(a[k], float) and a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
+def fgb_clock():
+    """A PhaseClock over a FlatGeobuf file's reads: the R-tree searches and
+    the features decoded."""
+    from dask_geomodeling_tpu_torch.io import flatgeobuf
+
+    return PhaseClock([(flatgeobuf, "_search_packed_rtree", "R-tree search"),
+                       (flatgeobuf, "_decode_properties", "features decoded")])
+
+
+def scene_refusals(folder, device):
+    """The errors the port raises, as the JAX package names them: a JPEG
+    (C3) segment's NotImplementedError naming io/nitf.py, through
+    RasterFileSource.info; a truncated NITF's ValueError through the whole
+    read; a FlatGeobuf of a bad magic's IOError through GeometryFileSource."""
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSource
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    small = (np.arange(64 * 64) % 2048).astype(">u2").tobytes()
+    plain = nitf_image_subheader(1, 64, 64, irep="MONO", icords=" ")
+    jpeg = nitf_image_subheader(1, 64, 64, irep="MONO", icords=" ", ic="C3")
+    files = {
+        "jpeg.ntf": (nitf_file_header([(len(jpeg), 4)]) + jpeg + b"\xff\xd8\xff\xd9",
+                     lambda p: RasterFileSource(p).info),
+        "truncated.ntf": ((nitf_file_header([(len(plain), len(small))]) + plain
+                           + small)[: -len(small) // 2], pipeline.read_geotiff_cached),
+        "magic.fgb": (b"fgb\x02fgb\x00" + bytes(64), lambda p: GeometryFileSource(p).get_data(
+            device=device, mode="intersects", geometry=box(0, 0, 1, 1),
+            projection="EPSG:28992")),
+    }
+    raised = {}
+    for name, (body, read) in files.items():
+        path = os.path.join(folder, name)
+        with open(path, "wb") as f:
+            f.write(body)
+        try:
+            read(path)
+            raised[name] = None
+        except (ValueError, OSError, NotImplementedError) as e:
+            raised[name] = e
+        os.remove(path)
+    return raised
+
+
+def check_parcel_imagery(card, device, folder, px=SCENE_PX, block=SCENE_BLOCK,
+                         sampled=SCENE_SAMPLED, grid=FIELD_GRID, cell=FIELD_CELL,
+                         origin=FIELD_ORIGIN, sub=SCENE_SUB, export_tile=FIELD_EXPORT_TILE):
+    """The parcel-imagery phase.  (a) write_scene_nitf's scene; info from
+    the headers (uint16, 4 bands, the corners' geotransform), then the
+    read cache's whole decode, timed by a PhaseClock over read_nitf,
+    _unmask_blocks and _decode_blocks, equal to the values written, the
+    absent blocks 0.  (b) build_scene_view at the
+    scene's own grid in ``TILE``^2 tiles through evaluate_tiled, its first
+    run's phases, the absent blocks nodata and only they, the ``sampled``
+    tiles bitwise to compute_host, the Gaussian on float64 frames, its
+    first launch torch.equal to its plain version.  (c) field_frame's
+    parcels written as FlatGeobuf (node size 16) and as a GeoPackage;
+    GeometryFileSource over the FlatGeobuf above a windowed-read limit of
+    half its size, so that its R-tree answers; the mean and p90 of the
+    smoothed NDVI per parcel over the whole scene on the card; both
+    statistics over the ``sub`` pixels against compute_host (compare_zonal:
+    mean within one float32 ulp, p90 bitwise) and the GeoPackage copy's
+    answers there bitwise equal.  (d) to_file of the parcels with their
+    mean in 3 x 3 tiles of ``export_tile`` m in RD New into FlatGeobuf
+    partials merged into one, read back equal to the partials (geometries bitwise, fields equal, each
+    parcel once), its R-tree search equal to a box filter.  (e)
+    scene_refusals.  Returns (launches, numbers, the Gaussian's record on
+    up to BATCH planes of (b)'s first batch where it ran on the card);
+    removes its files."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled, get_data
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSource
+    from dask_geomodeling_tpu_torch.geometry.sinks import to_file
+    from dask_geomodeling_tpu_torch.io import flatgeobuf, nitf, vectorfile
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime import tiles as tile_runtime
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    numbers = {}
+    t0 = time.perf_counter()
+    path, values = write_scene_nitf(folder, px, block)
+    numbers["nitf_write_s"] = time.perf_counter() - t0
+    numbers["nitf_mb"] = os.path.getsize(path) / 1e6
+    print("parcel-imagery: a %d^2 scene of %d bands (%s), 11 bits in 16, %d^2 blocks of which "
+          "%d absent, %.1f MB of NITF written in %.2f s [%s]" % (
+              px, len(SCENE_BANDS), "/".join(SCENE_BANDS), block,
+              len(absent_blocks(px // block)),
+              numbers["nitf_mb"], numbers["nitf_write_s"], card))
+    pipeline.clear_read_cache()
+    view, smooth = build_scene_view(path)
+    source = smooth.args[1].args[0].args[1]
+
+    # (a) info from the headers, then the whole read into the read cache
+    t0 = time.perf_counter()
+    info = source.info
+    numbers["info_s"] = time.perf_counter() - t0
+    geo_transform = scene_geo_transform(px)
+    check(info.dtype == "uint16" and info.bands == 4 and (info.width, info.height) == (px, px)
+          and info.projection == "EPSG:4326"
+          and np.allclose(info.geo_transform, geo_transform, rtol=0, atol=1e-12),
+          "parcel-imagery: info %r" % (info,))
+    with PhaseClock([(nitf, "read_nitf", "whole read"), (nitf, "_unmask_blocks", "unmask"),
+                     (nitf, "_decode_blocks", "decode")]) as clock:
+        whole = pipeline.read_geotiff_cached(path)
+    numbers["read_s"] = dict(clock.seconds)
+    check(whole.array.dtype == np.uint16 and np.array_equal(whole.array, values),
+          "parcel-imagery: the whole read differs from the values written")
+    del values
+    print("parcel-imagery (a): info from the headers in %.4f s (uint16, 4 bands, corners' "
+          "geotransform); the whole read %s; equal to the values written, the absent blocks "
+          "the pad code 0 [%s]" % (numbers["info_s"], ", ".join(
+              "%s %.3f s" % kv for kv in clock.seconds.items()), card))
+
+    # (b) the view at the scene's own grid
+    request = scene_request(px)
+    tiles, nx = tile_requests(request, TILE)
+    phases, spy = {}, gaussian_calls()
+    cuda_stencils.reset_launches()
+    batches = tile_runtime.batches_run
+    with spy:
+        t0 = time.perf_counter()
+        answer = evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                                phase_seconds=phases)
+        numbers["first_run_s"] = time.perf_counter() - t0
+    batches = tile_runtime.batches_run - batches
+    launches = cuda_stencils.launches  # (b)'s; (c) and (d) launch it too
+    classes, nodata = answer["values"], answer["no_data_value"]
+    check(len(spy.calls) == batches and launches in (batches, 2 * batches),
+          "parcel-imagery (b): %d Gaussian launches, %d calls for %d batches"
+          % (launches, len(spy.calls), batches))
+    planes, result, sigma, fill = spy.first
+    want = gaussian_blur_reference(planes, *sigma, fill)
+    check(planes.dtype == torch.float64 and torch.equal(result, want),
+          "gaussian_blur differs from its plain version on the parcel-imagery frames")
+    err = float((result - want).abs().max())
+    del result, want
+    absent = np.zeros((px, px), bool)
+    for r, c in absent_blocks(px // block):
+        absent[r * block : (r + 1) * block, c * block : (c + 1) * block] = True
+    check(classes.shape == (1, px, px) and np.array_equal(classes[0] == nodata, absent),
+          "parcel-imagery (b): nodata is not exactly the absent blocks")
+    numbers["first_phases_s"] = phases
+    numbers["plan_share"] = phases.get("plan", 0.0) / numbers["first_run_s"]
+    print("parcel-imagery (b): %d tiles in %d batches, first run %.3f s (%s; plan %.4f of it), "
+          "Gaussian %d launches, first on %s float64 sigma (%.4f, %.4f), torch.equal to its "
+          "plain version; nodata exactly on the absent blocks [%s]" % (
+              len(tiles), batches, numbers["first_run_s"],
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), numbers["plan_share"],
+              launches, tuple(planes.shape), sigma[0], sigma[1], card))
+    t0 = time.perf_counter()
+    differing = 0
+    ny = len(tiles) // nx
+    for north_row, column in sampled:
+        index = (ny - 1 - north_row) * nx + column
+        (rows, cols), (host_rows, host_cols) = tile_cells(index, nx, px, px, TILE)
+        host = host_values(view, tiles[index])[:, host_rows, host_cols]
+        differing += int(np.count_nonzero(classes[:, rows, cols] != host))
+    numbers["host_s"] = time.perf_counter() - t0
+    check(differing == 0, "parcel-imagery (b): %d cells differ from compute_host" % differing)
+    print("parcel-imagery (b): %d sampled tiles (the absent blocks' edges among them) against "
+          "compute_host (%.3f s): 0 cells differ; classes %s" % (
+              len(sampled), numbers["host_s"],
+              np.bincount(classes[classes != nodata], minlength=len(SCENE_BINS) + 1).tolist()))
+    del classes, answer
+
+    # (c) the parcels, from FlatGeobuf through its R-tree
+    fields = field_frame(grid, cell, origin)
+    fgb_path, gpkg_path = os.path.join(folder, "fields.fgb"), os.path.join(folder, "fields.gpkg")
+    t0 = time.perf_counter()
+    vectorfile.write_vector(fields, fgb_path)
+    numbers["fgb_write_s"] = time.perf_counter() - t0
+    vectorfile.write_vector(fields, gpkg_path)
+    with open(fgb_path, "rb") as f:
+        node_size = flatgeobuf.header_index_node_size(f.read(1 << 16))
+    check(node_size == 16, "parcel-imagery: the FlatGeobuf's index node size is %r" % node_size)
+    print("parcel-imagery (c): %d parcels of about %g m in RD New written as FlatGeobuf with its "
+          "packed R-tree (node size 16, %.2f MB) in %.3f s" % (
+              len(fields), cell, os.path.getsize(fgb_path) / 1e6, numbers["fgb_write_s"]))
+    whole_box = pixel_box(geo_transform, (0, 0), (px - 1, px - 1))
+    sub_box = pixel_box(geo_transform, *sub)
+    numbers.update(zonal_s={}, rtree_s={}, features_decoded={})
+    # geomodeling.vector-windowed-read-limit below the file: the R-tree answers
+    with config.set({"geomodeling.vector-windowed-read-limit": os.path.getsize(fgb_path) // 2}):
+        check(GeometryFileSource._fgb_above_limit(fgb_path),
+              "parcel-imagery: the FlatGeobuf is not read through its R-tree")
+        parcels = GeometryFileSource(fgb_path, id_field="id")
+        for statistic, zonal in field_views(parcels, smooth).items():
+            column = "ndvi_" + statistic
+            with fgb_clock() as clock:
+                t0 = time.perf_counter()
+                features = get_data(zonal, device=device, **field_request(whole_box))["features"]
+                seconds = time.perf_counter() - t0
+            numbers["zonal_s"][statistic] = seconds
+            numbers["rtree_s"][statistic] = clock.seconds["R-tree search"]
+            numbers["features_decoded"][statistic] = clock.calls["features decoded"]
+            values = features[column].values
+            check(len(features) == len(fields) and np.isnan(values).any()
+                  and np.isfinite(values).sum() > len(fields) // 2
+                  and clock.calls["R-tree search"] >= 1,
+                  "parcel-imagery: %s of %d parcels, %d R-tree searches" % (
+                      statistic, len(features), clock.calls["R-tree search"]))
+            print("parcel-imagery (c): the %s of %d parcels (%d with no data) on the card in "
+                  "%.3f s; R-tree searches %d (%.4f s), features decoded %d" % (
+                      statistic, len(features), int(np.isnan(values).sum()), seconds,
+                      clock.calls["R-tree search"], clock.seconds["R-tree search"],
+                      clock.calls["features decoded"]))
+        # over the sub-area: against compute_host (both truths from one
+        # graph), and the GeoPackage copy's answers bitwise
+        views = {s: (v, field_request(sub_box)) for s, v in field_views(parcels, smooth).items()}
+        t0 = time.perf_counter()
+        hosts, _ = zonal_host_truths(views)
+        numbers["zonal_host_s"] = time.perf_counter() - t0
+        copies = field_views(GeometryFileSource(gpkg_path, id_field="id"), smooth)
+        for statistic, (zonal, sub_request) in views.items():
+            column = "ndvi_" + statistic
+            port = get_data(zonal, device=device, **sub_request)
+            differ, beyond, cells = compare_zonal(statistic, port, hosts[statistic], column)
+            exact = statistic == "p90"
+            check(beyond == 0 and (differ == 0 or not exact),
+                  "parcel-imagery: %s differs from compute_host" % statistic)
+            ours = by_id(port["features"], column)
+            copy = by_id(get_data(copies[statistic], device=device, **sub_request)["features"],
+                         column)
+            check(sorted(ours) == sorted(copy) and np.array_equal(
+                [ours[k] for k in sorted(ours)], [copy[k] for k in sorted(ours)], equal_nan=True),
+                "parcel-imagery: the GeoPackage copy's %s differs" % statistic)
+            print("parcel-imagery (c): %s over the sub-area (%d parcels, %d with no data) against "
+                  "compute_host: %d differ, %d beyond one float32 ulp (%s); the GeoPackage "
+                  "copy's bitwise equal" % (
+                      statistic, cells, int(np.isnan(agg_matrix(port["features"], column)).sum()),
+                      differ, beyond, "bitwise" if exact else "within one float32 ulp"))
+        print("parcel-imagery (c): compute_host of the sub-area %.3f s" % numbers["zonal_host_s"])
+
+        # (d) the export, in FlatGeobuf partials merged into one
+        export = field_views(parcels, smooth)["mean"]
+        target = os.path.join(folder, "ndvi.fgb")
+        partials = []
+        write_vector = vectorfile.write_vector
+
+        def writing(frame, out, layer=None):
+            if out != target:
+                partials.append(frame)
+            return write_vector(frame, out, layer)
+
+        vectorfile.write_vector = writing
+        try:
+            t0 = time.perf_counter()
+            to_file(export, target, fields={k: k for k in ("id", "crop", "area", "ndvi_mean")},
+                    tile_size=export_tile, projection="EPSG:28992", mode="centroid",
+                    device=device)
+            numbers["export_s"] = time.perf_counter() - t0
+        finally:
+            vectorfile.write_vector = write_vector
+    back = flatgeobuf.read_flatgeobuf(target)
+    written = {}
+    for frame in partials:
+        written.update(frame_rows(frame.set_index("id")))
+    read = frame_rows(back.set_index("id"))
+    check(1 < len(partials) <= 9 and len(written) == sum(len(f) for f in partials)
+          and sorted(read) == sorted(written) == list(range(1, len(fields) + 1))
+          and all(rows_equal(read[k], written[k]) for k in read),
+          "parcel-imagery (d): the merged FlatGeobuf differs from its %d partials" % len(partials))
+    with open(target, "rb") as f:
+        node_size = flatgeobuf.header_index_node_size(f.read(1 << 16))
+    bounds = back.geometry.bounds
+    searched = 0
+    for k in range(4):
+        x1, y1, x2, y2 = back.total_bounds
+        box_k = (x1 + (x2 - x1) * k / 5, y1 + (y2 - y1) * k / 7, x1 + (x2 - x1) * (k + 2) / 5,
+                 y1 + (y2 - y1) * (k + 1) / 4)
+        hits = flatgeobuf.read_flatgeobuf(target, bbox=box_k)
+        brute = np.flatnonzero(~((bounds["maxx"].values < box_k[0])
+                                 | (bounds["minx"].values > box_k[2])
+                                 | (bounds["maxy"].values < box_k[1])
+                                 | (bounds["miny"].values > box_k[3])))
+        check(node_size == 16 and hits.index.values.tolist() == brute.tolist(),
+              "parcel-imagery (d): the R-tree search differs from a box filter")
+        searched += len(hits)
+    print("parcel-imagery (d): to_file in %d tiles of %g m into FlatGeobuf partials merged into "
+          "one in %.3f s: %d parcels read back equal to the partials, each once; the R-tree "
+          "search of 4 boxes (%d hits) equal to a box filter [%s]" % (
+              len(partials), export_tile, numbers["export_s"], len(read), searched, card))
+
+    # (e) the refusals
+    raised = scene_refusals(folder, device)
+    jpeg, truncated, magic = raised["jpeg.ntf"], raised["truncated.ntf"], raised["magic.fgb"]
+    check(isinstance(jpeg, NotImplementedError)
+          and "dask_geomodeling_tpu/io/nitf.py" in str(jpeg)
+          and isinstance(truncated, ValueError) and str(truncated) == "NITF image data truncated"
+          and isinstance(magic, OSError) and str(magic).startswith("Not a FlatGeobuf file"),
+          "parcel-imagery: the refusals raised %r" % raised)
+    print("parcel-imagery (e): a C3 segment raised NotImplementedError (%s); a truncated NITF "
+          "ValueError(%r); a bad FlatGeobuf magic %s(%r)" % (
+              str(jpeg)[:48], str(truncated), type(magic).__name__, str(magic)[:22]))
+    for name in (path, fgb_path, gpkg_path, target):
+        os.remove(name)
+    pipeline.clear_read_cache()
+
+    kernels = []
+    if planes.is_cuda:
+        kernels = [dict(time_gaussian(planes[:BATCH].contiguous(), sigma), max_abs_err=err,
+                        path="parcel-imagery")]
+    del planes, spy
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("parcel-imagery: Gaussian %d launches on the path, %d of them in (b); the phase %.2f s "
+          "[%s]" % (cuda_stencils.launches, launches, numbers["phase_s"], card))
+    return ({"gaussian_blur": cuda_stencils.launches,
              "moving_max": cuda_stencils.moving_max_launches}, numbers, kernels)
 
 
@@ -7342,6 +7965,10 @@ def run_phases(card, device, folder, mark):
         card, device, folder)
     gaussian.extend(forecast_kernels)
     mark("the grib-forecast path")
+    launches["parcel-imagery"], parcels, parcel_kernels = check_parcel_imagery(
+        card, device, folder)
+    gaussian.extend(parcel_kernels)
+    mark("the parcel-imagery path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -7376,6 +8003,7 @@ def run_phases(card, device, folder, mark):
     timings["tile-pyramids"] = pyramids
     timings["modis-ndvi"] = modis
     timings["grib-forecast"] = forecast
+    timings["parcel-imagery"] = parcels
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],
@@ -7384,10 +8012,11 @@ def run_phases(card, device, folder, mark):
 
     mark("the timing")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "dask_geomodeling_tpu", "pandas", "matplotlib", "PIL"))
-    check(not leaked, "modules of JAX, pandas, matplotlib, Pillow or the JAX package were "
-          "imported: %s" % leaked[:5])
-    print("imports: no module of JAX, pandas, matplotlib, Pillow or the JAX package was loaded")
+        "jax", "dask_geomodeling_tpu", "pandas", "matplotlib", "PIL", "flatbuffers"))
+    check(not leaked, "modules of JAX, pandas, matplotlib, Pillow, flatbuffers or the JAX "
+          "package were imported: %s" % leaked[:5])
+    print("imports: no module of JAX, pandas, matplotlib, Pillow, flatbuffers or the JAX "
+          "package was loaded")
     timings["zonal"] = zonal
     timings["rasterize-wkt"]["parity_twin_ms"] = wkt_ms
     print("paths: %s" % json.dumps(timings))

@@ -76,7 +76,8 @@ def _is_number(value):
 
 def _infer(values):
     """A column from a list of cells, typed as pandas infers a column of
-    records: numbers (with None as NaN) float64 unless all are integers,
+    records: numbers (with None as NaN) float64 unless all are integers
+    (int64, or uint64 where one is past int64 and all fit it),
     bools bool, strings with None a string column with NaN missing, dates
     datetime64[us] (None as NaT), anything else (or a mix) an object
     column of the cells as they are."""
@@ -92,7 +93,12 @@ def _infer(values):
         if len(present) == len(values) and all(
             isinstance(v, (int, np.integer)) for v in present
         ):
-            return np.array(values, dtype=np.int64)
+            # past int64: uint64 where every value fits it, else the cells
+            if all(-2**63 <= v < 2**63 for v in present):
+                return np.array(values, dtype=np.int64)
+            if all(0 <= v < 2**64 for v in present):
+                return np.array(values, dtype=np.uint64)
+            return _objects(values)
         return np.array([np.nan if v is None else v for v in values], dtype=float)
     if all(isinstance(v, str) for v in present):
         return _objects([np.nan if is_null(v) else v for v in values])

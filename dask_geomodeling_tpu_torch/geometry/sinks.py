@@ -6,9 +6,9 @@ characters of the request's token, as in the JAX package, so both write
 the same file names), JSON-serialized nested columns, GeoJSON
 reprojection to EPSG:4326, ``merge_files`` gathering partials (their rows
 concatenated, geo/features.py:concat).  The formats are GeoJSON,
-GeoPackage, Shapefile, GML, MapInfo MIF/MID (the .mid travels with its
-.mif), SpatiaLite and TopoJSON (io/vectorfile.py); GeoParquet and
-FlatGeobuf raise NotImplementedError naming the module that writes them.
+GeoPackage, Shapefile, GML, FlatGeobuf, MapInfo MIF/MID (the .mid
+travels with its .mif), SpatiaLite and TopoJSON (io/vectorfile.py);
+GeoParquet raises NotImplementedError naming the module that writes it.
 """
 import glob
 import json
@@ -36,6 +36,7 @@ _FORMATS = {
     "gpkg": ("GPKG", {}),
     "shp": ("ESRI Shapefile", {}),
     "gml": ("GML", {}),
+    "fgb": ("FlatGeobuf", {}),
     "mif": ("MapInfo MIF/MID", {}),
     "sqlite": ("SpatiaLite", {}),
     # TopoJSON is a GeoJSON sibling: geographic coordinates by convention
@@ -43,7 +44,7 @@ _FORMATS = {
 }
 
 #: the JAX package's other sink formats, which the port does not write
-_UNPORTED_FORMATS = ("parquet", "fgb")
+_UNPORTED_FORMATS = ("parquet",)
 
 #: everything one partial-file write needs, planned at request-rewrite time
 _FeatureWriteSpec = namedtuple(

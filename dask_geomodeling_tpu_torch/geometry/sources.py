@@ -4,11 +4,13 @@ Counterpart of dask_geomodeling_tpu/geometry/sources.py, on the port's
 pandas-free frame: bbox-prefiltered file reads, FID-or-custom index,
 equality filters, CRS conversion, min_size filtering, centroid-vs-
 intersects predicates and limit enforcement (``geomodeling.geometry-
-limit``).  A GeoPackage above ``geomodeling.vector-windowed-read-limit``
-bytes that carries a ``gpkg_rtree_index`` answers the request's bbox
-through that index; any other file is parsed whole once into the read
-cache (runtime/pipeline.py); a format the port does not read (FlatGeobuf
-among them) raises there, naming the JAX module that reads it.
+limit``).  Above ``geomodeling.vector-windowed-read-limit`` bytes, a
+FlatGeobuf file with a packed R-tree and a GeoPackage that carries a
+``gpkg_rtree_index`` answer the request's bbox (transformed into the
+file's CRS) through their index and decode only the features it finds;
+any other file is parsed whole once into the read cache
+(runtime/pipeline.py); a format the port does not read (GeoParquet)
+raises there, naming the JAX module that reads it.
 """
 import os
 
@@ -93,6 +95,21 @@ class GeometryFileSource(GeometryBlock):
             return False
 
     @staticmethod
+    def _fgb_above_limit(path):
+        """Like :meth:`_above_vector_limit`, plus the .fgb must carry a
+        spatial index."""
+        if not GeometryFileSource._above_vector_limit(path):
+            return False
+        from dask_geomodeling_tpu_torch.io.flatgeobuf import header_index_node_size
+
+        try:
+            with open(path, "rb") as stream:
+                head = stream.read(1 << 16)
+            return bool(header_index_node_size(head))
+        except Exception:
+            return False
+
+    @staticmethod
     def _gpkg_has_rtree(path, layer):
         from dask_geomodeling_tpu_torch.io.vectorfile import gpkg_rtree_name
 
@@ -162,6 +179,19 @@ class GeometryFileSource(GeometryBlock):
         path = safe_abspath(url)
         lower = path.lower()
         if (
+            filt_geom is not None
+            and lower.endswith(".fgb")
+            and GeometryFileSource._fgb_above_limit(path)
+        ):
+            # large FlatGeobuf: search the packed R-tree and decode only
+            # the features the filter bbox touches (the format's
+            # random-access design) instead of parsing the whole file
+            from dask_geomodeling_tpu_torch.io.flatgeobuf import read_flatgeobuf
+
+            f = read_flatgeobuf(
+                path, bbox=filt_geom.bounds, bbox_projection=projection
+            )
+        elif (
             filt_geom is not None
             and lower.endswith(".gpkg")
             and GeometryFileSource._above_vector_limit(path)

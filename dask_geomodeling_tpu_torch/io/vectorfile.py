@@ -23,12 +23,13 @@ gives the same frames and writes the same files:
 - zipped datasets (.zip / .shp.zip): the contained dataset is read
   (shapefiles win ties); a zipped shapefile is written;
 - TopoJSON (io/topojson.py), SpatiaLite (io/spatialite.py), MapInfo
-  MIF/MID (io/mapinfo.py), DXF (io/dxf.py) and OSM XML (io/osm.py, read
-  only: writing ``.osm`` raises).
+  MIF/MID (io/mapinfo.py), DXF (io/dxf.py), FlatGeobuf (.fgb,
+  io/flatgeobuf.py, with its packed Hilbert R-tree; no ``flatbuffers``
+  package needed) and OSM XML (io/osm.py, read only: writing ``.osm``
+  raises).
 
-FlatGeobuf and GeoParquet raise NotImplementedError naming the JAX module
-that reads them: they need the ``flatbuffers`` runtime and ``pyarrow``,
-which the card machine does not have.
+GeoParquet raises NotImplementedError naming the JAX module that reads
+it: it needs ``pyarrow``, which the card machine does not have.
 
 API: ``read_vector``, ``read_vector_info``, ``write_vector``,
 ``gpkg_rtree_name`` and ``supported_extensions``.
@@ -61,13 +62,12 @@ __all__ = [
 
 supported_extensions = {
     "geojson", "json", "geojsonl", "ndjson", "gpkg", "shp", "csv", "gml", "kml", "kmz",
-    "gpx", "zip", "topojson", "sqlite", "mif", "dxf", "osm",
+    "gpx", "zip", "topojson", "sqlite", "mif", "dxf", "osm", "fgb",
 }
 
 #: extensions the JAX package reads and writes and the port does not, and
 #: where the JAX package handles each
 _UNPORTED = {
-    "fgb": "io/flatgeobuf.py (it needs the flatbuffers runtime, which the card machine lacks)",
     "parquet": "io/vectorfile.py (_read_parquet; it needs pyarrow, which the card machine lacks)",
     "geoparquet": "io/vectorfile.py (_read_parquet; it needs pyarrow, which the card machine "
                   "lacks)",
@@ -1203,6 +1203,10 @@ def _write_gpx(frame, path):
 def read_vector(path, layer=None):
     """Read a vector file into a GeoDataFrame (crs attribute set)."""
     fmt = _format_of(path)
+    if fmt == "fgb":
+        from dask_geomodeling_tpu_torch.io.flatgeobuf import read_flatgeobuf
+
+        return read_flatgeobuf(path)
     if fmt == "mif":
         from dask_geomodeling_tpu_torch.io.mapinfo import read_mif
 
@@ -1306,6 +1310,10 @@ def write_vector(frame, path, layer=None):
         _write_csv(frame, path)
     elif fmt == "gpx":
         _write_gpx(frame, path)
+    elif fmt == "fgb":
+        from dask_geomodeling_tpu_torch.io.flatgeobuf import write_flatgeobuf
+
+        write_flatgeobuf(frame, path, layer or "layer")
     elif fmt == "mif":
         from dask_geomodeling_tpu_torch.io.mapinfo import write_mif
 

@@ -31,7 +31,7 @@ is nodata makes the cell nodata.
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu_torch.device import equal_scalar, isclose_scalar, torch_dtype
+from dask_geomodeling_tpu_torch.device import equal_scalar, isclose_scalar, numpy_dtype, torch_dtype
 from dask_geomodeling_tpu_torch.geo.crs import get_projection, transform_points
 from dask_geomodeling_tpu_torch.geo.geotransform import GeoTransform
 
@@ -405,12 +405,28 @@ def warp_torch(
     zero = torch.zeros((), dtype=index_dtype, device=device)
     rows, cols = torch.broadcast_tensors(torch.where(inside, rows, zero), torch.where(inside, cols, zero))
     gathered = _gather(values, rows, cols).to(torch_dtype(dtype))
-    out = torch.where(inside[:, None], gathered, dtype.type(fillvalue).item())
+    fill = dtype.type(fillvalue).item()
+    out = _fill_where(gathered, ~inside[:, None], fill)
     if no_data_value is not None and no_data_value != fillvalue:
         if dtype.kind == "f":
             nodata = torch.tensor(no_data_value, dtype=out.dtype, device=device)
             src_nodata = torch.isclose(out, nodata)
         else:
             src_nodata = equal_scalar(out, no_data_value)
-        out = torch.where(src_nodata, dtype.type(fillvalue).item(), out)
+        out = _fill_where(out, src_nodata, fill)
     return out
+
+
+#: the unsigned dtypes whose torch.where the CUDA build lacks, and the
+#: signed dtype of the same width whose bit patterns stand in for them
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def _fill_where(values, mask, fill):
+    """``values`` with ``fill`` where ``mask`` is set (torch.where); a
+    uint16, uint32 or uint64 tensor through the signed view of its bits."""
+    signed = _SIGNED_VIEW.get(values.dtype)
+    if signed is None:
+        return torch.where(mask, fill, values)
+    bits = np.array(fill, dtype=numpy_dtype(values.dtype)).view(numpy_dtype(signed)).item()
+    return torch.where(mask, bits, values.view(signed)).view(values.dtype)

@@ -5,7 +5,7 @@ Counterparts of dask_geomodeling_tpu/raster/sources.py: ``RasterData``,
 snaps onto the band axis, a point request reads the single containing
 pixel, an area request warps into the requested grid), ``MemorySource``,
 ``RasterFileSource`` (GeoTIFF, VRT, Zarr v2 stores, HDF4, netCDF, PNG,
-GRIB, the plain-grid formats and the tile pyramids of
+GRIB, NITF, the plain-grid formats and the tile pyramids of
 ``runtime/pipeline.py:whole_file_reader``; its
 other formats raise NotImplementedError naming the JAX module that reads
 them), and the twin
@@ -453,6 +453,11 @@ class RasterFileSource(RasterSourceBase):
                 from dask_geomodeling_tpu_torch.io.netcdf import read_netcdf_info
 
                 self._info = read_netcdf_info(path, self.variable)
+            elif path.lower().endswith((".ntf", ".nitf")):
+                # from the headers: no segment decoded for it
+                from dask_geomodeling_tpu_torch.io.nitf import read_nitf_info
+
+                self._info = read_nitf_info(path)
             elif path.lower().endswith(".vrt"):
                 from dask_geomodeling_tpu_torch.io.vrt import read_vrt_info
 

@@ -5,7 +5,8 @@ VRT, PNG, the plain-grid formats (SRTM and DTED, Esri ASCII and XYZ,
 Surfer, SAGA, Idrisi, ENVI), the tile pyramids (MBTiles and the
 GeoPackage tile layers: a ``.gpkg`` given to a raster reader is always
 read as tiles), ERDAS Imagine (HFA) ``.img`` files, GRIB editions 1 and
-2 (``.grib``, ``.grib2``, ``.grb``, ``.grb2``, ``.gb2``), Zarr v2
+2 (``.grib``, ``.grib2``, ``.grb``, ``.grb2``, ``.gb2``), NITF
+(``.ntf``, ``.nitf``), Zarr v2
 stores, HDF4 and netCDF (classic, and netCDF-4/HDF5 where h5py is
 importable): ``read_geotiff_cached`` decodes a whole file or store into an
 mtime-validated LRU, choosing the reader
@@ -61,12 +62,12 @@ _VECTOR_CACHE_SIZE = 16
 #: JAX module that reads each; the port reads GeoTIFF, VRT, Zarr stores,
 #: HDF4, netCDF and the formats of ``whole_file_reader``, the tile
 #: pyramids (a JPEG or WebP tile in them raises, naming
-#: io/gpkg_raster.py) and GRIB (a JPEG 2000 field raises, naming
-#: io/grib.py) among them
+#: io/gpkg_raster.py), GRIB (a JPEG 2000 field raises, naming
+#: io/grib.py) and NITF (a JPEG or JPEG 2000 segment raises, naming
+#: io/nitf.py) among them
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
     (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
-    (".ntf", ".nitf"): "io/nitf.py",
 }
 _NETCDF_SUFFIXES = (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5")
 #: HDF4 by its magic, HDF5 (read as netCDF-4) otherwise
@@ -116,7 +117,7 @@ def whole_file_reader(path):
     ``.dat`` and ``.raw`` are ENVI when a header sits beside them), or
     None for GeoTIFF and VRT."""
     from dask_geomodeling_tpu_torch.io import (
-        asciigrid, dem, envi, gpkg_raster, grib, hfa, mbtiles, png, simplegrids,
+        asciigrid, dem, envi, gpkg_raster, grib, hfa, mbtiles, nitf, png, simplegrids,
     )
 
     lower = path.lower()
@@ -124,6 +125,7 @@ def whole_file_reader(path):
         ((".asc", ".agr"), asciigrid.read_ascii_grid),
         ((".xyz",), asciigrid.read_xyz),
         ((".png",), png.read_png),
+        ((".ntf", ".nitf"), nitf.read_nitf),
         ((".hgt",), dem.read_hgt),
         ((".dt0", ".dt1", ".dt2"), dem.read_dted),
         ((".grib", ".grib2", ".grb", ".grb2", ".gb2"), grib.read_grib),

@@ -353,12 +353,26 @@ def test_window_cache(root, monkeypatch):
     assert len(decodes) == 2
 
 
+def c3_nitf():
+    """The bytes of a NITF 2.1 file of one JPEG-compressed (IC = C3) 4 x 4
+    segment, written with tests/test_nitf.py's encoder."""
+    import tests.test_nitf as nitf_tests
+
+    values = np.zeros((1, 4, 4), np.uint8)
+    subheader = nitf_tests._image_subheader(values, icords=" ", ic=b"C3")
+    payload = b"\xff\xd8\xff\xd9"
+    return nitf_tests._file_header([(subheader, payload)]) + subheader + payload
+
+
 @pytest.mark.parametrize("name, module", [("a.jp2", "io/jp2.py"), ("a.ntf", "io/nitf.py"),
                                           ("a.bmp", "io/jpeg.py"), ("a.j2k", "io/jp2.py"),
                                           ("a.gif", "io/jpeg.py"),
                                           ("a.jpg", "io/jpeg.py")])
 def test_unported_format_names_its_module(root, name, module):
-    (root / name).write_bytes(b"not read")
+    """A raster format the port does not read raises NotImplementedError
+    naming the JAX module that reads it; a NITF file is read but for its
+    JPEG (C3) segments."""
+    (root / name).write_bytes(c3_nitf() if name.endswith(".ntf") else b"not read")
     source = port.RasterFileSource(name)
     with pytest.raises(NotImplementedError, match=module):
         source.info

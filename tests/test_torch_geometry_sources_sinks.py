@@ -8,7 +8,8 @@ JAX-package view and on the port's view of it (``from_reference``,
 ``device="cpu"``): the same features (geometries bitwise, the same
 values, dtypes and index), the same extents, the same file names (each
 partial file's stem is the request's token) and the same bytes (GeoJSON,
-Shapefile, GML, MIF/MID, TopoJSON; GeoPackage and SpatiaLite contents).
+Shapefile, GML, MIF/MID, TopoJSON, FlatGeobuf; GeoPackage and SpatiaLite
+contents).
 GeometryTiler over boxes and over a non-rectangular request geometry
 plans the JAX package's pieces.
 """
@@ -37,7 +38,7 @@ from tests.test_torch_field_ops import assert_same_frame
 from tests.test_torch_vector_formats import repaired_gml_writer, same_file, sqlite_contents
 from tests.test_torch_vectorfile import _family, assert_same_read, gpkg_contents
 
-FORMATS = ["geojson", "geojsonl", "gpkg", "shp", "gml", "kml", "csv"]
+FORMATS = ["geojson", "geojsonl", "gpkg", "shp", "gml", "kml", "csv", "fgb"]
 
 
 @pytest.fixture
@@ -241,9 +242,9 @@ def test_geopackage_rtree_read_above_the_limit(root, limit, projection):
 
 
 def test_unported_format_raises_naming_its_module(root):
-    (root / "data.fgb").write_bytes(b"fgb\x03fgb\x00")
-    source = port_blocks.GeometryFileSource("data.fgb")
-    with pytest.raises(NotImplementedError, match="flatgeobuf"):
+    (root / "data.parquet").write_bytes(b"PAR1")
+    source = port_blocks.GeometryFileSource("data.parquet")
+    with pytest.raises(NotImplementedError, match="io/vectorfile.py"):
         source.get_data(device="cpu", mode="intersects", geometry=geometry.box(0, 0, 1, 1),
                         projection="EPSG:4326")
 
@@ -323,7 +324,8 @@ def _sink_pair(root, source_name, ext, fields=None):
 REQUEST_ALL = dict(mode="intersects", projection="EPSG:4326")
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson",
+                                 "fgb"])
 @pytest.mark.parametrize("fields", [None, {"renamed": "value"}, {"target": "name", "v": "value"}])
 def test_sink(root, frame_file, ext, fields):
     jax_sink, port_sink = _sink_pair(root, frame_file, ext, fields)
@@ -346,11 +348,10 @@ def test_sink_validation(root, frame_file):
         GeometryFileSink(source, "out", extension="geojson", fields={"x": "nope"})
     with pytest.raises(ValueError):
         GeometryFileSink(source, "out", extension="shp", fields={"target": "nonexisting"})
-    for ext in ("parquet", "fgb"):
-        with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/"):
-            GeometryFileSink(source, "out", extension=ext)
+    with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/"):
+        GeometryFileSink(source, "out", extension="parquet")
     assert sorted(GeometryFileSink.supported_extensions) == [
-        "geojson", "gml", "gpkg", "mif", "shp", "sqlite", "topojson"]
+        "fgb", "geojson", "gml", "gpkg", "mif", "shp", "sqlite", "topojson"]
 
 
 def test_sink_without_features_writes_nothing(root, frame_file):
@@ -369,7 +370,8 @@ def _targets(root, name):
     return str(root / "port_result" / name), str(root / "jax_result" / name)
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson",
+                                 "fgb"])
 def test_merge_files(root, frame_file, ext):
     """Partial files of several requests merged, against the JAX merge
     of the same partials; a single partial is copied with its sidecars."""
@@ -405,7 +407,8 @@ def test_merge_keeps_int_and_bool_columns_across_tiles(root):
     assert port["features"]["flag"].dtype == bool
 
 
-@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson"])
+@pytest.mark.parametrize("ext", ["geojson", "gpkg", "shp", "gml", "mif", "sqlite", "topojson",
+                                 "fgb"])
 @pytest.mark.parametrize("tile_size", [None, 4.0])
 def test_to_file(root, frame_file, ext, tile_size):
     jax_source = jax_blocks.GeometryFileSource(frame_file)

@@ -28,8 +28,9 @@ an int16 SRTM tile against the CPU and compute_host, and the phase over a
 1441^2 tile; the zarr-store phase over the 1024^2 sheet; the netcdf-radar
 phase over a small radar file; the hfa-roughness and tile-pyramids phases over a 1024 x 768
 land-use grid; the modis-ndvi phase over a 960^2 HDF4 tile; the grib-forecast phase over
-320 x 75 points and six hourly GRIB2 fields.  This file imports nothing of JAX or pandas, so
-it runs where neither is installed.
+320 x 75 points and six hourly GRIB2 fields; the parcel-imagery phase over a 512^2 NITF
+scene and 256 FlatGeobuf parcels; uint16, uint32 and uint64 sources warped on the card.
+This file imports nothing of JAX or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
 
@@ -425,6 +426,52 @@ def test_grib_forecast_phase_on_card(tmp_path):
     assert numbers["batches_a"] >= 1 and numbers["phase_s"] > 0
     assert [k["path"] for k in kernels] == ["grib-forecast (a)", "grib-forecast (b)"]
     assert all(k["max_abs_err"] == 0.0 for k in kernels)
+
+
+#: chip_smoke's parcel-imagery phase at a small size (the CPU test's)
+PARCELS_SMALL = dict(px=512, block=128, sampled=((0, 5), (0, 6), (2, 6), (6, 0), (7, 2), (4, 4)),
+                     grid=16, cell=600.0, sub=((42, 349), (162, 469)))
+
+
+@pytest.mark.cuda
+def test_parcel_imagery_phase_on_card(tmp_path):
+    """chip_smoke's parcel-imagery phase at PARCELS_SMALL (a 512^2 NITF
+    scene in 128^2 blocks, 16 x 16 FlatGeobuf parcels), in 64^2 tiles,
+    batches of 8: every check of the full run, and the Gaussian's record
+    at (b)'s first batch."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 64, 8
+    try:
+        launches, numbers, kernels = chip_smoke.check_parcel_imagery(
+            "card", device, str(tmp_path), **PARCELS_SMALL)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 8 and launches["moving_max"] == 0
+    assert numbers["features_decoded"]["mean"] >= 256 and numbers["phase_s"] > 0
+    assert [k["path"] for k in kernels] == ["parcel-imagery"]
+    assert kernels[0]["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_unsigned_source_on_card(dtype):
+    """A uint16, uint32 or uint64 source warped on the card (whose
+    torch.where lacks these dtypes) answers as compute_host, nodata and
+    the fill outside the source included."""
+    device = _card()
+    values = (np.arange(3 * 40 * 50) % 1000).astype(dtype).reshape(3, 40, 50)
+    values[:, 5:9, 7:11] = 7
+    source = R.MemorySource(values, 7, "EPSG:28992", pixel_size=10,
+                            pixel_origin=(135000, 456000), time_first=datetime(2000, 1, 1),
+                            time_delta=timedelta(hours=1))
+    request = dict(mode="vals", projection="EPSG:28992", bbox=(134900, 455500, 135600, 456100),
+                   width=70, height=60, start=datetime(2000, 1, 1), stop=datetime(2000, 1, 1, 2))
+    card = source.get_data(device=device, **request)
+    host = compute_host(*source.get_compute_graph(**request))
+    assert card["values"].dtype == host["values"].dtype == np.dtype(dtype)
+    assert card["no_data_value"] == host["no_data_value"]
+    np.testing.assert_array_equal(card["values"], host["values"])
 
 
 # --- building-heights at small size ---

@@ -58,7 +58,8 @@ from dask_geomodeling_tpu_torch.runtime.executor import _reachable, _toposort
 from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("dask_geomodeling_tpu", "jax", "pandas", "bench", "benchmarks", "matplotlib", "PIL")
+FORBIDDEN = ("dask_geomodeling_tpu", "jax", "pandas", "bench", "benchmarks", "matplotlib", "PIL",
+             "flatbuffers")
 
 
 def _port_files():
@@ -221,6 +222,11 @@ def test_port_never_imports_jax():
             "    to_file(view, folder + '/formats.' + ext, tile_size=60.0, projection='EPSG:28992',",
             "            mode='centroid', device='cpu')",
             "    assert len(read_vector(folder + '/formats.' + ext)) > 15, ext",
+            "from dask_geomodeling_tpu_torch.io import nitf",
+            "write_vector(cs.field_frame(grid=2), folder + '/fields.fgb')",
+            "assert len(read_vector(folder + '/fields.fgb')) == 4",
+            "scene, _ = cs.write_scene_nitf(folder, 64, 16)",
+            "assert nitf.read_nitf(scene).array.shape == (4, 64, 64)",
             "view, loaded = cs.build_border_view(128)",
             "assert loaded.token == view.token",
             "request = cs.border_request(loaded, 256)",

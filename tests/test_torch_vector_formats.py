@@ -291,7 +291,7 @@ def test_osm_write_raises_naming_the_format(tmp_path):
 
 def test_supported_extensions_match_the_jax_package_but_two():
     assert vectorfile.supported_extensions == (
-        jax_vectorfile.supported_extensions - {"fgb", "parquet", "geoparquet"})
+        jax_vectorfile.supported_extensions - {"parquet", "geoparquet"})
 
 
 # --- column typing: GML's astype and KML's to_numeric, against pandas ---

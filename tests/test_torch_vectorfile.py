@@ -8,8 +8,9 @@ GeoPackage's contents are equal (its schema, every row, the geometry
 blobs, the gpkg_* tables but the write time, the R-tree entries).  Then
 the R-tree bbox read, unicode text and special floats, the DBF code pages
 and date fields of tests/test_geometry_sources_sinks.py, the unported
-extensions (FlatGeobuf and GeoParquet; the other formats are in
-tests/test_torch_vector_formats.py), and the read cache's stamp.
+extensions (GeoParquet; FlatGeobuf is in tests/test_torch_flatgeobuf.py,
+the other formats in tests/test_torch_vector_formats.py), and the read
+cache's stamp.
 """
 import os
 import sqlite3
@@ -343,7 +344,7 @@ def test_csv_numeric_columns_and_legacy_crs(tmp_path):
     assert_same_read(vectorfile.read_vector(str(legacy)), jax_vectorfile.read_vector(str(legacy)))
 
 
-@pytest.mark.parametrize("ext", ["fgb", "parquet", "geoparquet"])
+@pytest.mark.parametrize("ext", ["parquet", "geoparquet"])
 def test_unported_extensions_raise_naming_their_module(tmp_path, ext):
     port, _ = frames()
     path = str(tmp_path / ("x." + ext))

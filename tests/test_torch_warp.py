@@ -370,3 +370,22 @@ def test_bilinear_integer_rounds():
     host = port_warp.warp_numpy(values, interpolation="bilinear", **kwargs)
     assert host.dtype == np.uint8
     np.testing.assert_array_equal(_bilinear_torch(values, [kwargs["bbox"]], **kwargs)[0], host)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "uint32", "uint64", "int16", "float32"])
+def test_fill_where_keeps_every_value(dtype):
+    """``_fill_where`` (torch.where, through the signed view of the bits for
+    uint16, uint32 and uint64, which CUDA's torch.where lacks) fills the
+    masked cells with the dtype's maximum and keeps the others, as
+    np.where does."""
+    from dask_geomodeling_tpu_torch.device import torch_dtype
+    from dask_geomodeling_tpu_torch.ops.warp import _fill_where
+
+    np_dtype = np.dtype(dtype)
+    top = np.finfo(np_dtype).max if np_dtype.kind == "f" else np.iinfo(np_dtype).max
+    values = np.array([0, 1, top // 2, top - 1, top, 7], dtype=np_dtype)
+    mask = np.array([True, False, True, False, False, True])
+    got = _fill_where(torch.from_numpy(values.copy()).to(torch_dtype(np_dtype)),
+                      torch.from_numpy(mask), np_dtype.type(top).item())
+    assert got.dtype == torch_dtype(np_dtype)
+    assert got.cpu().tolist() == np.where(mask, top, values).tolist()
