@@ -8,7 +8,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: csrc/gaussian_blur.cu and csrc/moving_max.cu with nvcc for
-   sm_90a, from this checkout, both at once; then the elevation sheet of
+   sm_90a, and the host C++ (the port's native/tiffcodec.cpp and
+   native/rasterize.cpp, and this script's chip_smoke_encoders.cpp) with
+   g++, from this checkout, all at once; then the elevation sheet of
    the file paths (write_sheet: one AHN sheet, 10000 x 12500 float32 at
    0.5 m in EPSG:28992, written with the port's GeoTIFF writer into a
    temporary folder);
@@ -76,7 +78,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    of a 600-vertex polygon with a hole, both static at 1970-01-01; the
    parity twin timed over one batch) and rasterize (Add(Rasterize(256
    parcels, "code"), 1) at 2048^2: a host node per tile, its results
-   stacked into the Add twin);
+   stacked into the Add twin; its polygons burned natively, never by
+   the numpy scanline, and on each tile the native burn bitwise equal to
+   the numpy scanline's);
 9. zonal: the zonal half of benchmarks/run.py's temporal+zonal config
    (build_zonal_views: 4096 star-shaped parcels and 16 smaller than a
    cell over the temporal-mean view, MockGeometry's copy as the source):
@@ -309,6 +313,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    merged into one, read back equal to the partials, its R-tree search
    equal to a box filter; (e) a JPEG (C3) segment, a truncated NITF and a
    FlatGeobuf of a bad magic refused with the JAX package's errors;
+10n. lzw-sheet (check_lzw_sheet): (a) the sheet as a tiled LZW GeoTIFF
+   (write_lzw_sheet: 512^2 tiles, predictor 1, encoded as libtiff does
+   by chip_smoke_encoders.cpp) under file-read's view and request, 500
+   tiles read by window, every cell equal to file-read's, every chunk
+   decoded natively on the codec's pool (their count, MB, MB/s and the
+   most at once), none by the pure-Python decoder, which is timed apart
+   on 64 KiB of the central tile; (b) hfa-roughness' classes as a
+   stripped PackBits GeoTIFF (write_lgn_packbits) under its chain, every
+   cell equal to hfa-roughness' answer; (d) a HostPool of two local
+   worker processes, started as the phase begins, answering sampled
+   tiles' graphs equal to compute_host, its /status.json read, every
+   worker stopped; the first Gaussian of (a) and (b) torch.equal to its
+   plain version;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -323,8 +340,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    integer entry) and at the building-heights and wms-serving paths'
    single planes, both kernels on dem-formats' int16 batch, and the
    Gaussian on netcdf-radar's zoom-mode batch, on hfa-roughness' float64
-   batch, on grib-forecast's first float64 batches of (a) and (b) and on
-   parcel-imagery's first float64 batch, one kernel record each.
+   batch, on grib-forecast's first float64 batches of (a) and (b), on
+   parcel-imagery's first float64 batch and on lzw-sheet's first batches
+   of (a) and (b), one kernel record each; the rasterize path's plan with
+   the numpy scanline, one run, beside the native burn's.
 
 The views are built with the port's own classes (private copies of
 bench.py's and benchmarks/run.py's builders) and checked against the
@@ -334,6 +353,7 @@ script exits non-zero before printing any result.  It imports nothing of
 JAX, pandas, matplotlib, Pillow, flatbuffers or the JAX package, and
 checks that at the end.
 """
+import functools
 import json
 import os
 import shutil
@@ -1885,28 +1905,41 @@ def same(a, b):
 
 
 def build_kernels():
-    """Build both kernel libraries at once (one nvcc each); prints each
-    build's time and ptxas lines."""
+    """Build both kernel libraries and the host's C++ (the port's native
+    TIFF decoders and rasterizer, and chip_smoke_encoders.cpp) at once (one
+    nvcc or g++ each); prints each build's time and ptxas lines."""
+    from dask_geomodeling_tpu_torch import native
     from dask_geomodeling_tpu_torch.ops import _build
 
     names = ["gaussian_blur", "moving_max"]
+    host = {"tiffcodec": native.load_tiffcodec, "rasterize": native.load_rasterizer,
+            "chip_smoke_encoders": fixture_encoders}
     errors = []
 
     def build(name):
         try:
-            _build.load_library(name)
+            if name in host:
+                host[name]()
+            else:
+                _build.load_library(name)
         except Exception as exc:  # reported below, then raised
             errors.append((name, exc))
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=build, args=(name,)) for name in names]
+    threads = [threading.Thread(target=build, args=(name,)) for name in names + list(host)]
     for thread in threads:
         thread.start()
     for thread in threads:
         thread.join()
     if errors:
         raise RuntimeError("kernel build failed: %s: %s" % errors[0])
-    print("build: %s in %.2f s" % (", ".join(n + ".cu" for n in names), time.perf_counter() - t0))
+    print("build: %s and %s in %.2f s" % (", ".join(n + ".cu" for n in names),
+                                          ", ".join(n + ".cpp" for n in host),
+                                          time.perf_counter() - t0))
+    for name in host:
+        log = _build.build_log[name]
+        print("build: %s.cpp g++ %.2f s%s" % (name, log["seconds"],
+                                            " (%s)" % log["log"] if not log["seconds"] else ""))
     for name in names:
         log = _build.build_log[name]
         print("build: %s.cu nvcc %.2f s" % (name, log["seconds"]))
@@ -5412,6 +5445,9 @@ def check_parcel_imagery(card, device, folder, px=SCENE_PX, block=SCENE_BLOCK,
         os.remove(name)
     pipeline.clear_read_cache()
 
+    # the path's launches, read before the kernel's timing launches it
+    path_launches = {"gaussian_blur": cuda_stencils.launches,
+                     "moving_max": cuda_stencils.moving_max_launches}
     kernels = []
     if planes.is_cuda:
         kernels = [dict(time_gaussian(planes[:BATCH].contiguous(), sigma), max_abs_err=err,
@@ -5419,9 +5455,546 @@ def check_parcel_imagery(card, device, folder, px=SCENE_PX, block=SCENE_BLOCK,
     del planes, spy
     numbers["phase_s"] = time.perf_counter() - phase_t0
     print("parcel-imagery: Gaussian %d launches on the path, %d of them in (b); the phase %.2f s "
-          "[%s]" % (cuda_stencils.launches, launches, numbers["phase_s"], card))
-    return ({"gaussian_blur": cuda_stencils.launches,
-             "moving_max": cuda_stencils.moving_max_launches}, numbers, kernels)
+          "[%s]" % (path_launches["gaussian_blur"], launches, numbers["phase_s"], card))
+    return path_launches, numbers, kernels
+
+
+#: the lzw-sheet phase: the sheet as a tiled LZW GeoTIFF (predictor 1: the
+#: port, like the JAX reader, refuses the floating-point predictor 3) and
+#: hfa-roughness' land use as a stripped PackBits GeoTIFF, both encoded by
+#: chip_smoke_encoders.cpp; a host pool of
+#: POOL_WORKERS local workers answers POOL_TILES sampled tiles
+ENCODERS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_encoders.cpp")
+LZW_TILE = 512
+PACKBITS_ROWS = 8  # rows a strip: 64 KB strips of the 8000-wide land use
+LZW_SAMPLED = 8
+POOL_WORKERS = 2
+POOL_TILES = 2
+#: rows of a file tile the pure-Python decoder times, 64 KiB: its time
+#: grows with the square of a stream's length (the bit accumulator is never
+#: trimmed), so a whole 1 MiB tile takes minutes
+PYTHON_ROWS = 32
+_TIFF_TYPES = {"H": 3, "I": 4, "d": 12, "s": 2}  # struct code: SHORT, LONG, DOUBLE, ASCII
+
+
+@functools.cache
+def fixture_encoders():
+    """chip_smoke_encoders.cpp built with g++ by the port's ops/_build.py
+    (into its _build/, at first use) and loaded with ctypes, its
+    signatures declared once."""
+    import ctypes
+
+    from dask_geomodeling_tpu_torch.ops import _build
+
+    lib = _build.load_host_library(ENCODERS)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    lib.lzw_encode.restype = ctypes.c_int64
+    lib.lzw_encode.argtypes = [u8_p, ctypes.c_int64, u8_p, ctypes.c_int64]
+    lib.packbits_encode_rows.restype = ctypes.c_int64
+    lib.packbits_encode_rows.argtypes = [u8_p, ctypes.c_int64, ctypes.c_int64, u8_p,
+                                         ctypes.c_int64]
+    return lib
+
+
+def lzw_encode(chunk):
+    """One TIFF LZW chunk of the bytes of the C-contiguous array ``chunk``
+    (libtiff's stream: see chip_smoke_encoders.cpp)."""
+    import ctypes
+
+    src = np.ascontiguousarray(chunk).reshape(-1).view(np.uint8)
+    capacity = src.size * 3 // 2 + 64  # at most 12 bits a byte, and the codes around
+    out = np.empty(capacity, np.uint8)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    n = fixture_encoders().lzw_encode(src.ctypes.data_as(u8_p), src.size,
+                                      out.ctypes.data_as(u8_p), capacity)
+    check(n >= 0, "lzw_encode: the output outgrew %d bytes" % capacity)
+    return out[:n].tobytes()
+
+
+def packbits_encode(rows):
+    """The PackBits chunk of the 2D uint8 array ``rows``, each row on its own."""
+    import ctypes
+
+    rows = np.ascontiguousarray(rows, np.uint8)
+    capacity = 2 * rows.size + 16  # a literal byte between two repeats costs two
+    out = np.empty(capacity, np.uint8)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    n = fixture_encoders().packbits_encode_rows(rows.ctypes.data_as(u8_p), rows.shape[0],
+                                                rows.shape[1], out.ctypes.data_as(u8_p),
+                                                capacity)
+    check(n >= 0, "packbits_encode: the output outgrew %d bytes" % capacity)
+    return out[:n].tobytes()
+
+
+def write_coded_tiff(path, values, geo_transform, projection, no_data_value, compression,
+                     predictor=1, tile=None, rows_per_strip=None):
+    """A classic little-endian single-band GeoTIFF of the 2D array
+    ``values``, as GDAL lays one out: compression 5 (LZW, lzw_encode) or
+    32773 (PackBits, packbits_encode) in tile^2 tiles (edge tiles padded
+    with zeros) or in strips of rows_per_strip rows; ``predictor`` 2 stores
+    each row's differences (integers, modulo their width); the georeference
+    as the port's writer writes it (pixel scale, tiepoint, GeoKeys,
+    GDAL_NODATA).  The chunks encode on the port's codec pool (the
+    encoders release the GIL).  Returns the chunks' bytes in all."""
+    from dask_geomodeling_tpu_torch.io.geotiff import _geokeys_for_projection, _map_chunks
+
+    height, width = values.shape
+    if predictor == 2:
+        stored = values.copy()
+        np.subtract(values[:, 1:], values[:, :-1], out=stored[:, 1:])
+    else:
+        stored = values
+    if tile is not None:
+        pieces = []
+        for row in range(0, height, tile):
+            for col in range(0, width, tile):
+                piece = np.zeros((tile, tile), values.dtype)
+                sub = stored[row : row + tile, col : col + tile]
+                piece[: sub.shape[0], : sub.shape[1]] = sub
+                pieces.append(piece)
+    else:
+        pieces = [stored[row : row + rows_per_strip] for row in range(0, height, rows_per_strip)]
+    encode = lzw_encode if compression == 5 else packbits_encode
+    chunks = _map_chunks(encode, pieces)
+    geokeys, ascii_params = _geokeys_for_projection(projection)
+    p, a, _, q, _, d = geo_transform
+    n = len(chunks)
+    tags = [(256, "I", [width]), (257, "I", [height]),
+            (258, "H", [values.dtype.itemsize * 8]), (259, "H", [compression]),
+            (262, "H", [1]), (277, "H", [1]), (284, "H", [1]),
+            (339, "H", [{"u": 1, "i": 2, "f": 3}[values.dtype.kind]]),
+            (33550, "d", [abs(a), abs(d), 0.0]), (33922, "d", [0.0, 0.0, 0.0, p, q, 0.0]),
+            (34735, "H", geokeys), (42113, "s", repr(float(no_data_value)))]
+    if ascii_params:
+        tags.append((34737, "s", ascii_params))
+    if predictor != 1:
+        tags.append((317, "H", [predictor]))
+    if tile is not None:
+        tags += [(322, "H", [tile]), (323, "H", [tile]), (324, "I", [0] * n),
+                 (325, "I", [len(c) for c in chunks])]
+    else:
+        tags += [(273, "I", [0] * n), (278, "I", [rows_per_strip]),
+                 (279, "I", [len(c) for c in chunks])]
+    tags.sort()
+    ifd_size = 2 + 12 * len(tags) + 4
+
+    def payload(kind, entry):
+        if kind == "s":
+            return entry.encode("ascii") + b"\0"
+        return struct.pack("<%d%s" % (len(entry), kind), *entry)
+
+    extra_size = sum(-(-len(payload(kind, entry)) // 2) * 2 for _, kind, entry in tags
+                     if len(payload(kind, entry)) > 4)
+    data_start = 8 + ifd_size + extra_size
+    offsets = list(np.cumsum([data_start] + [len(c) for c in chunks[:-1]]))
+    ifd, extra = [struct.pack("<H", len(tags))], []
+    at = 8 + ifd_size
+    for tag, kind, entry in tags:
+        if tag in (273, 324):
+            entry = [int(o) for o in offsets]
+        blob = payload(kind, entry)
+        count = len(blob) if kind == "s" else len(entry)
+        if len(blob) <= 4:
+            ifd.append(struct.pack("<HHI", tag, _TIFF_TYPES[kind], count) + blob.ljust(4, b"\0"))
+        else:
+            ifd.append(struct.pack("<HHII", tag, _TIFF_TYPES[kind], count, at))
+            blob = blob.ljust(-(-len(blob) // 2) * 2, b"\0")
+            extra.append(blob)
+            at += len(blob)
+    ifd.append(struct.pack("<I", 0))
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8))
+        f.write(b"".join(ifd))
+        f.write(b"".join(extra))
+        check(f.tell() == data_start, "write_coded_tiff: the layout is off")
+        for chunk in chunks:
+            f.write(chunk)
+    return sum(len(c) for c in chunks)
+
+
+def write_lzw_sheet(folder, sheet, name="sheet_lzw.tif"):
+    """The sheet at ``sheet`` (a GeoTIFF of write_sheet, read whole) as a
+    tiled LZW GeoTIFF of LZW_TILE^2 tiles, predictor 1; returns (path,
+    chunk bytes)."""
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff
+
+    source = read_geotiff(sheet)
+    path = os.path.join(folder, name)
+    size = write_coded_tiff(path, source.array[0], source.geo_transform, source.projection,
+                            source.no_data_value, 5, tile=LZW_TILE)
+    return path, size
+
+
+def write_lgn_packbits(folder, classes, name="lgn_packbits.tif"):
+    """hfa-roughness' classes as a stripped PackBits GeoTIFF (PACKBITS_ROWS
+    rows a strip, no predictor: libtiff's PackBits codec applies none, so
+    GDAL writes and reads PackBits without one), nodata 0 as the .img's
+    Eimg_NonInitializedValue, and lgn_rat(classes) as its PAM sidecar;
+    returns (path, chunk bytes)."""
+    from dask_geomodeling_tpu_torch.io.pam import write_raster_attribute_table
+
+    path = os.path.join(folder, name)
+    size = write_coded_tiff(path, classes, LGN_GEO_TRANSFORM, "EPSG:28992", 0, 32773,
+                            rows_per_strip=PACKBITS_ROWS)
+    write_raster_attribute_table(path, lgn_rat(classes))
+    return path, size
+
+
+class call_spy:
+    """While installed, each (owner, attribute) wrapped: the calls, the
+    seconds inside them summed over threads, and the most calls in flight
+    at once, per attribute name; thread-safe."""
+
+    def __init__(self, patches):
+        self.patches = patches
+        names = [attribute for _, attribute in patches]
+        self.calls = dict.fromkeys(names, 0)
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.most = dict.fromkeys(names, 0)
+        self._active = dict.fromkeys(names, 0)
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _wrap(self, func, name):
+        def counted(*args, **kwargs):
+            with self._lock:
+                self._active[name] += 1
+                self.most[name] = max(self.most[name], self._active[name])
+            t0 = time.perf_counter()
+            try:
+                return func(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self._active[name] -= 1
+                    self.calls[name] += 1
+                    self.seconds[name] += time.perf_counter() - t0
+
+        return counted
+
+    def __enter__(self):
+        for owner, attribute in self.patches:
+            raw = getattr(owner, attribute)
+            self._saved.append((owner, attribute, raw))
+            setattr(owner, attribute, self._wrap(raw, attribute))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attribute, raw in reversed(self._saved):
+            setattr(owner, attribute, raw)
+        self._saved = []
+        return False
+
+
+def native_spy():
+    """A call_spy over the native TIFF decode and burn, the pure-Python
+    decoders and the numpy polygon scanline."""
+    from dask_geomodeling_tpu_torch import native
+    from dask_geomodeling_tpu_torch.geo import rasterize
+    from dask_geomodeling_tpu_torch.io import geotiff
+
+    return call_spy([(native, "tiff_decode_native"), (native, "rasterize_native"),
+                     (geotiff, "_lzw_decode"), (geotiff, "_packbits_decode"),
+                     (rasterize, "_burn_polygon_rows")])
+
+
+def check_native_only(label, spy):
+    """No pure-Python decode and no numpy polygon scanline under ``spy``."""
+    plain = {name: spy.calls[name]
+             for name in ("_lzw_decode", "_packbits_decode", "_burn_polygon_rows")}
+    check(not any(plain.values()), "%s: the plain versions ran on the path: %s" % (label, plain))
+
+
+def spawn_host_workers(address, token, count):
+    """``count`` port host workers (python -m
+    dask_geomodeling_tpu_torch.parallel.hostworker) joining ``address``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    return [subprocess.Popen([sys.executable, "-m",
+                              "dask_geomodeling_tpu_torch.parallel.hostworker", address,
+                              "--token", token], cwd=root, env=env, stdin=subprocess.DEVNULL)
+            for _ in range(count)]
+
+
+def stop_processes(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def check_lzw_sheet(card, device, folder, sheet, file_read, read_values, lgn,
+                    sampled_tiles=LZW_SAMPLED, pool_workers=POOL_WORKERS):
+    """The lzw-sheet phase: (a) the sheet at ``sheet`` written as a tiled
+    LZW GeoTIFF (write_lzw_sheet), file-read's view and request over it
+    with the checks of check_algebra_path (bitwise, no second get_data
+    run), every cell equal to file-read's ``read_values``, every chunk
+    decoded natively (their count, MB, MB/s over the decodes' summed
+    seconds and the most decoded at once: a window's tiles on the codec's
+    pool), none in Python; the central file tile's native decode timed,
+    and its first PYTHON_ROWS rows as one stream by the pure-Python
+    decoder, the same bytes; (b) ``lgn["classes"]`` (hfa-roughness') as a
+    stripped PackBits GeoTIFF (write_lgn_packbits), hfa-roughness' chain at lgn_request with the
+    checks of check_algebra_path, every cell equal to ``lgn["values"]``
+    (hfa-roughness' answer; both taken out of ``lgn``), natively decoded;
+    (d) a HostPool of ``pool_workers`` local worker processes (started as
+    the phase begins): POOL_TILES of (a)'s sampled tiles' compute graphs
+    through ``pool.scheduler`` equal to compute_host in this process, its
+    /status.json read once; every worker stopped.  The first Gaussian of
+    (a) and of (b) torch.equal to its plain version.  Returns (launches,
+    numbers, the Gaussian's kernel records on the card); removes the
+    files."""
+    import secrets
+    import urllib.request
+
+    from dask_geomodeling_tpu_torch import compute_host, native
+    from dask_geomodeling_tpu_torch.io.geotiff import _lzw_decode, _open_tiff
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.parallel import HostPool
+    from dask_geomodeling_tpu_torch.raster import RasterFileSource, Smooth
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    phase_t0 = time.perf_counter()
+    numbers, procs = {}, []
+    token = secrets.token_hex(8)
+    pool = HostPool(token=token, dashboard_port=0)
+    try:
+        procs += spawn_host_workers(pool.address, token, pool_workers)
+        file_view, request, interpolation, corner = file_read
+        tiles, _ = tile_requests(request, TILE)
+        cuda_stencils.reset_launches()
+
+        # (a) the LZW sheet
+        t0 = time.perf_counter()
+        path, size = write_lzw_sheet(folder, sheet)
+        numbers["lzw_write_s"] = time.perf_counter() - t0
+        numbers["lzw_mb"] = size / 1e6
+        print("lzw-sheet (a): the sheet written as a tiled LZW GeoTIFF (%d^2 tiles, predictor "
+              "1, chip_smoke_encoders.cpp) in %.2f s, %.1f MB of chunks (%.3f of the raw bytes) "
+              "[%s]" % (LZW_TILE, numbers["lzw_write_s"], size / 1e6,
+                        size / (4 * request["width"] * request["height"]), card))
+        source = RasterFileSource(path)
+        reference = file_view.store
+        check((source.info.width, source.info.height, source.info.dtype, source.projection,
+               source.info.no_data_value, tuple(source.geo_transform))
+              == (reference.info.width, reference.info.height, reference.info.dtype,
+                  reference.projection, reference.info.no_data_value,
+                  tuple(reference.geo_transform)), "lzw-sheet (a): the header differs from the "
+              "deflate sheet's")
+        check(source._file_read_plan(request) is not None, "lzw-sheet (a): the read is not "
+              "windowed")
+        view = Smooth(source, 3)
+        native.reset_counts()
+        phases, gaussians = {}, gaussian_calls()
+        with native_spy() as spy:
+            host_rate, values = check_algebra_path(
+                "lzw-sheet", device, view, request, interpolation, corner, share=0.0,
+                sampled_tiles=sampled_tiles, first_run=(gaussians, phases), routed=False)
+        decodes = dict(native.counts)
+        check_native_only("lzw-sheet (a)", spy)
+        check(decodes["tiff_decodes"] > 0 and spy.calls["tiff_decode_native"]
+              == decodes["tiff_decodes"], "lzw-sheet (a): %r native decodes" % decodes)
+        differ = int(np.count_nonzero(values != read_values))
+        check(differ == 0, "lzw-sheet (a): %d cells differ from file-read" % differ)
+        del values
+        launches_a = cuda_stencils.launches
+        check(launches_a > 0, "lzw-sheet (a): the Gaussian did not launch")
+        seconds = spy.seconds["tiff_decode_native"]
+        numbers.update(first_phases_s=phases, host_mpx_per_s=host_rate,
+                       native_decodes=decodes["tiff_decodes"],
+                       decoded_mb=decodes["tiff_bytes"] / 1e6, decode_s=seconds,
+                       decode_mb_per_s=decodes["tiff_bytes"] / 1e6 / seconds,
+                       most_decodes_at_once=spy.most["tiff_decode_native"])
+        print("lzw-sheet (a): every cell equal to file-read's; %d native LZW decodes, %.1f MB in "
+              "%.3f s summed over threads (%.1f MB/s a thread), at most %d at once; no Python "
+              "decode; first run %s; Gaussian %d launches [%s]" % (
+                  decodes["tiff_decodes"], numbers["decoded_mb"], seconds,
+                  numbers["decode_mb_per_s"], numbers["most_decodes_at_once"],
+                  ", ".join("%s %.4f s" % kv for kv in phases.items()), launches_a, card))
+        timed = [plain_gaussian_check("lzw-sheet (a)", gaussians, gaussian_blur_reference)]
+
+        # (b) the PackBits land use
+        classes, expected = lgn.pop("classes"), lgn.pop("values")
+        height, width = classes.shape
+        t0 = time.perf_counter()
+        lgn_path, size = write_lgn_packbits(folder, classes)
+        numbers["packbits_write_s"] = time.perf_counter() - t0
+        numbers["packbits_mb"] = size / 1e6
+        lgn_view = build_lgn_view(lgn_path)
+        lgn_req = lgn_request(width, height)
+        whole = lgn_view.args[0].args[0]._file_read_plan(lgn_req) is None
+        native.reset_counts()
+        phases_b, gaussians_b = {}, gaussian_calls()
+        with native_spy() as spy:
+            host_rate_b, values = check_algebra_path(
+                "packbits-landuse", device, lgn_view, lgn_req, "nearest",
+                (lgn_req["bbox"][0], lgn_req["bbox"][3]), share=0.0, sampled_tiles=1,
+                first_run=(gaussians_b, phases_b), routed=False)
+        decodes = dict(native.counts)
+        check_native_only("lzw-sheet (b)", spy)
+        strips = -(-height // PACKBITS_ROWS)
+        check(decodes["tiff_decodes"] == strips if whole else decodes["tiff_decodes"] >= strips,
+              "lzw-sheet (b): %d native PackBits decodes of %d strips"
+              % (decodes["tiff_decodes"], strips))
+        check(values.shape == expected.shape and values.dtype == expected.dtype
+              and np.array_equal(values, expected), "lzw-sheet (b): the answer differs from "
+              "hfa-roughness'")
+        del values, expected
+        numbers.update(packbits_phases_s=phases_b, packbits_decodes=decodes["tiff_decodes"],
+                       packbits_decode_s=spy.seconds["tiff_decode_native"])
+        print("lzw-sheet (b): %d x %d land-use classes as a stripped PackBits GeoTIFF (%d rows a "
+              "strip) written in %.2f s, %.1f MB, read %s; every cell equal to "
+              "hfa-roughness' answer; %d native PackBits decodes in %.3f s summed, at most %d "
+              "at once, no Python decode; first run %s; Gaussian %d launches [%s]" % (
+                  width, height, PACKBITS_ROWS, numbers["packbits_write_s"], size / 1e6,
+                  "whole" if whole else "by window",
+                  decodes["tiff_decodes"], spy.seconds["tiff_decode_native"],
+                  spy.most["tiff_decode_native"],
+                  ", ".join("%s %.4f s" % kv for kv in phases_b.items()),
+                  cuda_stencils.launches - launches_a, card))
+        timed.append(plain_gaussian_check("lzw-sheet (b)", gaussians_b,
+                                          gaussian_blur_reference))
+        del classes
+
+        # (d) the host pool: sampled tiles of (a) in the workers
+        t0 = time.perf_counter()
+        pool.wait_for_workers(pool_workers, timeout=120)
+        numbers["pool_join_s"] = time.perf_counter() - t0
+        picks = list(range(0, len(tiles), max(1, len(tiles) // POOL_TILES)))[:POOL_TILES]
+        t0 = time.perf_counter()
+        for k in picks:
+            graph, name = view.get_compute_graph(**tiles[k])
+            (pooled,) = pool.scheduler(graph, [name])
+            here = compute_host(graph, name)
+            check(pooled["values"].dtype == here["values"].dtype
+                  and np.array_equal(pooled["values"], here["values"]),
+                  "lzw-sheet (d): tile %d from the pool differs from compute_host" % k)
+        numbers["pool_s"] = time.perf_counter() - t0
+        with urllib.request.urlopen("http://%s/status.json" % pool.dashboard_address,
+                                    timeout=30) as response:
+            status = json.loads(response.read())
+        check(status["n_workers"] == pool_workers and status["completed"] > 0
+              and status["failed"] == 0 and len(status["per_worker"]) >= 1,
+              "lzw-sheet (d): the pool's status %r" % status)
+        numbers["pool_status"] = status
+        print("lzw-sheet (d): a HostPool of %d local workers (started with the phase, waited "
+              "for %.2f s here) answered %d sampled tiles' graphs equal to compute_host "
+              "in %.2f s; /status.json: %d tasks completed, %d failed, %d workers" % (
+                  pool_workers, numbers["pool_join_s"], len(picks), numbers["pool_s"],
+                  status["completed"], status["failed"], status["n_workers"]))
+
+        # the plain decoder on PYTHON_ROWS rows of the central file tile,
+        # one stream, against the native decoder on it and on the tile
+        f, _, tags = _open_tiff(path)
+        try:
+            middle = len(tags[324]) // 2
+            f.seek(tags[324][middle])
+            chunk = f.read(tags[325][middle])
+        finally:
+            f.close()
+        t0 = time.perf_counter()
+        tile = native.tiff_decode_native("lzw", chunk, LZW_TILE * LZW_TILE * 4)
+        native_s = time.perf_counter() - t0
+        band = lzw_encode(np.frombuffer(tile, np.uint8)[: PYTHON_ROWS * LZW_TILE * 4])
+        t0 = time.perf_counter()
+        plain = _lzw_decode(band)
+        python_s = time.perf_counter() - t0
+        check(plain == native.tiff_decode_native("lzw", band, len(plain))
+              == tile[: len(plain)] and len(plain) == PYTHON_ROWS * LZW_TILE * 4,
+              "lzw-sheet: the Python decode differs from the native one")
+        numbers.update(python_band_s=python_s, python_band_bytes=len(plain),
+                       native_tile_s=native_s, native_tile_bytes=len(tile))
+        print("lzw-sheet: the central file tile (%d bytes of LZW, %d decoded) natively in %.5f s "
+              "(%.1f MB/s); its first %d rows as one stream (%d bytes, %d decoded) in Python "
+              "%.3f s (%.4f MB/s), the native decode's bytes [%s]" % (
+                  len(chunk), len(tile), native_s, len(tile) / 1e6 / native_s, PYTHON_ROWS,
+                  len(band), len(plain), python_s, len(plain) / 1e6 / python_s, card))
+    finally:
+        pool.close()
+        stop_processes(procs)
+    for name in (path, lgn_path, lgn_path + ".aux.xml"):
+        os.remove(name)
+    pipeline.clear_read_cache()
+    # the path's launches, read before the kernel's timing launches it
+    path_launches = {"gaussian_blur": cuda_stencils.launches,
+                     "moving_max": cuda_stencils.moving_max_launches}
+    kernels = [dict(time_gaussian(planes, sigma), max_abs_err=err, path=label)
+               for label, planes, sigma, err in timed if planes.is_cuda]
+    del timed
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("lzw-sheet: Gaussian %d launches on the path; the phase %.2f s [%s]"
+          % (path_launches["gaussian_blur"], numbers["phase_s"], card))
+    return path_launches, numbers, kernels
+
+
+def plain_gaussian_check(label, gaussians, reference):
+    """The first Gaussian of a path (a gaussian_calls) torch.equal to its
+    plain version on the same frames; returns (label, planes, sigma,
+    max_abs_err) for its kernel record."""
+    import torch
+
+    planes, result, sigma, fill = gaussians.first
+    want = reference(planes, *sigma, fill)
+    check(torch.equal(result, want), "gaussian_blur differs from its plain version on the %s "
+          "path's frames" % label)
+    err = float((result - want).abs().max())
+    print("kernel check: gaussian_blur %s batch %s %s sigma=(%.6f, %.6f), the path's own "
+          "frames: equal=True max_abs_err=%r" % (label, tuple(planes.shape),
+                                                   str(planes.dtype).replace("torch.", ""),
+                                                   sigma[0], sigma[1], err))
+    return label, planes, sigma, err
+
+
+class numpy_scanline:
+    """While installed, polygons burn with the numpy scanline: the native
+    rasterizer is bypassed (geo/rasterize.py:_burn_native answers False)."""
+
+    def __enter__(self):
+        from dask_geomodeling_tpu_torch.geo import rasterize
+
+        self.native = rasterize._burn_native
+        rasterize._burn_native = lambda *args: False
+        return self
+
+    def __exit__(self, *exc):
+        from dask_geomodeling_tpu_torch.geo import rasterize
+
+        rasterize._burn_native = self.native
+        return False
+
+
+def check_rasterize_burns(card, view, request):
+    """The rasterize path's Rasterize node (``view``'s first argument) on
+    each of its tiles on the host: the native burn bitwise equal to the
+    numpy scanline's, the native burn run and the scanline not; returns
+    (tiles, native s, numpy s)."""
+    from dask_geomodeling_tpu_torch import compute_host
+    from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
+
+    block = view.args[0]
+    tiles, _ = tile_requests(request, TILE)
+    native_s = numpy_s = 0.0
+    for k, tile in enumerate(tiles):
+        graph, name = block.get_compute_graph(**tile)
+        with native_spy() as spy:
+            t0 = time.perf_counter()
+            burned = compute_host(graph, name)
+            native_s += time.perf_counter() - t0
+        check_native_only("rasterize tile %d" % k, spy)
+        check(spy.calls["rasterize_native"] > 0, "rasterize tile %d: no native burn" % k)
+        with numpy_scanline():
+            t0 = time.perf_counter()
+            plain = compute_host(graph, name)
+            numpy_s += time.perf_counter() - t0
+        check(burned["values"].dtype == plain["values"].dtype
+              and np.array_equal(burned["values"], plain["values"]),
+              "rasterize tile %d: the native burn differs from the numpy scanline" % k)
+    print("rasterize path: on each of its %d tiles the native burn equals the numpy scanline's "
+          "bitwise; Rasterize on the host %.3f s native, %.3f s numpy scanline [%s]"
+          % (len(tiles), native_s, numpy_s, card))
+    return len(tiles), native_s, numpy_s
 
 
 class PhaseClock:
@@ -7784,6 +8357,7 @@ def run_phases(card, device, folder, mark):
     """Phases 3 to 12; ``folder`` holds the sheet and the exports."""
     import torch
 
+    from dask_geomodeling_tpu_torch import evaluate_tiled, native
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
     from dask_geomodeling_tpu_torch.runtime.tiles import tile_requests
@@ -7861,11 +8435,19 @@ def run_phases(card, device, folder, mark):
     geometry = build_geometry_paths()
     for label, (view, request, interpolation, corner) in geometry.items():
         cuda_stencils.reset_launches()
-        algebra_host[label], _ = check_algebra_path(
-            label, device, view, request, interpolation, corner,
-            host_nodes=1 if label == "rasterize" else 0)
+        native.reset_counts()
+        with native_spy() as spy:
+            algebra_host[label], _ = check_algebra_path(
+                label, device, view, request, interpolation, corner,
+                host_nodes=1 if label == "rasterize" else 0)
         launches[label] = {"gaussian_blur": cuda_stencils.launches,
                            "moving_max": cuda_stencils.moving_max_launches}
+        if label == "rasterize":
+            check_native_only("rasterize", spy)
+            check(native.counts["burns"] > 0, "rasterize: no native burn")
+            print("rasterize path: %d native burns, no numpy polygon scanline"
+                  % native.counts["burns"])
+            check_rasterize_burns(card, view, request)
     view, request, _, _ = geometry["rasterize-wkt"]
     wkt_ms = time_rasterize_wkt(device, view, request)
     print("timing [%s] rasterize-wkt: the parity twin over one batch of %d 512^2 tiles "
@@ -7897,7 +8479,6 @@ def run_phases(card, device, folder, mark):
     view, request, _, _ = files["file-read"]
     launches["file-export"], export = check_file_export(card, device, view, request, folder,
                                                         read_values)
-    del read_values
     mark("the file-export path")
     launches["building-heights"], buildings = check_buildings(card, device, folder, sheet)
     rng = np.random.RandomState(1)
@@ -7957,6 +8538,7 @@ def run_phases(card, device, folder, mark):
         card, device, folder)
     gaussian.append(roughness_kernel)
     mark("the hfa-roughness path")
+    lzw_lgn = dict(lgn)  # tile-pyramids takes its arrays out of lgn; lzw-sheet reads them too
     launches["tile-pyramids"], pyramids = check_tile_pyramids(card, device, folder, lgn)
     mark("the tile-pyramids path")
     launches["modis-ndvi"], modis = check_modis_ndvi(card, device, folder)
@@ -7969,6 +8551,11 @@ def run_phases(card, device, folder, mark):
         card, device, folder)
     gaussian.extend(parcel_kernels)
     mark("the parcel-imagery path")
+    launches["lzw-sheet"], lzw, lzw_kernels = check_lzw_sheet(
+        card, device, folder, sheet, files["file-read"], read_values, lzw_lgn)
+    gaussian.extend(lzw_kernels)
+    del read_values, lzw_lgn
+    mark("the lzw-sheet path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -7990,6 +8577,15 @@ def run_phases(card, device, folder, mark):
             + list(files.items())):
         with interpolation_set(interpolation):
             timings[label] = time_path(label, card, view, request, device, algebra_host[label])
+    view, request, _, _ = geometry["rasterize"]
+    numpy_phases = {}
+    with numpy_scanline():
+        evaluate_tiled(view, request, tile_size=TILE, batch=BATCH, device=device,
+                       phase_seconds=numpy_phases)
+    timings["rasterize"]["numpy_scanline_phases_s"] = numpy_phases
+    print("timing [%s] rasterize: plan %.4f s with the native burn (the median run) against "
+          "%.4f s with the numpy scanline (one run)" % (
+              card, timings["rasterize"]["phases_s"]["plan"], numpy_phases["plan"]))
     timings["file-export"] = export
     timings["zarr-store"] = zarr_store
     timings["building-heights"] = buildings
@@ -8004,6 +8600,7 @@ def run_phases(card, device, folder, mark):
     timings["modis-ndvi"] = modis
     timings["grib-forecast"] = forecast
     timings["parcel-imagery"] = parcels
+    timings["lzw-sheet"] = lzw
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

@@ -16,6 +16,10 @@ Usage::
     from dask_geomodeling_tpu_torch.config import config
     with config.set({"geomodeling.tile-size": 256}):
         ...
+
+As in the JAX package, ``DASK_GEOMODELING__*`` and ``DASK_SCHEDULER``
+environment variables override the defaults when the module loads
+(``_env_overrides``, dask.config's convention).
 """
 import os
 import threading
@@ -95,6 +99,9 @@ defaults = {
     # module prefixes a deserialized view may import its classes from
     # (None: the whole port); checked before any import
     "geomodeling.block-import-paths": None,
+    # the pixel budget of AggregateRaster's raster request when the block
+    # sets no max_pixels (the JAX package's key and default)
+    "geomodeling.raster-limit": 12 * (1024**2),
     # NTv2 grid-shift files per datum name, e.g. {"NZGD49": ".../nz.gsb"}:
     # upgrades that datum's WGS84 leg from Helmert (~0.5 m) to grid
     # interpolation (geo/ntv2.py, read where crs._datum_shift runs)
@@ -155,4 +162,36 @@ class _ConfigRestore(ContextDecorator):
         return False
 
 
-config = Config(defaults)
+def _env_overrides(environ=None):
+    """Environment overrides, dask.config's convention (the reference
+    rides dask.config, reference config.py:1-12, so deployments set
+    ``DASK_GEOMODELING__RASTER_LIMIT=...``-style variables): strip the
+    ``DASK_`` prefix, lowercase, ``__`` nests, ``_`` maps to ``-``;
+    values parse as Python literals with a plain-string fallback.
+    ``DASK_SCHEDULER`` sets the top-level ``scheduler`` key."""
+    import ast
+
+    out = {}
+    for key, raw in (os.environ if environ is None else environ).items():
+        if key == "DASK_SCHEDULER":
+            out["scheduler"] = raw
+            continue
+        if not key.startswith("DASK_GEOMODELING__"):
+            continue
+        name = (
+            key[len("DASK_GEOMODELING__"):]
+            .lower()
+            .replace("__", ".")
+            .replace("_", "-")
+        )
+        if not name:
+            continue
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        out["geomodeling." + name] = value
+    return out
+
+
+config = Config({**defaults, **_env_overrides()})

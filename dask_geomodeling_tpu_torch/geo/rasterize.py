@@ -1,17 +1,23 @@
 """Rasterization: burn geometries into pixel grids.
 
-Counterpart of dask_geomodeling_tpu/geo/rasterize.py, the numpy scanline
-only: the JAX package's native rasterizer (``_burn_native``) is not
-ported, and the frame is the port's own (geo/features.py), so no pandas.
-Convention matches GDAL's default: a pixel is burned when its *center* is
-inside the polygon (even-odd rule over all rings); later features overwrite
-earlier ones.  Lines burn the cells their path crosses; points burn the cell
-containing them.
+Counterpart of dask_geomodeling_tpu/geo/rasterize.py; the frame is the
+port's own (geo/features.py), so no pandas.  Convention matches GDAL's
+default: a pixel is burned when its *center* is inside the polygon
+(even-odd rule over all rings); later features overwrite earlier ones.
+Lines burn the cells their path crosses; points burn the cell containing
+them.
 
-The scanline fill is vectorized per row with numpy.  The device
-counterparts (RasterizeWKT's twin in raster/misc.py, the zonal label
-planes in ops/segment.py) compute the same crossings in the same float64
-order of operations.
+Polygonal features burn natively (``_burn_native``: native/rasterize.cpp,
+built with g++ at first use), as the JAX package's do whenever its library
+is built, so the port answers as the JAX numpy executor.  The numpy
+scanline (``_burn_polygon_rows``, vectorized per row) burns a call whose
+features include a line or a point, and is the plain version the native
+burn is held to.  The two place a crossing against the pixel centres
+differently (``ceil((x - x0) / a - 0.5)`` against ``searchsorted`` of the
+centres), which parts them only where a crossing lies within float64
+rounding of a pixel centre (ROADMAP Queue 3).  The device counterparts (RasterizeWKT's
+twin in raster/misc.py, the zonal label planes in ops/segment.py) compute
+the numpy scanline's crossings in the same float64 order of operations.
 """
 import numpy as np
 
@@ -80,9 +86,48 @@ def _burn_line(mask, coords, gt, height, width):
         mask[rows[ok], cols[ok]] = True
 
 
+def _flatten_polygons(geometries):
+    """Flatten polygonal geometries for the native rasterizer; None if any
+    geometry is non-polygonal (the numpy path handles those)."""
+    coords = []
+    ring_sizes = []
+    ring_counts = []
+    for geom in geometries:
+        if geom is None or geom.is_empty:
+            ring_counts.append(0)
+            continue
+        polys = _polygonize(geom)
+        if not polys:
+            return None
+        rings = [r for poly in polys for r in poly._rings()]
+        ring_counts.append(len(rings))
+        for ring in rings:
+            ring_sizes.append(len(ring))
+            coords.append(np.asarray(ring, dtype=np.float64).ravel())
+    if not coords:
+        return None
+    return np.concatenate(coords), ring_sizes, ring_counts
+
+
+def _burn_native(geometries, burn, out, gt):
+    """Burn with the native scanline rasterizer; False if not applicable
+    (a non-polygonal feature, or no feature with rings)."""
+    from dask_geomodeling_tpu_torch.native import rasterize_native
+
+    flat = _flatten_polygons(geometries)
+    if flat is None:
+        return False
+    coords, ring_sizes, ring_counts = flat
+    return rasterize_native(coords, ring_sizes, ring_counts, burn, out, gt)
+
+
 def burn_mask(geometries, gt, height, width):
     """Boolean (height, width) mask of cells covered by the geometries."""
     mask = np.zeros((height, width), dtype=bool)
+    geometries = list(geometries)
+    out8 = np.zeros((height, width), dtype=np.uint8)
+    if _burn_native(geometries, np.ones(len(geometries), np.uint8), out8, gt):
+        return out8.astype(bool)
     for geom in geometries:
         if geom is None or geom.is_empty:
             continue
@@ -110,6 +155,9 @@ def burn_mask(geometries, gt, height, width):
 def burn_values(geometries, burn, out, gt):
     """Burn per-geometry values into ``out`` (later features overwrite)."""
     height, width = out.shape
+    geometries = list(geometries)
+    if _burn_native(geometries, np.asarray(burn, dtype=out.dtype), out, gt):
+        return out
     for geom, value in zip(geometries, burn):
         if geom is None or geom.is_empty:
             continue

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from dask_geomodeling_tpu_torch.config import config
 from dask_geomodeling_tpu_torch.core import arg, expect_instance
 from dask_geomodeling_tpu_torch.device import compare
 from dask_geomodeling_tpu_torch.geo import (
@@ -47,10 +48,6 @@ __all__ = [
     "bucketize",
     "plan_aggregation_grid",
 ]
-
-#: the pixel budget of the raster request when a block sets none: the JAX
-#: package's default ``geomodeling.raster-limit``
-RASTER_LIMIT = 12 * 1024**2
 
 # per-statistic host reducer + whether the result scales with cell area.
 # std/var extend the reference's set (they fall out of the same labeled
@@ -314,7 +311,8 @@ class AggregateRaster(GeometryBlock):
       statistic (str): sum count min max mean median p<percentile>
       projection (str): aggregation projection (default: raster native)
       pixel_size (float): aggregation cell size (default: raster native)
-      max_pixels (int): pixel budget (default RASTER_LIMIT, 12 Mpx)
+      max_pixels (int): pixel budget (default the config's
+        ``geomodeling.raster-limit``, 12 Mpx)
       column_name (str): output column (default "agg")
       auto_pixel_size (bool): coarsen automatically when over budget
     """
@@ -411,7 +409,7 @@ class AggregateRaster(GeometryBlock):
 
         budget = self.max_pixels
         if budget is None:
-            budget = RASTER_LIMIT
+            budget = config.get("geomodeling.raster-limit")
         cell, agg_bbox, width, height = plan_aggregation_grid(
             Extent(extent, req_srs).transformed(agg_srs).bbox,
             self.pixel_size,

@@ -2,8 +2,11 @@
 
 The same reader and writer, so that the port writes the same bytes (zlib
 level 6) and reads every file the JAX package writes.  LZW and PackBits
-decode in pure Python here: the JAX package's native decoder
-(``native/tiffcodec.cpp``) is not ported, so LZW sheets read slowly.
+chunks decode natively, as the JAX package's do: ``native/tiffcodec.cpp``,
+built with g++ at first use (native/__init__.py), on the codec's thread
+pool, a window's chunks in parallel (ctypes releases the GIL).  The
+pure-Python ``_lzw_decode`` and ``_packbits_decode`` are the plain
+versions the native decoders are held to; no read falls back to them.
 
 Read support (foreign files):
 
@@ -187,9 +190,10 @@ class _TiffLayout:
 
 
 def _chunk_pool():
-    """The codec's thread pool: zlib, lzma and zstandard release the GIL,
-    so the chunks of one image (de)compress on every core, each chunk's
-    bytes what one thread would give."""
+    """The codec's thread pool: zlib, lzma, zstandard and the native LZW
+    and PackBits decoders (through ctypes) release the GIL, so the chunks
+    of one image (de)compress on every core, each chunk's bytes what one
+    thread would give."""
     global _POOL
     if _POOL is None:
         _POOL = ThreadPoolExecutor(max_workers=min(16, os.cpu_count() or 1))
@@ -611,15 +615,18 @@ def _packbits_decode(data):
     return bytes(out)
 
 
-def _decode(data, compression):
+def _decode(data, compression, expected_size):
+    """One chunk's bytes; ``expected_size`` is its nominal payload, the
+    native decoders' first capacity."""
     if compression == _COMPRESSION_NONE:
         return data
     if compression in (_COMPRESSION_DEFLATE, _COMPRESSION_DEFLATE_OLD):
         return zlib.decompress(data)
-    if compression == _COMPRESSION_LZW:
-        return _lzw_decode(data)  # pure Python: slow at sheet size
-    if compression == _COMPRESSION_PACKBITS:
-        return _packbits_decode(data)
+    if compression in (_COMPRESSION_LZW, _COMPRESSION_PACKBITS):
+        from dask_geomodeling_tpu_torch.native import tiff_decode_native
+
+        kind = "lzw" if compression == _COMPRESSION_LZW else "packbits"
+        return tiff_decode_native(kind, data, expected_size)
     if compression == _COMPRESSION_LZMA:
         # libtiff's LZMA codec wraps each chunk as an .xz stream
         import lzma
@@ -1054,6 +1061,7 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
             tiles_y = -(-info.height // th)
             n_planes = info.bands if planar == 2 else 1
             samples = 1 if planar == 2 else info.bands
+            tile_nbytes = th * tw * samples * dtype.itemsize
             wanted = []  # (plane, ty, tx, compressed bytes)
             for plane in range(n_planes):
                 for ty in range(row0 // th, -(-row1 // th)):
@@ -1064,7 +1072,7 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                         f.seek(offsets[idx])
                         wanted.append((plane, ty, tx, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[3], compression),
+                lambda item: _decode(item[3], compression, tile_nbytes),
                 wanted,
             )
             for (plane, ty, tx, _), raw in zip(wanted, decoded):
@@ -1102,6 +1110,9 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
             )
             strips_per_plane = -(-info.height // rows_per_strip)
             samples = 1 if planar == 2 else info.bands
+            strip_nbytes = (
+                rows_per_strip * info.width * samples * dtype.itemsize
+            )
             n_planes = info.bands if planar == 2 else 1
             wanted = []  # (plane, strip, compressed bytes)
             for plane in range(n_planes):
@@ -1114,7 +1125,7 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                     f.seek(offsets[idx])
                     wanted.append((plane, strip, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[2], compression),
+                lambda item: _decode(item[2], compression, strip_nbytes),
                 wanted,
             )
             for (plane, strip, _), raw in zip(wanted, decoded):

@@ -7,6 +7,11 @@ its compiled-program cache; the port has neither (no gather modes, and
 PyTorch runs eagerly), so it reports the tile programs built and the
 batches run instead.  Its router count of host-only keys is left out
 too: the port's router pins no key to the host.
+
+The multi-machine host plane has its own dashboard: a
+``parallel/hostpool.py:HostPool`` started with ``dashboard_port`` serves
+its worker and task counters (``HostPool.status()``) as ``/status.json``
+and an HTML page; this module covers the in-process runtime.
 """
 
 __all__ = ["snapshot"]

@@ -392,6 +392,29 @@ def test_pixel_budget_refused():
         view.get_data(device="cpu", **_port_request(SHAPING_REQUEST))
 
 
+def test_raster_limit_key():
+    """``geomodeling.raster-limit`` is the pixel budget of a block that sets
+    none, in the port as in the JAX package (tests/test_aggregate_raster.py:
+    test_raster_limit_fallback): 9 px refuse the 36 px grid, and with
+    auto_pixel_size coarsen it to the JAX package's request."""
+    from dask_geomodeling_tpu_torch.config import config as port_config
+
+    limit = {"geomodeling.raster-limit": 9}
+    jax_view, view = _shaping_views()
+    with jax_config.set(limit), port_config.set(limit):
+        with pytest.raises(RuntimeError):
+            with jax_config.set({"geomodeling.executor": "numpy"}):
+                jax_view.get_sources_and_requests(**SHAPING_REQUEST)
+        with pytest.raises(RuntimeError):
+            view.get_sources_and_requests(**_port_request(SHAPING_REQUEST))
+        raster_request = _raster_requests(*_shaping_views(auto_pixel_size=True),
+                                          SHAPING_REQUEST)
+    assert raster_request["width"] == raster_request["height"] == 3
+    assert port_config.get("geomodeling.raster-limit") == 12 * 1024**2
+    assert _raster_requests(*_shaping_views(auto_pixel_size=True),
+                            SHAPING_REQUEST)["width"] == 6
+
+
 @pytest.mark.parametrize("statistic", ["sum", "mean"])
 def test_extensive_and_intensive_scaling(statistic, device_plane):
     fine = _shaping_views(statistic=statistic)

@@ -65,13 +65,13 @@ def test_defaults_are_the_keys_the_port_reads():
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
     } | set(FILE_KEYS) | set(VECTOR_KEYS) | set(SERVING_KEYS) | set(ROUTING_KEYS) \
-        | set(SCHEDULER_KEYS) | set(CRS_KEYS)
+        | set(SCHEDULER_KEYS) | set(CRS_KEYS) | set(GEOMETRY_KEYS)
     assert defaults["geomodeling.torch-device"] == "cuda"
     for key in (
         "geomodeling.tile-size",
         "geomodeling.tile-batch",
         "geomodeling.warp-interpolation",
-    ) + FILE_KEYS + VECTOR_KEYS + CRS_KEYS:
+    ) + FILE_KEYS + VECTOR_KEYS + CRS_KEYS + GEOMETRY_KEYS:
         assert defaults[key] == jax_config_module.defaults[key], key
 
 
@@ -118,6 +118,9 @@ SCHEDULER_KEYS = ("scheduler", "geomodeling.scheduler-memory-limit")
 
 #: the CRS layer's key: NTv2 grids per datum (geo/ntv2.py)
 CRS_KEYS = ("geomodeling.ntv2-grids",)
+
+#: the geometry blocks' key: AggregateRaster's pixel budget
+GEOMETRY_KEYS = ("geomodeling.raster-limit",)
 
 
 def test_routing_keys_default_to_the_card_and_a_state_file_of_the_port():
@@ -186,3 +189,60 @@ def test_warp_numpy_refuses_other_resampling():
     with port_config_module.config.set({"geomodeling.warp-interpolation": "cubic"}):
         with pytest.raises(ValueError, match="cubic"):
             source.get_data(device="cpu", **request)
+
+
+#: environ dicts for ``_env_overrides``: the JAX package's own case, and
+#: the edges of its convention (nesting, literals, plain strings, an empty
+#: name, other DASK_ variables)
+ENVIRONS = {
+    "jax-case": {
+        "DASK_GEOMODELING__RASTER_LIMIT": "123",
+        "DASK_GEOMODELING__USE_OVERVIEWS": "True",
+        "DASK_GEOMODELING__ROOT": "/data",
+        "DASK_SCHEDULER": "threads",
+        "UNRELATED": "1",
+    },
+    "nested-and-literals": {
+        "DASK_GEOMODELING__NTV2_GRIDS": "{'NZGD49': '/grids/nz.gsb'}",
+        "DASK_GEOMODELING__WARP__APPROX_STRIDE": "(8, 8)",
+        "DASK_GEOMODELING__AUTO_MARGIN": "1.5e0",
+        "DASK_GEOMODELING__EXECUTOR": "numpy",
+        "DASK_GEOMODELING__ROUTER_STATE": "None",
+        "DASK_GEOMODELING__TILE_SIZE": "not a literal (",
+    },
+    "ignored": {
+        "DASK_GEOMODELING__": "1",
+        "DASK_DISTRIBUTED__WORKERS": "4",
+        "dask_geomodeling__raster_limit": "5",
+        "DASK_SCHEDULER_ADDRESS": "tcp://x",
+    },
+    "empty": {},
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENVIRONS))
+def test_env_overrides_as_the_jax_package(case):
+    environ = ENVIRONS[case]
+    port = port_config_module._env_overrides(environ)
+    assert port == jax_config_module._env_overrides(environ)
+    assert all(key == "scheduler" or key.startswith("geomodeling.") for key in port)
+
+
+def test_env_overrides_seed_the_config_in_a_subprocess():
+    """The variables apply when the module loads, as in the JAX package,
+    without importing it or jax."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, DASK_GEOMODELING__RASTER_LIMIT="77", DASK_SCHEDULER="threads")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys; from dask_geomodeling_tpu_torch.config import config; "
+         "print(json.dumps([config.get('geomodeling.raster-limit'), config.get('scheduler'), "
+         "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'dask_geomodeling_tpu'))]))"],
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [77, "threads", []]

@@ -29,7 +29,9 @@ an int16 SRTM tile against the CPU and compute_host, and the phase over a
 phase over a small radar file; the hfa-roughness and tile-pyramids phases over a 1024 x 768
 land-use grid; the modis-ndvi phase over a 960^2 HDF4 tile; the grib-forecast phase over
 320 x 75 points and six hourly GRIB2 fields; the parcel-imagery phase over a 512^2 NITF
-scene and 256 FlatGeobuf parcels; uint16, uint32 and uint64 sources warped on the card.
+scene and 256 FlatGeobuf parcels; the lzw-sheet phase over the 1024^2 sheet as LZW and a
+1024 x 768 land use as PackBits, with two host-pool workers; uint16, uint32 and uint64
+sources warped on the card.
 This file imports nothing of JAX or pandas, so it runs where neither is installed.
 """
 from datetime import datetime, timedelta
@@ -451,6 +453,38 @@ def test_parcel_imagery_phase_on_card(tmp_path):
     assert numbers["features_decoded"]["mean"] >= 256 and numbers["phase_s"] > 0
     assert [k["path"] for k in kernels] == ["parcel-imagery"]
     assert kernels[0]["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_lzw_sheet_phase_on_card(file_paths, tmp_path):
+    """chip_smoke's lzw-sheet phase after hfa-roughness: the 1024^2 sheet
+    as a tiled LZW GeoTIFF read by window under a lowered limit, and a
+    1024 x 768 land use as PackBits, in 256^2 tiles, batches of 8: every
+    check of the full run against file-read's and hfa-roughness' answers
+    on the card, the pool's two workers, and the Gaussian's records at (a)
+    and (b)."""
+    import os
+
+    device = _card()
+    folder, paths = file_paths
+    view, request, _, _ = paths["file-read"]
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        with config.set(FILE_LIMIT):
+            read_values = evaluate_tiled(view, request, tile_size=256, batch=8,
+                                         device=device)["values"]
+            lgn = chip_smoke.check_hfa_roughness(
+                "card", device, str(tmp_path), width=1024, height=768, sampled_tiles=4)[3]
+            launches, numbers, kernels = chip_smoke.check_lzw_sheet(
+                "card", device, str(tmp_path), os.path.join(folder, "sheet.tif"),
+                paths["file-read"], read_values, lgn, sampled_tiles=4)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 3 and launches["moving_max"] == 0
+    assert numbers["native_decodes"] >= 16 and numbers["pool_status"]["completed"] > 0
+    assert [k["path"] for k in kernels] == ["lzw-sheet (a)", "lzw-sheet (b)"]
+    assert all(k["max_abs_err"] == 0.0 for k in kernels) and lgn == {}
 
 
 @pytest.mark.cuda

@@ -227,6 +227,20 @@ def test_port_never_imports_jax():
             "assert len(read_vector(folder + '/fields.fgb')) == 4",
             "scene, _ = cs.write_scene_nitf(folder, 64, 16)",
             "assert nitf.read_nitf(scene).array.shape == (4, 64, 64)",
+            "from dask_geomodeling_tpu_torch import native",
+            "from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff",
+            "from dask_geomodeling_tpu_torch.parallel import HostPool, hostworker",
+            "lzw, _ = cs.write_lzw_sheet(folder, sheet)",
+            "assert np.array_equal(read_geotiff(lzw).array, read_geotiff(sheet).array)",
+            "lgn_tif, _ = cs.write_lgn_packbits(folder, cs.lgn_classes(64, 48))",
+            "assert read_geotiff(lgn_tif).array.shape == (1, 48, 64)",
+            "assert native.counts['tiff_decodes'] > 0 and native.counts['burns'] > 0",
+            "import threading",
+            "with HostPool(token='t', dashboard_port=0) as pool:",
+            "    threading.Thread(target=hostworker.worker_main, args=(pool.address, 't'),",
+            "                     daemon=True).start()",
+            "    pool.wait_for_workers(1, timeout=30)",
+            "    assert pool.submit(sum, [1, 2]).result(timeout=30) == 3",
             "view, loaded = cs.build_border_view(128)",
             "assert loaded.token == view.token",
             "request = cs.border_request(loaded, 256)",

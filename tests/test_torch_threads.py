@@ -6,7 +6,10 @@ interval, and invariants a lost update would break.
 - each library's ctypes signatures are declared once;
 - ``ops/_build.load_library`` builds and loads each source once, and two
   sources at the same time;
-- the result cache counts every call once and stores each key once.
+- the result cache counts every call once and stores each key once;
+- the native layer's counters (``native/__init__.py``) stay exact while
+  the decoders and the burn run on many threads, each answer the one a
+  single thread gives.
 
 The kernels themselves, launched from eight threads on the card, are in
 tests/test_torch_paths_cuda.py::test_launch_counters_exact_under_threads.
@@ -72,6 +75,35 @@ def test_launch_counters_stay_exact():
         assert cuda_stencils.moving_max_launches == THREADS * 500
     finally:
         cuda_stencils.reset_launches()
+
+
+def test_native_counters_stay_exact_and_answers_alike():
+    from dask_geomodeling_tpu_torch import native
+    from tests.test_geotiff_foreign import lzw_encode
+
+    data = np.repeat(np.arange(64, dtype=np.uint8), 40).tobytes()
+    stream = lzw_encode(data)
+    coords = np.array([0, 0, 8, 0, 8, 8, 0, 8, 0, 0], np.float64)
+    gt = (0.0, 1.0, 0.0, 8.0, 0.0, -1.0)
+    want = np.zeros((8, 8), np.int32)
+    native.rasterize_native(coords, [5], [1], [7], want, gt)
+    native.reset_counts()
+    rounds = 50
+
+    def work(_):
+        for _ in range(rounds):
+            assert native.tiff_decode_native("lzw", stream, len(data)) == data
+            out = np.zeros((8, 8), np.int32)
+            assert native.rasterize_native(coords, [5], [1], [7], out, gt)
+            assert np.array_equal(out, want)
+
+    try:
+        assert run_threads(work) == []
+        assert native.counts == {"tiff_decodes": THREADS * rounds,
+                                 "tiff_bytes": THREADS * rounds * len(data),
+                                 "burns": THREADS * rounds}
+    finally:
+        native.reset_counts()
 
 
 def fake_library(*names):
