@@ -8,8 +8,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: csrc/gaussian_blur.cu and csrc/moving_max.cu with nvcc for
-   sm_90a, and the host C++ (the port's native/tiffcodec.cpp and
-   native/rasterize.cpp, and this script's chip_smoke_encoders.cpp) with
+   sm_90a, and the host C++ (the port's native/tiffcodec.cpp,
+   native/jpegcodec.cpp and native/rasterize.cpp, and this script's
+   chip_smoke_encoders.cpp) with
    g++, from this checkout, all at once; then the elevation sheet of
    the file paths (write_sheet: one AHN sheet, 10000 x 12500 float32 at
    0.5 m in EPSG:28992, written with the port's GeoTIFF writer into a
@@ -256,7 +257,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    mosaic equal to the classes written (the TMS row flip), one run
    timed; (c) (a)'s view pickled and unpickled keeps its token and
    answers a tile as the original does on the card; (d) a GeoPackage of
-   features, a JPEG tile and an MBTiles of vector tiles refused with the
+   features, a WebP tile and an MBTiles of vector tiles refused with the
    JAX package's errors;
 10k. modis-ndvi (check_modis_ndvi): a synthetic MOD13Q1-style 16-day
    vegetation index tile, h18v03 (the Netherlands to the Baltic), 4800^2
@@ -311,8 +312,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    bitwise), a GeoPackage copy's answers there bitwise equal; (d) to_file
    of the parcels with their mean in 3 x 3 tiles into FlatGeobuf partials
    merged into one, read back equal to the partials, its R-tree search
-   equal to a box filter; (e) a JPEG (C3) segment, a truncated NITF and a
-   FlatGeobuf of a bad magic refused with the JAX package's errors;
+   equal to a box filter; (e) a JPEG 2000 (C8) segment, a truncated NITF
+   and a FlatGeobuf of a bad magic refused with the JAX package's errors;
 10n. lzw-sheet (check_lzw_sheet): (a) the sheet as a tiled LZW GeoTIFF
    (write_lzw_sheet: 512^2 tiles, predictor 1, encoded as libtiff does
    by chip_smoke_encoders.cpp) under file-read's view and request, 500
@@ -326,6 +327,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    tiles' graphs equal to compute_host, its /status.json read, every
    worker stopped; the first Gaussian of (a) and (b) torch.equal to its
    plain version;
+10o. ortho-jpeg (check_ortho_jpeg): (e) the JPEG codec's fixtures of
+   tests/data/torch_jpeg decoded and three arrays encoded natively, each
+   SHA-256 the one recorded from Pillow; (a) an 8192^2 RGB orthophoto of
+   0.25 m as a JPEG GeoTIFF in GDAL's COMPRESS=JPEG PHOTOMETRIC=YCBCR
+   layout (write_jpeg_geotiff: 512^2 abbreviated 4:2:0 tiles from the
+   port's encoder, JPEGTables) under build_ortho_view (the excess-green
+   index of the bands as frames, smoothed over 1 m, classified), 256
+   tiles read by window, sampled tiles bitwise to compute_host, every
+   chunk decoded natively (count, MB, MB/s, most at once); (b) a 2048^2
+   sub-area as a GeoPackage of 256^2 JPEG tiles and as zoom-18 MBTiles,
+   asked in RD New, bitwise; (c) 48 image/jpeg GetMaps of zooms 17-19
+   from the WSGI server, cold and warm, each body the encoder's bytes of
+   compute_host's pixels (a tile whose card values part from the host's
+   within HEADLINE_SHARE: of the card's), p50/p99 and the encode's
+   share; (d) a .jpg with world file, .prj and PAM nodata, two BMPs, a
+   GIF and a C3/M3 NITF, each read whole and bitwise (the NITF at half
+   resolution within HEADLINE_SHARE, the stage that parts reported); the
+   first Gaussian of (a) torch.equal to its plain version;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -341,8 +360,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    single planes, both kernels on dem-formats' int16 batch, and the
    Gaussian on netcdf-radar's zoom-mode batch, on hfa-roughness' float64
    batch, on grib-forecast's first float64 batches of (a) and (b), on
-   parcel-imagery's first float64 batch and on lzw-sheet's first batches
-   of (a) and (b), one kernel record each; the rasterize path's plan with
+   parcel-imagery's first float64 batch, on lzw-sheet's first batches
+   of (a) and (b) and on ortho-jpeg (a)'s first batch, one kernel record
+   each; the rasterize path's plan with
    the numpy scanline, one run, beside the native burn's.
 
 The views are built with the port's own classes (private copies of
@@ -1906,14 +1926,15 @@ def same(a, b):
 
 def build_kernels():
     """Build both kernel libraries and the host's C++ (the port's native
-    TIFF decoders and rasterizer, and chip_smoke_encoders.cpp) at once (one
-    nvcc or g++ each); prints each build's time and ptxas lines."""
+    TIFF decoders, JPEG codec and rasterizer, and chip_smoke_encoders.cpp)
+    at once (one nvcc or g++ each); prints each build's time and ptxas
+    lines."""
     from dask_geomodeling_tpu_torch import native
     from dask_geomodeling_tpu_torch.ops import _build
 
     names = ["gaussian_blur", "moving_max"]
-    host = {"tiffcodec": native.load_tiffcodec, "rasterize": native.load_rasterizer,
-            "chip_smoke_encoders": fixture_encoders}
+    host = {"tiffcodec": native.load_tiffcodec, "jpegcodec": native.load_jpegcodec,
+            "rasterize": native.load_rasterizer, "chip_smoke_encoders": fixture_encoders}
     errors = []
 
     def build(name):
@@ -3554,7 +3575,7 @@ def pyramid_clock():
 
 def pyramid_refusals(folder):
     """RasterFileSource.info over (a GeoPackage of features, an MBTiles
-    file whose one tile is a JPEG, an MBTiles file of vector tiles): the
+    file whose one tile is a WebP, an MBTiles file of vector tiles): the
     (exception type, message) of each."""
     import sqlite3
 
@@ -3567,12 +3588,12 @@ def pyramid_refusals(folder):
     features = os.path.join(folder, "features.gpkg")
     write_vector(GeoDataFrame({"geometry": [box(*LGN_ORIGIN, LGN_ORIGIN[0] + 5, LGN_ORIGIN[1] + 5)],
                                "code": [1]}, crs="EPSG:28992"), features)
-    jpeg = os.path.join(folder, "jpeg.mbtiles")
+    webp = os.path.join(folder, "webp.mbtiles")
     geo_transform = mercator_box(lgn_request(1, 1))[0]
-    write_mbtiles(jpeg, np.zeros((1, PYRAMID_TILE, PYRAMID_TILE), np.uint8), geo_transform)
-    con = sqlite3.connect(jpeg)
-    # a JPEG's start of image and JFIF header: the port decodes no JPEG
-    con.execute("UPDATE tiles SET tile_data = ?", (b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64),))
+    write_mbtiles(webp, np.zeros((1, PYRAMID_TILE, PYRAMID_TILE), np.uint8), geo_transform)
+    con = sqlite3.connect(webp)
+    # a WebP's RIFF header: the port decodes no WebP
+    con.execute("UPDATE tiles SET tile_data = ?", (b"RIFF\x00\x00\x00\x00WEBPVP8L" + bytes(64),))
     con.commit()
     con.close()
     vector = os.path.join(folder, "vector.mbtiles")
@@ -3582,7 +3603,7 @@ def pyramid_refusals(folder):
     con.commit()
     con.close()
     answers = []
-    for path in (features, jpeg, vector):
+    for path in (features, webp, vector):
         try:
             RasterFileSource(path).info
             answers.append((None, None))
@@ -5152,7 +5173,7 @@ def fgb_clock():
 
 def scene_refusals(folder, device):
     """The errors the port raises, as the JAX package names them: a JPEG
-    (C3) segment's NotImplementedError naming io/nitf.py, through
+    2000 (C8) segment's NotImplementedError naming io/nitf.py, through
     RasterFileSource.info; a truncated NITF's ValueError through the whole
     read; a FlatGeobuf of a bad magic's IOError through GeometryFileSource."""
     from dask_geomodeling_tpu_torch.geo.geometry import box
@@ -5162,9 +5183,9 @@ def scene_refusals(folder, device):
 
     small = (np.arange(64 * 64) % 2048).astype(">u2").tobytes()
     plain = nitf_image_subheader(1, 64, 64, irep="MONO", icords=" ")
-    jpeg = nitf_image_subheader(1, 64, 64, irep="MONO", icords=" ", ic="C3")
+    jp2 = nitf_image_subheader(1, 64, 64, irep="MONO", icords=" ", ic="C8")
     files = {
-        "jpeg.ntf": (nitf_file_header([(len(jpeg), 4)]) + jpeg + b"\xff\xd8\xff\xd9",
+        "jp2.ntf": (nitf_file_header([(len(jp2), 4)]) + jp2 + b"\xff\x4f\xff\x51",
                      lambda p: RasterFileSource(p).info),
         "truncated.ntf": ((nitf_file_header([(len(plain), len(small))]) + plain
                            + small)[: -len(small) // 2], pipeline.read_geotiff_cached),
@@ -5432,15 +5453,15 @@ def check_parcel_imagery(card, device, folder, px=SCENE_PX, block=SCENE_BLOCK,
 
     # (e) the refusals
     raised = scene_refusals(folder, device)
-    jpeg, truncated, magic = raised["jpeg.ntf"], raised["truncated.ntf"], raised["magic.fgb"]
-    check(isinstance(jpeg, NotImplementedError)
-          and "dask_geomodeling_tpu/io/nitf.py" in str(jpeg)
+    jp2, truncated, magic = raised["jp2.ntf"], raised["truncated.ntf"], raised["magic.fgb"]
+    check(isinstance(jp2, NotImplementedError)
+          and "dask_geomodeling_tpu/io/nitf.py" in str(jp2)
           and isinstance(truncated, ValueError) and str(truncated) == "NITF image data truncated"
           and isinstance(magic, OSError) and str(magic).startswith("Not a FlatGeobuf file"),
           "parcel-imagery: the refusals raised %r" % raised)
-    print("parcel-imagery (e): a C3 segment raised NotImplementedError (%s); a truncated NITF "
+    print("parcel-imagery (e): a C8 segment raised NotImplementedError (%s); a truncated NITF "
           "ValueError(%r); a bad FlatGeobuf magic %s(%r)" % (
-              str(jpeg)[:48], str(truncated), type(magic).__name__, str(magic)[:22]))
+              str(jp2)[:48], str(truncated), type(magic).__name__, str(magic)[:22]))
     for name in (path, fgb_path, gpkg_path, target):
         os.remove(name)
     pipeline.clear_read_cache()
@@ -5474,7 +5495,8 @@ POOL_TILES = 2
 #: grows with the square of a stream's length (the bit accumulator is never
 #: trimmed), so a whole 1 MiB tile takes minutes
 PYTHON_ROWS = 32
-_TIFF_TYPES = {"H": 3, "I": 4, "d": 12, "s": 2}  # struct code: SHORT, LONG, DOUBLE, ASCII
+#: struct code: SHORT, LONG, DOUBLE, ASCII, and "B": UNDEFINED bytes
+_TIFF_TYPES = {"H": 3, "I": 4, "d": 12, "s": 2, "B": 7}
 
 
 @functools.cache
@@ -5536,7 +5558,7 @@ def write_coded_tiff(path, values, geo_transform, projection, no_data_value, com
     as the port's writer writes it (pixel scale, tiepoint, GeoKeys,
     GDAL_NODATA).  The chunks encode on the port's codec pool (the
     encoders release the GIL).  Returns the chunks' bytes in all."""
-    from dask_geomodeling_tpu_torch.io.geotiff import _geokeys_for_projection, _map_chunks
+    from dask_geomodeling_tpu_torch.io.geotiff import _map_chunks
 
     height, width = values.shape
     if predictor == 2:
@@ -5556,31 +5578,46 @@ def write_coded_tiff(path, values, geo_transform, projection, no_data_value, com
         pieces = [stored[row : row + rows_per_strip] for row in range(0, height, rows_per_strip)]
     encode = lzw_encode if compression == 5 else packbits_encode
     chunks = _map_chunks(encode, pieces)
-    geokeys, ascii_params = _geokeys_for_projection(projection)
-    p, a, _, q, _, d = geo_transform
-    n = len(chunks)
     tags = [(256, "I", [width]), (257, "I", [height]),
             (258, "H", [values.dtype.itemsize * 8]), (259, "H", [compression]),
             (262, "H", [1]), (277, "H", [1]), (284, "H", [1]),
             (339, "H", [{"u": 1, "i": 2, "f": 3}[values.dtype.kind]]),
-            (33550, "d", [abs(a), abs(d), 0.0]), (33922, "d", [0.0, 0.0, 0.0, p, q, 0.0]),
-            (34735, "H", geokeys), (42113, "s", repr(float(no_data_value)))]
-    if ascii_params:
-        tags.append((34737, "s", ascii_params))
+            (42113, "s", repr(float(no_data_value)))]
     if predictor != 1:
         tags.append((317, "H", [predictor]))
     if tile is not None:
-        tags += [(322, "H", [tile]), (323, "H", [tile]), (324, "I", [0] * n),
-                 (325, "I", [len(c) for c in chunks])]
+        tags += [(322, "H", [tile]), (323, "H", [tile])]
     else:
-        tags += [(273, "I", [0] * n), (278, "I", [rows_per_strip]),
-                 (279, "I", [len(c) for c in chunks])]
+        tags += [(278, "I", [rows_per_strip])]
+    write_tiff_layout(path, tags, chunks, geo_transform, projection, tiled=tile is not None)
+    return sum(len(c) for c in chunks)
+
+
+def write_tiff_layout(path, tags, chunks, geo_transform, projection, tiled):
+    """A classic little-endian TIFF of one IFD: ``tags`` ((tag, struct
+    code of _TIFF_TYPES, values) without the chunk offsets and byte counts
+    and the georeference, which this adds: pixel scale, tiepoint, GeoKeys
+    as the port's writer writes them), the IFD's out-of-line values after
+    it, then ``chunks`` (tiles when ``tiled``, else strips) in order."""
+    from dask_geomodeling_tpu_torch.io.geotiff import _geokeys_for_projection
+
+    geokeys, ascii_params = _geokeys_for_projection(projection)
+    p, a, _, q, _, d = geo_transform
+    n = len(chunks)
+    tags = list(tags) + [(33550, "d", [abs(a), abs(d), 0.0]),
+                         (33922, "d", [0.0, 0.0, 0.0, p, q, 0.0]), (34735, "H", geokeys)]
+    if ascii_params:
+        tags.append((34737, "s", ascii_params))
+    offsets_tag, counts_tag = (324, 325) if tiled else (273, 279)
+    tags += [(offsets_tag, "I", [0] * n), (counts_tag, "I", [len(c) for c in chunks])]
     tags.sort()
     ifd_size = 2 + 12 * len(tags) + 4
 
     def payload(kind, entry):
         if kind == "s":
             return entry.encode("ascii") + b"\0"
+        if kind == "B":
+            return bytes(entry)
         return struct.pack("<%d%s" % (len(entry), kind), *entry)
 
     extra_size = sum(-(-len(payload(kind, entry)) // 2) * 2 for _, kind, entry in tags
@@ -5590,10 +5627,10 @@ def write_coded_tiff(path, values, geo_transform, projection, no_data_value, com
     ifd, extra = [struct.pack("<H", len(tags))], []
     at = 8 + ifd_size
     for tag, kind, entry in tags:
-        if tag in (273, 324):
+        if tag == offsets_tag:
             entry = [int(o) for o in offsets]
         blob = payload(kind, entry)
-        count = len(blob) if kind == "s" else len(entry)
+        count = len(blob) if kind in ("s", "B") else len(entry)
         if len(blob) <= 4:
             ifd.append(struct.pack("<HHI", tag, _TIFF_TYPES[kind], count) + blob.ljust(4, b"\0"))
         else:
@@ -5606,10 +5643,9 @@ def write_coded_tiff(path, values, geo_transform, projection, no_data_value, com
         f.write(b"II" + struct.pack("<HI", 42, 8))
         f.write(b"".join(ifd))
         f.write(b"".join(extra))
-        check(f.tell() == data_start, "write_coded_tiff: the layout is off")
+        check(f.tell() == data_start, "write_tiff_layout: the layout is off")
         for chunk in chunks:
             f.write(chunk)
-    return sum(len(c) for c in chunks)
 
 
 def write_lzw_sheet(folder, sheet, name="sheet_lzw.tif"):
@@ -5925,6 +5961,721 @@ def check_lzw_sheet(card, device, folder, sheet, file_read, read_values, lgn,
     del timed
     numbers["phase_s"] = time.perf_counter() - phase_t0
     print("lzw-sheet: Gaussian %d launches on the path; the phase %.2f s [%s]"
+          % (path_launches["gaussian_blur"], numbers["phase_s"], card))
+    return path_launches, numbers, kernels
+
+
+# --- ortho-jpeg: JPEG GeoTIFF, JPEG tile pyramids, JPEG GetMaps, small
+# JPEG/BMP/GIF/NITF files and the codec's recorded hashes ---
+
+ORTHO_PX = 8192
+ORTHO_CELL = 0.25
+#: the orthophoto's north-west corner in EPSG:28992, inside the sheet's area
+ORTHO_ORIGIN = (SHEET_ORIGIN[0] + 1000.0, SHEET_ORIGIN[1] - 1000.0)
+ORTHO_TILE = 512  # the GeoTIFF's tiles
+ORTHO_QUALITY = 75  # Pillow's default, the encoder's one quality
+ORTHO_TIME = datetime(2024, 4, 12, 11, 0, 0)  # the red band's frame; green and blue follow
+ORTHO_BAND_STEP = timedelta(seconds=1)
+ORTHO_FIELD_PX = 160  # 40 m fields
+ORTHO_SMOOTH_M = 1.0
+ORTHO_BINS = [-40.0, -10.0, 0.0, 10.0, 25.0, 50.0]
+ORTHO_SAMPLED = 8
+ORTHO_SUB_PX = 2048  # the pyramids' sub-area and the whole-read .jpg
+ORTHO_PYRAMID_TILE = 256
+ORTHO_PYRAMID_ZOOM = 18
+ORTHO_WMS_ZOOMS = (17, 18, 19)
+ORTHO_WMS_PER_ZOOM = 16
+ORTHO_WMS_RANGE = (-40.0, 60.0)  # vmin, vmax of the GetMaps' colour map
+#: (a)'s windowed-read limit: the 8192^2 file is 64 Mi px, just not above
+#: the default, so it would be read whole; the sub-area files stay whole
+ORTHO_WINDOW_LIMIT = 16 * 2**20
+ORTHO_NITF_PX = 1024
+ORTHO_NITF_BLOCK = 256
+ORTHO_GIF_PX = 512
+ORTHO_PAM_NODATA = 0
+#: the codec's fixtures, written with Pillow (tests/test_torch_jpeg.py)
+#: and their hashes: Pillow's decoded arrays and Pillow's encodes of
+#: jpeg_fixture_array's arrays
+JPEG_FIXTURE_DIR = os.path.join("tests", "data", "torch_jpeg")
+JPEG_FIXTURES = {
+    # name: (Pillow mode, (height, width), Pillow's save options)
+    "progressive.jpg": ("RGB", (61, 47), {"progressive": True, "quality": 80}),
+    "restart.jpg": ("RGB", (40, 72), {"restart_marker_blocks": 5}),
+    "subsampling-422.jpg": ("RGB", (33, 50), {"subsampling": 1}),
+    "gray.jpg": ("L", (45, 39), {"quality": 90}),
+    "cmyk-adobe.jpg": ("CMYK", (24, 40), {}),
+    "odd-1x17.jpg": ("RGB", (1, 17), {}),
+    "odd-37x53.jpg": ("RGB", (37, 53), {"optimize": True, "quality": 95}),
+    "adobe-rgb.jpg": ("RGB", (30, 30), {"keep_rgb": True}),
+}
+JPEG_ENCODES = {"rgb-256x256": ("RGB", (256, 256)), "rgb-53x37": ("RGB", (37, 53)),
+                "l-100x75": ("L", (75, 100))}
+
+
+def jpeg_fixture_array(mode, shape):
+    """A deterministic (height, width[, bands]) uint8 array for a fixture:
+    smooth gradients and a little integer texture, the same on any
+    machine (no random generator)."""
+    height, width = shape
+    bands = {"L": 1, "RGB": 3, "CMYK": 4}[mode]
+    y, x = np.mgrid[0:height, 0:width].astype(np.int64)
+    layers = [((x * (3 + 2 * b) + y * (5 + b) + (x * y * (b + 1)) % (7 + b) * 9) % 256)
+              for b in range(bands)]
+    array = np.stack(layers, axis=-1).astype(np.uint8)
+    return array[..., 0] if bands == 1 else array
+
+
+def jpeg_fixture_hashes():
+    """The fixture folder's recorded hashes (hashes.json) and its path."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_FIXTURE_DIR)
+    with open(os.path.join(folder, "hashes.json")) as f:
+        return folder, json.load(f)
+
+
+def array_sha256(array):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def check_jpeg_fixtures(card):
+    """The codec against libjpeg-turbo without Pillow: every fixture
+    decoded natively to the shape and SHA-256 of Pillow's array, every
+    encode of jpeg_fixture_array's arrays to the SHA-256 of Pillow's
+    bytes.  Returns the count of hashes held."""
+    import hashlib
+
+    from dask_geomodeling_tpu_torch.native import jpeg_decode_native, jpeg_encode_native
+
+    folder, recorded = jpeg_fixture_hashes()
+    check(sorted(recorded["decoded"]) == sorted(JPEG_FIXTURES)
+          and sorted(recorded["encoded"]) == sorted(JPEG_ENCODES),
+          "ortho-jpeg (e): hashes.json names other fixtures than JPEG_FIXTURES")
+    for name, want in recorded["decoded"].items():
+        with open(os.path.join(folder, name), "rb") as f:
+            pixels = jpeg_decode_native(f.read())
+        check(list(pixels.shape) == want["shape"] and array_sha256(pixels) == want["sha256"],
+              "ortho-jpeg (e): %s decodes otherwise than Pillow" % name)
+    for name, want in recorded["encoded"].items():
+        blob = jpeg_encode_native(jpeg_fixture_array(*JPEG_ENCODES[name]))
+        check(hashlib.sha256(blob).hexdigest() == want["sha256"],
+              "ortho-jpeg (e): the encode of %s differs from Pillow's" % name)
+    held = len(recorded["decoded"]) + len(recorded["encoded"])
+    print("ortho-jpeg (e): %d fixtures decoded and %d arrays encoded natively, every SHA-256 "
+          "Pillow's (libjpeg-turbo 3.1.3) [%s]" % (len(recorded["decoded"]),
+                                                   len(recorded["encoded"]), card))
+    return held
+
+
+def ortho_pixels(width, height, seed=47, field_px=ORTHO_FIELD_PX):
+    """(height, width, 3) uint8 RGB of a synthetic 25 cm orthophoto:
+    fields of ``field_px`` pixels (grass, crops, bare soil, roofs, water),
+    each with its own colour, gray roads along every fourth field edge,
+    and pixel texture (a 1024^2 block of noise, repeated)."""
+    rng = np.random.default_rng(seed)
+    ny, nx = -(-height // field_px), -(-width // field_px)
+    base = np.array([[72, 118, 52], [112, 138, 64], [150, 122, 92], [168, 84, 70],
+                     [46, 70, 88]], np.int16)
+    kind = rng.choice(len(base), size=(ny, nx), p=[0.35, 0.3, 0.15, 0.15, 0.05])
+    colours = np.clip(base[kind] + rng.integers(-18, 19, (ny, nx, 3)), 0, 215).astype(np.uint8)
+    pixels = np.ascontiguousarray(
+        colours.repeat(field_px, axis=0)[:height].repeat(field_px, axis=1)[:, :width])
+    block = 1024
+    noise = rng.integers(0, 40, (min(block, height), min(block, width), 3), dtype=np.uint8)
+    for row in range(0, height, block):
+        for col in range(0, width, block):
+            piece = pixels[row : row + block, col : col + block]
+            piece += noise[: piece.shape[0], : piece.shape[1]]
+    road = 12
+    for edge in range(0, height, 4 * field_px):
+        pixels[edge : edge + road] = 128
+    for edge in range(0, width, 4 * field_px):
+        pixels[:, edge : edge + road] = 128
+    return pixels
+
+
+def split_jpeg_tables(stream):
+    """(tables, abbreviated) of a JPEG stream, as libtiff stores a JPEG
+    tile: SOI, the DQT and DHT segments and EOI (the JPEGTables tag), and
+    SOI, the other segments but the JFIF APP0 (libtiff's tiles carry
+    none), the scan and EOI (the tile)."""
+    tables, rest = [b"\xff\xd8"], [b"\xff\xd8"]
+    pos = 2
+    while True:
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            rest.append(stream[pos:])
+            break
+        length = struct.unpack_from(">H", stream, pos + 2)[0]
+        segment = stream[pos : pos + 2 + length]
+        if marker != 0xE0:
+            (tables if marker in (0xDB, 0xC4) else rest).append(segment)
+        pos += 2 + length
+    return b"".join(tables) + b"\xff\xd9", b"".join(rest)
+
+
+def write_jpeg_geotiff(path, pixels, geo_transform, tile=ORTHO_TILE):
+    """The (h, w, 3) RGB ``pixels`` as GDAL writes COMPRESS=JPEG
+    PHOTOMETRIC=YCBCR: tile^2 tiles (edge tiles padded by repeating the
+    last row and column), Photometric 6, YCbCrSubsampling 2,2, each tile
+    an abbreviated YCbCr stream at ORTHO_QUALITY (component ids 1, 2, 3, no
+    JFIF marker) from the port's encoder on its codec pool, the shared
+    tables in JPEGTables (347).  Returns the chunks' bytes in all."""
+    from dask_geomodeling_tpu_torch.io.geotiff import _map_chunks
+    from dask_geomodeling_tpu_torch.native import jpeg_encode_native
+
+    height, width = pixels.shape[:2]
+    corners = [(row, col) for row in range(0, height, tile) for col in range(0, width, tile)]
+
+    def encode(corner):
+        row, col = corner
+        piece = pixels[row : row + tile, col : col + tile]
+        if piece.shape[:2] != (tile, tile):
+            piece = np.pad(piece, ((0, tile - piece.shape[0]), (0, tile - piece.shape[1]), (0, 0)),
+                           mode="edge")
+        return split_jpeg_tables(jpeg_encode_native(piece))
+
+    encoded = _map_chunks(encode, corners)
+    tables = encoded[0][0]
+    check(all(t == tables for t, _ in encoded), "write_jpeg_geotiff: the tiles' tables differ")
+    chunks = [chunk for _, chunk in encoded]
+    tags = [(256, "I", [width]), (257, "I", [height]), (258, "H", [8, 8, 8]), (259, "H", [7]),
+            (262, "H", [6]), (277, "H", [3]), (284, "H", [1]), (322, "H", [tile]),
+            (323, "H", [tile]), (339, "H", [1, 1, 1]), (347, "B", tables), (530, "H", [2, 2])]
+    write_tiff_layout(path, tags, chunks, geo_transform, "EPSG:28992", tiled=True)
+    return sum(len(c) for c in chunks)
+
+
+def ortho_geo_transform(origin=ORTHO_ORIGIN, cell=ORTHO_CELL):
+    return (origin[0], cell, 0.0, origin[1], 0.0, -cell)
+
+
+def ortho_request(px, origin=ORTHO_ORIGIN, cell=ORTHO_CELL, projection="EPSG:28992"):
+    """A ``px``^2 request of ``cell`` m from ``origin`` (north-west) at the
+    green band's time."""
+    green = ORTHO_TIME + ORTHO_BAND_STEP
+    x0, y0 = origin
+    return dict(mode="vals", projection=projection, width=px, height=px,
+                bbox=(x0, y0 - px * cell, x0 + px * cell, y0), start=green, stop=green)
+
+
+def build_ortho_view(path):
+    """(Classify(smooth, ORTHO_BINS), smooth) over the image at ``path``,
+    its bands frames of one RasterFileSource (red, green, blue a second
+    apart): smooth the excess-green index 2G - R - B (red and blue brought
+    to the green band's time by Shift; 2.0 promotes the uint8 bands to
+    float64) smoothed over ORTHO_SMOOTH_M."""
+    from dask_geomodeling_tpu_torch import raster as port
+
+    source = port.RasterFileSource(path, time_first=ORTHO_TIME, time_delta=ORTHO_BAND_STEP)
+    red = port.Shift(source, ORTHO_BAND_STEP)
+    blue = port.Shift(source, -ORTHO_BAND_STEP)
+    excess_green = port.Subtract(port.Subtract(port.Multiply(source, 2.0), red), blue)
+    smooth = port.Smooth(excess_green, ORTHO_SMOOTH_M)
+    return port.Classify(smooth, ORTHO_BINS), smooth
+
+
+def jpeg_spy():
+    """A call_spy over the native JPEG codec and the port's Python BMP and
+    GIF decoders."""
+    from dask_geomodeling_tpu_torch import native
+    from dask_geomodeling_tpu_torch.io import jpeg
+
+    return call_spy([(native, "jpeg_decode_native"), (native, "jpeg_encode_native"),
+                     (jpeg, "_decode_bmp"), (jpeg, "_decode_gif")])
+
+
+def rewrite_tiles_as_jpeg(path):
+    """Every PNG tile of the GeoPackage or MBTiles file at ``path``
+    re-encoded as a JPEG at the defaults (the port's encoder); returns the
+    tiles rewritten."""
+    import sqlite3
+
+    from dask_geomodeling_tpu_torch.io.png import decode_png_bytes
+    from dask_geomodeling_tpu_torch.native import jpeg_encode_native
+
+    con = sqlite3.connect(path)
+    try:
+        tables = [row[0] for row in con.execute(
+            "SELECT name FROM sqlite_master WHERE type = 'table'")]
+        table = "tiles" if "tiles" in tables else con.execute(
+            "SELECT table_name FROM gpkg_contents WHERE data_type = 'tiles'").fetchone()[0]
+        rows = con.execute("SELECT rowid, tile_data FROM %s" % table).fetchall()
+        for rowid, blob in rows:
+            array, _ = decode_png_bytes(blob)
+            pixels = array[0] if array.shape[0] == 1 else np.ascontiguousarray(
+                array[:3].transpose(1, 2, 0))
+            con.execute("UPDATE %s SET tile_data = ? WHERE rowid = ?" % table,
+                        (jpeg_encode_native(pixels), rowid))
+        if "metadata" in tables:
+            con.execute("UPDATE metadata SET value = 'jpg' WHERE name = 'format'")
+        con.commit()
+    finally:
+        con.close()
+    return len(rows)
+
+
+def bmp_bytes(pixels, palette=None):
+    """A Windows bitmap (BITMAPINFOHEADER, bottom-up rows): 24-bit BGR of
+    (h, w, 3) ``pixels``, or 8-bit indices (h, w) over ``palette``
+    ((n, 3) RGB)."""
+    height, width = pixels.shape[:2]
+    if palette is None:
+        rows = pixels[::-1, :, ::-1].reshape(height, width * 3)
+        bits, table = 24, b""
+    else:
+        rows = pixels[::-1]
+        bits = 8
+        table = np.concatenate([np.asarray(palette, np.uint8)[:, ::-1],
+                                np.zeros((len(palette), 1), np.uint8)], axis=1).tobytes()
+    stride = -(-rows.shape[1] // 4) * 4
+    body = np.zeros((height, stride), np.uint8)
+    body[:, : rows.shape[1]] = rows
+    offset = 14 + 40 + len(table)
+    header = struct.pack("<IiiHHIIiiII", 40, width, height, 1, bits, 0, body.size, 3937, 3937,
+                         0 if palette is None else len(palette), 0)
+    return (b"BM" + struct.pack("<IHHI", offset + body.size, 0, 0, offset) + header + table
+            + body.tobytes())
+
+
+def gif_bytes(indices, palette):
+    """A GIF89a of the (h, w) uint8 ``indices`` over a 256-colour
+    ``palette``: one frame, LZW of 9-bit literal codes, a clear code
+    before every 250 of them (so the code width never grows)."""
+    height, width = indices.shape
+    flat = indices.reshape(-1).astype(np.uint16)
+    run = 250
+    n_runs = -(-flat.size // run)
+    codes = np.full(flat.size + n_runs + 1, 256, np.uint16)
+    at = np.arange(flat.size)
+    codes[at + at // run + 1] = flat
+    codes[-1] = 257
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).reshape(-1)
+    data = np.packbits(bits, bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[k : k + 255])]) + data[k : k + 255]
+                      for k in range(0, len(data), 255))
+    table = np.zeros((256, 3), np.uint8)
+    table[: len(palette)] = palette
+    return (b"GIF89a" + struct.pack("<HHBBB", width, height, 0xF7, 0, 0) + table.tobytes()
+            + b"," + struct.pack("<HHHHB", 0, 0, width, height, 0) + b"\x08" + blocks
+            + b"\x00;")
+
+
+def cube_palette(pixels):
+    """(indices, palette): ``pixels`` (h, w, 3) on the 6 x 6 x 6 colour
+    cube."""
+    levels = np.arange(6, dtype=np.uint8) * 51
+    palette = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(-1, 3)
+    q = (pixels.astype(np.uint16) + 25) // 51
+    return (q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2]).astype(np.uint8), palette
+
+
+def write_world_file(path, geo_transform):
+    """An ESRI world file (the upper-left pixel's centre)."""
+    x0, a, _, y0, _, d = geo_transform
+    with open(path, "w") as f:
+        f.write("\n".join("%.10f" % v for v in (a, 0.0, 0.0, d, x0 + a / 2, y0 + d / 2)) + "\n")
+
+
+def write_ortho_nitf(folder, pixels, block=ORTHO_NITF_BLOCK, absent=((0, 3), (3, 0)),
+                     name="ortho.ntf"):
+    """A NITF 2.1 file of two RGB segments over scene_igeolo's corners:
+    C3, the (n, n, 3) ``pixels`` as one JPEG, and M3, the same pixels
+    mirrored in ``block``^2 JPEG blocks with the blocks ``absent`` left out
+    (pad code 0).  Returns (path, the (6, n, n) values a reader gives)."""
+    from dask_geomodeling_tpu_torch.native import jpeg_decode_native, jpeg_encode_native
+
+    n = pixels.shape[0]
+    whole = jpeg_encode_native(pixels)
+    mirrored = np.ascontiguousarray(pixels[:, ::-1])
+    per_row = n // block
+    streams, offsets, at = [], [], 0
+    expected = np.zeros((3, n, n), np.uint8)
+    for k in range(per_row * per_row):
+        r, c = divmod(k, per_row)
+        if (r, c) in absent:
+            offsets.append(0xFFFFFFFF)
+            continue
+        piece = mirrored[r * block : (r + 1) * block, c * block : (c + 1) * block]
+        stream = jpeg_encode_native(piece)
+        expected[:, r * block : (r + 1) * block, c * block : (c + 1) * block] = \
+            jpeg_decode_native(stream).transpose(2, 0, 1)
+        offsets.append(at)
+        streams.append(stream)
+        at += len(stream)
+    pad = b"\x00"
+    mask = (struct.pack(">IHHH", 10 + len(pad) + 4 * len(offsets), 4, 0, 8 * len(pad)) + pad
+            + struct.pack(">%dI" % len(offsets), *offsets))
+    masked = mask + b"".join(streams)
+    common = dict(nbpp=8, abpp=8, irep="MULTI", igeolo=scene_igeolo())
+    c3 = nitf_image_subheader(3, n, n, ic="C3", **common)
+    m3 = nitf_image_subheader(3, n, n, ic="M3", nbpr=per_row, nbpc=per_row, nppbh=block,
+                              nppbv=block, **common)
+    path = os.path.join(folder, name)
+    with open(path, "wb") as f:
+        f.write(nitf_file_header([(len(c3), len(whole)), (len(m3), len(masked))]))
+        f.write(c3 + whole + m3 + masked)
+    values = np.concatenate([jpeg_decode_native(whole).transpose(2, 0, 1), expected])
+    return path, values
+
+
+def ortho_small_files(folder, pixels, gif_px=ORTHO_GIF_PX, nitf_px=ORTHO_NITF_PX):
+    """(d)'s files from the (n, n, 3) ``pixels`` (RD New, ORTHO_ORIGIN):
+    a JPEG with .jgw, .prj and a PAM nodata, an 8-bit palette BMP and a
+    24-bit BMP (.bpw), a GIF (.gfw) of the first ``gif_px``^2 and
+    write_ortho_nitf of the first ``nitf_px``^2.  Returns {label: (path,
+    request)}: the file's grid (the NITF's quadrants, and its whole at
+    half resolution)."""
+    from dask_geomodeling_tpu_torch.native import jpeg_encode_native
+
+    n = pixels.shape[0]
+    geo_transform = ortho_geo_transform()
+    files = {}
+    jpg = os.path.join(folder, "ortho.jpg")
+    with open(jpg, "wb") as f:
+        f.write(jpeg_encode_native(pixels))
+    write_world_file(jpg[:-4] + ".jgw", geo_transform)
+    with open(jpg[:-4] + ".prj", "w") as f:
+        f.write("EPSG:28992")
+    with open(jpg + ".aux.xml", "w") as f:
+        f.write('<PAMDataset><PAMRasterBand band="1"><NoDataValue>%d</NoDataValue>'
+                "</PAMRasterBand></PAMDataset>" % ORTHO_PAM_NODATA)
+    files["jpg"] = (jpg, ortho_request(n))
+    indices, palette = cube_palette(pixels)
+    for label, blob in (("bmp-8bit", bmp_bytes(indices, palette)), ("bmp-24bit", bmp_bytes(pixels))):
+        path = os.path.join(folder, label + ".bmp")
+        with open(path, "wb") as f:
+            f.write(blob)
+        write_world_file(path[:-4] + ".bpw", geo_transform)
+        files[label] = (path, ortho_request(n))
+    gif = os.path.join(folder, "ortho.gif")
+    with open(gif, "wb") as f:
+        f.write(gif_bytes(indices[:gif_px, :gif_px], palette))
+    write_world_file(gif[:-4] + ".gfw", geo_transform)
+    files["gif"] = (gif, ortho_request(gif_px))
+    nitf_path, _ = write_ortho_nitf(folder, pixels[:nitf_px, :nitf_px])
+    # at its own grid, a quadrant a request (one tile: a geographic
+    # Smooth's sigma differs between tile rows): the C3 segment's green
+    # frame (1) in the north-west, the M3 segment's (4) in the north-east,
+    # over an absent block; and the C3 segment's whole at half its
+    # resolution, where each cell's centre falls on a corner of four
+    # pixels (nearest-sampling ties)
+    x0, dx, _, y0, _, dy = scene_geo_transform(nitf_px)
+    half = nitf_px // 2
+    for label, frame, col, span in (("nitf", 1, 0, half), ("nitf-m3", 4, half, half),
+                                    ("nitf-half", 1, 0, nitf_px)):
+        when = ORTHO_TIME + frame * ORTHO_BAND_STEP
+        files[label] = (nitf_path, dict(
+            mode="vals", projection="EPSG:4326", width=half, height=half,
+            bbox=(x0 + col * dx, y0 + span * dy, x0 + (col + span) * dx, y0), start=when,
+            stop=when))
+    return files
+
+
+def tie_report(device, view, smooth, request, card):
+    """Where the card's classes of ``view`` part from compute_host's, which
+    stage parts: the cells whose excess-green index (the nearest-sampled
+    bands, before Smooth) differs, and the largest difference of the
+    smoothed index over the cells whose class differs.  Prints and
+    returns them."""
+    from dask_geomodeling_tpu_torch import compute_host, get_data
+
+    def both(block):
+        return (get_data(block, device=device, **request)["values"],
+                compute_host(*block.get_compute_graph(**request))["values"])
+
+    card_classes, host_classes = both(view)
+    card_index, host_index = both(smooth.args[0])
+    card_smooth, host_smooth = both(smooth)
+    parted = card_classes != host_classes
+    report = dict(classes=int(parted.sum()), index_cells=int((card_index != host_index).sum()),
+                  smooth_max_abs=float(np.abs(card_smooth - host_smooth)[parted].max())
+                  if parted.any() else 0.0,
+                  smooth_cells=int((card_smooth != host_smooth).sum()))
+    print("ortho-jpeg (d) nitf-half: %(classes)d cells of another class than compute_host's; "
+          "the excess-green index differs in %(index_cells)d cells, the smoothed index in "
+          "%(smooth_cells)d (by at most %(smooth_max_abs).3g where the class differs)" % report
+          + " [%s]" % card)
+    return report
+
+
+def ortho_wms_tiles(bbox, zooms=ORTHO_WMS_ZOOMS, per_zoom=ORTHO_WMS_PER_ZOOM):
+    """``per_zoom`` XYZ tiles of each zoom inside the EPSG:3857 ``bbox``,
+    spread over it."""
+    picked = []
+    for z in zooms:
+        inside = [t for t in xyz_tiles(bbox, (z,))
+                  if xyz_bbox(*t)[0] >= bbox[0] and xyz_bbox(*t)[2] <= bbox[2]
+                  and xyz_bbox(*t)[1] >= bbox[1] and xyz_bbox(*t)[3] <= bbox[3]]
+        picks = np.linspace(0, len(inside) - 1, min(per_zoom, len(inside))).round().astype(int)
+        picked += [inside[k] for k in picks]
+    return picked
+
+
+def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
+                     sampled_tiles=ORTHO_SAMPLED, wms_per_zoom=ORTHO_WMS_PER_ZOOM,
+                     gif_px=ORTHO_GIF_PX, nitf_px=ORTHO_NITF_PX):
+    """The ortho-jpeg phase.  (e) check_jpeg_fixtures first.  (a) ortho_pixels
+    as a JPEG GeoTIFF (write_jpeg_geotiff), build_ortho_view at its grid
+    through check_algebra_path (every sampled tile bitwise to
+    compute_host), every chunk decoded natively (no Python decoder), the
+    Gaussian's first frames torch.equal to its plain version.  (b) the
+    first ``sub_px``^2 as a GeoPackage of 256^2 JPEG tiles in RD New and as
+    zoom-18 MBTiles in EPSG:3857 asked in RD New, each bitwise to
+    compute_host.  (c) image/jpeg GetMaps of the smoothed layer from the
+    WSGI server, ``wms_per_zoom`` tiles of each of zooms 17-19, cold then
+    warm: the warm bodies the cold ones, each body the encoder's bytes of
+    compute_host's composited pixels (or, where the card's values part
+    from the host's in a cross-CRS nearest warp, within HEADLINE_SHARE,
+    the encoder's bytes of the card's); p50, p99 and the encode's share.  (d) ortho_small_files, each read whole
+    through RasterFileSource and the card route against compute_host
+    (bitwise; the NITF at half resolution within HEADLINE_SHARE, with
+    tie_report).  Returns (launches, numbers, the Gaussian's kernel
+    records on the card); removes its files."""
+    import torch
+
+    from dask_geomodeling_tpu_torch import compute_host, get_data, native
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.geo import Extent
+    from dask_geomodeling_tpu_torch.io.gpkg_raster import write_gpkg_raster
+    from dask_geomodeling_tpu_torch.io.mbtiles import write_mbtiles
+    from dask_geomodeling_tpu_torch.ipyleaflet_plugin import (
+        encode_tile, register_layer, tile_values, unregister_layers,
+    )
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    phase_t0 = time.perf_counter()
+    numbers = {}
+    cuda_stencils.reset_launches()
+    numbers["fixture_hashes"] = check_jpeg_fixtures(card)
+
+    # (a) the orthophoto as a JPEG GeoTIFF, by window
+    t0 = time.perf_counter()
+    pixels = ortho_pixels(px, px)
+    numbers["draw_s"] = time.perf_counter() - t0
+    path = os.path.join(folder, "ortho.tif")
+    native.reset_counts()
+    t0 = time.perf_counter()
+    size = write_jpeg_geotiff(path, pixels, ortho_geo_transform())
+    numbers["write_s"] = time.perf_counter() - t0
+    encodes = native.counts["jpeg_encodes"]
+    numbers.update(jpeg_mb=size / 1e6, tiles_encoded=encodes)
+    print("ortho-jpeg (a): a %d^2 RGB orthophoto of %.2f m drawn in %.2f s, written as a JPEG "
+          "GeoTIFF (%d^2 YCbCr 4:2:0 tiles, quality %d, JPEGTables) by %d native encodes in "
+          "%.2f s: %.1f MB (%.4f of the raw bytes) [%s]" % (
+              px, ORTHO_CELL, numbers["draw_s"], ORTHO_TILE, ORTHO_QUALITY, encodes,
+              numbers["write_s"], size / 1e6, size / pixels.size, card))
+    pipeline.clear_read_cache()
+    view, smooth = build_ortho_view(path)
+    source = smooth.args[0].args[1].args[0]
+    request = ortho_request(px)
+    limit = {"geomodeling.windowed-read-limit": min(
+        ORTHO_WINDOW_LIMIT, config.get("geomodeling.windowed-read-limit"))}
+    native.reset_counts()
+    phases, gaussians = {}, gaussian_calls()
+    with config.set(limit), jpeg_spy() as spy, native_spy() as plain:
+        check(np.dtype(source.info.dtype) == np.uint8 and source.info.bands == 3
+              and (source.info.width, source.info.height) == (px, px)
+              and source._file_read_plan(request) is not None,
+              "ortho-jpeg (a): info %r, or the read is not windowed" % (source.info,))
+        host_rate, values = check_algebra_path(
+            "ortho-jpeg", device, view, request, "nearest", (request["bbox"][0],
+                                                            request["bbox"][3]),
+            share=0.0, sampled_tiles=sampled_tiles, first_run=(gaussians, phases), routed=False)
+    decodes = dict(native.counts)
+    check_native_only("ortho-jpeg (a)", plain)
+    check(decodes["jpeg_decodes"] > 0 and spy.calls["jpeg_decode_native"]
+          == decodes["jpeg_decodes"] and not spy.calls["_decode_bmp"]
+          and not spy.calls["_decode_gif"], "ortho-jpeg (a): %r native decodes" % decodes)
+    launches_a = cuda_stencils.launches
+    check(launches_a > 0, "ortho-jpeg (a): the Gaussian did not launch")
+    planes = gaussians.first[0]
+    seconds = spy.seconds["jpeg_decode_native"]
+    numbers.update(first_phases_s=phases, host_mpx_per_s=host_rate,
+                   native_decodes=decodes["jpeg_decodes"], decoded_mb=decodes["jpeg_bytes"] / 1e6,
+                   decode_s=seconds, decode_mb_per_s=decodes["jpeg_bytes"] / 1e6 / seconds,
+                   most_decodes_at_once=spy.most["jpeg_decode_native"],
+                   gaussian_dtype=str(planes.dtype).replace("torch.", ""),
+                   gaussian_launches_a=launches_a,
+                   classes_share={str(int(k)): float(v) for k, v in zip(
+                       *np.unique(values, return_counts=True))})
+    numbers["classes_share"] = {k: v / values.size for k, v in numbers["classes_share"].items()}
+    del values
+    print("ortho-jpeg (a): %d native JPEG decodes, %.1f MB in %.3f s summed over threads (%.1f "
+          "MB/s a thread), at most %d at once; no Python decode; first run %s; Gaussian %d "
+          "launches on %s frames [%s]" % (
+              decodes["jpeg_decodes"], numbers["decoded_mb"], seconds,
+              numbers["decode_mb_per_s"], numbers["most_decodes_at_once"],
+              ", ".join("%s %.4f s" % kv for kv in phases.items()), launches_a,
+              numbers["gaussian_dtype"], card))
+    timed = [plain_gaussian_check("ortho-jpeg (a)", gaussians, gaussian_blur_reference)]
+
+    # (b) the pyramids over the first sub_px^2
+    sub = np.ascontiguousarray(pixels[:sub_px, :sub_px])
+    del pixels
+    sub_request = ortho_request(sub_px)
+    gpkg = os.path.join(folder, "ortho.gpkg")
+    write_gpkg_raster(gpkg, sub.transpose(2, 0, 1), ortho_geo_transform(),
+                      projection="EPSG:28992", tile_size=ORTHO_PYRAMID_TILE)
+    rewritten = {"gpkg": rewrite_tiles_as_jpeg(gpkg)}
+    merc_gt, merc_w, merc_h = mercator_box(sub_request, ORTHO_PYRAMID_ZOOM, ORTHO_PYRAMID_TILE)
+    mbt = os.path.join(folder, "ortho.mbtiles")
+    write_mbtiles(mbt, ortho_pixels(merc_w, merc_h, seed=48).transpose(2, 0, 1), merc_gt,
+                  projection="EPSG:3857", name="ortho", tile_size=ORTHO_PYRAMID_TILE)
+    rewritten["mbtiles"] = rewrite_tiles_as_jpeg(mbt)
+    pyramids = {}
+    for label, pyramid in (("gpkg", gpkg), ("mbtiles", mbt)):
+        pipeline.clear_read_cache()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        with jpeg_spy() as spy:
+            pyramid_view, _ = build_ortho_view(pyramid)
+            check_algebra_path("ortho-jpeg (b) " + label, device, pyramid_view, sub_request,
+                               "nearest", (sub_request["bbox"][0], sub_request["bbox"][3]),
+                               share=0.0, sampled_tiles=2, routed=False)
+        check(native.counts["jpeg_decodes"] >= rewritten[label],
+              "ortho-jpeg (b) %s: %d native decodes of %d tiles"
+              % (label, native.counts["jpeg_decodes"], rewritten[label]))
+        pyramids[label] = dict(tiles=rewritten[label], decodes=native.counts["jpeg_decodes"],
+                               decode_s=spy.seconds["jpeg_decode_native"],
+                               seconds=time.perf_counter() - t0)
+    numbers["pyramids"] = pyramids
+    print("ortho-jpeg (b): a GeoPackage of %d and a zoom-%d MBTiles of %d 256^2 JPEG tiles, "
+          "each read whole (%s) and asked in RD New at %d^2: every sampled tile bitwise to "
+          "compute_host [%s]" % (rewritten["gpkg"], ORTHO_PYRAMID_ZOOM, rewritten["mbtiles"],
+                                 ", ".join("%s %d decodes in %.3f s" % (k, v["decodes"],
+                                                                       v["decode_s"])
+                                           for k, v in pyramids.items()), sub_px, card))
+    for name in (gpkg, mbt):
+        os.remove(name)
+
+    # (c) image/jpeg GetMaps of the smoothed layer
+    bbox = Extent(request["bbox"], "EPSG:28992").transformed("EPSG:3857").bbox
+    tiles = ortho_wms_tiles(bbox, per_zoom=wms_per_zoom)
+    style, (vmin, vmax) = "viridis", ORTHO_WMS_RANGE
+    when = (ORTHO_TIME + ORTHO_BAND_STEP).strftime("%Y-%m-%dT%H:%M:%S.%fZ")
+
+    def params(tile):
+        query = getmap_params("ortho-exg", style, vmin, vmax, tile)
+        query.update(FORMAT="image/jpeg", TIME=when)
+        return query
+
+    register_layer("ortho-exg", smooth)
+    client = WMSClient()
+    passes = {}
+    launches_before = cuda_stencils.launches
+    try:
+        with config.set({"geomodeling.result-cache-size": 0}):
+            pipeline.clear_read_cache()
+            for label in ("cold", "warm"):
+                bodies, seconds = [], []
+                with jpeg_spy() as spy:
+                    for tile in tiles:
+                        status, content_type, body, took = client.get(params(tile))
+                        check(status == 200 and content_type == "image/jpeg"
+                              and body[:3] == b"\xff\xd8\xff",
+                              "ortho-jpeg (c): GetMap %r answered %s %s %r"
+                              % (tile, status, content_type, body[:80]))
+                        bodies.append(body)
+                        seconds.append(took)
+                passes[label] = dict(latency_numbers(seconds), bodies=bodies,
+                                     encode_s=spy.seconds["jpeg_encode_native"],
+                                     encodes=spy.calls["jpeg_encode_native"],
+                                     total_s=float(sum(seconds)))
+        check(passes["warm"]["bodies"] == passes["cold"]["bodies"],
+              "ortho-jpeg (c): the warm bodies differ from the cold ones")
+        launches_c = cuda_stencils.launches - launches_before
+        # each body against the encoder's bytes of the host route's pixels
+        # (compute_host, coloured and composited in process); a tile whose
+        # host and card values part (a cross-CRS nearest tie) is held
+        # within HEADLINE_SHARE and to the encoder's bytes of the card's
+        equal, worst = 0, 0.0
+        for k, tile in enumerate(tiles):
+            tile_req = dict(tile_request(tile), start=request["start"])
+            body = passes["cold"]["bodies"][k]
+            host = compute_host(*smooth.get_compute_graph(**tile_req))
+            if body == encode_tile(tile_values(host, WMS_TILE, WMS_TILE), style, vmin, vmax,
+                                   True, 0xFFFFFF, "image/jpeg"):
+                equal += 1
+                continue
+            data = get_data(smooth, device=device, **tile_req)
+            differ = float(np.mean(host["values"] != data["values"]))
+            worst = max(worst, differ)
+            check(0.0 < differ <= HEADLINE_SHARE and body == encode_tile(
+                tile_values(data, WMS_TILE, WMS_TILE), style, vmin, vmax, True, 0xFFFFFF,
+                "image/jpeg"), "ortho-jpeg (c): GetMap %r is not the encoder's bytes of the "
+                  "host's pixels, and its values part from compute_host in %.5f of its cells"
+                  % (tile, differ))
+    finally:
+        client.close()
+        unregister_layers()
+    for label in passes:
+        del passes[label]["bodies"]
+        passes[label]["encode_share"] = passes[label]["encode_s"] / passes[label]["total_s"]
+    numbers["wms"] = dict(passes, tiles=len(tiles), gaussian_launches=launches_c,
+                          host_equal=equal, worst_host_share=worst)
+    print("ortho-jpeg (c): %d image/jpeg GetMaps (zooms %s), cold p50 %.2f ms p99 %.2f ms "
+          "(encode %.4f of it), warm p50 %.2f ms p99 %.2f ms (encode %.4f); warm bodies equal "
+          "to cold; %d of %d bodies the encoder's bytes of compute_host's pixels, the others "
+          "within %.5f of compute_host (at most %.5f); Gaussian %d launches [%s]" % (
+              len(tiles), "/".join(str(z) for z in ORTHO_WMS_ZOOMS), passes["cold"]["p50_ms"],
+              passes["cold"]["p99_ms"], passes["cold"]["encode_share"], passes["warm"]["p50_ms"],
+              passes["warm"]["p99_ms"], passes["warm"]["encode_share"], equal, len(tiles),
+              HEADLINE_SHARE, worst, launches_c, card))
+
+    # (d) small files, read whole
+    small = ortho_small_files(folder, sub, gif_px=gif_px, nitf_px=nitf_px)
+    del sub
+    numbers["small_files"] = {}
+    for label, (small_path, small_request) in small.items():
+        pipeline.clear_read_cache()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        with jpeg_spy() as spy:
+            # building the view reads the file whole (Shift asks its frames)
+            small_view, small_smooth = build_ortho_view(small_path)
+            small_source = small_smooth.args[0].args[1].args[0]
+            check(small_source._file_read_plan(small_request) is None,
+                  "ortho-jpeg (d) %s: the read is windowed" % label)
+            # the half-resolution read's ties may part (ROADMAP Queue 3):
+            # at most the headline's share, and tie_report says where
+            check_algebra_path("ortho-jpeg (d) " + label, device, small_view, small_request,
+                               "nearest", (small_request["bbox"][0], small_request["bbox"][3]),
+                               share=HEADLINE_SHARE if label == "nitf-half" else 0.0,
+                               sampled_tiles=1, routed=False)
+            if label == "nitf-half":
+                numbers["nitf_half_ties"] = tie_report(device, small_view, small_smooth,
+                                                       small_request, card)
+        kind = {"gif": "_decode_gif", "bmp-8bit": "_decode_bmp",
+                "bmp-24bit": "_decode_bmp"}.get(label, "jpeg_decode_native")
+        check(spy.calls[kind] > 0, "ortho-jpeg (d) %s: %s did not run" % (label, kind))
+        numbers["small_files"][label] = dict(
+            bands=small_source.info.bands, size=(small_source.info.width,
+                                                 small_source.info.height),
+            no_data_value=small_source.info.no_data_value, decoder=kind,
+            decode_s=spy.seconds[kind], seconds=time.perf_counter() - t0)
+    check(numbers["small_files"]["jpg"]["no_data_value"] == ORTHO_PAM_NODATA
+          and numbers["small_files"]["nitf"]["bands"] == 6
+          and numbers["small_files"]["bmp-8bit"]["bands"] == 3,
+          "ortho-jpeg (d): %r" % numbers["small_files"])
+    print("ortho-jpeg (d): %s, each read whole through RasterFileSource, every sampled tile "
+          "bitwise to compute_host [%s]" % ("; ".join(
+              "%s %dx%d x %d bands (%s %.3f s)" % (label, *v["size"], v["bands"], v["decoder"],
+                                                  v["decode_s"])
+              for label, v in numbers["small_files"].items()), card))
+    for name in os.listdir(folder):
+        if name.startswith(("ortho", "bmp-")):
+            os.remove(os.path.join(folder, name))
+    pipeline.clear_read_cache()
+    path_launches = {"gaussian_blur": cuda_stencils.launches,
+                     "moving_max": cuda_stencils.moving_max_launches}
+    kernels = [dict(time_gaussian(planes, sigma), max_abs_err=err, path=label)
+               for label, planes, sigma, err in timed if planes.is_cuda]
+    del timed
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("ortho-jpeg: Gaussian %d launches on the path; the phase %.2f s [%s]"
           % (path_launches["gaussian_blur"], numbers["phase_s"], card))
     return path_launches, numbers, kernels
 
@@ -8556,6 +9307,9 @@ def run_phases(card, device, folder, mark):
     gaussian.extend(lzw_kernels)
     del read_values, lzw_lgn
     mark("the lzw-sheet path")
+    launches["ortho-jpeg"], ortho, ortho_kernels = check_ortho_jpeg(card, device, folder)
+    gaussian.extend(ortho_kernels)
+    mark("the ortho-jpeg path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -8601,6 +9355,7 @@ def run_phases(card, device, folder, mark):
     timings["grib-forecast"] = forecast
     timings["parcel-imagery"] = parcels
     timings["lzw-sheet"] = lzw
+    timings["ortho-jpeg"] = ortho
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

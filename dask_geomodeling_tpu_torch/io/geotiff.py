@@ -4,7 +4,9 @@ The same reader and writer, so that the port writes the same bytes (zlib
 level 6) and reads every file the JAX package writes.  LZW and PackBits
 chunks decode natively, as the JAX package's do: ``native/tiffcodec.cpp``,
 built with g++ at first use (native/__init__.py), on the codec's thread
-pool, a window's chunks in parallel (ctypes releases the GIL).  The
+pool, a window's chunks in parallel (ctypes releases the GIL).  JPEG
+chunks (compression 7) decode on the same pool with the port's own codec,
+``native/jpegcodec.cpp``, where the JAX package calls Pillow.  The
 pure-Python ``_lzw_decode`` and ``_packbits_decode`` are the plain
 versions the native decoders are held to; no read falls back to them.
 
@@ -14,8 +16,9 @@ Read support (foreign files):
 - striped or tiled layout, chunky (contig) or planar organization
 - uncompressed, DEFLATE (zlib), LZW (with early-change), PackBits, LZMA
   (stdlib ``lzma``); ZSTD through a lazy import of ``zstandard`` where it
-  is installed.  JPEG and WebP chunks, which the JAX package decodes with
-  Pillow, raise NotImplementedError: the port uses no Pillow
+  is installed; JPEG (the IFD's JPEGTables spliced into abbreviated
+  chunks).  WebP chunks, which the JAX package decodes with Pillow, raise
+  NotImplementedError: the port has no WebP codec
 - horizontal-differencing predictor (2) for integer samples
 - dtypes: u1 i1 u2 i2 u4 i4 f4 f8 (bool is stored as u1)
 - GeoTIFF georeferencing: ModelPixelScale + ModelTiepoint, EPSG code via
@@ -90,6 +93,7 @@ _COMPRESSION_DEFLATE = 8
 _COMPRESSION_PACKBITS = 32773
 _COMPRESSION_DEFLATE_OLD = 32946
 _COMPRESSION_JPEG = 7  # new-style JPEG (tables in tag 347)
+_JPEG_TABLES = 347
 _COMPRESSION_LZMA = 34925
 _COMPRESSION_ZSTD = 50000
 _COMPRESSION_WEBP = 50001
@@ -231,7 +235,7 @@ def _encode_image(array, compression, file_dtype, tiled, tile_size):
     if compression == _COMPRESSION_WEBP:
         raise NotImplementedError(
             "WebP TIFF compression needs an image codec the port does not have "
-            "(the JAX package writes it with Pillow)"
+            "(dask_geomodeling_tpu/io/geotiff.py writes it with Pillow)"
         )
     return _map_chunks(lambda plane: _encode(plane.tobytes(), compression), planes)
 
@@ -615,9 +619,10 @@ def _packbits_decode(data):
     return bytes(out)
 
 
-def _decode(data, compression, expected_size):
+def _decode(data, compression, expected_size, jpeg_tables=None, samples=None):
     """One chunk's bytes; ``expected_size`` is its nominal payload, the
-    native decoders' first capacity."""
+    native decoders' first capacity; a JPEG chunk takes the IFD's
+    JPEGTables and its samples per pixel."""
     if compression == _COMPRESSION_NONE:
         return data
     if compression in (_COMPRESSION_DEFLATE, _COMPRESSION_DEFLATE_OLD):
@@ -637,12 +642,34 @@ def _decode(data, compression, expected_size):
         import zstandard
 
         return zstandard.ZstdDecompressor().decompressobj().decompress(data)
-    if compression in (_COMPRESSION_JPEG, _COMPRESSION_WEBP):
+    if compression == _COMPRESSION_JPEG:
+        return _decode_jpeg_chunk(data, jpeg_tables, samples)
+    if compression == _COMPRESSION_WEBP:
         raise NotImplementedError(
-            "JPEG and WebP TIFF compression need an image codec the port does "
-            "not have (the JAX package reads them with Pillow)"
+            "WebP TIFF compression needs an image codec the port does not have "
+            "(dask_geomodeling_tpu/io/geotiff.py reads it with Pillow)"
         )
     raise NotImplementedError("Unsupported TIFF compression: %d" % compression)
+
+
+def _decode_jpeg_chunk(data, jpeg_tables, samples):
+    """Pixel bytes from a JPEG (new-style, compression 7) chunk: each
+    tile/strip is a standalone JPEG stream, an abbreviated one getting the
+    IFD-level JPEGTables (tag 347) spliced in after its SOI marker; the
+    port's native codec decodes it (YCbCr to RGB), and a 1-sample file
+    keeps one band of a codec-promoted image."""
+    from dask_geomodeling_tpu_torch.native import jpeg_decode_native
+
+    if jpeg_tables is not None and len(jpeg_tables) > 4 and data[:2] == b"\xff\xd8":
+        # SOI + tables (sans its SOI/EOI markers) + the chunk after SOI
+        data = b"\xff\xd8" + bytes(jpeg_tables)[2:-2] + data[2:]
+    pixels = jpeg_decode_native(data)
+    if samples is not None and pixels.ndim == 3 and pixels.shape[2] != samples:
+        if samples == 1:
+            pixels = pixels[:, :, 0]  # grayscale promoted by the codec
+        else:
+            pixels = pixels[:, :, :samples]
+    return pixels.tobytes()
 
 
 def _undo_predictor(chunk, predictor, samples):
@@ -1072,7 +1099,8 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                         f.seek(offsets[idx])
                         wanted.append((plane, ty, tx, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[3], compression, tile_nbytes),
+                lambda item: _decode(item[3], compression, tile_nbytes,
+                                     tags.get(_JPEG_TABLES), samples),
                 wanted,
             )
             for (plane, ty, tx, _), raw in zip(wanted, decoded):
@@ -1125,7 +1153,8 @@ def _read_geotiff_window(path, row0, row1, col0, col1, level=0):
                     f.seek(offsets[idx])
                     wanted.append((plane, strip, f.read(counts[idx])))
             decoded = _map_chunks(
-                lambda item: _decode(item[2], compression, strip_nbytes),
+                lambda item: _decode(item[2], compression, strip_nbytes,
+                                     tags.get(_JPEG_TABLES), samples),
                 wanted,
             )
             for (plane, strip, _), raw in zip(wanted, decoded):

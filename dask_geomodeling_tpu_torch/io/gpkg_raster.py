@@ -10,9 +10,10 @@ the rows/columns that actually hold tiles (GDAL reports the full
 tile-matrix-set extent; for sparse pyramids the present-tile envelope is
 the useful dataset).
 
-PNG tiles decode through the port's ``io/png.py``.  The JAX package
-decodes JPEG and WebP tiles with Pillow; the port has no JPEG or WebP
-decoder, so such a tile raises NotImplementedError.
+PNG tiles decode through the port's ``io/png.py``, JPEG tiles through
+its ``io/jpeg.py`` (the native codec), where the JAX package calls
+Pillow.  The port has no WebP decoder, so a WebP tile raises
+NotImplementedError.
 
 ``write_gpkg_raster`` emits a single-zoom PNG tile pyramid readable by
 GDAL/QGIS, its tiles encoded on the GeoTIFF codec's thread pool.
@@ -41,16 +42,21 @@ def is_raster_gpkg(path):
 
 
 def _decode_tile(blob):
-    """A tile blob as (bands, h, w); PNG only."""
+    """A tile blob as (bands, h, w): PNG with io/png.py, JPEG (and BMP or
+    GIF) with io/jpeg.py, converted to L or RGB as the JAX package's
+    Pillow conversion does; a WebP tile raises."""
+    from dask_geomodeling_tpu_torch.io.jpeg import decode_image, to_pillow_bands
     from dask_geomodeling_tpu_torch.io.png import _SIGNATURE, decode_png_bytes
 
     if blob[:8] == _SIGNATURE:
         array, _ = decode_png_bytes(blob)
         return array
-    raise NotImplementedError(
-        "decoding a tile that is not PNG (JPEG or WebP) is not ported: the port has no JPEG "
-        "or WebP decoder; dask_geomodeling_tpu/io/gpkg_raster.py decodes it with Pillow"
-    )
+    if blob[:4] == b"RIFF":
+        raise NotImplementedError(
+            "decoding a WebP tile is not ported: the port has no WebP decoder; "
+            "dask_geomodeling_tpu/io/gpkg_raster.py decodes it with Pillow"
+        )
+    return to_pillow_bands(decode_image(blob))
 
 
 def _mosaic(decoded, n_rows, n_cols, tile_h, tile_w, place):

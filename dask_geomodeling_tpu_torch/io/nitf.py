@@ -2,12 +2,14 @@
 
 Counterpart of dask_geomodeling_tpu/io/nitf.py, copied: the same
 RasterData payload and header info, the same errors and messages, with
-two differences.
+three differences.
 
-- Segments compressed as JPEG (IC = C3, M3) or JPEG 2000 (C8, M8) raise
-  NotImplementedError, from ``read_nitf`` and ``read_nitf_info`` alike:
-  the JAX package decodes their codestreams with Pillow, and the port has
-  no JPEG or JPEG 2000 decoder.
+- JPEG segments (IC = C3, and M3's blocks) decode with the port's own
+  codec (native/jpegcodec.cpp, through io/jpeg.py:decode_image), where the
+  JAX package calls Pillow: the same arrays.
+- Segments compressed as JPEG 2000 (C8, M8) raise NotImplementedError,
+  from ``read_nitf`` and ``read_nitf_info`` alike: the JAX package decodes
+  their codestreams with Pillow, and the port has no JPEG 2000 decoder.
 - The payload is not copied on its way to the decoder: segments are
   memoryviews of the file's bytes, a masked segment's blocks are copied
   once into a buffer of the dense payload's size, and the blocks are
@@ -24,8 +26,8 @@ Scope:
   grid shape to stack (like GRIB messages)
 - pixel types INT/SI (8/16/32 bit) and R (32/64-bit IEEE floats),
   actual-bits-per-pixel honoured by masking
-- compression IC=NC (none) and IC=NM (masked: absent blocks fill with
-  the pad pixel code)
+- compression IC=NC (none), IC=NM (masked: absent blocks fill with
+  the pad pixel code), IC=C3 (JPEG) and IC=M3 (masked JPEG blocks)
 - block layouts IMODE B (band interleaved by block), S (band
   sequential) and P (pixel interleaved), arbitrary NBPR x NBPC blocking
   with edge padding cropped
@@ -45,6 +47,8 @@ __all__ = ["read_nitf", "read_nitf_info"]
 
 #: the compressions whose codestreams the JAX package decodes with Pillow
 _COMPRESSED = ("C3", "C8", "M3", "M8")
+#: those the port has no decoder for (JPEG 2000)
+_UNPORTED = ("C8", "M8")
 
 
 class _NitfError(ValueError):
@@ -317,12 +321,67 @@ def _unmask_blocks(raw, sub):
 
 
 def _refuse_compressed(sub):
-    if sub["ic"] in _COMPRESSED:
-        codec = "JPEG" if sub["ic"].endswith("3") else "JPEG 2000"
+    if sub["ic"] in _UNPORTED:
         raise NotImplementedError(
-            "reading NITF %s segments is not ported: the port has no %s decoder; "
-            "dask_geomodeling_tpu/io/nitf.py decodes them with Pillow" % (sub["ic"], codec)
+            "reading NITF %s segments is not ported: the port has no JPEG 2000 decoder; "
+            "dask_geomodeling_tpu/io/nitf.py decodes them with Pillow" % sub["ic"]
         )
+
+
+def _decode_masked_compressed(raw, sub):
+    """IC=M3: every present block is its own JPEG codestream at its mask
+    offset (the next present offset bounds it); absent blocks fill with
+    the pad pixel code."""
+    offsets, pad_code, data = _parse_mask(raw, sub)
+    if offsets is None:
+        raise _NitfError(
+            "NITF %s segment without a block mask" % sub["ic"]
+        )
+    bands = sub["nbands"]
+    bh, bw = sub["nppbv"], sub["nppbh"]
+    nbpr, nbpc = sub["nbpr"], sub["nbpc"]
+    positions = nbpr * nbpc
+    pad_value = int.from_bytes(pad_code, "big") if pad_code else 0
+    full = None
+
+    present = sorted(
+        (offset, record)
+        for record, offset in enumerate(offsets)
+        if offset != 0xFFFFFFFF
+    )
+    for index, (offset, record) in enumerate(present):
+        end = present[index + 1][0] if index + 1 < len(present) else len(data)
+        block = _decode_compressed(data[offset:end], sub, whole=False)
+        if full is None:
+            full = np.full(
+                (bands, nbpc * bh, nbpr * bw), pad_value, block.dtype
+            )
+        position = record % positions if sub["imode"] == "S" else record
+        row, col = divmod(position, nbpr)
+        window = full[:, row * bh : (row + 1) * bh, col * bw : (col + 1) * bw]
+        if sub["imode"] == "S":
+            window[record // positions] = block[0, :bh, :bw]
+        else:
+            window[:] = block[:, :bh, :bw]
+    if full is None:
+        full = np.full((bands, nbpc * bh, nbpr * bw), pad_value, np.uint8)
+    return full[:, : sub["nrows"], : sub["ncols"]]
+
+
+def _decode_compressed(raw, sub, whole=True):
+    """A C3 codestream as Pillow's ``np.asarray`` gives it (the port's
+    codec); ``whole`` crops to the full segment extent, a masked block
+    keeps its own size."""
+    from dask_geomodeling_tpu_torch.io.jpeg import decode_image
+
+    array = decode_image(bytes(raw))["pixels"]
+    if array.ndim == 2:
+        array = array[None]
+    else:
+        array = np.moveaxis(array, -1, 0)
+    if whole:
+        return array[:, : sub["nrows"], : sub["ncols"]]
+    return array
 
 
 def _parse_header(data):
@@ -400,9 +459,14 @@ def read_nitf(path):
                 % (sub["nrows"], sub["ncols"], head["nrows"], head["ncols"])
             )
         _refuse_compressed(sub)
-        if sub["ic"] == "NM":
-            payload = _unmask_blocks(payload, sub)
-        stacks.append(_decode_blocks(payload, sub))
+        if sub["ic"] == "NC":
+            stacks.append(_decode_blocks(payload, sub))
+        elif sub["ic"] == "NM":
+            stacks.append(_decode_blocks(_unmask_blocks(payload, sub), sub))
+        elif sub["ic"] == "M3":
+            stacks.append(_decode_masked_compressed(payload, sub))
+        else:
+            stacks.append(_decode_compressed(payload, sub))
     array = stacks[0] if len(stacks) == 1 else np.concatenate(stacks, axis=0)
 
     geo_transform, projection = _georeference(head)

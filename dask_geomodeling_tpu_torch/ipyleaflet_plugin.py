@@ -14,10 +14,11 @@ the WSGI server answers it with a 500) and rendered on the host.
   and the ipyleaflet layer, defined only where those packages are.
 
 The render needs neither matplotlib nor Pillow: the colour maps are the
-port's own tables (render/colormaps.py) and the PNG writer is
-io/png.py's.  The one answer that differs from the JAX package's: GetMap
-writes ``image/png`` alone; ``image/jpeg`` and ``image/webp`` need an
-encoder the port does not have, and answer 400.
+port's own tables (render/colormaps.py), the PNG writer is io/png.py's
+and the JPEG encoder the port's native codec (native/jpegcodec.cpp, the
+bytes Pillow writes at its defaults).  The one answer that differs from
+the JAX package's: ``image/webp`` needs an encoder the port does not
+have, and answers 400.
 """
 import threading
 from datetime import datetime
@@ -116,6 +117,7 @@ def get_capabilities_xml(base_url="http://localhost/wms"):
         "<Capability><Request><GetCapabilities>"
         "<Format>application/vnd.ogc.wms_xml</Format>"
         "</GetCapabilities><GetMap><Format>image/png</Format>"
+        "<Format>image/jpeg</Format>"
         "</GetMap><GetFeatureInfo><Format>application/json</Format>"
         "<Format>text/plain</Format></GetFeatureInfo></Request>"
         "<Layer><Title>dask_geomodeling_tpu</Title>%s</Layer>"
@@ -133,9 +135,9 @@ class WMSError(Exception):
 
 
 #: the WMS FORMAT= values the port writes
-_IMAGE_FORMATS = ("image/png",)
+_IMAGE_FORMATS = ("image/jpeg", "image/png")
 #: those the JAX package writes through Pillow, and the encoder each needs
-_MISSING_ENCODERS = {"image/jpeg": "JPEG", "image/webp": "WebP"}
+_MISSING_ENCODERS = {"image/webp": "WebP"}
 
 
 def _masked(values, no_data_value):
@@ -162,7 +164,7 @@ def _geographic(srs):
 
 
 def render_wms_tile(params):
-    """Render one WMS GetMap request; returns PNG bytes.
+    """Render one WMS GetMap request; returns PNG or JPEG bytes.
 
     ``params`` is a flat dict of query parameters (strings):
     layers (view JSON), styles (a matplotlib colormap name), vmin, vmax,
@@ -231,7 +233,8 @@ def render_wms_tile(params):
         projection=srs,
         start=time,
     )
-    return encode_tile(tile_values(data, height, width), style, vmin, vmax, transparent, bgcolor)
+    return encode_tile(tile_values(data, height, width), style, vmin, vmax, transparent, bgcolor,
+                       img_format)
 
 
 def tile_values(data, height, width):
@@ -243,11 +246,12 @@ def tile_values(data, height, width):
     return _masked(data["values"][0], data["no_data_value"])
 
 
-def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF):
-    """The PNG of a masked (height, width) array: normalized to
+def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF,
+                img_format="image/png"):
+    """The PNG (or JPEG) of a masked (height, width) array: normalized to
     [vmin, vmax], coloured by the map ``style``, masked cells transparent
     (or, with ``transparent`` False, everything composited on
-    ``bgcolor``)."""
+    ``bgcolor``; JPEG has no alpha, so it always composites)."""
     from dask_geomodeling_tpu_torch.io.png import write_png_bytes
     from dask_geomodeling_tpu_torch.render import colormaps
 
@@ -258,7 +262,8 @@ def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF):
         raise WMSError(400, "Unknown style (colormap): %r" % style)
     img_uint8[np.ma.getmaskarray(normalized), 3] = 0  # nodata is transparent
 
-    if not transparent:
+    jpeg = img_format == "image/jpeg"
+    if jpeg or not transparent:
         background = np.array(
             [(bgcolor >> 16) & 0xFF, (bgcolor >> 8) & 0xFF, bgcolor & 0xFF],
             dtype=np.float32,
@@ -269,6 +274,10 @@ def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF):
             + (1.0 - alpha) * background
         ).astype(np.uint8)
 
+    if jpeg:
+        from dask_geomodeling_tpu_torch.native import jpeg_encode_native
+
+        return jpeg_encode_native(img_uint8)
     return write_png_bytes(img_uint8.transpose(2, 0, 1))
 
 

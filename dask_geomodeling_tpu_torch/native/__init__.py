@@ -1,9 +1,14 @@
-"""Native (C++) host components: the TIFF decoders and the scanline
-rasterizer.
+"""Native (C++) host components: the TIFF decoders, the JPEG codec and the
+scanline rasterizer.
 
 Counterpart of dask_geomodeling_tpu/native/__init__.py, at its names but
-for the packed fetch (``fetchdecode.cpp``), which the port does not use.
-``tiffcodec.cpp`` and ``rasterize.cpp`` build at first use with g++
+for the packed fetch (``fetchdecode.cpp``), which the port does not use;
+the JPEG codec (``jpegcodec.cpp``: ``jpeg_decode_native`` and
+``jpeg_encode_native``) is the port's own, where the JAX package calls
+Pillow (its io/jpeg.py, the JPEG chunks of io/geotiff.py, the tiles of
+io/gpkg_raster.py, NITF's C3 and M3 segments and the WMS JPEG GetMap).
+``tiffcodec.cpp``, ``jpegcodec.cpp`` and ``rasterize.cpp`` build at first
+use with g++
 (``ops/_build.py``: ``-O3 -shared -fPIC -std=c++17``, a hash-named library
 in ``_build/``) and load with ctypes, which releases the GIL around each
 call, so the codec's thread pool decodes a window's chunks in parallel.
@@ -13,7 +18,8 @@ g++ fails (its callers then drop to Python), a failure to build or load
 raises here, naming the compiler and the source: no caller falls back to
 the pure-Python decoders (io/geotiff.py) or the numpy polygon scanline
 (geo/rasterize.py), which stay as the plain versions the tests hold these
-to.  ``counts`` tallies the native calls (chip_smoke.py reads it).
+to; the JPEG codec has no Python version at all (the tests hold it to
+Pillow).  ``counts`` tallies the native calls (chip_smoke.py reads it).
 """
 import ctypes
 import os
@@ -26,6 +32,9 @@ from dask_geomodeling_tpu_torch.ops import _build
 __all__ = [
     "load_tiffcodec",
     "tiff_decode_native",
+    "load_jpegcodec",
+    "jpeg_decode_native",
+    "jpeg_encode_native",
     "load_rasterizer",
     "rasterize_native",
     "counts",
@@ -35,14 +44,18 @@ __all__ = [
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(_HERE, "rasterize.cpp")
 _TIFF_SOURCE = os.path.join(_HERE, "tiffcodec.cpp")
+_JPEG_SOURCE = os.path.join(_HERE, "jpegcodec.cpp")
 
 _lock = threading.Lock()
 _lib = None
 _tiff_lib = None
+_jpeg_lib = None
 
-#: native calls since the last reset_counts(): chunk decodes and their
-#: decoded bytes, and rasterize_native's burns (one a call)
-counts = {"tiff_decodes": 0, "tiff_bytes": 0, "burns": 0}
+#: native calls since the last reset_counts(): TIFF chunk decodes and
+#: their decoded bytes, JPEG decodes and their decoded bytes, JPEG encodes
+#: and their bytes, and rasterize_native's burns (one a call)
+counts = {"tiff_decodes": 0, "tiff_bytes": 0, "jpeg_decodes": 0, "jpeg_bytes": 0,
+          "jpeg_encodes": 0, "jpeg_encoded_bytes": 0, "burns": 0}
 
 
 def reset_counts():
@@ -133,6 +146,110 @@ def tiff_decode_native(kind, data, expected_size):
             counts["tiff_bytes"] += int(n)
         return out[: int(n)].tobytes()
     raise ValueError("%s output exceeded expected size" % kind)
+
+
+def load_jpegcodec():
+    """Load (building if necessary) the native JPEG codec; raises when it
+    cannot be built or loaded."""
+    global _jpeg_lib
+    lib = _build.load_host_library(_JPEG_SOURCE)
+    with _lock:
+        if _jpeg_lib is lib:
+            return _jpeg_lib
+        u8_p = ctypes.POINTER(ctypes.c_uint8)
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [u8_p, ctypes.c_int64, u8_p, ctypes.c_int64,
+                                    ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+                                    ctypes.c_int64]
+        lib.jpeg_encode.restype = ctypes.c_int64
+        lib.jpeg_encode.argtypes = [u8_p] + [ctypes.c_int32] * 6 + [u8_p, ctypes.c_int64]
+        _jpeg_lib = lib
+        return _jpeg_lib
+
+
+#: jpegcodec.cpp's return codes
+_JPEG_CORRUPT, _JPEG_UNSUPPORTED, _JPEG_NEED_SPACE = -1, -2, -3
+
+
+def jpeg_decode_native(data):
+    """Decode a JPEG stream as Pillow's ``np.asarray(Image.open(...))``
+    gives it: (h, w) uint8 for one component, (h, w, 3) RGB for three,
+    (h, w, 4) CMYK for four (inverted, Pillow's "CMYK;I" raw mode).
+
+    Raises OSError where Pillow raises (a truncated or broken stream),
+    NotImplementedError for what the codec does not decode (arithmetic
+    coding, lossless, 12-bit samples, block smoothing), naming the JAX
+    module that reads them, and RuntimeError when the library cannot be
+    built or loaded.
+    """
+    lib = load_jpegcodec()
+    src = np.frombuffer(data, dtype=np.uint8)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    info = (ctypes.c_int32 * 3)()
+    message = ctypes.create_string_buffer(256)
+    # the first call reads the header (width, height, channels), the
+    # second decodes into the array it sizes
+    rc = lib.jpeg_decode(src.ctypes.data_as(u8_p), src.size, None, 0, info, message,
+                         len(message))
+    if rc == _JPEG_NEED_SPACE:
+        out = np.empty(int(info[0]) * int(info[1]) * int(info[2]), np.uint8)
+        rc = lib.jpeg_decode(src.ctypes.data_as(u8_p), src.size, out.ctypes.data_as(u8_p),
+                             out.size, info, message, len(message))
+    text = message.value.decode("ascii", "replace")
+    if rc == _JPEG_UNSUPPORTED:
+        raise NotImplementedError(text)
+    if rc != 0:
+        raise OSError("broken JPEG data: %s" % text)
+    width, height, channels = (int(v) for v in info)
+    with _lock:
+        counts["jpeg_decodes"] += 1
+        counts["jpeg_bytes"] += out.size
+    return out.reshape(height, width) if channels == 1 else out.reshape(height, width, channels)
+
+
+#: what Pillow's default save writes: quality 75, and for RGB the luma
+#: sampled 2 x 2 (4:2:0); a grayscale image writes 1 x 1
+_QUALITY, _RGB_SAMPLING = 75, (2, 2)
+
+
+def jpeg_encode_native(pixels):
+    """The JPEG bytes of a (h, w) grayscale or (h, w, 3) RGB uint8 array,
+    the bytes Pillow writes for ``Image.fromarray(pixels).save(buf,
+    format="jpeg")``: baseline, JFIF, quality 75, the standard Huffman
+    tables, RGB as 4:2:0 YCbCr."""
+    pixels = np.ascontiguousarray(pixels)
+    sampling = (1, 1) if pixels.ndim == 2 else _RGB_SAMPLING
+    return _jpeg_encode(pixels, _QUALITY, *sampling)
+
+
+def _jpeg_encode(pixels, quality, h_samp, v_samp):
+    """jpegcodec.cpp's encoder at ``quality`` with the luma sampled
+    ``h_samp`` x ``v_samp`` (the tests hold other qualities and samplings
+    to Pillow's)."""
+    if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
+            pixels.ndim == 3 and pixels.shape[2] != 3):
+        raise ValueError("cannot write %s %s as JPEG" % (pixels.dtype, pixels.shape))
+    height, width = pixels.shape[:2]
+    if not (1 <= width <= 65535 and 1 <= height <= 65535):
+        raise ValueError("JPEG dimensions %d x %d out of range" % (width, height))
+    channels = 1 if pixels.ndim == 2 else 3
+    lib = load_jpegcodec()
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    capacity = 2 * pixels.size + 4096
+    while True:
+        out = np.empty(capacity, np.uint8)
+        n = lib.jpeg_encode(pixels.ctypes.data_as(u8_p), width, height, channels, quality,
+                            h_samp, v_samp, out.ctypes.data_as(u8_p), capacity)
+        if n == -1:
+            capacity *= 2
+            continue
+        if n < 0:
+            raise ValueError("the JPEG encoder refused %d x %d x %d" % (width, height, channels))
+        break
+    with _lock:
+        counts["jpeg_encodes"] += 1
+        counts["jpeg_encoded_bytes"] += int(n)
+    return out[:n].tobytes()
 
 
 _FUNC_BY_DTYPE = {

@@ -61,13 +61,11 @@ _VECTOR_CACHE_SIZE = 16
 #: file suffixes of the raster formats the port does not read, and the
 #: JAX module that reads each; the port reads GeoTIFF, VRT, Zarr stores,
 #: HDF4, netCDF and the formats of ``whole_file_reader``, the tile
-#: pyramids (a JPEG or WebP tile in them raises, naming
-#: io/gpkg_raster.py), GRIB (a JPEG 2000 field raises, naming
-#: io/grib.py) and NITF (a JPEG or JPEG 2000 segment raises, naming
-#: io/nitf.py) among them
+#: pyramids (a WebP tile in them raises, naming io/gpkg_raster.py), GRIB
+#: (a JPEG 2000 field raises, naming io/grib.py), NITF (a JPEG 2000
+#: segment raises, naming io/nitf.py) and JPEG, BMP and GIF among them
 _UNPORTED_FORMATS = {
     (".jp2", ".j2k", ".jpx"): "io/jp2.py",
-    (".jpg", ".jpeg", ".bmp", ".gif"): "io/jpeg.py",
 }
 _NETCDF_SUFFIXES = (".nc", ".cdf", ".nc3", ".nc4", ".h5", ".hdf5")
 #: HDF4 by its magic, HDF5 (read as netCDF-4) otherwise
@@ -117,7 +115,7 @@ def whole_file_reader(path):
     ``.dat`` and ``.raw`` are ENVI when a header sits beside them), or
     None for GeoTIFF and VRT."""
     from dask_geomodeling_tpu_torch.io import (
-        asciigrid, dem, envi, gpkg_raster, grib, hfa, mbtiles, nitf, png, simplegrids,
+        asciigrid, dem, envi, gpkg_raster, grib, hfa, jpeg, mbtiles, nitf, png, simplegrids,
     )
 
     lower = path.lower()
@@ -125,6 +123,7 @@ def whole_file_reader(path):
         ((".asc", ".agr"), asciigrid.read_ascii_grid),
         ((".xyz",), asciigrid.read_xyz),
         ((".png",), png.read_png),
+        ((".jpg", ".jpeg", ".bmp", ".gif"), jpeg.read_jpeg),
         ((".ntf", ".nitf"), nitf.read_nitf),
         ((".hgt",), dem.read_hgt),
         ((".dt0", ".dt1", ".dt2"), dem.read_dted),

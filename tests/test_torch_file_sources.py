@@ -25,6 +25,7 @@ from dask_geomodeling_tpu import config as jax_config
 from dask_geomodeling_tpu import raster as R
 from dask_geomodeling_tpu.geo import safefiles as jax_safefiles
 from dask_geomodeling_tpu.io.geotiff import write_geotiff
+from dask_geomodeling_tpu.runtime import pipeline as jax_pipeline
 from dask_geomodeling_tpu_torch import compute_host, evaluate_tiled, from_reference
 from dask_geomodeling_tpu_torch import raster as port
 from dask_geomodeling_tpu_torch.config import config
@@ -353,14 +354,14 @@ def test_window_cache(root, monkeypatch):
     assert len(decodes) == 2
 
 
-def c3_nitf():
-    """The bytes of a NITF 2.1 file of one JPEG-compressed (IC = C3) 4 x 4
-    segment, written with tests/test_nitf.py's encoder."""
+def c8_nitf():
+    """The bytes of a NITF 2.1 file of one JPEG 2000-compressed (IC = C8)
+    4 x 4 segment, written with tests/test_nitf.py's encoder."""
     import tests.test_nitf as nitf_tests
 
     values = np.zeros((1, 4, 4), np.uint8)
-    subheader = nitf_tests._image_subheader(values, icords=" ", ic=b"C3")
-    payload = b"\xff\xd8\xff\xd9"
+    subheader = nitf_tests._image_subheader(values, icords=" ", ic=b"C8")
+    payload = b"\xff\x4f\xff\x51"
     return nitf_tests._file_header([(subheader, payload)]) + subheader + payload
 
 
@@ -371,9 +372,19 @@ def c3_nitf():
 def test_unported_format_names_its_module(root, name, module):
     """A raster format the port does not read raises NotImplementedError
     naming the JAX module that reads it; a NITF file is read but for its
-    JPEG (C3) segments."""
-    (root / name).write_bytes(c3_nitf() if name.endswith(".ntf") else b"not read")
+    JPEG 2000 (C8) segments.  JPEG, BMP and GIF (io/jpeg.py) are read:
+    a file of none of them raises OSError in both packages, as Pillow's
+    UnidentifiedImageError does."""
+    (root / name).write_bytes(c8_nitf() if name.endswith(".ntf") else b"not read")
     source = port.RasterFileSource(name)
+    if module == "io/jpeg.py":
+        with pytest.raises(OSError, match="cannot identify image file"):
+            source.info
+        with pytest.raises(OSError, match="cannot identify image file"):
+            pipeline.read_geotiff_cached(str(root / name))
+        with pytest.raises(OSError, match="cannot identify image file"):
+            jax_pipeline.read_geotiff_cached(str(root / name))
+        return
     with pytest.raises(NotImplementedError, match=module):
         source.info
     with pytest.raises(NotImplementedError, match=module):

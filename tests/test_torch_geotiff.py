@@ -253,16 +253,22 @@ def test_vrt(tmp_path):
 
 
 def test_jpeg_and_webp_chunks_are_not_ported(tmp_path):
-    """The JAX package reads JPEG and writes WebP TIFF chunks with Pillow;
-    the port uses no Pillow and names what is missing."""
+    """JPEG chunks (compression 7, the IFD's JPEGTables spliced in) read
+    as the JAX package reads them with Pillow: the port's native codec
+    gives the same bytes, gray and RGB, tiled and stripped.  WebP, which
+    the JAX package reads and writes with Pillow, is still not ported: the
+    port's writer names the JAX module."""
     image = pytest.importorskip("PIL.Image")
     smooth = np.add.outer(np.arange(32), np.arange(48)).astype(np.uint8)
-    path = str(tmp_path / "jpeg.tif")
-    image.fromarray(smooth, mode="L").save(path, compression="jpeg", quality=95)
-    assert J.read_geotiff(path).array.shape == (1, 32, 48)
-    with pytest.raises(NotImplementedError, match="Pillow"):
-        P.read_geotiff(path)
-    with pytest.raises(NotImplementedError, match="Pillow"):
+    rgb = np.stack([smooth, smooth[::-1], 255 - smooth], axis=-1)
+    for name, pixels, options in (("gray.tif", smooth, {}), ("rgb.tif", rgb, {}),
+                                  ("tiled.tif", rgb, {"tile": (16, 16)})):
+        path = str(tmp_path / name)
+        image.fromarray(pixels).save(path, compression="jpeg", quality=95, **options)
+        assert_same_data(P.read_geotiff(path), J.read_geotiff(path))
+        assert_same_data(P.read_geotiff_window(path, 3, 29, 5, 40),
+                         J.read_geotiff_window(path, 3, 29, 5, 40))
+    with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/geotiff.py"):
         P.write_geotiff(str(tmp_path / "webp.tif"), smooth[None], GT, "EPSG:28992", None,
                         compress="webp")
 

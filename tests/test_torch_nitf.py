@@ -8,9 +8,11 @@ encoder and assertions, its ``read_nitf`` and ``read_nitf_info`` the
 package's: the files are byte-identical, and every payload, header info
 and error the same (arrays bitwise with their dtypes, geotransforms
 exactly; errors by type and message).  ``test_masked_jpeg_blocks`` has
-its own case: the JAX package decodes the JPEG blocks with Pillow, the
-port raises NotImplementedError naming dask_geomodeling_tpu/io/nitf.py,
-as it does for every C3, C8, M3 and M8 segment.  The branches that file
+its own case, run once per package too: the JAX package decodes the JPEG
+blocks with Pillow, the port with its native codec, to the same arrays.
+A JPEG 2000 segment (C8, M8) raises NotImplementedError naming
+dask_geomodeling_tpu/io/nitf.py; a C3 or M3 segment whose codestream is
+no JPEG raises OSError in both packages.  The branches that file
 leaves out are written with chip_smoke's encoder (NITF 2.0 with and
 without a downgrade event, every pixel type, IMODE B, S and P with
 padded edge blocks, ABPP masking, ICORDS G, D, N and U and rotated
@@ -128,14 +130,10 @@ def test_jax_case(tmp_path, name):
 
 
 def test_masked_jpeg_blocks(tmp_path):
-    """tests/test_nitf.py's M3 segment: the JAX package decodes its JPEG
-    blocks (with Pillow); the port raises NotImplementedError naming
-    dask_geomodeling_tpu/io/nitf.py, from the reader and the info."""
-    nitf_tests.test_masked_jpeg_blocks(tmp_path)
-    path = str(tmp_path / "m3.ntf")
-    for read in (nitf.read_nitf, nitf.read_nitf_info):
-        with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/nitf.py"):
-            read(path)
+    """tests/test_nitf.py's M3 segment in each package: the JAX package
+    decodes its JPEG blocks with Pillow, the port with its native codec;
+    the payloads and the header info are the same."""
+    assert run_both(tmp_path, run_case(nitf_tests.test_masked_jpeg_blocks, {}))
 
 
 def _raster_file_source_serves_nitf(k, root):
@@ -360,15 +358,30 @@ def test_branches_decode(tmp_path):
 
 @pytest.mark.parametrize("ic", COMPRESSED)
 def test_compressed_segments_name_the_jax_module(tmp_path, ic):
-    """A C3, C8, M3 or M8 segment, alone or behind an NC segment:
-    NotImplementedError naming dask_geomodeling_tpu/io/nitf.py from
-    read_nitf, read_nitf_info and RasterFileSource.info, where the JAX
-    package's info reads the headers."""
+    """A C3, C8, M3 or M8 segment, alone or behind an NC segment.  JPEG 2000
+    (C8, M8): NotImplementedError naming dask_geomodeling_tpu/io/nitf.py
+    from read_nitf, read_nitf_info and RasterFileSource.info, where the JAX
+    package's info reads the headers.  JPEG (C3, M3), here blocks that are
+    no JPEG codestream: the port's payload or error and its header info
+    are the JAX package's (OSError from both decoders)."""
     single = nitf_bytes(GRID[:1], ic=ic, nbpr=2, nbpc=2, nppbh=8, nppbv=5)
     (tmp_path / "a.ntf").write_bytes(single)
     (tmp_path / "b.nitf").write_bytes(join_segments(nitf_bytes(GRID[:1]), single))
     for name, bands in (("a.ntf", 1), ("b.nitf", 2)):
         path = str(tmp_path / name)
+        if ic in ("C3", "M3"):
+            for ours, theirs in ((nitf.read_nitf, JAX_READ_NITF),
+                                 (nitf.read_nitf_info, JAX_READ_NITF_INFO)):
+                got = outcome(lambda: _kind(ours(path)), tmp_path)
+                want = outcome(lambda: _kind(theirs(path)), tmp_path)
+                if want[0] == "error":
+                    assert got[0] == "error" and want[1][0] in ("OSError",
+                                                                 "UnidentifiedImageError")
+                    assert got[1][0] == "OSError", got
+                else:
+                    assert_same(got, want)
+            assert nitf.read_nitf_info(path).bands == bands
+            continue
         for read in (nitf.read_nitf, nitf.read_nitf_info):
             with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/nitf.py"):
                 read(path)

@@ -456,6 +456,28 @@ def test_parcel_imagery_phase_on_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_ortho_jpeg_phase_on_card(tmp_path):
+    """chip_smoke's ortho-jpeg phase at a small size on the card: a 1024^2
+    orthophoto as a JPEG GeoTIFF by window under a lowered limit, a 512^2
+    sub-area's pyramids, two GetMaps a zoom, the small files, in 256^2
+    tiles, batches of 8: every check of the full run, the fixtures'
+    hashes held by the native build, and the Gaussian's record at (a)."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        with config.set(FILE_LIMIT):
+            launches, numbers, kernels = chip_smoke.check_ortho_jpeg(
+                "card", device, str(tmp_path), px=1024, sub_px=512, sampled_tiles=2,
+                wms_per_zoom=2, gif_px=256, nitf_px=512)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 10 and launches["moving_max"] == 0
+    assert numbers["native_decodes"] >= 4 and numbers["gaussian_dtype"] == "float64"
+    assert [k["path"] for k in kernels] == ["ortho-jpeg (a)"] and kernels[0]["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
 def test_lzw_sheet_phase_on_card(file_paths, tmp_path):
     """chip_smoke's lzw-sheet phase after hfa-roughness: the 1024^2 sheet
     as a tiled LZW GeoTIFF read by window under a lowered limit, and a

@@ -87,6 +87,9 @@ def test_native_counters_stay_exact_and_answers_alike():
     gt = (0.0, 1.0, 0.0, 8.0, 0.0, -1.0)
     want = np.zeros((8, 8), np.int32)
     native.rasterize_native(coords, [5], [1], [7], want, gt)
+    pixels = np.add.outer(np.arange(24), np.arange(40)).astype(np.uint8)
+    jpeg = native.jpeg_encode_native(pixels)
+    decoded = native.jpeg_decode_native(jpeg)
     native.reset_counts()
     rounds = 50
 
@@ -96,11 +99,17 @@ def test_native_counters_stay_exact_and_answers_alike():
             out = np.zeros((8, 8), np.int32)
             assert native.rasterize_native(coords, [5], [1], [7], out, gt)
             assert np.array_equal(out, want)
+            assert native.jpeg_encode_native(pixels) == jpeg
+            assert np.array_equal(native.jpeg_decode_native(jpeg), decoded)
 
     try:
         assert run_threads(work) == []
         assert native.counts == {"tiff_decodes": THREADS * rounds,
                                  "tiff_bytes": THREADS * rounds * len(data),
+                                 "jpeg_decodes": THREADS * rounds,
+                                 "jpeg_bytes": THREADS * rounds * decoded.size,
+                                 "jpeg_encodes": THREADS * rounds,
+                                 "jpeg_encoded_bytes": THREADS * rounds * len(jpeg),
                                  "burns": THREADS * rounds}
     finally:
         native.reset_counts()

@@ -339,7 +339,8 @@ def test_jax_case(tmp_path, name):
     run_pyramids(tmp_path, JAX_CASES[name])
 
 
-# --- JPEG and WebP tiles: Pillow in the JAX package, refused by the port ---
+# --- JPEG and WebP tiles: Pillow in the JAX package; the port decodes JPEG
+# with its native codec and refuses WebP ---
 
 
 def _image_blob(fmt):
@@ -356,9 +357,10 @@ def _image_blob(fmt):
 @pytest.mark.parametrize("fmt", ["WEBP", "JPEG"])
 def test_webp_and_jpeg_mbtiles_tiles(tmp_path, fmt):
     """tests/test_png_netcdf.py:test_webp_mbtiles_tiles_decode: the JAX
-    package decodes the file with Pillow; the port raises
-    NotImplementedError naming the JAX module, from the reader and through
-    RasterFileSource."""
+    package decodes the file with Pillow.  A JPEG tile: the port's payload
+    is the JAX package's, from the reader and through RasterFileSource.
+    A WebP tile: the port raises NotImplementedError naming the JAX
+    module."""
     path = str(tmp_path / "webp.mbtiles")
     jax_mbtiles.write_mbtiles(path, np.full((1, 256, 256), 123, np.uint8),
                               _grid_aligned_gt(col=7, row_xyz=7))
@@ -372,18 +374,26 @@ def test_webp_and_jpeg_mbtiles_tiles(tmp_path, fmt):
         assert (data.array[:, :256, :256] == 123).all()
     else:
         assert np.abs(data.array.astype(int) - 123).max() <= 2
+    pipeline.clear_read_cache()
+    if fmt == "JPEG":
+        assert_same(mbtiles.read_mbtiles(path), data)
+        with both_configs({"geomodeling.root": str(tmp_path)}):
+            source = __import__("dask_geomodeling_tpu_torch.raster",
+                                fromlist=["x"]).RasterFileSource("webp.mbtiles")
+            assert source.info.width == data.array.shape[2]
+            assert source.info.dtype == "uint8"
+        return
     with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/gpkg_raster.py"):
         mbtiles.read_mbtiles(path)
-    pipeline.clear_read_cache()
     with both_configs({"geomodeling.root": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="no JPEG or WebP decoder"):
+        with pytest.raises(NotImplementedError, match="no WebP decoder"):
             __import__("dask_geomodeling_tpu_torch.raster", fromlist=["x"]).RasterFileSource(
                 "webp.mbtiles").info
 
 
 def test_jpeg_gpkg_tile_refused(tmp_path):
-    """A JPEG tile in a GeoPackage: the JAX package decodes it, the port
-    raises naming the JAX module."""
+    """A JPEG tile in a GeoPackage: the JAX package decodes it with Pillow,
+    the port with its native codec, to the same payload."""
     path = str(tmp_path / "j.gpkg")
     jax_gpkg.write_gpkg_raster(path, np.full((1, 256, 256), 123, np.uint8),
                                (0.0, 1.0, 0.0, 256.0, 0.0, -1.0), projection="EPSG:28992")
@@ -391,9 +401,9 @@ def test_jpeg_gpkg_tile_refused(tmp_path):
     con.execute("UPDATE tiles SET tile_data = ?", (_image_blob("JPEG"),))
     con.commit()
     con.close()
-    assert np.abs(jax_gpkg.read_gpkg_raster(path).array.astype(int) - 123).max() <= 2
-    with pytest.raises(NotImplementedError, match="io/gpkg_raster.py"):
-        gpkg_raster.read_gpkg_raster(path)
+    expected = jax_gpkg.read_gpkg_raster(path)
+    assert np.abs(expected.array.astype(int) - 123).max() <= 2
+    assert_same(gpkg_raster.read_gpkg_raster(path), expected)
 
 
 # --- the writers and readers under hypothesis ---
@@ -638,7 +648,7 @@ def test_mbtiles_landuse_against_jax(tmp_path):
 
 def test_pyramid_refusals_as_the_jax_package(tmp_path):
     """chip_smoke's refusals: a GeoPackage of features and an MBTiles file
-    of vector tiles raise the JAX package's errors; a JPEG tile raises
+    of vector tiles raise the JAX package's errors; a WebP tile raises
     NotImplementedError naming the JAX module, where the JAX package gives
     Pillow's verdict on the stub."""
     refusals = chip_smoke.pyramid_refusals(str(tmp_path))

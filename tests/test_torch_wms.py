@@ -435,7 +435,8 @@ def capabilities(module, **environ):
     return headers, body
 
 
-JAX_FORMATS = b"<Format>image/jpeg</Format><Format>image/webp</Format>"
+#: the GetMap format the JAX package advertises and the port does not
+JAX_FORMATS = b"<Format>image/webp</Format>"
 
 
 def test_named_layers_and_capabilities(views):
@@ -665,12 +666,21 @@ def format_params(view_json, **extra):
 
 @pytest.mark.parametrize("image_format, encoder", [("image/jpeg", "JPEG"), ("image/webp", "WebP")])
 def test_jpeg_and_webp_answer_400(views, image_format, encoder):
-    """The JAX package encodes these with Pillow; the port has no encoder
-    for them and says so."""
+    """The JAX package encodes these with Pillow.  JPEG: the port's native
+    encoder writes the JAX package's bytes (the same composited pixels,
+    Pillow's default save), plain and over BGCOLOR.  WebP: the port has no
+    encoder and answers 400 naming it."""
     jax_json, port_json = views
     with Image.open(BytesIO(jax_plugin.render_wms_tile(
             format_params(jax_json, format=image_format)))) as img:
         assert img.format == image_format.split("/")[1].upper()
+    if encoder == "JPEG":
+        for extra in ({}, dict(transparent="false", bgcolor="0x336699", vmin="0", vmax="3")):
+            ours = plugin.render_wms_tile(format_params(port_json, format=image_format, **extra))
+            theirs = jax_plugin.render_wms_tile(format_params(jax_json, format=image_format,
+                                                              **extra))
+            assert ours[:2] == b"\xff\xd8" and ours == theirs
+        return
     with pytest.raises(plugin.WMSError, match="Unsupported format.*no %s encoder" % encoder) as err:
         plugin.render_wms_tile(format_params(port_json, format=image_format))
     assert err.value.status == 400
@@ -710,22 +720,22 @@ def test_invalid_bgcolor_400(views):
 
 
 def test_wsgi_content_type_echoes_format(views):
-    """The JAX server answers image/jpeg; the port answers 400 naming the
-    missing encoder, and echoes image/png."""
+    """Both servers answer image/jpeg with the same body, and image/png."""
     jax_json, port_json = views
     status, headers, body = wsgi(jax_plugin.wms_app, format_params(jax_json, format="image/jpeg"))
     assert status.startswith("200") and headers["Content-Type"] == "image/jpeg"
     assert body[:2] == b"\xff\xd8"
-    status, headers, body = wsgi(plugin.wms_app, format_params(port_json, format="image/jpeg"))
-    assert status.startswith("400") and b"JPEG encoder" in body
+    status, headers, port_body = wsgi(plugin.wms_app, format_params(port_json, format="image/jpeg"))
+    assert status.startswith("200") and headers["Content-Type"] == "image/jpeg"
+    assert port_body == body
     status, headers, body = wsgi(plugin.wms_app, format_params(port_json, format="image/png"))
     assert status.startswith("200") and headers["Content-Type"] == "image/png"
 
 
 def test_capabilities_advertises_formats():
     xml = plugin.get_capabilities_xml()
-    assert "<GetMap><Format>image/png</Format></GetMap>" in xml
-    assert "image/jpeg" not in xml and "image/webp" not in xml
+    assert "<GetMap><Format>image/png</Format><Format>image/jpeg</Format></GetMap>" in xml
+    assert "image/webp" not in xml
     assert "<Format>image/jpeg</Format>" in jax_plugin.get_capabilities_xml()
 
 
