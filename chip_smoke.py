@@ -9,7 +9,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: csrc/gaussian_blur.cu and csrc/moving_max.cu with nvcc for
    sm_90a, and the host C++ (the port's native/tiffcodec.cpp,
-   native/jpegcodec.cpp and native/rasterize.cpp, and this script's
+   native/jpegcodec.cpp, native/webpcodec.cpp and native/rasterize.cpp,
+   and this script's
    chip_smoke_encoders.cpp) with
    g++, from this checkout, all at once; then the elevation sheet of
    the file paths (write_sheet: one AHN sheet, 10000 x 12500 float32 at
@@ -122,11 +123,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    "pand", with its R-tree), the mean and 90th percentile of the file-read
    view per building (AggregateRaster), Round, Classify of their
    difference, Area (build_buildings_view), exported by to_file in
-   1000 m tiles (GeometryTiler over GeometryFileSink GeoPackages, merged):
-   every building whose centroid lies strictly inside a tile, each once;
+   1000 m tiles (GeometryTiler over GeometryFileSink GeoPackages, merged)
+   over a block of 3 x 3 of the tiles (export_block): every building
+   whose centroid lies strictly inside a tile of the block, each once;
    two tiles equal to compute_host (h_mean within one float32 ulp before
-   rounding); the export again through the GeoPackage's R-tree over a
-   block of 3 x 3 of its tiles (all 35 until PR 20); a 1000 m
+   rounding); the export again through the GeoPackage's R-tree over the
+   same block; a 1000 m
    sub-area exported untiled as GeoJSON and as a Shapefile equal to the
    host's export; one Gaussian launch per tile, the phases, the device
    busy time and idle share;
@@ -182,7 +184,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    written as GML (layer pand, srsName EPSG:28992, as BGT and BAG
    extracts arrive), build_buildings_view over GeometryFileSource of the
    GML, exported by to_file in 1000 m tiles into GML partials merged into
-   one GML, every row equal to building-heights' GeoPackage export and
+   one GML over the same block of 3 x 3 tiles, every row equal to
+   building-heights' GeoPackage export and
    one tile to compute_host, timed under the export clock; then the
    building-rings square's footprints written as SpatiaLite, a zipped
    shapefile and DXF (in RD), MIF/MID, TopoJSON, KML and KMZ (in
@@ -342,9 +345,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    compute_host's pixels (a tile whose card values part from the host's
    within HEADLINE_SHARE: of the card's), p50/p99 and the encode's
    share; (d) a .jpg with world file, .prj and PAM nodata, two BMPs, a
-   GIF and a C3/M3 NITF, each read whole and bitwise (the NITF at half
-   resolution within HEADLINE_SHARE, the stage that parts reported); the
+   GIF and a C3/M3 NITF, each read whole and bitwise (the NITF also at
+   half resolution, where every cell centre is a tie of four pixels:
+   tie_report's cells of another class and index cells both 0); the
    first Gaussian of (a) torch.equal to its plain version;
+10p. ortho-webp (check_ortho_webp): (e) the WebP codec's fixtures of
+   tests/data/torch_webp decoded natively, each SHA-256 the one recorded
+   from Pillow's array; (f) a lossy, a lossy-with-ALPH and an animated
+   fixture refused with NotImplementedError naming the JAX modules, a
+   truncated file with OSError; (a) ortho-jpeg's 8192^2 orthophoto
+   written by the port's write_geotiff(compress="webp", tiled, 512^2):
+   768 native lossless encodes, the file's share of the raw bytes against
+   deflate's on 16 sampled chunks; (b) build_ortho_view over it by
+   window, every decoded window equal to the pixels written, sampled
+   tiles bitwise to compute_host, only the native WebP decoder running;
+   (c) a 2048^2 sub-area as a GeoPackage of 256^2 WebP tiles (one RGBA)
+   and as zoom-18 MBTiles, every tile decoding to the pixels written,
+   every tile of each answer bitwise to compute_host; (d) a contiguous
+   RGB WebP GeoTIFF in GDAL's layout (write_tiff_layout) read whole and
+   by window, equal to the pixels; the first Gaussian of (b) torch.equal
+   to its plain version;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -361,7 +381,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    Gaussian on netcdf-radar's zoom-mode batch, on hfa-roughness' float64
    batch, on grib-forecast's first float64 batches of (a) and (b), on
    parcel-imagery's first float64 batch, on lzw-sheet's first batches
-   of (a) and (b) and on ortho-jpeg (a)'s first batch, one kernel record
+   of (a) and (b), on ortho-jpeg (a)'s and on ortho-webp (b)'s first
+   batch, one kernel record
    each; the rasterize path's plan with
    the numpy scanline, one run, beside the native burn's.
 
@@ -637,29 +658,51 @@ def build_nesting_views(px=1024, frames=6):
 
 
 def make_source(px, seed=0, bands=1, time_first=datetime(2000, 1, 1), nodata_share=0.0,
-                nodata_block=(0, 0)):
+                nodata_block=(0, 0), parallel=False):
     """benchmarks/run.py:make_source: float32 uniform [0, 200), hourly
     frames when bands > 1.  With ``nodata_share``, that share of the cells,
     drawn by a PCG64 generator of the same seed, holds nodata.  Drawn in
     blocks of rows (the same numbers as one (bands, px, px) draw) to keep
     the host's transient memory in the cache.  With ``nodata_block`` = (frames,
     size), the first ``frames`` frames hold nodata in the top-left size^2
-    square as well."""
+    square as well.  ``parallel`` draws other numbers of the same
+    distribution, for a source no reference view shares: each band from
+    PCG64 generators of its own (spawned from (seed, 200): its values, then
+    its nodata cells), as float32, the bands on a thread pool (the one
+    MT19937 stream took 28-31 s of the 1.3 G values of the temporal sources
+    on an NVIDIA H100 80GB HBM3 machine's host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dask_geomodeling_tpu_torch.raster import MemorySource
 
-    rng = np.random.RandomState(seed)
     nodata = np.finfo(np.float32).max
     data = np.empty((bands, px, px), np.float32)
     rows = 256  # draws of 256 rows: the same numbers, in the cache
-    for band in range(bands):
-        for row in range(0, px, rows):
-            data[band, row:row + rows] = rng.rand(min(rows, px - row), px) * 200
-    if nodata_share:
-        cells = np.random.default_rng(seed)
-        for band in range(bands):
+    if parallel:
+        def draw(band, seeds):
+            values, cells = (np.random.default_rng(s) for s in seeds.spawn(2))
             for row in range(0, px, rows):
                 block = data[band, row:row + rows]
-                block[cells.random(block.shape, dtype=np.float32) < nodata_share] = nodata
+                values.random(block.shape, dtype=np.float32, out=block)
+                block *= np.float32(200)
+                if nodata_share:
+                    np.copyto(block, nodata,
+                              where=cells.random(block.shape, dtype=np.float32) < nodata_share)
+
+        streams = np.random.SeedSequence([seed, 200]).spawn(bands)
+        with ThreadPoolExecutor(max_workers=min(bands, os.cpu_count() or 1)) as pool:
+            list(pool.map(draw, range(bands), streams))
+    else:
+        rng = np.random.RandomState(seed)
+        for band in range(bands):
+            for row in range(0, px, rows):
+                data[band, row:row + rows] = rng.rand(min(rows, px - row), px) * 200
+        if nodata_share:
+            cells = np.random.default_rng(seed)
+            for band in range(bands):
+                for row in range(0, px, rows):
+                    block = data[band, row:row + rows]
+                    block[cells.random(block.shape, dtype=np.float32) < nodata_share] = nodata
     frames, size = nodata_block
     data[:frames, :size, :size] = nodata
     return MemorySource(
@@ -806,7 +849,7 @@ def build_temporal_paths(mean_px=TEMPORAL_MEAN_PX, px=TEMPORAL_PX, nodata_share=
     hourly8 = make_source(mean_px, seed=1, bands=8, nodata_share=nodata_share,
                           nodata_block=(4, square))
     hourly48 = make_source(px, seed=4, bands=48, time_first=DST_WINDOW[0],
-                           nodata_share=nodata_share, nodata_block=(23, square))
+                           nodata_share=nodata_share, nodata_block=(23, square), parallel=True)
     request = dict(vals_request(px), start=DST_WINDOW[0], stop=DST_WINDOW[1])
     corner = (request["bbox"][0], request["bbox"][3])
     median = MovingMax(TemporalAggregate(hourly48, "6h", statistic="median",
@@ -1926,7 +1969,8 @@ def same(a, b):
 
 def build_kernels():
     """Build both kernel libraries and the host's C++ (the port's native
-    TIFF decoders, JPEG codec and rasterizer, and chip_smoke_encoders.cpp)
+    TIFF decoders, JPEG and WebP codecs and rasterizer, and
+    chip_smoke_encoders.cpp)
     at once (one nvcc or g++ each); prints each build's time and ptxas
     lines."""
     from dask_geomodeling_tpu_torch import native
@@ -1934,7 +1978,8 @@ def build_kernels():
 
     names = ["gaussian_blur", "moving_max"]
     host = {"tiffcodec": native.load_tiffcodec, "jpegcodec": native.load_jpegcodec,
-            "rasterize": native.load_rasterizer, "chip_smoke_encoders": fixture_encoders}
+            "webpcodec": native.load_webpcodec, "rasterize": native.load_rasterizer,
+            "chip_smoke_encoders": fixture_encoders}
     errors = []
 
     def build(name):
@@ -3575,7 +3620,8 @@ def pyramid_clock():
 
 def pyramid_refusals(folder):
     """RasterFileSource.info over (a GeoPackage of features, an MBTiles
-    file whose one tile is a WebP, an MBTiles file of vector tiles): the
+    file whose one tile is a lossy WebP, the fixture of
+    tests/data/torch_webp, an MBTiles file of vector tiles): the
     (exception type, message) of each."""
     import sqlite3
 
@@ -3592,8 +3638,9 @@ def pyramid_refusals(folder):
     geo_transform = mercator_box(lgn_request(1, 1))[0]
     write_mbtiles(webp, np.zeros((1, PYRAMID_TILE, PYRAMID_TILE), np.uint8), geo_transform)
     con = sqlite3.connect(webp)
-    # a WebP's RIFF header: the port decodes no WebP
-    con.execute("UPDATE tiles SET tile_data = ?", (b"RIFF\x00\x00\x00\x00WEBPVP8L" + bytes(64),))
+    # a lossy WebP (VP8): the port decodes lossless WebP only
+    with open(os.path.join(webp_fixture_hashes()[0], "lossy-32x48.webp"), "rb") as f:
+        con.execute("UPDATE tiles SET tile_data = ?", (f.read(),))
     con.commit()
     con.close()
     vector = os.path.join(folder, "vector.mbtiles")
@@ -6414,7 +6461,7 @@ def ortho_wms_tiles(bbox, zooms=ORTHO_WMS_ZOOMS, per_zoom=ORTHO_WMS_PER_ZOOM):
 
 def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
                      sampled_tiles=ORTHO_SAMPLED, wms_per_zoom=ORTHO_WMS_PER_ZOOM,
-                     gif_px=ORTHO_GIF_PX, nitf_px=ORTHO_NITF_PX):
+                     gif_px=ORTHO_GIF_PX, nitf_px=ORTHO_NITF_PX, pixels=None):
     """The ortho-jpeg phase.  (e) check_jpeg_fixtures first.  (a) ortho_pixels
     as a JPEG GeoTIFF (write_jpeg_geotiff), build_ortho_view at its grid
     through check_algebra_path (every sampled tile bitwise to
@@ -6430,8 +6477,10 @@ def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
     the encoder's bytes of the card's); p50, p99 and the encode's share.  (d) ortho_small_files, each read whole
     through RasterFileSource and the card route against compute_host
     (bitwise; the NITF at half resolution within HEADLINE_SHARE, with
-    tie_report).  Returns (launches, numbers, the Gaussian's kernel
-    records on the card); removes its files."""
+    tie_report).  ``pixels``, ortho_pixels(px, px) when given (drawn once
+    for this phase and ortho-webp), else drawn here.  Returns (launches,
+    numbers, the Gaussian's kernel records on the card); removes its
+    files."""
     import torch
 
     from dask_geomodeling_tpu_torch import compute_host, get_data, native
@@ -6453,7 +6502,8 @@ def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
 
     # (a) the orthophoto as a JPEG GeoTIFF, by window
     t0 = time.perf_counter()
-    pixels = ortho_pixels(px, px)
+    if pixels is None:
+        pixels = ortho_pixels(px, px)
     numbers["draw_s"] = time.perf_counter() - t0
     path = os.path.join(folder, "ortho.tif")
     native.reset_counts()
@@ -6639,15 +6689,19 @@ def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
             small_source = small_smooth.args[0].args[1].args[0]
             check(small_source._file_read_plan(small_request) is None,
                   "ortho-jpeg (d) %s: the read is windowed" % label)
-            # the half-resolution read's ties may part (ROADMAP Queue 3):
-            # at most the headline's share, and tie_report says where
+            # the half-resolution read puts every cell centre on a corner
+            # of four pixels: bitwise since the card's index arithmetic
+            # divides truly (device.divide), and tie_report says where a
+            # stage would part
             check_algebra_path("ortho-jpeg (d) " + label, device, small_view, small_request,
                                "nearest", (small_request["bbox"][0], small_request["bbox"][3]),
-                               share=HEADLINE_SHARE if label == "nitf-half" else 0.0,
-                               sampled_tiles=1, routed=False)
+                               share=0.0, sampled_tiles=1, routed=False)
             if label == "nitf-half":
-                numbers["nitf_half_ties"] = tie_report(device, small_view, small_smooth,
-                                                       small_request, card)
+                ties = numbers["nitf_half_ties"] = tie_report(device, small_view, small_smooth,
+                                                              small_request, card)
+                check(ties["classes"] == 0 and ties["index_cells"] == 0,
+                      "ortho-jpeg (d) nitf-half: the card's nearest sampling parts from the "
+                      "host's: %r" % ties)
         kind = {"gif": "_decode_gif", "bmp-8bit": "_decode_bmp",
                 "bmp-24bit": "_decode_bmp"}.get(label, "jpeg_decode_native")
         check(spy.calls[kind] > 0, "ortho-jpeg (d) %s: %s did not run" % (label, kind))
@@ -6676,6 +6730,439 @@ def check_ortho_jpeg(card, device, folder, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
     del timed
     numbers["phase_s"] = time.perf_counter() - phase_t0
     print("ortho-jpeg: Gaussian %d launches on the path; the phase %.2f s [%s]"
+          % (path_launches["gaussian_blur"], numbers["phase_s"], card))
+    return path_launches, numbers, kernels
+
+
+#: the WebP codec's fixtures, written with Pillow (tests/test_torch_webp.py):
+#: lossless files whose decoded arrays' hashes hashes.json records
+WEBP_FIXTURE_DIR = os.path.join("tests", "data", "torch_webp")
+WEBP_EXIF = b"Exif\x00\x00II*\x00\x08\x00\x00\x00\x00\x00\x00\x00"  # an empty IFD
+WEBP_ICC = bytes(range(96))
+WEBP_FIXTURES = {
+    # name: (Pillow mode, (height, width), palette colours or None, Pillow's save
+    # options beside lossless=True)
+    "gray-m0-9x1.webp": ("L", (9, 1), None, {"method": 0}),
+    "gray-m6-12x257.webp": ("L", (12, 257), None, {"method": 6}),
+    "rgb-m6-37x7.webp": ("RGB", (37, 7), None, {"method": 6}),
+    "rgb-m0-q0-33x50.webp": ("RGB", (33, 50), None, {"method": 0, "quality": 0}),
+    "rgba-exact-24x40.webp": ("RGBA", (24, 40), None, {"exact": True}),
+    "palette2-m6-19x257.webp": ("RGB", (19, 257), 2, {"method": 6}),
+    "palette4-23x45.webp": ("RGB", (23, 45), 4, {}),
+    "palette16-m0-31x29.webp": ("RGBA", (31, 29), 16, {"method": 0}),
+    "palette200-40x40.webp": ("RGB", (40, 40), 200, {}),
+    "vp8x-exif-icc-16x24.webp": ("RGB", (16, 24), None, {"exif": WEBP_EXIF,
+                                                         "icc_profile": WEBP_ICC}),
+}
+#: the files the codec refuses, written with Pillow too: what each holds
+WEBP_REFUSED = {
+    "lossy-32x48.webp": "VP8",
+    "lossy-alpha-32x48.webp": "ALPH",
+    "animated-2x16x16.webp": "ANIM",
+}
+ORTHO_WEBP_LAYOUT_TILE = 512  # the contiguous RGB file's tiles (d)
+ORTHO_WEBP_SAMPLED_CHUNKS = 16  # chunks held against deflate
+
+
+def webp_fixture_array(mode, shape, colours=None):
+    """A deterministic (height, width[, bands]) uint8 array for a WebP
+    fixture: smooth gradients and integer texture, or, with ``colours``,
+    a pattern of that many palette entries; the same on any machine."""
+    height, width = shape
+    bands = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
+    y, x = np.mgrid[0:height, 0:width].astype(np.int64)
+    if colours is None:
+        layers = [((x * (3 + 2 * b) + y * (5 + b) + (x * y * (b + 1)) % (7 + b) * 9) % 256)
+                  for b in range(bands)]
+        array = np.stack(layers, axis=-1).astype(np.uint8)
+    else:
+        k = np.arange(colours, dtype=np.int64)[:, None]
+        palette = ((k * 53 + np.arange(bands) * 91 + (k * k) % 17 * 7) % 256).astype(np.uint8)
+        if bands == 4:
+            palette[:, 3] = np.where(k[:, 0] % 3 == 0, 255, palette[:, 3])
+        array = palette[(x * 7 + y * 13 + (x * y) % 5) % colours]
+    return array[..., 0] if bands == 1 else array
+
+
+def webp_fixture_hashes():
+    """The WebP fixture folder's recorded hashes (hashes.json) and its path."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), WEBP_FIXTURE_DIR)
+    with open(os.path.join(folder, "hashes.json")) as f:
+        return folder, json.load(f)
+
+
+def check_webp_fixtures(card):
+    """(e) and (f): the codec against libwebp without Pillow.  Every
+    lossless fixture decoded natively to the shape and SHA-256 of Pillow's
+    array; each refused fixture raising NotImplementedError naming the JAX
+    modules that read it, and a lossless file cut short raising OSError,
+    Pillow's class.  Returns (hashes held, the refusals' messages)."""
+    from dask_geomodeling_tpu_torch.native import webp_decode_native
+
+    folder, recorded = webp_fixture_hashes()
+    check(sorted(recorded["decoded"]) == sorted(WEBP_FIXTURES),
+          "ortho-webp (e): hashes.json names other fixtures than WEBP_FIXTURES")
+    for name, want in recorded["decoded"].items():
+        with open(os.path.join(folder, name), "rb") as f:
+            pixels = webp_decode_native(f.read())
+        check(list(pixels.shape) == want["shape"] and array_sha256(pixels) == want["sha256"],
+              "ortho-webp (e): %s decodes otherwise than Pillow" % name)
+    print("ortho-webp (e): %d fixtures decoded natively, every SHA-256 Pillow's (libwebp "
+          "1.6.0) [%s]" % (len(recorded["decoded"]), card))
+    refusals = {}
+    for name, holds in WEBP_REFUSED.items():
+        with open(os.path.join(folder, name), "rb") as f:
+            blob = f.read()
+        try:
+            webp_decode_native(blob)
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+        check(raised is not None and "dask_geomodeling_tpu/io/" in raised,
+              "ortho-webp (f): %s (%s) was not refused naming the JAX module: %r"
+              % (name, holds, raised))
+        refusals[name] = raised
+    with open(os.path.join(folder, sorted(WEBP_FIXTURES)[-1]), "rb") as f:
+        blob = f.read()
+    try:
+        webp_decode_native(blob[: len(blob) // 2])
+        truncated = None
+    except OSError as e:
+        truncated = str(e)
+    check(truncated is not None, "ortho-webp (f): a truncated file did not raise OSError")
+    refusals["truncated"] = truncated
+    print("ortho-webp (f): %s [%s]" % ("; ".join("%s: %s" % kv for kv in refusals.items()), card))
+    return len(recorded["decoded"]), refusals
+
+
+def webp_spy():
+    """A call_spy over the native WebP codec and every other decoder a
+    GeoTIFF or a tile pyramid could reach."""
+    from dask_geomodeling_tpu_torch import native
+    from dask_geomodeling_tpu_torch.io import geotiff, png
+
+    return call_spy([(native, "webp_decode_native"), (native, "webp_encode_native"),
+                     (native, "jpeg_decode_native"), (native, "tiff_decode_native"),
+                     (geotiff, "_lzw_decode"), (geotiff, "_packbits_decode"),
+                     (png, "decode_png_bytes")])
+
+
+class window_check:
+    """While installed, every window the port's GeoTIFF reader returns at
+    level 0 of ``path`` is held to ``pixels`` (h, w, 3): its count and the
+    windows that differ."""
+
+    def __init__(self, path, pixels):
+        self.path, self.pixels = path, pixels
+        self.windows, self.cells, self.differ = 0, 0, []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from dask_geomodeling_tpu_torch.io import geotiff
+
+        self._raw = raw = geotiff.read_geotiff_window
+        height, width = self.pixels.shape[:2]
+
+        def checked(path, row0, row1, col0, col1, level=0):
+            data = raw(path, row0, row1, col0, col1, level=level)
+            if level == 0 and os.path.abspath(path) == os.path.abspath(self.path):
+                r0 = min(max(int(row0), 0), height)
+                c0 = min(max(int(col0), 0), width)
+                bands, h, w = data.array.shape
+                want = self.pixels[r0 : r0 + h, c0 : c0 + w].transpose(2, 0, 1)
+                same = want.shape == data.array.shape and np.array_equal(want, data.array)
+                with self._lock:
+                    self.windows += 1
+                    self.cells += h * w
+                    if not same:
+                        self.differ.append((row0, row1, col0, col1))
+            return data
+
+        geotiff.read_geotiff_window = checked
+        return self
+
+    def __exit__(self, *exc):
+        from dask_geomodeling_tpu_torch.io import geotiff
+
+        geotiff.read_geotiff_window = self._raw
+        return False
+
+
+def rewrite_tiles_as_webp(path, rgba_tile=0):
+    """Every PNG tile of the GeoPackage or MBTiles file at ``path``
+    re-encoded as lossless WebP by the port's encoder (RGB; the
+    ``rgba_tile``-th as RGBA, its alpha below 255 in a corner, which the
+    readers drop as Pillow's conversion does), each new tile decoded back
+    to the pixels written.  Returns the tiles rewritten."""
+    import sqlite3
+
+    from dask_geomodeling_tpu_torch.io.png import decode_png_bytes
+    from dask_geomodeling_tpu_torch.native import webp_decode_native, webp_encode_native
+
+    con = sqlite3.connect(path)
+    try:
+        tables = [row[0] for row in con.execute(
+            "SELECT name FROM sqlite_master WHERE type = 'table'")]
+        table = "tiles" if "tiles" in tables else con.execute(
+            "SELECT table_name FROM gpkg_contents WHERE data_type = 'tiles'").fetchone()[0]
+        rows = con.execute("SELECT rowid, tile_data FROM %s ORDER BY rowid" % table).fetchall()
+        for k, (rowid, blob) in enumerate(rows):
+            array, _ = decode_png_bytes(blob)
+            pixels = np.ascontiguousarray(array[:3].transpose(1, 2, 0))
+            if k == rgba_tile:
+                alpha = np.full(pixels.shape[:2], 255, np.uint8)
+                alpha[:16, :16] = 128
+                pixels = np.ascontiguousarray(np.dstack([pixels, alpha]))
+            tile = webp_encode_native(pixels)
+            check(np.array_equal(webp_decode_native(tile), pixels),
+                  "ortho-webp (c): a %s tile does not decode to the pixels written"
+                  % ("RGBA" if pixels.shape[2] == 4 else "RGB"))
+            con.execute("UPDATE %s SET tile_data = ? WHERE rowid = ?" % table, (tile, rowid))
+        if "metadata" in tables:
+            con.execute("UPDATE metadata SET value = 'webp' WHERE name = 'format'")
+        con.commit()
+    finally:
+        con.close()
+    return len(rows)
+
+
+def write_webp_layout(path, pixels, geo_transform, tile=ORTHO_WEBP_LAYOUT_TILE):
+    """The (h, w, 3) RGB ``pixels`` as GDAL writes COMPRESS=WEBP
+    WEBP_LOSSLESS=YES: tile^2 tiles, contiguous samples (PlanarConfig 1),
+    Photometric RGB, each tile one lossless WebP of its three bands (edge
+    tiles padded by repeating the last row and column) from the port's
+    encoder on its codec pool.  Returns the chunks' bytes in all."""
+    from dask_geomodeling_tpu_torch.io.geotiff import _map_chunks
+    from dask_geomodeling_tpu_torch.native import webp_encode_native
+
+    height, width = pixels.shape[:2]
+    corners = [(row, col) for row in range(0, height, tile) for col in range(0, width, tile)]
+
+    def encode(corner):
+        row, col = corner
+        piece = pixels[row : row + tile, col : col + tile]
+        if piece.shape[:2] != (tile, tile):
+            piece = np.pad(piece, ((0, tile - piece.shape[0]), (0, tile - piece.shape[1]), (0, 0)),
+                           mode="edge")
+        return webp_encode_native(piece)
+
+    chunks = _map_chunks(encode, corners)
+    tags = [(256, "I", [width]), (257, "I", [height]), (258, "H", [8, 8, 8]),
+            (259, "H", [50001]), (262, "H", [2]), (277, "H", [3]), (284, "H", [1]),
+            (322, "H", [tile]), (323, "H", [tile]), (339, "H", [1, 1, 1])]
+    write_tiff_layout(path, tags, chunks, geo_transform, "EPSG:28992", tiled=True)
+    return sum(len(c) for c in chunks)
+
+
+def sampled_chunk_shares(path, pixels, count=ORTHO_WEBP_SAMPLED_CHUNKS, tile=ORTHO_TILE):
+    """The WebP and the deflate (zlib level 6, the writer's) bytes of
+    ``count`` chunks spread over a planar tiled file, each as a share of
+    the chunks' raw bytes: deflate of the same band tiles in memory."""
+    from dask_geomodeling_tpu_torch.io.geotiff import _TILE_BYTE_COUNTS, _open_tiff
+
+    f, _, tags = _open_tiff(path)
+    f.close()
+    sizes = tags[_TILE_BYTE_COUNTS]
+    height, width = pixels.shape[:2]
+    tiles_y, tiles_x = -(-height // tile), -(-width // tile)
+    picks = np.linspace(0, len(sizes) - 1, min(count, len(sizes))).round().astype(int)
+    webp = deflate = raw = 0
+    for index in picks:
+        band, rest = divmod(int(index), tiles_y * tiles_x)
+        ty, tx = divmod(rest, tiles_x)
+        chunk = np.zeros((tile, tile), np.uint8)
+        piece = pixels[ty * tile : (ty + 1) * tile, tx * tile : (tx + 1) * tile, band]
+        chunk[: piece.shape[0], : piece.shape[1]] = piece
+        webp += int(sizes[index])
+        deflate += len(zlib.compress(chunk.tobytes(), 6))
+        raw += chunk.size
+    return webp / raw, deflate / raw, len(picks)
+
+
+def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
+                     sampled_tiles=ORTHO_SAMPLED):
+    """The ortho-webp phase.  (e) and (f) check_webp_fixtures first.  (a)
+    ``pixels`` (ortho_pixels(px, px), drawn here when not given) written by
+    the port's write_geotiff(compress="webp", tiled, 512^2 tiles): one
+    native lossless encode a band tile, the file's share of the raw bytes
+    and, on sampled_chunk_shares' chunks, WebP's against deflate's.  (b)
+    build_ortho_view at the file's grid by window (ortho-jpeg (a)'s
+    lowered limit) through check_algebra_path: every decoded window equal
+    to the pixels (window_check), ``sampled_tiles`` tiles bitwise to
+    compute_host, only the native WebP decoder running, the Gaussian's
+    first frames torch.equal to its plain version.  (c) the first
+    ``sub_px``^2 as a GeoPackage of 256^2 WebP tiles in RD New (one RGBA)
+    and as zoom-18 MBTiles in EPSG:3857 (rewrite_tiles_as_webp), each
+    asked in RD New at ``sub_px``^2: every tile of the answer bitwise to
+    compute_host.  (d) the sub-area as a contiguous RGB WebP GeoTIFF
+    (write_webp_layout) read whole and by window, equal to the pixels.
+    Returns (launches, numbers, the Gaussian's kernel records on the
+    card); removes its files."""
+    from dask_geomodeling_tpu_torch import native
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.io.geotiff import (
+        read_geotiff, read_geotiff_window, write_geotiff,
+    )
+    from dask_geomodeling_tpu_torch.io.gpkg_raster import write_gpkg_raster
+    from dask_geomodeling_tpu_torch.io.mbtiles import write_mbtiles
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    phase_t0 = time.perf_counter()
+    numbers = {}
+    cuda_stencils.reset_launches()
+    numbers["fixture_hashes"], numbers["refusals"] = check_webp_fixtures(card)
+
+    # (a) the orthophoto as a WebP GeoTIFF
+    t0 = time.perf_counter()
+    if pixels is None:
+        pixels = ortho_pixels(px, px)
+    numbers["draw_s"] = time.perf_counter() - t0
+    path = os.path.join(folder, "ortho_webp.tif")
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with webp_spy() as spy:
+        write_geotiff(path, pixels.transpose(2, 0, 1), ortho_geo_transform(), "EPSG:28992",
+                      None, compress="webp", tiled=True, tile_size=ORTHO_TILE)
+    numbers["write_s"] = time.perf_counter() - t0
+    encodes = native.counts["webp_encodes"]
+    expected = 3 * (-(-px // ORTHO_TILE)) ** 2
+    check(encodes == expected == spy.calls["webp_encode_native"],
+          "ortho-webp (a): %d native encodes for %d band tiles" % (encodes, expected))
+    size = os.path.getsize(path)
+    webp_share, deflate_share, sampled = sampled_chunk_shares(path, pixels)
+    check(webp_share < deflate_share, "ortho-webp (a): WebP keeps %.4f of %d sampled chunks' "
+          "bytes, deflate %.4f" % (webp_share, sampled, deflate_share))
+    encode_s = spy.seconds["webp_encode_native"]
+    numbers.update(webp_mb=size / 1e6, file_share=size / pixels.size, tiles_encoded=encodes,
+                   encode_s=encode_s, encode_mb_per_s=pixels.size / 1e6 / encode_s,
+                   most_encodes_at_once=spy.most["webp_encode_native"],
+                   sampled_webp_share=webp_share, sampled_deflate_share=deflate_share)
+    print("ortho-webp (a): the %d^2 RGB orthophoto of %.2f m written as a WebP GeoTIFF "
+          "(lossless, %d^2 band tiles) by %d native encodes in %.2f s (%.1f MB/s a thread, up "
+          "to %d at once): %.1f MB, %.4f of the raw bytes; on %d sampled chunks WebP %.4f, "
+          "deflate %.4f [%s]" % (
+              px, ORTHO_CELL, ORTHO_TILE, encodes, numbers["write_s"],
+              numbers["encode_mb_per_s"], numbers["most_encodes_at_once"], size / 1e6,
+              numbers["file_share"], sampled, webp_share, deflate_share, card))
+
+    # (b) by window
+    pipeline.clear_read_cache()
+    view, smooth = build_ortho_view(path)
+    source = smooth.args[0].args[1].args[0]
+    request = ortho_request(px)
+    limit = {"geomodeling.windowed-read-limit": min(
+        ORTHO_WINDOW_LIMIT, config.get("geomodeling.windowed-read-limit"))}
+    native.reset_counts()
+    phases, gaussians = {}, gaussian_calls()
+    with config.set(limit), webp_spy() as spy, window_check(path, pixels) as windows:
+        check(np.dtype(source.info.dtype) == np.uint8 and source.info.bands == 3
+              and (source.info.width, source.info.height) == (px, px)
+              and source._file_read_plan(request) is not None,
+              "ortho-webp (b): info %r, or the read is not windowed" % (source.info,))
+        host_rate, values = check_algebra_path(
+            "ortho-webp", device, view, request, "nearest", (request["bbox"][0],
+                                                            request["bbox"][3]),
+            share=0.0, sampled_tiles=sampled_tiles, first_run=(gaussians, phases), routed=False)
+    decodes = dict(native.counts)
+    others = {name: spy.calls[name] for name in spy.calls
+              if name not in ("webp_decode_native", "webp_encode_native")}
+    check(decodes["webp_decodes"] > 0 and spy.calls["webp_decode_native"]
+          == decodes["webp_decodes"] and not any(others.values()),
+          "ortho-webp (b): %r native decodes, other decoders %r" % (decodes, others))
+    check(windows.windows > 0 and not windows.differ,
+          "ortho-webp (b): %d of %d windows differ from the pixels written"
+          % (len(windows.differ), windows.windows))
+    launches_b = cuda_stencils.launches
+    check(launches_b > 0, "ortho-webp (b): the Gaussian did not launch")
+    planes = gaussians.first[0]
+    seconds = spy.seconds["webp_decode_native"]
+    numbers.update(first_phases_s=phases, host_mpx_per_s=host_rate,
+                   native_decodes=decodes["webp_decodes"],
+                   decoded_mb=decodes["webp_bytes"] / 1e6, decode_s=seconds,
+                   decode_mb_per_s=decodes["webp_bytes"] / 1e6 / seconds,
+                   most_decodes_at_once=spy.most["webp_decode_native"],
+                   windows_checked=windows.windows, window_cells=windows.cells,
+                   gaussian_dtype=str(planes.dtype).replace("torch.", ""),
+                   gaussian_launches_b=launches_b)
+    del values
+    print("ortho-webp (b): %d native WebP decodes, %.1f MB in %.3f s summed over threads "
+          "(%.1f MB/s a thread), at most %d at once; no other decoder; %d windows (%d cells) "
+          "equal to the pixels written; first run %s; Gaussian %d launches on %s frames [%s]"
+          % (decodes["webp_decodes"], numbers["decoded_mb"], seconds,
+             numbers["decode_mb_per_s"], numbers["most_decodes_at_once"], windows.windows,
+             windows.cells, ", ".join("%s %.4f s" % kv for kv in phases.items()), launches_b,
+             numbers["gaussian_dtype"], card))
+    timed = [plain_gaussian_check("ortho-webp (b)", gaussians, gaussian_blur_reference)]
+    os.remove(path)
+
+    # (c) the pyramids over the first sub_px^2, every tile of each answer
+    sub = np.ascontiguousarray(pixels[:sub_px, :sub_px])
+    del pixels
+    sub_request = ortho_request(sub_px)
+    all_tiles = (-(-sub_px // TILE)) ** 2
+    gpkg = os.path.join(folder, "ortho_webp.gpkg")
+    write_gpkg_raster(gpkg, sub.transpose(2, 0, 1), ortho_geo_transform(),
+                      projection="EPSG:28992", tile_size=ORTHO_PYRAMID_TILE)
+    rewritten = {"gpkg": rewrite_tiles_as_webp(gpkg)}
+    merc_gt, merc_w, merc_h = mercator_box(sub_request, ORTHO_PYRAMID_ZOOM, ORTHO_PYRAMID_TILE)
+    mbt = os.path.join(folder, "ortho_webp.mbtiles")
+    write_mbtiles(mbt, ortho_pixels(merc_w, merc_h, seed=49).transpose(2, 0, 1), merc_gt,
+                  projection="EPSG:3857", name="ortho", tile_size=ORTHO_PYRAMID_TILE)
+    rewritten["mbtiles"] = rewrite_tiles_as_webp(mbt)
+    pyramids = {}
+    for label, pyramid in (("gpkg", gpkg), ("mbtiles", mbt)):
+        pipeline.clear_read_cache()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        with webp_spy() as spy:
+            pyramid_view, _ = build_ortho_view(pyramid)
+            check_algebra_path("ortho-webp (c) " + label, device, pyramid_view, sub_request,
+                               "nearest", (sub_request["bbox"][0], sub_request["bbox"][3]),
+                               share=0.0, sampled_tiles=all_tiles, routed=False)
+        check(native.counts["webp_decodes"] >= rewritten[label] and not spy.calls["decode_png_bytes"],
+              "ortho-webp (c) %s: %d native decodes of %d tiles, %d PNG decodes"
+              % (label, native.counts["webp_decodes"], rewritten[label],
+                 spy.calls["decode_png_bytes"]))
+        pyramids[label] = dict(tiles=rewritten[label], decodes=native.counts["webp_decodes"],
+                               decode_s=spy.seconds["webp_decode_native"],
+                               seconds=time.perf_counter() - t0)
+    numbers["pyramids"] = pyramids
+    print("ortho-webp (c): a GeoPackage of %d (one RGBA) and a zoom-%d MBTiles of %d 256^2 "
+          "WebP tiles, each tile decoding to the pixels written, read whole (%s) and asked in "
+          "RD New at %d^2: every tile bitwise to compute_host [%s]" % (
+              rewritten["gpkg"], ORTHO_PYRAMID_ZOOM, rewritten["mbtiles"],
+              ", ".join("%s %d decodes in %.3f s" % (k, v["decodes"], v["decode_s"])
+                        for k, v in pyramids.items()), sub_px, card))
+    for name in (gpkg, mbt):
+        os.remove(name)
+
+    # (d) GDAL's layout: contiguous RGB WebP tiles
+    layout = os.path.join(folder, "ortho_webp_rgb.tif")
+    write_webp_layout(layout, sub, ortho_geo_transform())
+    pipeline.clear_read_cache()
+    whole = read_geotiff(layout)
+    check(whole.array.shape == (3, sub_px, sub_px)
+          and np.array_equal(whole.array, sub.transpose(2, 0, 1)),
+          "ortho-webp (d): the contiguous RGB file reads otherwise than the pixels written")
+    windows_d = [(0, 1, 0, 1), (100, 613, 250, 1031), (sub_px - 300, sub_px, 7, sub_px)]
+    for row0, row1, col0, col1 in windows_d:
+        window = read_geotiff_window(layout, row0, row1, col0, col1)
+        check(np.array_equal(window.array, sub[row0:row1, col0:col1].transpose(2, 0, 1)),
+              "ortho-webp (d): the window %r differs" % ((row0, row1, col0, col1),))
+    os.remove(layout)
+    print("ortho-webp (d): a contiguous RGB WebP GeoTIFF of %d^2 (GDAL's layout) read whole "
+          "and in %d windows, equal to the pixels [%s]" % (sub_px, len(windows_d), card))
+    del sub
+    pipeline.clear_read_cache()
+    path_launches = {"gaussian_blur": cuda_stencils.launches,
+                     "moving_max": cuda_stencils.moving_max_launches}
+    kernels = [dict(time_gaussian(planes, sigma), max_abs_err=err, path=label)
+               for label, planes, sigma, err in timed if planes.is_cuda]
+    del timed
+    numbers["phase_s"] = time.perf_counter() - phase_t0
+    print("ortho-webp: Gaussian %d launches on the path; the phase %.2f s [%s]"
           % (path_launches["gaussian_blur"], numbers["phase_s"], card))
     return path_launches, numbers, kernels
 
@@ -6904,12 +7391,37 @@ def geojson_equal(ours, theirs, differ, rounded):
     return json.dumps(port).encode() == host_bytes
 
 
+def export_block(source, extent, tile, projection, centroids):
+    """The block of 3 x 3 of ``tile`` m export tiles at the middle of
+    ``extent``, each the same square as the whole export's: (its box, the
+    GeometryTiler's (source, request) pieces over it, the mask of the
+    ``centroids`` (n, 2) strictly inside one of them)."""
+    from dask_geomodeling_tpu_torch.geo.geometry import box
+    from dask_geomodeling_tpu_torch.geometry import GeometryTiler
+
+    x1, y1, x2, y2 = extent
+    n_cols, n_rows = -(-(x2 - x1) // tile), -(-(y2 - y1) // tile)
+    step_x, step_y = (x2 - x1) / n_cols, (y2 - y1) / n_rows
+    c0, r0 = max(0, n_cols // 2 - 1), max(0, n_rows // 2 - 1)
+    block = box(x1 + step_x * c0, y1 + step_y * r0, x1 + step_x * min(c0 + 3, n_cols),
+                y1 + step_y * min(r0 + 3, n_rows))
+    block_tiles = GeometryTiler(source, tile, projection).get_sources_and_requests(
+        mode="centroid", geometry=block, projection=projection)
+    in_block = np.zeros(len(centroids), bool)
+    for _, request in block_tiles:
+        bx1, by1, bx2, by2 = request["geometry"].bounds
+        in_block |= ((centroids[:, 0] > bx1) & (centroids[:, 0] < bx2)
+                     & (centroids[:, 1] > by1) & (centroids[:, 1] < by2))
+    return block, block_tiles, in_block
+
+
 def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_TILE,
                     sub_size=BUILDING_TILE):
     """The building-heights phase: per-building height statistics of the
-    smoothed sheet, exported in tiles to a GeoPackage (to_file), checked
-    against compute_host and repeated through the GeoPackage's R-tree over
-    a block of 3 x 3 of its tiles;
+    smoothed sheet, exported in tiles to a GeoPackage (to_file) over a
+    block of 3 x 3 of the tiles (export_block), checked against
+    compute_host and repeated through the GeoPackage's R-tree over the
+    same block;
     a sub-area exported untiled as GeoJSON and as a Shapefile against the
     host's export of it.  The first export is timed under the phase
     clock alone; the device busy time and idle share come from the R-tree
@@ -6921,7 +7433,7 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
     from dask_geomodeling_tpu_torch.config import config
     from dask_geomodeling_tpu_torch.core.tokens import tokenize
     from dask_geomodeling_tpu_torch.geo.geometry import box
-    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink, GeometryTiler
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink
     from dask_geomodeling_tpu_torch.geometry.sinks import to_file
     from dask_geomodeling_tpu_torch.io import vectorfile
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
@@ -6968,17 +7480,20 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
         return seconds, busy, launches, clock
 
     target = os.path.join(folder, "heights.gpkg")
-    export_s, _, launches, clock = export(target, profiled=False)
     extent = source.get_data(mode="extent", projection=projection)["extent"]
-    pieces = GeometryTiler(source, tile, projection).get_sources_and_requests(
-        mode="centroid", geometry=box(*extent), projection=projection)
+    everything = vectorfile.read_vector(buildings, layer="pand")
+    centroids = np.array([g.centroid.coords[0] for g in everything.geometry.values])
+    block, pieces, in_block = export_block(source, extent, tile, projection, centroids)
+    export_s, _, launches, clock = export(target, profiled=False, geometry=block)
     subrequests = [request for _, request in pieces]
+    exported = int(in_block.sum())
     merged = vectorfile.read_vector(target)
     phases = dict(clock.seconds)
     phases["planning"] = export_s - phases["run"] - phases["merge"]
-    print("building-heights: to_file of %d buildings in %d tiles of %g m: %.3f s, %.1f "
-          "buildings/s, %d in the merged file [%s]" % (
-              count, len(subrequests), tile, export_s, count / export_s, len(merged), card))
+    print("building-heights: to_file of the %d buildings of a block of %d tiles of %g m (of "
+          "%d footprints): %.3f s, %.1f buildings/s, %d in the merged file [%s]" % (
+              exported, len(subrequests), tile, count, export_s, exported / export_s,
+              len(merged), card))
     print("building-heights: phases (s; planning holds the extent requests and the raster "
           "window reads, the run holds the device plane and the sink writes; vector reads "
           "fall in both; %d timed calls): %s" % (
@@ -6992,16 +7507,9 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
           % (launches["gaussian_blur"], len(subrequests)))
 
     # every building whose centroid lies strictly inside a tile, each once
-    everything = vectorfile.read_vector(buildings, layer="pand")
-    centroids = np.array([g.centroid.coords[0] for g in everything.geometry.values])
-    inside = np.zeros(len(centroids), bool)
-    for request in subrequests:
-        x1, y1, x2, y2 = request["geometry"].bounds
-        inside |= ((centroids[:, 0] > x1) & (centroids[:, 0] < x2)
-                   & (centroids[:, 1] > y1) & (centroids[:, 1] < y2))
     fids = merged.index.values.tolist()
     check(len(fids) == len(set(fids)), "building-heights: a fid is in the merged file twice")
-    check(sorted(fids) == sorted(everything.index.values[inside].tolist()),
+    check(sorted(fids) == sorted(everything.index.values[in_block].tolist()),
           "building-heights: the merged file does not hold every building whose centroid "
           "lies strictly inside a tile")
     names = {"identificatie", "bouwjaar", "status", "h_mean", "h_p90", "relief", "area",
@@ -7009,7 +7517,7 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
     check(set(merged.columns) == names, "building-heights: the fields are %s"
           % sorted(merged.columns))
     print("building-heights: the merged file holds all %d buildings whose centroid lies "
-          "strictly inside a tile (of %d), each fid once, fields %s"
+          "strictly inside a tile of the block (of %d), each fid once, fields %s"
           % (len(fids), count, sorted(names - {"geometry"})))
 
     # two tiles against compute_host: the host's partial file of the same
@@ -7032,24 +7540,10 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
           "geometry, area, h_p90 and relief bitwise, h_mean differing in %d rows (within one "
           "float32 ulp before rounding) [%s]" % (differing, card))
 
-    # again through the GeoPackage's R-tree, over a block of 3 x 3 of the
-    # export's tiles (the whole extent until PR 20: 26-31 s of the phase),
-    # each tile the same square as the first export's
+    # again through the GeoPackage's R-tree, over the same block
     # 1 MiB, below the 16 MiB default and the file (a smaller file: half its size)
     limit = min(1024 * 1024, size // 2)
-    x1, y1, x2, y2 = extent
-    n_cols, n_rows = -(-(x2 - x1) // tile), -(-(y2 - y1) // tile)
-    step_x, step_y = (x2 - x1) / n_cols, (y2 - y1) / n_rows
-    c0, r0 = max(0, n_cols // 2 - 1), max(0, n_rows // 2 - 1)
-    block = box(x1 + step_x * c0, y1 + step_y * r0, x1 + step_x * min(c0 + 3, n_cols),
-                y1 + step_y * min(r0 + 3, n_rows))
-    block_tiles = GeometryTiler(source, tile, projection).get_sources_and_requests(
-        mode="centroid", geometry=block, projection=projection)
-    in_block = np.zeros(len(centroids), bool)
-    for _, request in block_tiles:
-        bx1, by1, bx2, by2 = request["geometry"].bounds
-        in_block |= ((centroids[:, 0] > bx1) & (centroids[:, 0] < bx2)
-                     & (centroids[:, 1] > by1) & (centroids[:, 1] < by2))
+    block_tiles = pieces
     with config.set({"geomodeling.vector-windowed-read-limit": limit}):
         pipeline.clear_read_cache()
         rtree_target = os.path.join(folder, "heights_rtree.gpkg")
@@ -7121,8 +7615,8 @@ def check_buildings(card, device, folder, sheet, count=BUILDINGS, tile=BUILDING_
           % (host_s, total_s, plane, sigma, card))
     return launches, dict(
         plane=plane, sigma=sigma,
-        buildings=count, tiles=len(subrequests), export_s=export_s,
-        buildings_per_s=count / export_s, rtree_device_busy_ms=busy_ms, rtree_idle_share=idle,
+        buildings=count, exported=exported, tiles=len(subrequests), export_s=export_s,
+        buildings_per_s=exported / export_s, rtree_device_busy_ms=busy_ms, rtree_idle_share=idle,
         phases=phases, rtree_export_s=rtree_s, host_s=host_s, phase_s=total_s,
         h_mean_rows_differing=differing, write_s=write_s, gpkg_bytes=size)
 
@@ -8288,9 +8782,10 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
     """The building-formats phase.  (a) The 20,000 footprints written as
     GML (layer pand, srsName EPSG:28992, as BGT and BAG extracts arrive),
     read by GeometryFileSource into build_buildings_view and exported by
-    to_file in ``tile`` m tiles into GML partials merged into one GML:
-    every row equal to building-heights' GeoPackage export
-    (``heights.gpkg`` in ``folder``), one tile to compute_host.  (b) The
+    to_file in ``tile`` m tiles into GML partials merged into one GML over
+    a block of 3 x 3 of the tiles (export_block): every row equal to
+    building-heights' GeoPackage export (``heights.gpkg`` in ``folder``),
+    one tile to compute_host.  (b) The
     footprints of the rings' side^2 square in each format of ``formats``,
     read back through GeometryFileSource (GPX's tracks through a 1 m
     Buffer) and asked once for the whole square on the card: the formats
@@ -8301,7 +8796,7 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
     from dask_geomodeling_tpu_torch import compute_host
     from dask_geomodeling_tpu_torch.core.tokens import tokenize
     from dask_geomodeling_tpu_torch.geo.geometry import box
-    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink, GeometryTiler
+    from dask_geomodeling_tpu_torch.geometry import GeometryFileSink
     from dask_geomodeling_tpu_torch.geometry.sinks import to_file
     from dask_geomodeling_tpu_torch.io import vectorfile
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
@@ -8331,26 +8826,32 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
     source = view.args[0]
     mean_view = view.args[2].args[0].source
 
-    # (a) the tiled export into GML partials, merged into one GML
+    # (a) the tiled export into GML partials, merged into one GML, over a
+    # block of 3 x 3 of the export's tiles, each tile the same square as
+    # the whole export's
     target = os.path.join(folder, "heights.gml")
+    extent = source.get_data(mode="extent", projection=projection)["extent"]
+    centroids = np.array([g.centroid.coords[0] for g in frame.geometry.values])
+    block, pieces, in_block = export_block(source, extent, tile, projection, centroids)
     cuda_stencils.reset_launches()
     with export_clock() as clock:
         t0 = time.perf_counter()
         to_file(view, target, tile_size=tile, projection=projection, mode="centroid",
-                device=device)
+                device=device, geometry=block)
         export_s = time.perf_counter() - t0
     launches = {"gaussian_blur": cuda_stencils.launches,
                 "moving_max": cuda_stencils.moving_max_launches}
-    extent = source.get_data(mode="extent", projection=projection)["extent"]
-    pieces = GeometryTiler(source, tile, projection).get_sources_and_requests(
-        mode="centroid", geometry=box(*extent), projection=projection)
     subrequests = [request for _, request in pieces]
+    exported = int(in_block.sum())
     phases = dict(clock.seconds)
     phases["planning"] = export_s - phases["run"] - phases["merge"]
     merged = vectorfile.read_vector(target)
-    print("building-formats: to_file of %d buildings from the GML in %d tiles of %g m into GML "
-          "partials, merged: %.3f s, %.1f buildings/s, %d in the merged GML [%s]"
-          % (count, len(subrequests), tile, export_s, count / export_s, len(merged), card))
+    check(len(merged) == exported, "building-formats: the merged GML holds %d buildings, the "
+          "block %d" % (len(merged), exported))
+    print("building-formats: to_file of the %d buildings of a block of %d of the tiles of %g m "
+          "from the GML into GML partials, merged: %.3f s, %.1f buildings/s, %d in the merged "
+          "GML [%s]" % (exported, len(subrequests), tile, export_s, exported / export_s,
+                        len(merged), card))
     print("building-formats: phases (s; the vector read parses the GML once, the merge parses "
           "the %d partials; %d timed calls): %s" % (
               len(subrequests), sum(clock.calls.values()),
@@ -8387,6 +8888,10 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
 
     gml_rows = by_fid(merged)
     gpkg_rows = by_fid(vectorfile.read_vector(os.path.join(folder, "heights.gpkg")))
+    block_fids = {int(fid) for fid in frame.index.values[in_block]}
+    check(set(gml_rows) == block_fids, "building-formats: the GML export holds other buildings "
+          "than those of its block")
+    gpkg_rows = {fid: row for fid, row in gpkg_rows.items() if fid in block_fids}
     differing = compare_heights("building-formats GML export", gml_rows, gpkg_rows,
                                 tile_ulps(subrequests))
     print("building-formats: the merged GML's %d rows equal building-heights' GeoPackage "
@@ -8478,7 +8983,8 @@ def check_building_formats(card, device, folder, sheet, side=RINGS_SIDE, tile=BU
                                                len(formats), total_s, card))
     return launches, dict(
         buildings=count, tiles=len(subrequests), gml_write_s=write_s, gml_read_s=read_s,
-        gml_bytes=os.path.getsize(gml), export_s=export_s, buildings_per_s=count / export_s,
+        gml_bytes=os.path.getsize(gml), export_s=export_s, exported=exported,
+        buildings_per_s=exported / export_s,
         phases=phases, host_s=host_s, h_mean_rows_differing=len(differing),
         square=len(square), formats=numbers, phase_s=total_s)
 
@@ -9173,10 +9679,11 @@ def run_phases(card, device, folder, mark):
     mark("building the temporal sources")
     for label, (view, request, interpolation, corner) in temporal.items():
         cuda_stencils.reset_launches()
-        # the 48-frame paths' host takes about a second a tile: 8 tiles
+        # the 48-frame paths' host takes about a second a tile: 4 tiles,
+        # and 8 of temporal-mean's
         algebra_host[label], _ = check_algebra_path(
             label, device, view, request, interpolation, corner,
-            sampled_tiles=16 if label == "temporal-mean" else 8)
+            sampled_tiles=8 if label == "temporal-mean" else 4)
         launches[label] = {"gaussian_blur": cuda_stencils.launches,
                            "moving_max": cuda_stencils.moving_max_launches}
     check(launches["temporal-median"]["moving_max"] > 0,
@@ -9307,9 +9814,19 @@ def run_phases(card, device, folder, mark):
     gaussian.extend(lzw_kernels)
     del read_values, lzw_lgn
     mark("the lzw-sheet path")
-    launches["ortho-jpeg"], ortho, ortho_kernels = check_ortho_jpeg(card, device, folder)
+    t0 = time.perf_counter()
+    ortho_px = ortho_pixels(ORTHO_PX, ORTHO_PX)  # shared by ortho-jpeg and ortho-webp
+    print("ortho-jpeg and ortho-webp: the %d^2 RGB orthophoto drawn in %.2f s"
+          % (ORTHO_PX, time.perf_counter() - t0))
+    launches["ortho-jpeg"], ortho, ortho_kernels = check_ortho_jpeg(card, device, folder,
+                                                                    pixels=ortho_px)
     gaussian.extend(ortho_kernels)
     mark("the ortho-jpeg path")
+    launches["ortho-webp"], ortho_webp, ortho_webp_kernels = check_ortho_webp(
+        card, device, folder, pixels=ortho_px)
+    del ortho_px
+    gaussian.extend(ortho_webp_kernels)
+    mark("the ortho-webp path")
     check_fuzz(device)
     check_f64_discrete(device)
     mark("the fuzz and the float64 discrete ops")
@@ -9356,6 +9873,7 @@ def run_phases(card, device, folder, mark):
     timings["parcel-imagery"] = parcels
     timings["lzw-sheet"] = lzw
     timings["ortho-jpeg"] = ortho
+    timings["ortho-webp"] = ortho_webp
     for name, numbers in [("gaussian_blur", g) for g in gaussian] + [("moving_max", m) for m in moving]:
         print("timing [%s]: %s %s kernel %.4f ms, plain torch %.4f ms, library call %.4f ms, "
               "bound %.4f ms (%s)" % (card, name, tuple(numbers["shape"]), numbers["ms"],

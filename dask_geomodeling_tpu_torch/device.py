@@ -21,6 +21,7 @@ __all__ = [
     "equal_scalar",
     "isclose_scalar",
     "data_mask",
+    "divide",
 ]
 
 _TORCH_DTYPES = {
@@ -116,6 +117,17 @@ def compare(name, a, b):
             value = above if int(b) > info.max else below
             return torch.full(a.shape, value, dtype=torch.bool, device=a.device)
     return op(a.to(torch_dtype(common)), as_operand(b, common, a.device))
+
+
+def divide(values, divisor):
+    """``values / divisor`` as a true division, on every device.  Torch's
+    CUDA division multiplies by the reciprocal when the divisor is a CPU
+    scalar (a Python number or a 0-dim CPU tensor), which rounds otherwise
+    than the CPU's and numpy's division unless the divisor is a power of
+    two; a 0-dim float64 tensor on the values' device divides."""
+    if torch.is_tensor(divisor) and divisor.device == values.device:
+        return values / divisor
+    return values / torch.as_tensor(divisor, dtype=torch.float64, device=values.device)
 
 
 def equal_scalar(values, scalar):

@@ -6,7 +6,9 @@ chunks decode natively, as the JAX package's do: ``native/tiffcodec.cpp``,
 built with g++ at first use (native/__init__.py), on the codec's thread
 pool, a window's chunks in parallel (ctypes releases the GIL).  JPEG
 chunks (compression 7) decode on the same pool with the port's own codec,
-``native/jpegcodec.cpp``, where the JAX package calls Pillow.  The
+``native/jpegcodec.cpp``, and WebP chunks (compression 50001, lossless)
+with ``native/webpcodec.cpp``, which also writes them, where the JAX
+package calls Pillow.  The
 pure-Python ``_lzw_decode`` and ``_packbits_decode`` are the plain
 versions the native decoders are held to; no read falls back to them.
 
@@ -17,8 +19,8 @@ Read support (foreign files):
 - uncompressed, DEFLATE (zlib), LZW (with early-change), PackBits, LZMA
   (stdlib ``lzma``); ZSTD through a lazy import of ``zstandard`` where it
   is installed; JPEG (the IFD's JPEGTables spliced into abbreviated
-  chunks).  WebP chunks, which the JAX package decodes with Pillow, raise
-  NotImplementedError: the port has no WebP codec
+  chunks); lossless WebP (a lossy or animated WebP chunk raises
+  NotImplementedError naming the JAX module that reads it with Pillow)
 - horizontal-differencing predictor (2) for integer samples
 - dtypes: u1 i1 u2 i2 u4 i4 f4 f8 (bool is stored as u1)
 - GeoTIFF georeferencing: ModelPixelScale + ModelTiepoint, EPSG code via
@@ -233,11 +235,21 @@ def _encode_image(array, compression, file_dtype, tiled, tile_size):
         for b in range(bands):
             planes.append(np.ascontiguousarray(array[b], file_dtype))
     if compression == _COMPRESSION_WEBP:
-        raise NotImplementedError(
-            "WebP TIFF compression needs an image codec the port does not have "
-            "(dask_geomodeling_tpu/io/geotiff.py writes it with Pillow)"
-        )
+        return _map_chunks(_encode_webp_chunk, planes)
     return _map_chunks(lambda plane: _encode(plane.tobytes(), compression), planes)
+
+
+def _encode_webp_chunk(tile):
+    """Lossless WebP bytes for one (h, w) uint8 band chunk, from the port's
+    own encoder (native/webpcodec.cpp): the JAX package writes Pillow's
+    bytes, these differ from them but decode to the same pixels."""
+    from dask_geomodeling_tpu_torch.native import webp_encode_native
+
+    if tile.dtype != np.uint8:
+        raise ValueError(
+            "WebP TIFF compression requires uint8 data (got %s)" % tile.dtype
+        )
+    return webp_encode_native(tile)
 
 
 def _image_blob(
@@ -645,11 +657,25 @@ def _decode(data, compression, expected_size, jpeg_tables=None, samples=None):
     if compression == _COMPRESSION_JPEG:
         return _decode_jpeg_chunk(data, jpeg_tables, samples)
     if compression == _COMPRESSION_WEBP:
-        raise NotImplementedError(
-            "WebP TIFF compression needs an image codec the port does not have "
-            "(dask_geomodeling_tpu/io/geotiff.py reads it with Pillow)"
-        )
+        return _decode_webp_chunk(data, samples)
     raise NotImplementedError("Unsupported TIFF compression: %d" % compression)
+
+
+def _decode_webp_chunk(data, samples):
+    """Pixel bytes from a lossless WebP (compression 50001) chunk, a
+    standalone WebP file, decoded by the port's native codec; as the JAX
+    package keeps them: band 0 of a codec-promoted gray image for a
+    1-sample file, else the first ``samples`` bands."""
+    from dask_geomodeling_tpu_torch.native import webp_decode_native
+
+    # a one-sample file keeps band 0 alone: the codec writes just that
+    pixels = webp_decode_native(data, bands=1 if samples == 1 else None)
+    if samples is not None and pixels.shape[2] != samples:
+        if samples == 1:
+            pixels = pixels[:, :, 0]  # grayscale promoted by the codec
+        else:
+            pixels = pixels[:, :, :samples]
+    return pixels.tobytes()
 
 
 def _decode_jpeg_chunk(data, jpeg_tables, samples):

@@ -42,20 +42,22 @@ def is_raster_gpkg(path):
 
 
 def _decode_tile(blob):
-    """A tile blob as (bands, h, w): PNG with io/png.py, JPEG (and BMP or
-    GIF) with io/jpeg.py, converted to L or RGB as the JAX package's
-    Pillow conversion does; a WebP tile raises."""
+    """A tile blob as (bands, h, w): PNG with io/png.py, lossless WebP
+    with the native codec, JPEG (and BMP or GIF) with io/jpeg.py, converted
+    to L or RGB as the JAX package's Pillow conversion does (an RGBA WebP
+    keeps RGB); a lossy or animated WebP raises NotImplementedError."""
     from dask_geomodeling_tpu_torch.io.jpeg import decode_image, to_pillow_bands
     from dask_geomodeling_tpu_torch.io.png import _SIGNATURE, decode_png_bytes
 
     if blob[:8] == _SIGNATURE:
         array, _ = decode_png_bytes(blob)
         return array
-    if blob[:4] == b"RIFF":
-        raise NotImplementedError(
-            "decoding a WebP tile is not ported: the port has no WebP decoder; "
-            "dask_geomodeling_tpu/io/gpkg_raster.py decodes it with Pillow"
-        )
+    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
+        from dask_geomodeling_tpu_torch.native import webp_decode_native
+
+        pixels = webp_decode_native(blob)
+        return to_pillow_bands({"mode": "RGB" if pixels.shape[2] == 3 else "RGBA",
+                                "pixels": pixels})
     return to_pillow_bands(decode_image(blob))
 
 

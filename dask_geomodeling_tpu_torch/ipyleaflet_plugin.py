@@ -17,8 +17,9 @@ The render needs neither matplotlib nor Pillow: the colour maps are the
 port's own tables (render/colormaps.py), the PNG writer is io/png.py's
 and the JPEG encoder the port's native codec (native/jpegcodec.cpp, the
 bytes Pillow writes at its defaults).  The one answer that differs from
-the JAX package's: ``image/webp`` needs an encoder the port does not
-have, and answers 400.
+the JAX package's: ``image/webp`` needs the lossy WebP (VP8) encoder of
+Pillow's default save, which the port does not have (its native WebP
+codec writes lossless VP8L only), and answers 400.
 """
 import threading
 from datetime import datetime

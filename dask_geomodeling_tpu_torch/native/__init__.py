@@ -1,13 +1,16 @@
-"""Native (C++) host components: the TIFF decoders, the JPEG codec and the
-scanline rasterizer.
+"""Native (C++) host components: the TIFF decoders, the JPEG and WebP codecs
+and the scanline rasterizer.
 
 Counterpart of dask_geomodeling_tpu/native/__init__.py, at its names but
 for the packed fetch (``fetchdecode.cpp``), which the port does not use;
 the JPEG codec (``jpegcodec.cpp``: ``jpeg_decode_native`` and
 ``jpeg_encode_native``) is the port's own, where the JAX package calls
 Pillow (its io/jpeg.py, the JPEG chunks of io/geotiff.py, the tiles of
-io/gpkg_raster.py, NITF's C3 and M3 segments and the WMS JPEG GetMap).
-``tiffcodec.cpp``, ``jpegcodec.cpp`` and ``rasterize.cpp`` build at first
+io/gpkg_raster.py, NITF's C3 and M3 segments and the WMS JPEG GetMap), and
+so is the lossless WebP codec (``webpcodec.cpp``: ``webp_decode_native`` and
+``webp_encode_native``), where the JAX package calls Pillow for WebP GeoTIFF
+chunks (compression 50001) and WebP tiles.  ``tiffcodec.cpp``,
+``jpegcodec.cpp``, ``webpcodec.cpp`` and ``rasterize.cpp`` build at first
 use with g++
 (``ops/_build.py``: ``-O3 -shared -fPIC -std=c++17``, a hash-named library
 in ``_build/``) and load with ctypes, which releases the GIL around each
@@ -18,8 +21,8 @@ g++ fails (its callers then drop to Python), a failure to build or load
 raises here, naming the compiler and the source: no caller falls back to
 the pure-Python decoders (io/geotiff.py) or the numpy polygon scanline
 (geo/rasterize.py), which stay as the plain versions the tests hold these
-to; the JPEG codec has no Python version at all (the tests hold it to
-Pillow).  ``counts`` tallies the native calls (chip_smoke.py reads it).
+to; the JPEG and WebP codecs have no Python version at all (the tests hold
+them to Pillow).  ``counts`` tallies the native calls (chip_smoke.py reads it).
 """
 import ctypes
 import os
@@ -35,6 +38,9 @@ __all__ = [
     "load_jpegcodec",
     "jpeg_decode_native",
     "jpeg_encode_native",
+    "load_webpcodec",
+    "webp_decode_native",
+    "webp_encode_native",
     "load_rasterizer",
     "rasterize_native",
     "counts",
@@ -45,17 +51,21 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(_HERE, "rasterize.cpp")
 _TIFF_SOURCE = os.path.join(_HERE, "tiffcodec.cpp")
 _JPEG_SOURCE = os.path.join(_HERE, "jpegcodec.cpp")
+_WEBP_SOURCE = os.path.join(_HERE, "webpcodec.cpp")
 
 _lock = threading.Lock()
 _lib = None
 _tiff_lib = None
 _jpeg_lib = None
+_webp_lib = None
 
 #: native calls since the last reset_counts(): TIFF chunk decodes and
 #: their decoded bytes, JPEG decodes and their decoded bytes, JPEG encodes
-#: and their bytes, and rasterize_native's burns (one a call)
+#: and their bytes, the same four of WebP, and rasterize_native's burns (one
+#: a call)
 counts = {"tiff_decodes": 0, "tiff_bytes": 0, "jpeg_decodes": 0, "jpeg_bytes": 0,
-          "jpeg_encodes": 0, "jpeg_encoded_bytes": 0, "burns": 0}
+          "jpeg_encodes": 0, "jpeg_encoded_bytes": 0, "webp_decodes": 0, "webp_bytes": 0,
+          "webp_encodes": 0, "webp_encoded_bytes": 0, "burns": 0}
 
 
 def reset_counts():
@@ -249,6 +259,106 @@ def _jpeg_encode(pixels, quality, h_samp, v_samp):
     with _lock:
         counts["jpeg_encodes"] += 1
         counts["jpeg_encoded_bytes"] += int(n)
+    return out[:n].tobytes()
+
+
+def load_webpcodec():
+    """Load (building if necessary) the native WebP codec; raises when it
+    cannot be built or loaded."""
+    global _webp_lib
+    lib = _build.load_host_library(_WEBP_SOURCE)
+    with _lock:
+        if _webp_lib is lib:
+            return _webp_lib
+        u8_p = ctypes.POINTER(ctypes.c_uint8)
+        lib.webp_decode.restype = ctypes.c_int
+        lib.webp_decode.argtypes = [u8_p, ctypes.c_int64, u8_p, ctypes.c_int64,
+                                    ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+                                    ctypes.c_int64]
+        lib.webp_encode.restype = ctypes.c_int64
+        lib.webp_encode.argtypes = [u8_p] + [ctypes.c_int32] * 3 + [u8_p, ctypes.c_int64]
+        _webp_lib = lib
+        return _webp_lib
+
+
+#: webpcodec.cpp's return codes
+_WEBP_CORRUPT, _WEBP_UNSUPPORTED, _WEBP_NEED_SPACE = -1, -2, -3
+
+#: the JAX modules that decode what the codec refuses, with Pillow
+_WEBP_READERS = ("dask_geomodeling_tpu/io/geotiff.py (compression 50001) and "
+                 "dask_geomodeling_tpu/io/gpkg_raster.py (tiles) decode it with Pillow")
+
+
+def webp_decode_native(data, bands=None):
+    """Decode a lossless WebP file as Pillow's ``np.asarray(Image.open(...))``
+    gives it: (h, w, 3) RGB, or (h, w, 4) RGBA where the container's alpha
+    flag (a simple file's VP8L alpha hint, or the VP8X flag) is set; with
+    ``bands`` below that, only the first ``bands`` channels, (h, w,
+    bands), written by the codec itself.
+
+    Raises OSError where Pillow raises (a truncated or broken file, or one
+    it cannot identify), NotImplementedError for what the codec does not
+    decode (lossy VP8, an ALPH chunk, an animation), naming the JAX modules
+    that read them, and RuntimeError when the library cannot be built or
+    loaded.
+    """
+    lib = load_webpcodec()
+    src = np.frombuffer(data, dtype=np.uint8)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    info = (ctypes.c_int32 * 4)(0, 0, 0, int(bands or 0))
+    message = ctypes.create_string_buffer(256)
+    # the first call reads the container and the header (width, height,
+    # channels), the second decodes into the array it sizes
+    rc = lib.webp_decode(src.ctypes.data_as(u8_p), src.size, None, 0, info, message,
+                         len(message))
+    if rc == _WEBP_NEED_SPACE:
+        channels = min(int(info[2]), int(bands or info[2]))
+        out = np.empty(int(info[0]) * int(info[1]) * channels, np.uint8)
+        rc = lib.webp_decode(src.ctypes.data_as(u8_p), src.size, out.ctypes.data_as(u8_p),
+                             out.size, info, message, len(message))
+    text = message.value.decode("ascii", "replace")
+    if rc == _WEBP_UNSUPPORTED:
+        raise NotImplementedError("%s: the port decodes lossless WebP (VP8L) only; %s"
+                                  % (text, _WEBP_READERS))
+    if rc != 0:
+        raise OSError(text)
+    width, height = int(info[0]), int(info[1])
+    with _lock:
+        counts["webp_decodes"] += 1
+        counts["webp_bytes"] += out.size
+    return out.reshape(height, width, channels)
+
+
+def webp_encode_native(pixels):
+    """Lossless WebP bytes of a (h, w) gray, (h, w, 3) RGB or (h, w, 4)
+    RGBA uint8 array: one VP8L chunk in a RIFF container (a gray image as
+    ARGB with R = G = B, so Pillow reads it as RGB; the alpha hint only
+    where some alpha is not 255).  Lossless, but not the bytes Pillow's
+    libwebp writes."""
+    pixels = np.ascontiguousarray(pixels)
+    if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
+            pixels.ndim == 3 and pixels.shape[2] not in (3, 4)):
+        raise ValueError("cannot write %s %s as WebP" % (pixels.dtype, pixels.shape))
+    height, width = pixels.shape[:2]
+    if not (1 <= width <= 16384 and 1 <= height <= 16384):
+        raise ValueError("WebP dimensions %d x %d out of range" % (width, height))
+    channels = 1 if pixels.ndim == 2 else pixels.shape[2]
+    lib = load_webpcodec()
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    capacity = 2 * pixels.size + 4096
+    while True:
+        out = np.empty(capacity, np.uint8)
+        n = lib.webp_encode(pixels.ctypes.data_as(u8_p), width, height, channels,
+                            out.ctypes.data_as(u8_p), capacity)
+        if n == -1:
+            capacity *= 2
+            continue
+        if n < 0:
+            raise ValueError("the WebP encoder refused %d x %d x %d" % (width, height, channels))
+        break
+    with _lock:
+        counts["webp_encodes"] += 1
+        counts["webp_encoded_bytes"] += int(n)
     return out[:n].tobytes()
 
 

@@ -46,7 +46,7 @@ the rounding to float32); on the CPU it accumulates in order and matches.
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu_torch.device import compare
+from dask_geomodeling_tpu_torch.device import compare, divide
 
 __all__ = [
     "polygon_edges",
@@ -152,8 +152,8 @@ def rasterize_labels(starts, ends, owners, planes, n_planes, gt, height, width, 
     # the rows whose centre line an edge may cross: min(y) <= yc < max(y)
     # with yc = q + d * (row + 0.5), widened by the rounding of the
     # inversion; the exact test below decides
-    r1 = (torch.minimum(y1, y2) - q) / d - 0.5
-    r2 = (torch.maximum(y1, y2) - q) / d - 0.5
+    r1 = divide(torch.minimum(y1, y2) - q, d) - 0.5
+    r2 = divide(torch.maximum(y1, y2) - q, d) - 0.5
     first = torch.floor(torch.minimum(r1, r2)).clamp(0, height).to(torch.int64)
     last = torch.ceil(torch.maximum(r1, r2)).clamp(-1, height - 1).to(torch.int64)
     count = (last - first + 1).clamp(min=0)

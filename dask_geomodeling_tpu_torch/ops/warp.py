@@ -31,7 +31,9 @@ is nodata makes the cell nodata.
 import numpy as np
 import torch
 
-from dask_geomodeling_tpu_torch.device import equal_scalar, isclose_scalar, numpy_dtype, torch_dtype
+from dask_geomodeling_tpu_torch.device import (
+    divide, equal_scalar, isclose_scalar, numpy_dtype, torch_dtype,
+)
 from dask_geomodeling_tpu_torch.geo.crs import get_projection, transform_points
 from dask_geomodeling_tpu_torch.geo.geotransform import GeoTransform
 
@@ -215,8 +217,8 @@ def _interp_coarse(grid, width, height, stride):
     at every target pixel, in float64: (frac_cols, frac_rows), (B, h, w)."""
     device = grid.device
     ch, cw = grid.shape[-2:]
-    fx = torch.arange(width, dtype=torch.float64, device=device) / stride
-    fy = torch.arange(height, dtype=torch.float64, device=device) / stride
+    fx = divide(torch.arange(width, dtype=torch.float64, device=device), stride)
+    fy = divide(torch.arange(height, dtype=torch.float64, device=device), stride)
     ix = torch.clamp(torch.floor(fx).long(), 0, cw - 2)
     iy = torch.clamp(torch.floor(fy).long(), 0, ch - 2)
     wx = (fx - ix)[None, None, :]
@@ -378,8 +380,12 @@ def warp_torch(
     else:
         bbox = bbox.to(torch.float64)
         x1, y1, x2, y2 = (bbox[:, k : k + 1] for k in range(4))
-        pixel_w = (x2 - x1) / width
-        pixel_h = (y1 - y2) / height  # negative: y decreases with the row
+        # every division here is a true one (device.divide): the host's
+        # nearest index is floor of these quotients, and a reciprocal
+        # product floors otherwise where a pixel centre falls on a source
+        # pixel's edge
+        pixel_w = divide(x2 - x1, width)
+        pixel_h = divide(y1 - y2, height)  # negative: y decreases with the row
         xs = x1 + pixel_w * (
             torch.arange(width, dtype=torch.float64, device=device) + 0.5
         )
@@ -391,8 +397,8 @@ def warp_torch(
             sp, sa, sq, sd = (gt[:, k : k + 1] for k in (0, 1, 3, 5))
         else:
             sp, sa, sb, sq, sc, sd = src_gt
-        frac_cols = ((xs - sp) / sa)[:, None, :]
-        frac_rows = ((ys - sq) / sd)[:, :, None]
+        frac_cols = divide(xs - sp, sa)[:, None, :]
+        frac_rows = divide(ys - sq, sd)[:, :, None]
 
     rows, in_r = _floor_index(frac_rows, limit_h, index_dtype)
     cols, in_c = _floor_index(frac_cols, limit_w, index_dtype)

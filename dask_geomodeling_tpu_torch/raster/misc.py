@@ -24,6 +24,7 @@ from dask_geomodeling_tpu_torch.device import (
     as_operand,
     compare,
     data_mask,
+    divide,
     equal_scalar,
     numpy_dtype,
     torch_dtype,
@@ -761,8 +762,8 @@ def _rasterize_wkt_torch(data, request):
     geometry = _wkt_geometry(data["wkt"], data["projection"], request["projection"])
     starts, ends, _ = polygon_edges([geometry])
     x1, y1, x2, y2 = bbox.unbind(1)
-    x_centres = centres(x1, (x2 - x1) / width, width, device)  # (B, w)
-    y_centres = centres(y2, (y1 - y2) / height, height, device)  # (B, h)
+    x_centres = centres(x1, divide(x2 - x1, width), width, device)  # (B, w)
+    y_centres = centres(y2, divide(y1 - y2, height), height, device)  # (B, h)
     inside = rasterize_parity(
         torch.as_tensor(starts, device=device),
         torch.as_tensor(ends, device=device),

@@ -19,6 +19,7 @@ from dask_geomodeling_tpu_torch.core import arg, expect_instance
 from dask_geomodeling_tpu_torch.device import (
     as_operand,
     data_mask,
+    divide,
     equal_scalar,
     numpy_dtype,
 )
@@ -825,8 +826,8 @@ def _placements_torch(process_kwargs, data):
 
     canvases, kept = [], []
     for x, y in process_kwargs["coordinates"]:
-        di = torch.round((x - x1) / size_x - anchor_px[0]).to(torch.int64)
-        dj = torch.round((y - y1) / size_y - anchor_px[1]).to(torch.int64)
+        di = torch.round(divide(x - x1, size_x) - anchor_px[0]).to(torch.int64)
+        dj = torch.round(divide(y - y1, size_y) - anchor_px[1]).to(torch.int64)
         dj = dst_h - src_h - dj
         src_rows = rows[None, :] - dj[:, None]  # (B, h)
         src_cols = cols[None, :] - di[:, None]  # (B, w)

@@ -256,8 +256,9 @@ def test_jpeg_and_webp_chunks_are_not_ported(tmp_path):
     """JPEG chunks (compression 7, the IFD's JPEGTables spliced in) read
     as the JAX package reads them with Pillow: the port's native codec
     gives the same bytes, gray and RGB, tiled and stripped.  WebP, which
-    the JAX package reads and writes with Pillow, is still not ported: the
-    port's writer names the JAX module."""
+    the JAX package reads and writes with Pillow, is ported now (the name
+    stays): the port's writer writes lossless WebP chunks of its own
+    encoder, which both packages read back to the pixels written."""
     image = pytest.importorskip("PIL.Image")
     smooth = np.add.outer(np.arange(32), np.arange(48)).astype(np.uint8)
     rgb = np.stack([smooth, smooth[::-1], 255 - smooth], axis=-1)
@@ -268,9 +269,10 @@ def test_jpeg_and_webp_chunks_are_not_ported(tmp_path):
         assert_same_data(P.read_geotiff(path), J.read_geotiff(path))
         assert_same_data(P.read_geotiff_window(path, 3, 29, 5, 40),
                          J.read_geotiff_window(path, 3, 29, 5, 40))
-    with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/geotiff.py"):
-        P.write_geotiff(str(tmp_path / "webp.tif"), smooth[None], GT, "EPSG:28992", None,
-                        compress="webp")
+    path = str(tmp_path / "webp.tif")
+    P.write_geotiff(path, smooth[None], GT, "EPSG:28992", None, compress="webp")
+    assert_same_data(P.read_geotiff(path), J.read_geotiff(path))
+    assert np.array_equal(P.read_geotiff(path).array[0], smooth)
 
 
 CRS_CASES = {

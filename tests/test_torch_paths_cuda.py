@@ -478,6 +478,74 @@ def test_ortho_jpeg_phase_on_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_ortho_webp_phase_on_card(tmp_path):
+    """chip_smoke's ortho-webp phase at a small size on the card: a 1024^2
+    orthophoto as a WebP GeoTIFF by window under a lowered limit, a 512^2
+    sub-area's pyramids and GDAL's contiguous layout, in 256^2 tiles,
+    batches of 8: every check of the full run, the fixtures' hashes held
+    by the native build, and the Gaussian's record at (b)."""
+    device = _card()
+    tile, batch = chip_smoke.TILE, chip_smoke.BATCH
+    chip_smoke.TILE, chip_smoke.BATCH = 256, 8
+    try:
+        with config.set(FILE_LIMIT):
+            launches, numbers, kernels = chip_smoke.check_ortho_webp(
+                "card", device, str(tmp_path), px=1024, sub_px=512, sampled_tiles=2)
+    finally:
+        chip_smoke.TILE, chip_smoke.BATCH = tile, batch
+    assert launches["gaussian_blur"] >= 7 and launches["moving_max"] == 0
+    assert numbers["native_decodes"] >= 12 and numbers["gaussian_dtype"] == "float64"
+    assert numbers["sampled_webp_share"] < numbers["sampled_deflate_share"]
+    assert [k["path"] for k in kernels] == ["ortho-webp (b)"] and kernels[0]["max_abs_err"] == 0.0
+
+
+def _nearest_flat_indices(device, src_gt, src_shape, bbox, width, height):
+    """The flat source index each target cell samples, -1 outside: from
+    warp_torch on ``device`` over a source whose cells hold their own
+    index, and from the host's warp_indices."""
+    from dask_geomodeling_tpu_torch.ops.warp import warp_indices, warp_torch
+
+    h, w = src_shape
+    values = torch.arange(h * w, dtype=torch.int64).reshape(1, h, w).to(device)
+    got = warp_torch(values, tuple(src_gt), "EPSG:4326", None,
+                     torch.tensor([bbox], dtype=torch.float64, device=device), "EPSG:4326",
+                     width, height, np.dtype("int64"), -1)[0, 0].cpu().numpy()
+    rows, cols, inside = warp_indices(tuple(src_gt), "EPSG:4326", (1, h, w), bbox,
+                                      "EPSG:4326", width, height)
+    return got, np.where(inside, rows * w + cols, -1)
+
+
+@pytest.mark.cuda
+def test_nearest_ties_on_card():
+    """The card's nearest index grids equal the host's (warp_indices) bit
+    for bit: ortho-jpeg's nitf-half geometry (the 1024^2 scene asked at
+    512^2, every cell centre on the corner of four pixels), then random
+    same-CRS geotransforms of non-dyadic cells, at half and at odd
+    resolutions.  Before device.divide, torch's CUDA division by a Python
+    number multiplied by the reciprocal and parted in 2 of nitf-half's 512
+    columns."""
+    device = _card()
+    x0, dx, _, y0, _, dy = gt = chip_smoke.scene_geo_transform(1024)
+    got, want = _nearest_flat_indices(device, gt, (1024, 1024),
+                                      (x0, y0 + 1024 * dy, x0 + 1024 * dx, y0), 512, 512)
+    assert (want >= 0).all() and np.array_equal(got, want)
+    rng = np.random.default_rng(25)
+    for _ in range(40):
+        h, w = (int(v) for v in rng.integers(50, 400, 2))
+        a = float(rng.uniform(1e-5, 1e-3)) * (1 + 1e-7 * float(rng.integers(1, 99)))
+        e = -a * float(rng.choice([1.0, 0.7, 1.3]))
+        sx, sy = float(rng.uniform(-10, 10)), float(rng.uniform(40, 60))
+        src_gt = (sx, a, 0.0, sy, 0.0, e)
+        scale = float(rng.choice([2.0, 3.0, 0.5, 1.7]))
+        width, height = max(1, int(w / scale)), max(1, int(h / scale))
+        col0, row0 = int(rng.integers(0, w // 4 + 1)), int(rng.integers(0, h // 4 + 1))
+        bbox = (sx + col0 * a, sy + (row0 + h - h // 4) * e, sx + (col0 + w - w // 4) * a,
+                sy + row0 * e)
+        got, want = _nearest_flat_indices(device, src_gt, (h, w), bbox, width, height)
+        assert np.array_equal(got, want), (src_gt, bbox, width, height)
+
+
+@pytest.mark.cuda
 def test_lzw_sheet_phase_on_card(file_paths, tmp_path):
     """chip_smoke's lzw-sheet phase after hfa-roughness: the 1024^2 sheet
     as a tiled LZW GeoTIFF read by window under a lowered limit, and a
@@ -577,13 +645,14 @@ def test_building_heights_on_card(buildings, tmp_path, ext):
 
 @pytest.mark.cuda
 def test_building_heights_phase_on_card(file_paths, tmp_path):
-    """chip_smoke's phase at small size: every check of the full run."""
+    """chip_smoke's phase at small size: every check of the full run (the
+    exports over a block of 3 x 3 of the 16 tiles)."""
     device = _card()
     folder, paths = file_paths
     sheet = paths["file-read"][0].store.url
     launches, numbers = chip_smoke.check_buildings("card", device, str(tmp_path), sheet,
                                                    count=400, tile=128.0, sub_size=200.0)
-    assert launches["gaussian_blur"] == numbers["tiles"] == 16
+    assert launches["gaussian_blur"] == numbers["tiles"] == 9  # a block of 3 x 3 of the 16
 
 
 # --- wms-serving at small size ---
@@ -727,12 +796,13 @@ def _formats_folder(file_paths, tmp_path, count=400, tile=128.0):
 
 @pytest.mark.cuda
 def test_building_formats_phase_on_card(file_paths, tmp_path):
-    """chip_smoke's phase at small size: every check of the full run."""
+    """chip_smoke's phase at small size: every check of the full run (the
+    GML export over a block of 3 x 3 of the 16 tiles)."""
     device = _card()
     sheet, _ = _formats_folder(file_paths, tmp_path)
     launches, numbers = chip_smoke.check_building_formats(
         "card", device, str(tmp_path), sheet, side=256.0, tile=128.0, count=400)
-    assert numbers["tiles"] == 16
+    assert numbers["tiles"] == 9
     assert launches["gaussian_blur"] == numbers["tiles"] + len(chip_smoke.FORMAT_ROUND)
     assert launches["moving_max"] == 0
     assert sorted(numbers["formats"]) == sorted(f[0] for f in chip_smoke.FORMAT_ROUND)

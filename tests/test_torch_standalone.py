@@ -235,6 +235,14 @@ def test_port_never_imports_jax():
             "lgn_tif, _ = cs.write_lgn_packbits(folder, cs.lgn_classes(64, 48))",
             "assert read_geotiff(lgn_tif).array.shape == (1, 48, 64)",
             "assert native.counts['tiff_decodes'] > 0 and native.counts['burns'] > 0",
+            "from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff_window, write_geotiff",
+            "ortho = cs.ortho_pixels(96, 80).transpose(2, 0, 1)",
+            "write_geotiff(folder + '/webp.tif', ortho, cs.ortho_geo_transform(), 'EPSG:28992',",
+            "              None, compress='webp', tiled=True, tile_size=64)",
+            "assert np.array_equal(read_geotiff(folder + '/webp.tif').array, ortho)",
+            "assert np.array_equal(read_geotiff_window(folder + '/webp.tif', 5, 70, 3, 90).array,",
+            "                      ortho[:, 5:70, 3:90])",
+            "assert native.counts['webp_encodes'] == 12 and native.counts['webp_decodes'] > 0",
             "import threading",
             "with HostPool(token='t', dashboard_port=0) as pool:",
             "    threading.Thread(target=hostworker.worker_main, args=(pool.address, 't'),",

@@ -90,6 +90,8 @@ def test_native_counters_stay_exact_and_answers_alike():
     pixels = np.add.outer(np.arange(24), np.arange(40)).astype(np.uint8)
     jpeg = native.jpeg_encode_native(pixels)
     decoded = native.jpeg_decode_native(jpeg)
+    webp = native.webp_encode_native(pixels)
+    unpacked = native.webp_decode_native(webp)
     native.reset_counts()
     rounds = 50
 
@@ -101,6 +103,8 @@ def test_native_counters_stay_exact_and_answers_alike():
             assert np.array_equal(out, want)
             assert native.jpeg_encode_native(pixels) == jpeg
             assert np.array_equal(native.jpeg_decode_native(jpeg), decoded)
+            assert native.webp_encode_native(pixels) == webp
+            assert np.array_equal(native.webp_decode_native(webp), unpacked)
 
     try:
         assert run_threads(work) == []
@@ -110,6 +114,10 @@ def test_native_counters_stay_exact_and_answers_alike():
                                  "jpeg_bytes": THREADS * rounds * decoded.size,
                                  "jpeg_encodes": THREADS * rounds,
                                  "jpeg_encoded_bytes": THREADS * rounds * len(jpeg),
+                                 "webp_decodes": THREADS * rounds,
+                                 "webp_bytes": THREADS * rounds * unpacked.size,
+                                 "webp_encodes": THREADS * rounds,
+                                 "webp_encoded_bytes": THREADS * rounds * len(webp),
                                  "burns": THREADS * rounds}
     finally:
         native.reset_counts()

@@ -357,10 +357,9 @@ def _image_blob(fmt):
 @pytest.mark.parametrize("fmt", ["WEBP", "JPEG"])
 def test_webp_and_jpeg_mbtiles_tiles(tmp_path, fmt):
     """tests/test_png_netcdf.py:test_webp_mbtiles_tiles_decode: the JAX
-    package decodes the file with Pillow.  A JPEG tile: the port's payload
-    is the JAX package's, from the reader and through RasterFileSource.
-    A WebP tile: the port raises NotImplementedError naming the JAX
-    module."""
+    package decodes the file with Pillow.  A JPEG tile and (since the
+    port's lossless WebP codec) a WebP tile: the port's payload is the JAX
+    package's, from the reader and through RasterFileSource."""
     path = str(tmp_path / "webp.mbtiles")
     jax_mbtiles.write_mbtiles(path, np.full((1, 256, 256), 123, np.uint8),
                               _grid_aligned_gt(col=7, row_xyz=7))
@@ -375,20 +374,12 @@ def test_webp_and_jpeg_mbtiles_tiles(tmp_path, fmt):
     else:
         assert np.abs(data.array.astype(int) - 123).max() <= 2
     pipeline.clear_read_cache()
-    if fmt == "JPEG":
-        assert_same(mbtiles.read_mbtiles(path), data)
-        with both_configs({"geomodeling.root": str(tmp_path)}):
-            source = __import__("dask_geomodeling_tpu_torch.raster",
-                                fromlist=["x"]).RasterFileSource("webp.mbtiles")
-            assert source.info.width == data.array.shape[2]
-            assert source.info.dtype == "uint8"
-        return
-    with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/gpkg_raster.py"):
-        mbtiles.read_mbtiles(path)
+    assert_same(mbtiles.read_mbtiles(path), data)
     with both_configs({"geomodeling.root": str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match="no WebP decoder"):
-            __import__("dask_geomodeling_tpu_torch.raster", fromlist=["x"]).RasterFileSource(
-                "webp.mbtiles").info
+        source = __import__("dask_geomodeling_tpu_torch.raster",
+                            fromlist=["x"]).RasterFileSource("webp.mbtiles")
+        assert source.info.width == data.array.shape[2]
+        assert source.info.dtype == "uint8"
 
 
 def test_jpeg_gpkg_tile_refused(tmp_path):
@@ -648,9 +639,9 @@ def test_mbtiles_landuse_against_jax(tmp_path):
 
 def test_pyramid_refusals_as_the_jax_package(tmp_path):
     """chip_smoke's refusals: a GeoPackage of features and an MBTiles file
-    of vector tiles raise the JAX package's errors; a WebP tile raises
-    NotImplementedError naming the JAX module, where the JAX package gives
-    Pillow's verdict on the stub."""
+    of vector tiles raise the JAX package's errors; a lossy WebP tile
+    (since the port decodes lossless WebP) raises NotImplementedError
+    naming the JAX module, which decodes it with Pillow."""
     refusals = chip_smoke.pyramid_refusals(str(tmp_path))
     assert [kind for kind, _ in refusals] == [OSError, NotImplementedError, OSError]
     assert refusals[0][1].startswith("No tile layers in '") and "vector tiles" in refusals[2][1]

@@ -389,3 +389,73 @@ def test_fill_where_keeps_every_value(dtype):
                       torch.from_numpy(mask), np_dtype.type(top).item())
     assert got.dtype == torch_dtype(np_dtype)
     assert got.cpu().tolist() == np.where(mask, top, values).tolist()
+
+
+class _DivisionRecorder(torch.overrides.TorchFunctionMode):
+    """Every true division torch is asked for: (its function, the
+    numerator, the divisor)."""
+
+    DIVISIONS = {torch.div, torch.divide, torch.true_divide, torch.Tensor.div,
+                 torch.Tensor.divide, torch.Tensor.true_divide, torch.Tensor.__truediv__,
+                 torch.Tensor.__rtruediv__, torch.Tensor.div_, torch.Tensor.__itruediv__}
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.DIVISIONS and kwargs.get("rounding_mode") is None:
+            self.calls.append((func, args[0], args[1] if len(args) > 1 else kwargs.get("other")))
+        return func(*args, **kwargs)
+
+
+def _by_a_python_number(calls):
+    """The recorded divisions of a floating tensor by a Python number (or
+    a 0-dim tensor on another device: what CUDA turns into a product by
+    the reciprocal)."""
+    bad = []
+    for func, numerator, divisor in calls:
+        if func is torch.Tensor.__rtruediv__:
+            numerator, divisor = divisor, numerator
+        if not (torch.is_tensor(numerator) and numerator.is_floating_point()):
+            continue
+        if isinstance(divisor, (int, float)) or (
+                torch.is_tensor(divisor) and divisor.dim() == 0
+                and divisor.device != numerator.device):
+            bad.append((func, divisor))
+    return bad
+
+
+@pytest.mark.parametrize("case", ["same-crs-tuple", "same-crs-tensor", "cross-crs", "bilinear"])
+def test_warp_torch_divides_no_float_by_a_python_number(case):
+    """Under a TorchFunctionMode recording every division: warp_torch's
+    index arithmetic divides by 0-dim tensors on the values' device, never
+    by a Python number, which torch's CUDA kernel would turn into a
+    product by the reciprocal (device.divide)."""
+    values = np.arange(np.prod(SRC_SHAPE), dtype=np.float32).reshape((1,) + SRC_SHAPE)
+    bboxes = np.array([[85010.1, 454930.3, 85050.7, 454991.9]])
+    kwargs = dict(interpolation="bilinear" if case == "bilinear" else "nearest")
+    src_gt = SRC_GT
+    projection = SRC_SRS
+    if case == "same-crs-tensor":
+        src_gt = torch.tensor([SRC_GT], dtype=torch.float64)
+        kwargs["src_size"] = torch.tensor([SRC_SHAPE])
+        values = values[None]
+    if case == "cross-crs":
+        projection = "EPSG:3857"
+        bboxes, grids = _cross_tiles()
+        bboxes = bboxes[:1]
+        kwargs["coarse_grid"] = torch.from_numpy(grids[:1])
+    with _DivisionRecorder() as recorder:
+        warp_torch(torch.from_numpy(values), src_gt, SRC_SRS, None, torch.from_numpy(bboxes),
+                   projection, WIDTH, HEIGHT, np.dtype("float32"), -1.0, **kwargs)
+    assert recorder.calls, "no division was recorded"
+    assert _by_a_python_number(recorder.calls) == []
+
+
+def test_the_recorder_sees_a_python_divisor():
+    """The recorder itself: a tensor divided by a Python float is caught."""
+    with _DivisionRecorder() as recorder:
+        torch.arange(3, dtype=torch.float64) / 3.0
+    assert len(_by_a_python_number(recorder.calls)) == 1
