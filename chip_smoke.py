@@ -58,7 +58,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    fused Gaussian launch per batch, no node on the host, a 64^2 corner of
    the view below HillShade bitwise equal to compute_host and the full
    view within 1 of it, 16 tiles within 1 of compute_host with at most
-   1e-3 of their cells differing, and get_data equal to evaluate_tiled;
+   1e-3 of their cells differing (the share printed again with
+   HillShade's divisions by the plain division, as before device.divide),
+   and get_data equal to evaluate_tiled;
 6. the raster-algebra paths (build_algebra_paths): elemwise,
    reclassify-chain, combine, place and reproject-bilinear at 8192^2 in
    512^2 tiles, batches of 64.  Every node that returns pixels runs on
@@ -146,7 +148,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    most 5e-4 of the warped source cells differing, outside their reach
    ahn-smooth bitwise and ahn-hillshade within 1 in at most 1e-3 of the
    cells, every pixel whose value agrees coloured as the host's render
-   colours it), each timed in-process on the card (render_wms_tile) and
+   colours it; ahn-hillshade's differing share printed with and without
+   device.divide), each timed in-process on the card (render_wms_tile) and
    on the numpy host alike; 16 GetFeatureInfo answers against the host's values,
    GetLegendGraphic, GetCoverage read back, GetCapabilities, a layer
    naming the JAX package's classes answered 400; four threads rendering
@@ -260,8 +263,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    mosaic equal to the classes written (the TMS row flip), one run
    timed; (c) (a)'s view pickled and unpickled keeps its token and
    answers a tile as the original does on the card; (d) a GeoPackage of
-   features, a WebP tile and an MBTiles of vector tiles refused with the
-   JAX package's errors;
+   features, an animated WebP tile and an MBTiles of vector tiles refused
+   with the JAX package's errors;
 10k. modis-ndvi (check_modis_ndvi): a synthetic MOD13Q1-style 16-day
    vegetation index tile, h18v03 (the Netherlands to the Baltic), 4800^2
    cells of 231.66 m in the MODIS sinusoidal grid, as an HDF4 file in the
@@ -350,10 +353,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    tie_report's cells of another class and index cells both 0); the
    first Gaussian of (a) torch.equal to its plain version;
 10p. ortho-webp (check_ortho_webp): (e) the WebP codec's fixtures of
-   tests/data/torch_webp decoded natively, each SHA-256 the one recorded
-   from Pillow's array; (f) a lossy, a lossy-with-ALPH and an animated
-   fixture refused with NotImplementedError naming the JAX modules, a
-   truncated file with OSError; (a) ortho-jpeg's 8192^2 orthophoto
+   tests/data/torch_webp, lossless and lossy (ortho-lossy's five 512^2
+   chunks among them), decoded natively, each SHA-256 the one recorded
+   from Pillow's array; (f) an animated fixture refused with
+   NotImplementedError naming the JAX modules, a truncated lossless and a
+   truncated lossy file with OSError; (a) ortho-jpeg's 8192^2 orthophoto
    written by the port's write_geotiff(compress="webp", tiled, 512^2):
    768 native lossless encodes, the file's share of the raw bytes against
    deflate's on 16 sampled chunks; (b) build_ortho_view over it by
@@ -363,8 +367,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and as zoom-18 MBTiles, every tile decoding to the pixels written,
    every tile of each answer bitwise to compute_host; (d) a contiguous
    RGB WebP GeoTIFF in GDAL's layout (write_tiff_layout) read whole and
-   by window, equal to the pixels; the first Gaussian of (b) torch.equal
-   to its plain version;
+   by window, equal to the pixels; (g) an 8192^2 RGB lossy WebP GeoTIFF
+   in GDAL's layout (COMPRESS=WEBP's lossy default, quality 75: 256 tiles
+   of ortho-lossy's four RGB chunks repeated) under the same view by
+   window, every decoded window equal to the truth assembled from the
+   checked chunks, sampled tiles bitwise to compute_host, only the native
+   WebP decoder running, and a 4-band file of the RGBA chunk read whole
+   and by window; the first Gaussian of (b) and of (g) torch.equal to its
+   plain version;
 11. the executor fuzz on the card: the 55 random trees of
    tests/test_executor_fuzz.py (random_view, with the port's classes)
    against compute_host; and float64 comparisons, MaskBelow, Step and
@@ -2392,6 +2402,48 @@ def check_headline(device, source, view, request):
     return launches, len(sampled) * TILE * TILE / 1e6 / host_s
 
 
+class plain_hillshade_division:
+    """While installed, HillShade's torch branch divides its gradients by
+    the resolution's Python numbers, as it did before device.divide:
+    torch's CUDA kernel then multiplies by their reciprocals."""
+
+    def __enter__(self):
+        from dask_geomodeling_tpu_torch.raster import spatial
+
+        self.divide = spatial.divide
+        spatial.divide = lambda values, divisor: values / divisor
+        return self
+
+    def __exit__(self, *exc):
+        from dask_geomodeling_tpu_torch.raster import spatial
+
+        spatial.divide = self.divide
+        return False
+
+
+def division_shares(view, requests, hosts, device):
+    """The shares of the cells of ``requests`` whose card values differ
+    from ``hosts`` (compute_host's values), with HillShade's divisions
+    through device.divide and with the plain division (the result cache
+    off): (after, before)."""
+    import contextlib
+
+    from dask_geomodeling_tpu_torch import get_data
+    from dask_geomodeling_tpu_torch.config import config
+
+    cells = sum(int(np.asarray(host).size) for host in hosts)
+    shares = []
+    for plain in (False, True):
+        differ = 0
+        with config.set({"geomodeling.result-cache-size": 0}), (
+                plain_hillshade_division() if plain else contextlib.nullcontext()):
+            for request, host in zip(requests, hosts):
+                values = get_data(view, device=device, **request)["values"]
+                differ += int(np.count_nonzero(np.asarray(values) != np.asarray(host)))
+        shares.append(differ / cells)
+    return shares[0], shares[1]
+
+
 def check_stencils(device, view, request):
     """Phase 5; returns (launches, host Mpx/s)."""
     from dask_geomodeling_tpu_torch import evaluate_tiled, get_data
@@ -2463,6 +2515,9 @@ def check_stencils(device, view, request):
                                      share, worst))
     check(worst <= 1, "a sampled cell differs by more than 1")
     check(share <= STENCILS_SHARE, "differing share above %g" % STENCILS_SHARE)
+    after, before = division_shares(view, [tiles[k] for k in sampled], host_tiles, device)
+    print("stencils path: HillShade's off-by-one share on the %d tiles %r with device.divide, "
+          "%r with the plain division" % (len(sampled), after, before))
     return launches, len(sampled) * TILE * TILE / 1e6 / host_s
 
 
@@ -3620,7 +3675,7 @@ def pyramid_clock():
 
 def pyramid_refusals(folder):
     """RasterFileSource.info over (a GeoPackage of features, an MBTiles
-    file whose one tile is a lossy WebP, the fixture of
+    file whose one tile is an animated WebP, the fixture of
     tests/data/torch_webp, an MBTiles file of vector tiles): the
     (exception type, message) of each."""
     import sqlite3
@@ -3638,8 +3693,8 @@ def pyramid_refusals(folder):
     geo_transform = mercator_box(lgn_request(1, 1))[0]
     write_mbtiles(webp, np.zeros((1, PYRAMID_TILE, PYRAMID_TILE), np.uint8), geo_transform)
     con = sqlite3.connect(webp)
-    # a lossy WebP (VP8): the port decodes lossless WebP only
-    with open(os.path.join(webp_fixture_hashes()[0], "lossy-32x48.webp"), "rb") as f:
+    # an animated WebP: the port decodes still images only
+    with open(os.path.join(webp_fixture_hashes()[0], "animated-2x16x16.webp"), "rb") as f:
         con.execute("UPDATE tiles SET tile_data = ?", (f.read(),))
     con.commit()
     con.close()
@@ -6756,12 +6811,27 @@ WEBP_FIXTURES = {
 }
 #: the files the codec refuses, written with Pillow too: what each holds
 WEBP_REFUSED = {
-    "lossy-32x48.webp": "VP8",
-    "lossy-alpha-32x48.webp": "ALPH",
     "animated-2x16x16.webp": "ANIM",
 }
-ORTHO_WEBP_LAYOUT_TILE = 512  # the contiguous RGB file's tiles (d)
+#: lossy files written with Pillow (quality 60), decoded natively to the
+#: arrays hashes.json records under "lossy": what each holds
+WEBP_LOSSY_FIXTURES = {
+    "lossy-32x48.webp": "VP8",
+    "lossy-alpha-32x48.webp": "ALPH",
+}
+ORTHO_WEBP_LAYOUT_TILE = 512  # the contiguous RGB file's tiles (d) and (g)
 ORTHO_WEBP_SAMPLED_CHUNKS = 16  # chunks held against deflate
+#: (g)'s chunks, in ORTHO_LOSSY_DIR of the fixtures: the four 512^2
+#: quadrants (row, column) of ortho_pixels(1024, 1024), and the first again
+#: with a nodata mask as its alpha, each Pillow's lossy WebP at GDAL's
+#: COMPRESS=WEBP defaults (quality 75, method 4)
+ORTHO_LOSSY_DIR = "ortho-lossy"
+ORTHO_LOSSY_QUALITY = 75
+ORTHO_LOSSY_CHUNKS = {"ortho-0-0.webp": (0, 0), "ortho-0-1.webp": (0, 1),
+                      "ortho-1-0.webp": (1, 0), "ortho-1-1.webp": (1, 1),
+                      "ortho-alpha.webp": (0, 0)}
+ORTHO_LOSSY_ALPHA = "ortho-alpha.webp"
+ORTHO_LOSSY_SEED = 71
 
 
 def webp_fixture_array(mode, shape, colours=None):
@@ -6784,6 +6854,35 @@ def webp_fixture_array(mode, shape, colours=None):
     return array[..., 0] if bands == 1 else array
 
 
+@functools.lru_cache(maxsize=1)
+def _ortho_lossy_block():
+    return ortho_pixels(2 * ORTHO_WEBP_LAYOUT_TILE, 2 * ORTHO_WEBP_LAYOUT_TILE)
+
+
+def ortho_lossy_pixels(name):
+    """The pixels of the ORTHO_LOSSY_CHUNKS chunk ``name``: (512, 512, 3),
+    or (512, 512, 4) for ORTHO_LOSSY_ALPHA, its alpha 0 inside 12 discs
+    drawn from ORTHO_LOSSY_SEED and 255 elsewhere."""
+    tile = ORTHO_WEBP_LAYOUT_TILE
+    row, col = ORTHO_LOSSY_CHUNKS[name]
+    rgb = _ortho_lossy_block()[row * tile : (row + 1) * tile, col * tile : (col + 1) * tile]
+    if name != ORTHO_LOSSY_ALPHA:
+        return np.ascontiguousarray(rgb)
+    rng = np.random.default_rng(ORTHO_LOSSY_SEED)
+    y, x = np.mgrid[0:tile, 0:tile]
+    alpha = np.full((tile, tile), 255, np.uint8)
+    for cy, cx, r in zip(rng.integers(0, tile, 12), rng.integers(0, tile, 12),
+                         rng.integers(16, 64, 12)):
+        alpha[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = 0
+    return np.ascontiguousarray(np.dstack([rgb, alpha]))
+
+
+def webp_lossy_fixture_names():
+    """The lossy fixtures' paths in the fixture folder, as hashes.json
+    names them."""
+    return list(WEBP_LOSSY_FIXTURES) + [ORTHO_LOSSY_DIR + "/" + name for name in ORTHO_LOSSY_CHUNKS]
+
+
 def webp_fixture_hashes():
     """The WebP fixture folder's recorded hashes (hashes.json) and its path."""
     folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), WEBP_FIXTURE_DIR)
@@ -6793,22 +6892,31 @@ def webp_fixture_hashes():
 
 def check_webp_fixtures(card):
     """(e) and (f): the codec against libwebp without Pillow.  Every
-    lossless fixture decoded natively to the shape and SHA-256 of Pillow's
-    array; each refused fixture raising NotImplementedError naming the JAX
-    modules that read it, and a lossless file cut short raising OSError,
-    Pillow's class.  Returns (hashes held, the refusals' messages)."""
+    lossless and lossy fixture (ortho-lossy's chunks among them) decoded
+    natively to the shape and SHA-256 of Pillow's array; the animated
+    fixture raising NotImplementedError naming the JAX modules that read
+    it, and a lossless and a lossy file cut short raising OSError,
+    Pillow's class.  Returns (hashes held, the refusals' messages, the
+    ortho-lossy chunks' (bytes, checked array) by name)."""
     from dask_geomodeling_tpu_torch.native import webp_decode_native
 
     folder, recorded = webp_fixture_hashes()
-    check(sorted(recorded["decoded"]) == sorted(WEBP_FIXTURES),
-          "ortho-webp (e): hashes.json names other fixtures than WEBP_FIXTURES")
-    for name, want in recorded["decoded"].items():
+    check(sorted(recorded["decoded"]) == sorted(WEBP_FIXTURES)
+          and sorted(recorded["lossy"]) == sorted(webp_lossy_fixture_names()),
+          "ortho-webp (e): hashes.json names other fixtures than WEBP_FIXTURES and the lossy ones")
+    chunks = {}
+    for name, want in list(recorded["decoded"].items()) + list(recorded["lossy"].items()):
         with open(os.path.join(folder, name), "rb") as f:
-            pixels = webp_decode_native(f.read())
+            blob = f.read()
+        pixels = webp_decode_native(blob)
         check(list(pixels.shape) == want["shape"] and array_sha256(pixels) == want["sha256"],
               "ortho-webp (e): %s decodes otherwise than Pillow" % name)
-    print("ortho-webp (e): %d fixtures decoded natively, every SHA-256 Pillow's (libwebp "
-          "1.6.0) [%s]" % (len(recorded["decoded"]), card))
+        if name.startswith(ORTHO_LOSSY_DIR + "/"):
+            chunks[os.path.basename(name)] = (blob, pixels)
+    print("ortho-webp (e): %d lossless and %d lossy fixtures (%d of them ortho-lossy's 512^2 "
+          "chunks, quality %d) decoded natively, every SHA-256 Pillow's (libwebp 1.6.0) [%s]"
+          % (len(recorded["decoded"]), len(recorded["lossy"]), len(chunks), ORTHO_LOSSY_QUALITY,
+             card))
     refusals = {}
     for name, holds in WEBP_REFUSED.items():
         with open(os.path.join(folder, name), "rb") as f:
@@ -6822,17 +6930,19 @@ def check_webp_fixtures(card):
               "ortho-webp (f): %s (%s) was not refused naming the JAX module: %r"
               % (name, holds, raised))
         refusals[name] = raised
-    with open(os.path.join(folder, sorted(WEBP_FIXTURES)[-1]), "rb") as f:
-        blob = f.read()
-    try:
-        webp_decode_native(blob[: len(blob) // 2])
-        truncated = None
-    except OSError as e:
-        truncated = str(e)
-    check(truncated is not None, "ortho-webp (f): a truncated file did not raise OSError")
-    refusals["truncated"] = truncated
+    for label, name in (("truncated", sorted(WEBP_FIXTURES)[-1]),
+                        ("truncated lossy", sorted(WEBP_LOSSY_FIXTURES)[-1])):
+        with open(os.path.join(folder, name), "rb") as f:
+            blob = f.read()
+        try:
+            webp_decode_native(blob[: len(blob) // 2])
+            truncated = None
+        except OSError as e:
+            truncated = str(e)
+        check(truncated is not None, "ortho-webp (f): a %s file did not raise OSError" % label)
+        refusals[label] = truncated
     print("ortho-webp (f): %s [%s]" % ("; ".join("%s: %s" % kv for kv in refusals.items()), card))
-    return len(recorded["decoded"]), refusals
+    return len(recorded["decoded"]) + len(recorded["lossy"]), refusals, chunks
 
 
 def webp_spy():
@@ -6947,11 +7057,23 @@ def write_webp_layout(path, pixels, geo_transform, tile=ORTHO_WEBP_LAYOUT_TILE):
         return webp_encode_native(piece)
 
     chunks = _map_chunks(encode, corners)
-    tags = [(256, "I", [width]), (257, "I", [height]), (258, "H", [8, 8, 8]),
-            (259, "H", [50001]), (262, "H", [2]), (277, "H", [3]), (284, "H", [1]),
-            (322, "H", [tile]), (323, "H", [tile]), (339, "H", [1, 1, 1])]
-    write_tiff_layout(path, tags, chunks, geo_transform, "EPSG:28992", tiled=True)
+    write_webp_chunks_layout(path, chunks, (height, width), 3, geo_transform, tile)
     return sum(len(c) for c in chunks)
+
+
+def write_webp_chunks_layout(path, chunks, shape, bands, geo_transform,
+                             tile=ORTHO_WEBP_LAYOUT_TILE):
+    """A (height, width) = ``shape`` GeoTIFF of ``bands`` (3: RGB, 4: RGBA,
+    its alpha an unassociated extra sample) in GDAL's COMPRESS=WEBP layout:
+    tile^2 tiles, contiguous samples, Photometric RGB, ``chunks`` the WebP
+    files of the tiles in row-major order."""
+    height, width = shape
+    tags = [(256, "I", [width]), (257, "I", [height]), (258, "H", [8] * bands),
+            (259, "H", [50001]), (262, "H", [2]), (277, "H", [bands]), (284, "H", [1]),
+            (322, "H", [tile]), (323, "H", [tile]), (339, "H", [1] * bands)]
+    if bands == 4:
+        tags.append((338, "H", [2]))
+    write_tiff_layout(path, tags, chunks, geo_transform, "EPSG:28992", tiled=True)
 
 
 def sampled_chunk_shares(path, pixels, count=ORTHO_WEBP_SAMPLED_CHUNKS, tile=ORTHO_TILE):
@@ -6979,6 +7101,55 @@ def sampled_chunk_shares(path, pixels, count=ORTHO_WEBP_SAMPLED_CHUNKS, tile=ORT
     return webp / raw, deflate / raw, len(picks)
 
 
+def windowed_webp_read(label, device, path, truth, px, sampled_tiles):
+    """build_ortho_view over the px^2 RGB WebP GeoTIFF at ``path`` by window
+    (ortho-jpeg (a)'s lowered limit) through check_algebra_path: every
+    decoded window equal to ``truth`` (window_check), ``sampled_tiles``
+    tiles bitwise to compute_host, only the native WebP decoder running
+    (no encode), the Gaussian launched; its first frames and result in
+    "gaussians" (a gaussian_calls).  Returns the numbers."""
+    from dask_geomodeling_tpu_torch import native
+    from dask_geomodeling_tpu_torch.config import config
+    from dask_geomodeling_tpu_torch.ops import cuda_stencils
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    pipeline.clear_read_cache()
+    view, smooth = build_ortho_view(path)
+    source = smooth.args[0].args[1].args[0]
+    request = ortho_request(px)
+    limit = {"geomodeling.windowed-read-limit": min(
+        ORTHO_WINDOW_LIMIT, config.get("geomodeling.windowed-read-limit"))}
+    native.reset_counts()
+    launches = cuda_stencils.launches
+    phases, gaussians = {}, gaussian_calls()
+    with config.set(limit), webp_spy() as spy, window_check(path, truth) as windows:
+        check(np.dtype(source.info.dtype) == np.uint8 and source.info.bands == 3
+              and (source.info.width, source.info.height) == (px, px)
+              and source._file_read_plan(request) is not None,
+              "%s: info %r, or the read is not windowed" % (label, source.info))
+        host_rate, _ = check_algebra_path(
+            label, device, view, request, "nearest", (request["bbox"][0], request["bbox"][3]),
+            share=0.0, sampled_tiles=sampled_tiles, first_run=(gaussians, phases), routed=False)
+    decodes = dict(native.counts)
+    others = {name: spy.calls[name] for name in spy.calls if name != "webp_decode_native"}
+    check(decodes["webp_decodes"] > 0 and spy.calls["webp_decode_native"]
+          == decodes["webp_decodes"] and not any(others.values()),
+          "%s: %r native decodes, other codec calls %r" % (label, decodes, others))
+    check(windows.windows > 0 and not windows.differ,
+          "%s: %d of %d windows differ from the pixels" % (label, len(windows.differ),
+                                                           windows.windows))
+    launches = cuda_stencils.launches - launches
+    check(launches > 0, "%s: the Gaussian did not launch" % label)
+    seconds = spy.seconds["webp_decode_native"]
+    return dict(first_phases_s=phases, host_mpx_per_s=host_rate,
+                native_decodes=decodes["webp_decodes"], decoded_mb=decodes["webp_bytes"] / 1e6,
+                decode_s=seconds, decode_mb_per_s=decodes["webp_bytes"] / 1e6 / seconds,
+                most_decodes_at_once=spy.most["webp_decode_native"],
+                windows_checked=windows.windows, window_cells=windows.cells,
+                gaussian_launches=launches, gaussians=gaussians,
+                gaussian_dtype=str(gaussians.first[0].dtype).replace("torch.", ""))
+
+
 def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTHO_SUB_PX,
                      sampled_tiles=ORTHO_SAMPLED):
     """The ortho-webp phase.  (e) and (f) check_webp_fixtures first.  (a)
@@ -6999,7 +7170,6 @@ def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTH
     Returns (launches, numbers, the Gaussian's kernel records on the
     card); removes its files."""
     from dask_geomodeling_tpu_torch import native
-    from dask_geomodeling_tpu_torch.config import config
     from dask_geomodeling_tpu_torch.io.geotiff import (
         read_geotiff, read_geotiff_window, write_geotiff,
     )
@@ -7012,7 +7182,7 @@ def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTH
     phase_t0 = time.perf_counter()
     numbers = {}
     cuda_stencils.reset_launches()
-    numbers["fixture_hashes"], numbers["refusals"] = check_webp_fixtures(card)
+    numbers["fixture_hashes"], numbers["refusals"], lossy_chunks = check_webp_fixtures(card)
 
     # (a) the orthophoto as a WebP GeoTIFF
     t0 = time.perf_counter()
@@ -7048,52 +7218,17 @@ def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTH
               numbers["file_share"], sampled, webp_share, deflate_share, card))
 
     # (b) by window
-    pipeline.clear_read_cache()
-    view, smooth = build_ortho_view(path)
-    source = smooth.args[0].args[1].args[0]
-    request = ortho_request(px)
-    limit = {"geomodeling.windowed-read-limit": min(
-        ORTHO_WINDOW_LIMIT, config.get("geomodeling.windowed-read-limit"))}
-    native.reset_counts()
-    phases, gaussians = {}, gaussian_calls()
-    with config.set(limit), webp_spy() as spy, window_check(path, pixels) as windows:
-        check(np.dtype(source.info.dtype) == np.uint8 and source.info.bands == 3
-              and (source.info.width, source.info.height) == (px, px)
-              and source._file_read_plan(request) is not None,
-              "ortho-webp (b): info %r, or the read is not windowed" % (source.info,))
-        host_rate, values = check_algebra_path(
-            "ortho-webp", device, view, request, "nearest", (request["bbox"][0],
-                                                            request["bbox"][3]),
-            share=0.0, sampled_tiles=sampled_tiles, first_run=(gaussians, phases), routed=False)
-    decodes = dict(native.counts)
-    others = {name: spy.calls[name] for name in spy.calls
-              if name not in ("webp_decode_native", "webp_encode_native")}
-    check(decodes["webp_decodes"] > 0 and spy.calls["webp_decode_native"]
-          == decodes["webp_decodes"] and not any(others.values()),
-          "ortho-webp (b): %r native decodes, other decoders %r" % (decodes, others))
-    check(windows.windows > 0 and not windows.differ,
-          "ortho-webp (b): %d of %d windows differ from the pixels written"
-          % (len(windows.differ), windows.windows))
-    launches_b = cuda_stencils.launches
-    check(launches_b > 0, "ortho-webp (b): the Gaussian did not launch")
-    planes = gaussians.first[0]
-    seconds = spy.seconds["webp_decode_native"]
-    numbers.update(first_phases_s=phases, host_mpx_per_s=host_rate,
-                   native_decodes=decodes["webp_decodes"],
-                   decoded_mb=decodes["webp_bytes"] / 1e6, decode_s=seconds,
-                   decode_mb_per_s=decodes["webp_bytes"] / 1e6 / seconds,
-                   most_decodes_at_once=spy.most["webp_decode_native"],
-                   windows_checked=windows.windows, window_cells=windows.cells,
-                   gaussian_dtype=str(planes.dtype).replace("torch.", ""),
-                   gaussian_launches_b=launches_b)
-    del values
+    numbers.update(windowed_webp_read("ortho-webp (b)", device, path, pixels, px, sampled_tiles))
+    gaussians = numbers.pop("gaussians")
     print("ortho-webp (b): %d native WebP decodes, %.1f MB in %.3f s summed over threads "
           "(%.1f MB/s a thread), at most %d at once; no other decoder; %d windows (%d cells) "
           "equal to the pixels written; first run %s; Gaussian %d launches on %s frames [%s]"
-          % (decodes["webp_decodes"], numbers["decoded_mb"], seconds,
-             numbers["decode_mb_per_s"], numbers["most_decodes_at_once"], windows.windows,
-             windows.cells, ", ".join("%s %.4f s" % kv for kv in phases.items()), launches_b,
-             numbers["gaussian_dtype"], card))
+          % (numbers["native_decodes"], numbers["decoded_mb"], numbers["decode_s"],
+             numbers["decode_mb_per_s"], numbers["most_decodes_at_once"],
+             numbers["windows_checked"], numbers["window_cells"],
+             ", ".join("%s %.4f s" % kv for kv in numbers["first_phases_s"].items()),
+             cuda_stencils.launches, numbers["gaussian_dtype"], card))
+    numbers["gaussian_launches_b"] = cuda_stencils.launches
     timed = [plain_gaussian_check("ortho-webp (b)", gaussians, gaussian_blur_reference)]
     os.remove(path)
 
@@ -7156,6 +7291,11 @@ def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTH
           "and in %d windows, equal to the pixels [%s]" % (sub_px, len(windows_d), card))
     del sub
     pipeline.clear_read_cache()
+
+    # (g) lossy: GDAL's COMPRESS=WEBP default, from the checked chunks
+    numbers["lossy"] = check_ortho_lossy(card, device, folder, lossy_chunks, px=px,
+                                         sampled_tiles=sampled_tiles)
+    pipeline.clear_read_cache()
     path_launches = {"gaussian_blur": cuda_stencils.launches,
                      "moving_max": cuda_stencils.moving_max_launches}
     kernels = [dict(time_gaussian(planes, sigma), max_abs_err=err, path=label)
@@ -7165,6 +7305,67 @@ def check_ortho_webp(card, device, folder, pixels=None, px=ORTHO_PX, sub_px=ORTH
     print("ortho-webp: Gaussian %d launches on the path; the phase %.2f s [%s]"
           % (path_launches["gaussian_blur"], numbers["phase_s"], card))
     return path_launches, numbers, kernels
+
+
+def check_ortho_lossy(card, device, folder, chunks, px=ORTHO_PX, sampled_tiles=ORTHO_SAMPLED):
+    """ortho-webp (g): a px^2 RGB lossy WebP GeoTIFF in GDAL's layout
+    (write_webp_chunks_layout: 512^2 contiguous tiles, ortho-lossy's four
+    RGB chunks repeated, at ortho-jpeg's geo transform) under
+    build_ortho_view by window through check_algebra_path: every decoded
+    window equal to the truth assembled from ``chunks`` (their (bytes,
+    hash-checked array) by name, check_webp_fixtures'), ``sampled_tiles``
+    tiles bitwise to compute_host, only the native WebP decoder running,
+    the Gaussian's first frames torch.equal to its plain version; then a
+    4-band file of the RGBA chunk read whole and by window, equal to its
+    array.  Returns the numbers; removes its files."""
+    from dask_geomodeling_tpu_torch.io.geotiff import read_geotiff, read_geotiff_window
+    from dask_geomodeling_tpu_torch.ops.stencils import gaussian_blur_reference
+    from dask_geomodeling_tpu_torch.runtime import pipeline
+
+    t0 = time.perf_counter()
+    tile = ORTHO_WEBP_LAYOUT_TILE
+    quadrant = {corner: chunks[name] for name, corner in ORTHO_LOSSY_CHUNKS.items()
+                if name != ORTHO_LOSSY_ALPHA}
+    block = np.concatenate([np.concatenate([quadrant[(r, 0)][1], quadrant[(r, 1)][1]], axis=1)
+                            for r in (0, 1)], axis=0)
+    truth = np.tile(block, (px // (2 * tile), px // (2 * tile), 1))
+    n = px // tile
+    layout = [quadrant[(ty % 2, tx % 2)][0] for ty in range(n) for tx in range(n)]
+    path = os.path.join(folder, "ortho_lossy.tif")
+    write_webp_chunks_layout(path, layout, (px, px), 3, ortho_geo_transform())
+    numbers = {"file_mb": os.path.getsize(path) / 1e6, "chunks": len(layout)}
+    numbers.update(windowed_webp_read("ortho-webp (g)", device, path, truth, px, sampled_tiles))
+    del truth
+    plain_gaussian_check("ortho-webp (g)", numbers.pop("gaussians"), gaussian_blur_reference)
+    os.remove(path)
+    # the RGBA chunk as a 4-band file: its alpha the fourth band
+    rgba_blob, rgba = chunks[ORTHO_LOSSY_ALPHA]
+    rgba_path = os.path.join(folder, "ortho_lossy_rgba.tif")
+    write_webp_chunks_layout(rgba_path, [rgba_blob], (tile, tile), 4, ortho_geo_transform())
+    pipeline.clear_read_cache()
+    whole = read_geotiff(rgba_path)
+    check(whole.array.shape == (4, tile, tile) and np.array_equal(whole.array,
+                                                                  rgba.transpose(2, 0, 1)),
+          "ortho-webp (g): the 4-band file reads otherwise than its chunk")
+    for row0, row1, col0, col1 in [(0, 1, 0, 1), (100, 413, 37, 500), (tile - 200, tile, 0, tile)]:
+        window = read_geotiff_window(rgba_path, row0, row1, col0, col1)
+        check(np.array_equal(window.array, rgba[row0:row1, col0:col1].transpose(2, 0, 1)),
+              "ortho-webp (g): the 4-band window %r differs" % ((row0, row1, col0, col1),))
+    os.remove(rgba_path)
+    pipeline.clear_read_cache()
+    numbers["phase_s"] = time.perf_counter() - t0
+    print("ortho-webp (g): a %d^2 RGB lossy WebP GeoTIFF (GDAL's COMPRESS=WEBP default: quality "
+          "%d, %d^2 contiguous tiles, %.1f MB) by window: %d native decodes, %.1f MB in %.3f s "
+          "summed over threads (%.1f MB/s a thread), at most %d at once; no other decoder; %d "
+          "windows (%d cells) equal to the truth; first run %s; Gaussian %d launches; the "
+          "4-band file of the RGBA chunk whole and in 3 windows equal to it; %.2f s [%s]"
+          % (px, ORTHO_LOSSY_QUALITY, tile, numbers["file_mb"], numbers["native_decodes"],
+             numbers["decoded_mb"], numbers["decode_s"], numbers["decode_mb_per_s"],
+             numbers["most_decodes_at_once"], numbers["windows_checked"],
+             numbers["window_cells"],
+             ", ".join("%s %.4f s" % kv for kv in numbers["first_phases_s"].items()),
+             numbers["gaussian_launches"], numbers["phase_s"], card))
+    return numbers
 
 
 def plain_gaussian_check(label, gaussians, reference):
@@ -7836,6 +8037,7 @@ def wms_ground_truth(card, device, layers, tiles, picks, served):
     out = {}
     for name, (view, style, vmin, vmax) in layers.items():
         card_s, host_s, pixels_off, cells_off, worst_source = [], [], 0, 0, 0.0
+        hosts = []
         for turn, index in enumerate(picks):
             request = tile_request(tiles[index])
             params = {k.lower(): v for k, v in
@@ -7857,6 +8059,7 @@ def wms_ground_truth(card, device, layers, tiles, picks, served):
                   and port["no_data_value"] == host["no_data_value"],
                   "wms-serving: %s tile %s: dtype or nodata" % (name, tiles[index]))
             a, b = port["values"][0], host["values"][0]
+            hosts.append(host["values"])
             reach, source_share = wms_source_reach(view, request, device)
             worst_source = max(worst_source, source_share)
             ok, differ, outside = wms_within_limits(name, a, b, reach)
@@ -7883,6 +8086,12 @@ def wms_ground_truth(card, device, layers, tiles, picks, served):
               "the values agree" % (name, worst_source, cells_off, pixels_off))
         out[name] = dict(paired, differing_pixels=pixels_off, differing_cells=cells_off,
                          largest_source_share=worst_source)
+        if name == "ahn-hillshade":
+            after, before = division_shares(view, [tile_request(tiles[i]) for i in picks],
+                                            hosts, device)
+            out[name].update(off_by_one_share=after, plain_division_share=before)
+            print("wms-serving: ahn-hillshade's off-by-one share on the %d sampled tiles %r with "
+                  "device.divide, %r with the plain division" % (len(picks), after, before))
     return out
 
 

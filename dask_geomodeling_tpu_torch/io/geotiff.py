@@ -6,9 +6,9 @@ chunks decode natively, as the JAX package's do: ``native/tiffcodec.cpp``,
 built with g++ at first use (native/__init__.py), on the codec's thread
 pool, a window's chunks in parallel (ctypes releases the GIL).  JPEG
 chunks (compression 7) decode on the same pool with the port's own codec,
-``native/jpegcodec.cpp``, and WebP chunks (compression 50001, lossless)
-with ``native/webpcodec.cpp``, which also writes them, where the JAX
-package calls Pillow.  The
+``native/jpegcodec.cpp``, and WebP chunks (compression 50001, lossy or
+lossless) with ``native/webpcodec.cpp``, which also writes them
+(losslessly), where the JAX package calls Pillow.  The
 pure-Python ``_lzw_decode`` and ``_packbits_decode`` are the plain
 versions the native decoders are held to; no read falls back to them.
 
@@ -19,8 +19,9 @@ Read support (foreign files):
 - uncompressed, DEFLATE (zlib), LZW (with early-change), PackBits, LZMA
   (stdlib ``lzma``); ZSTD through a lazy import of ``zstandard`` where it
   is installed; JPEG (the IFD's JPEGTables spliced into abbreviated
-  chunks); lossless WebP (a lossy or animated WebP chunk raises
-  NotImplementedError naming the JAX module that reads it with Pillow)
+  chunks); WebP, lossy (an ALPH chunk's alpha the fourth sample) or
+  lossless (an animated WebP chunk raises NotImplementedError naming the
+  JAX module that reads it with Pillow)
 - horizontal-differencing predictor (2) for integer samples
 - dtypes: u1 i1 u2 i2 u4 i4 f4 f8 (bool is stored as u1)
 - GeoTIFF georeferencing: ModelPixelScale + ModelTiepoint, EPSG code via
@@ -662,8 +663,8 @@ def _decode(data, compression, expected_size, jpeg_tables=None, samples=None):
 
 
 def _decode_webp_chunk(data, samples):
-    """Pixel bytes from a lossless WebP (compression 50001) chunk, a
-    standalone WebP file, decoded by the port's native codec; as the JAX
+    """Pixel bytes from a WebP (compression 50001) chunk, a standalone
+    lossy or lossless WebP file, decoded by the port's native codec; as the JAX
     package keeps them: band 0 of a codec-promoted gray image for a
     1-sample file, else the first ``samples`` bands."""
     from dask_geomodeling_tpu_torch.native import webp_decode_native

@@ -11,9 +11,9 @@ tile-matrix-set extent; for sparse pyramids the present-tile envelope is
 the useful dataset).
 
 PNG tiles decode through the port's ``io/png.py``, JPEG tiles through
-its ``io/jpeg.py`` (the native codec), where the JAX package calls
-Pillow.  The port has no WebP decoder, so a WebP tile raises
-NotImplementedError.
+its ``io/jpeg.py`` and WebP tiles (lossy or lossless) through
+``native/webpcodec.cpp`` (the native codecs), where the JAX package calls
+Pillow; an animated WebP tile raises NotImplementedError.
 
 ``write_gpkg_raster`` emits a single-zoom PNG tile pyramid readable by
 GDAL/QGIS, its tiles encoded on the GeoTIFF codec's thread pool.
@@ -42,10 +42,11 @@ def is_raster_gpkg(path):
 
 
 def _decode_tile(blob):
-    """A tile blob as (bands, h, w): PNG with io/png.py, lossless WebP
-    with the native codec, JPEG (and BMP or GIF) with io/jpeg.py, converted
-    to L or RGB as the JAX package's Pillow conversion does (an RGBA WebP
-    keeps RGB); a lossy or animated WebP raises NotImplementedError."""
+    """A tile blob as (bands, h, w): PNG with io/png.py, WebP (lossy or
+    lossless) with the native codec, JPEG (and BMP or GIF) with
+    io/jpeg.py, converted to L or RGB as the JAX package's Pillow
+    conversion does (an RGBA WebP keeps RGB); an animated WebP raises
+    NotImplementedError."""
     from dask_geomodeling_tpu_torch.io.jpeg import decode_image, to_pillow_bands
     from dask_geomodeling_tpu_torch.io.png import _SIGNATURE, decode_png_bytes
 

@@ -12,8 +12,8 @@ anchor is fixed: tile (0, 0) at zoom 0 covers the whole world from
 Reading assembles the highest zoom level present into one EPSG:3857
 mosaic cropped to the envelope of tiles that actually exist (sparse
 pyramids, as ``io/gpkg_raster.py`` does); tiles decode through
-``io/gpkg_raster.py:_decode_tile`` (PNG and JPEG in the port; WebP
-raises).
+``io/gpkg_raster.py:_decode_tile`` (PNG, JPEG and still WebP in the
+port; an animated WebP raises).
 ``write_mbtiles`` emits a single-zoom PNG pyramid readable by
 GDAL/QGIS/tile servers; the input grid must sit on the Web Mercator tile
 grid's resolution ladder.

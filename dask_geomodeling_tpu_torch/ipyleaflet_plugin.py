@@ -14,12 +14,13 @@ the WSGI server answers it with a 500) and rendered on the host.
   and the ipyleaflet layer, defined only where those packages are.
 
 The render needs neither matplotlib nor Pillow: the colour maps are the
-port's own tables (render/colormaps.py), the PNG writer is io/png.py's
-and the JPEG encoder the port's native codec (native/jpegcodec.cpp, the
-bytes Pillow writes at its defaults).  The one answer that differs from
-the JAX package's: ``image/webp`` needs the lossy WebP (VP8) encoder of
-Pillow's default save, which the port does not have (its native WebP
-codec writes lossless VP8L only), and answers 400.
+port's own tables (render/colormaps.py), the PNG writer is io/png.py's,
+the JPEG encoder the port's native codec (native/jpegcodec.cpp, the bytes
+Pillow writes at its defaults) and the WebP encoder its lossless one
+(native/webpcodec.cpp).  The one answer whose pixels differ from the JAX
+package's: ``image/webp``, which the JAX package writes with Pillow's
+default save (lossy, quality 80) and the port losslessly, the image/png
+answer's pixels.
 """
 import threading
 from datetime import datetime
@@ -118,7 +119,7 @@ def get_capabilities_xml(base_url="http://localhost/wms"):
         "<Capability><Request><GetCapabilities>"
         "<Format>application/vnd.ogc.wms_xml</Format>"
         "</GetCapabilities><GetMap><Format>image/png</Format>"
-        "<Format>image/jpeg</Format>"
+        "<Format>image/jpeg</Format><Format>image/webp</Format>"
         "</GetMap><GetFeatureInfo><Format>application/json</Format>"
         "<Format>text/plain</Format></GetFeatureInfo></Request>"
         "<Layer><Title>dask_geomodeling_tpu</Title>%s</Layer>"
@@ -136,9 +137,7 @@ class WMSError(Exception):
 
 
 #: the WMS FORMAT= values the port writes
-_IMAGE_FORMATS = ("image/jpeg", "image/png")
-#: those the JAX package writes through Pillow, and the encoder each needs
-_MISSING_ENCODERS = {"image/webp": "WebP"}
+_IMAGE_FORMATS = ("image/jpeg", "image/png", "image/webp")
 
 
 def _masked(values, no_data_value):
@@ -165,7 +164,7 @@ def _geographic(srs):
 
 
 def render_wms_tile(params):
-    """Render one WMS GetMap request; returns PNG or JPEG bytes.
+    """Render one WMS GetMap request; returns PNG, JPEG or WebP bytes.
 
     ``params`` is a flat dict of query parameters (strings):
     layers (view JSON), styles (a matplotlib colormap name), vmin, vmax,
@@ -181,13 +180,6 @@ def render_wms_tile(params):
     vmin = float(params.get("vmin") or 0.0)
     vmax = float(params.get("vmax") or 1.0)
     img_format = (params.get("format") or "image/png").lower()
-    if img_format in _MISSING_ENCODERS:
-        raise WMSError(
-            400,
-            "Unsupported format %r: this server has no %s encoder "
-            "(supported: %s)"
-            % (img_format, _MISSING_ENCODERS[img_format], ", ".join(_IMAGE_FORMATS)),
-        )
     if img_format not in _IMAGE_FORMATS:
         raise WMSError(
             400,
@@ -249,10 +241,10 @@ def tile_values(data, height, width):
 
 def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF,
                 img_format="image/png"):
-    """The PNG (or JPEG) of a masked (height, width) array: normalized to
-    [vmin, vmax], coloured by the map ``style``, masked cells transparent
-    (or, with ``transparent`` False, everything composited on
-    ``bgcolor``; JPEG has no alpha, so it always composites)."""
+    """The PNG (or JPEG, or lossless WebP) of a masked (height, width)
+    array: normalized to [vmin, vmax], coloured by the map ``style``,
+    masked cells transparent (or, with ``transparent`` False, everything
+    composited on ``bgcolor``; JPEG has no alpha, so it always composites)."""
     from dask_geomodeling_tpu_torch.io.png import write_png_bytes
     from dask_geomodeling_tpu_torch.render import colormaps
 
@@ -279,6 +271,10 @@ def encode_tile(values, style, vmin, vmax, transparent=True, bgcolor=0xFFFFFF,
         from dask_geomodeling_tpu_torch.native import jpeg_encode_native
 
         return jpeg_encode_native(img_uint8)
+    if img_format == "image/webp":
+        from dask_geomodeling_tpu_torch.native import webp_encode_native
+
+        return webp_encode_native(img_uint8)
     return write_png_bytes(img_uint8.transpose(2, 0, 1))
 
 

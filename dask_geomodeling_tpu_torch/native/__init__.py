@@ -7,9 +7,10 @@ the JPEG codec (``jpegcodec.cpp``: ``jpeg_decode_native`` and
 ``jpeg_encode_native``) is the port's own, where the JAX package calls
 Pillow (its io/jpeg.py, the JPEG chunks of io/geotiff.py, the tiles of
 io/gpkg_raster.py, NITF's C3 and M3 segments and the WMS JPEG GetMap), and
-so is the lossless WebP codec (``webpcodec.cpp``: ``webp_decode_native`` and
-``webp_encode_native``), where the JAX package calls Pillow for WebP GeoTIFF
-chunks (compression 50001) and WebP tiles.  ``tiffcodec.cpp``,
+so is the WebP codec (``webpcodec.cpp``: ``webp_decode_native`` for lossy
+and lossless files, ``webp_encode_native`` lossless), where the JAX package
+calls Pillow for WebP GeoTIFF chunks (compression 50001), WebP tiles and
+the WMS WebP GetMap.  ``tiffcodec.cpp``,
 ``jpegcodec.cpp``, ``webpcodec.cpp`` and ``rasterize.cpp`` build at first
 use with g++
 (``ops/_build.py``: ``-O3 -shared -fPIC -std=c++17``, a hash-named library
@@ -275,6 +276,10 @@ def load_webpcodec():
         lib.webp_decode.argtypes = [u8_p, ctypes.c_int64, u8_p, ctypes.c_int64,
                                     ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
                                     ctypes.c_int64]
+        lib.webp_decode_planes.restype = ctypes.c_int
+        lib.webp_decode_planes.argtypes = [u8_p, ctypes.c_int64, u8_p, u8_p, u8_p,
+                                           ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+                                           ctypes.c_int64]
         lib.webp_encode.restype = ctypes.c_int64
         lib.webp_encode.argtypes = [u8_p] + [ctypes.c_int32] * 3 + [u8_p, ctypes.c_int64]
         _webp_lib = lib
@@ -284,23 +289,26 @@ def load_webpcodec():
 #: webpcodec.cpp's return codes
 _WEBP_CORRUPT, _WEBP_UNSUPPORTED, _WEBP_NEED_SPACE = -1, -2, -3
 
-#: the JAX modules that decode what the codec refuses, with Pillow
+#: the JAX modules that decode what the codec refuses (an animation), with
+#: Pillow
 _WEBP_READERS = ("dask_geomodeling_tpu/io/geotiff.py (compression 50001) and "
                  "dask_geomodeling_tpu/io/gpkg_raster.py (tiles) decode it with Pillow")
 
 
 def webp_decode_native(data, bands=None):
-    """Decode a lossless WebP file as Pillow's ``np.asarray(Image.open(...))``
-    gives it: (h, w, 3) RGB, or (h, w, 4) RGBA where the container's alpha
-    flag (a simple file's VP8L alpha hint, or the VP8X flag) is set; with
-    ``bands`` below that, only the first ``bands`` channels, (h, w,
-    bands), written by the codec itself.
+    """Decode a still WebP file, lossless (VP8L) or lossy (a VP8 key frame,
+    with or without an ALPH chunk), as Pillow's
+    ``np.asarray(Image.open(...))`` gives it (libwebp 1.6.0: for a lossy
+    frame its loop filter, fancy upsampling and YUV to RGB): (h, w, 3) RGB,
+    or (h, w, 4) RGBA where the container's alpha flag (a simple file's
+    VP8L alpha hint, or the VP8X flag) is set; with ``bands`` below that,
+    only the first ``bands`` channels, (h, w, bands), written by the codec
+    itself.
 
     Raises OSError where Pillow raises (a truncated or broken file, or one
     it cannot identify), NotImplementedError for what the codec does not
-    decode (lossy VP8, an ALPH chunk, an animation), naming the JAX modules
-    that read them, and RuntimeError when the library cannot be built or
-    loaded.
+    decode (an animation), naming the JAX modules that read it, and
+    RuntimeError when the library cannot be built or loaded.
     """
     lib = load_webpcodec()
     src = np.frombuffer(data, dtype=np.uint8)
@@ -318,7 +326,7 @@ def webp_decode_native(data, bands=None):
                              out.size, info, message, len(message))
     text = message.value.decode("ascii", "replace")
     if rc == _WEBP_UNSUPPORTED:
-        raise NotImplementedError("%s: the port decodes lossless WebP (VP8L) only; %s"
+        raise NotImplementedError("%s: the port decodes still WebP images only; %s"
                                   % (text, _WEBP_READERS))
     if rc != 0:
         raise OSError(text)
@@ -327,6 +335,35 @@ def webp_decode_native(data, bands=None):
         counts["webp_decodes"] += 1
         counts["webp_bytes"] += out.size
     return out.reshape(height, width, channels)
+
+
+def webp_decode_planes(data):
+    """The Y (h, w), U and V ((h + 1) // 2, (w + 1) // 2) planes of a lossy
+    WebP file, reconstructed and loop-filtered, before the upsampling and
+    the conversion to RGB: libwebp's WebPDecodeYUV, for the tests to tell
+    a fault of the one from a fault of the other.  Raises as
+    webp_decode_native does (NotImplementedError for a lossless file)."""
+    lib = load_webpcodec()
+    src = np.frombuffer(data, dtype=np.uint8)
+    u8_p = ctypes.POINTER(ctypes.c_uint8)
+    info = (ctypes.c_int32 * 2)()
+    message = ctypes.create_string_buffer(256)
+    rc = lib.webp_decode_planes(src.ctypes.data_as(u8_p), src.size, None, None, None, info,
+                                message, len(message))
+    if rc == _WEBP_NEED_SPACE:
+        width, height = int(info[0]), int(info[1])
+        y = np.empty((height, width), np.uint8)
+        u = np.empty(((height + 1) // 2, (width + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        rc = lib.webp_decode_planes(src.ctypes.data_as(u8_p), src.size, y.ctypes.data_as(u8_p),
+                                    u.ctypes.data_as(u8_p), v.ctypes.data_as(u8_p), info,
+                                    message, len(message))
+    text = message.value.decode("ascii", "replace")
+    if rc == _WEBP_UNSUPPORTED:
+        raise NotImplementedError(text)
+    if rc != 0:
+        raise OSError(text)
+    return y, u, v
 
 
 def webp_encode_native(pixels):

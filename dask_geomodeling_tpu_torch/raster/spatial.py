@@ -389,8 +389,14 @@ def _hillshade_math(array, resolution, altitude, azimuth, xp):
     s7 = a[..., 2:, 1:-1]
     s8 = a[..., 2:, 2:]
 
-    y = (s0 + 2 * s1 + s2 - s6 - 2 * s7 - s8) / yres
-    x = (s0 + 2 * s3 + s6 - s2 - 2 * s5 - s8) / xres
+    y = s0 + 2 * s1 + s2 - s6 - 2 * s7 - s8
+    x = s0 + 2 * s3 + s6 - s2 - 2 * s5 - s8
+    if xp is torch:
+        # true divisions on every device: torch's CUDA kernel multiplies by
+        # the reciprocal of a Python number (device.divide)
+        y, x = divide(y, yres), divide(x, xres)
+    else:
+        y, x = y / yres, x / xres
 
     xx_plus_yy = x * x + y * y
     aspect = xp.arctan2(y, x)

@@ -61,7 +61,8 @@ _VECTOR_CACHE_SIZE = 16
 #: file suffixes of the raster formats the port does not read, and the
 #: JAX module that reads each; the port reads GeoTIFF, VRT, Zarr stores,
 #: HDF4, netCDF and the formats of ``whole_file_reader``, the tile
-#: pyramids (a WebP tile in them raises, naming io/gpkg_raster.py), GRIB
+#: pyramids (an animated WebP tile in them raises, naming
+#: io/gpkg_raster.py), GRIB
 #: (a JPEG 2000 field raises, naming io/grib.py), NITF (a JPEG 2000
 #: segment raises, naming io/nitf.py) and JPEG, BMP and GIF among them
 _UNPORTED_FORMATS = {

@@ -481,9 +481,10 @@ def test_ortho_jpeg_phase_on_card(tmp_path):
 def test_ortho_webp_phase_on_card(tmp_path):
     """chip_smoke's ortho-webp phase at a small size on the card: a 1024^2
     orthophoto as a WebP GeoTIFF by window under a lowered limit, a 512^2
-    sub-area's pyramids and GDAL's contiguous layout, in 256^2 tiles,
-    batches of 8: every check of the full run, the fixtures' hashes held
-    by the native build, and the Gaussian's record at (b)."""
+    sub-area's pyramids and GDAL's contiguous layout, a 1024^2 lossy file
+    of the committed chunks (g), in 256^2 tiles, batches of 8: every check
+    of the full run, the fixtures' hashes held by the native build, and
+    the Gaussian's record at (b)."""
     device = _card()
     tile, batch = chip_smoke.TILE, chip_smoke.BATCH
     chip_smoke.TILE, chip_smoke.BATCH = 256, 8
@@ -497,6 +498,9 @@ def test_ortho_webp_phase_on_card(tmp_path):
     assert numbers["native_decodes"] >= 12 and numbers["gaussian_dtype"] == "float64"
     assert numbers["sampled_webp_share"] < numbers["sampled_deflate_share"]
     assert [k["path"] for k in kernels] == ["ortho-webp (b)"] and kernels[0]["max_abs_err"] == 0.0
+    lossy = numbers["lossy"]
+    assert lossy["chunks"] == 4 and lossy["native_decodes"] >= 4
+    assert lossy["windows_checked"] >= 4 and lossy["gaussian_launches"] >= 1
 
 
 def _nearest_flat_indices(device, src_gt, src_shape, bbox, width, height):

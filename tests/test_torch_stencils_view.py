@@ -107,3 +107,29 @@ def test_stencils_view_on_card_equals_cpu(stencils):
     card = evaluate_tiled(view, request, tile_size=TILE, batch=4, device="cuda")
     diff = np.abs(card["values"].astype(int) - cpu["values"].astype(int))
     assert diff.max() <= 1
+
+
+@pytest.mark.parametrize("resolution", [(0.5, 0.5), (1.0, 1.0), (0.3, 0.7), (3.0, 2.5)])
+def test_hillshade_torch_divides_no_float_by_a_python_number(resolution):
+    """Under a TorchFunctionMode recording every division: HillShade's
+    torch branch divides its gradients by 0-dim tensors on the values'
+    device, never by a Python number, which torch's CUDA kernel would turn
+    into a product by the reciprocal (device.divide); on the CPU it gives
+    numpy's bits."""
+    from dask_geomodeling_tpu.raster.spatial import _hillshade_process as jax_hillshade
+    from dask_geomodeling_tpu_torch.raster.spatial import _hillshade_torch
+    from tests.test_torch_warp import _by_a_python_number, _DivisionRecorder
+
+    rng = np.random.default_rng(3)
+    values = (rng.random((2, 40, 50)) * 30).astype(np.float32)
+    values[0, 5:9, 7:12] = -9999.0
+    kwargs = dict(resolution=resolution, altitude=45.0, azimuth=315.0, fill=0.0)
+    data = {"values": values, "no_data_value": -9999.0}
+    with _DivisionRecorder() as recorder:
+        ours = _hillshade_torch({"values": torch.from_numpy(values), "no_data_value": -9999.0},
+                                kwargs)
+    assert recorder.calls, "no division was recorded"
+    assert _by_a_python_number(recorder.calls) == []
+    theirs = jax_hillshade(data, kwargs)
+    assert ours["no_data_value"] == theirs["no_data_value"]
+    assert np.array_equal(ours["values"].numpy(), theirs["values"])

@@ -639,9 +639,9 @@ def test_mbtiles_landuse_against_jax(tmp_path):
 
 def test_pyramid_refusals_as_the_jax_package(tmp_path):
     """chip_smoke's refusals: a GeoPackage of features and an MBTiles file
-    of vector tiles raise the JAX package's errors; a lossy WebP tile
-    (since the port decodes lossless WebP) raises NotImplementedError
-    naming the JAX module, which decodes it with Pillow."""
+    of vector tiles raise the JAX package's errors; an animated WebP tile
+    (the port decodes still WebP only) raises NotImplementedError naming
+    the JAX module, which decodes it with Pillow."""
     refusals = chip_smoke.pyramid_refusals(str(tmp_path))
     assert [kind for kind, _ in refusals] == [OSError, NotImplementedError, OSError]
     assert refusals[0][1].startswith("No tile layers in '") and "vector tiles" in refusals[2][1]

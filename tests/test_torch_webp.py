@@ -1,15 +1,17 @@
-"""The port's lossless WebP codec (native/webpcodec.cpp) and every WebP
-call site, held on the CPU to the JAX package, which reads and writes WebP
-with Pillow (libwebp 1.6.0 in this environment).
+"""The port's WebP codec (native/webpcodec.cpp) and every WebP call site,
+held on the CPU to the JAX package, which reads and writes WebP with
+Pillow (libwebp 1.6.0 in this environment); the lossy decoder's corpora
+are tests/test_torch_webp_lossy.py's.
 
 - The decoder is bitwise to Pillow (pixels, mode and shape) over a matrix
   of Pillow's lossless files: gray, RGB and RGBA; methods 0-6; qualities 0,
   50 and 100; ``exact`` on and off; palettes of 2, 4, 16 and 256 colours;
   sizes from 1 x 1 to 1031 x 517; VP8X files with metadata and unknown
   chunks; and random planes under hypothesis.  A truncated or corrupted
-  file raises where Pillow raises, with Pillow's class (OSError), and
-  decodes to Pillow's array where Pillow decodes it; a lossy, a
-  lossy-with-ALPH and an animated file raise NotImplementedError naming
+  file, lossless, lossy or lossy with ALPH, raises where Pillow raises,
+  with Pillow's class (OSError), and decodes to Pillow's array where
+  Pillow decodes it; the lossy and lossy-with-ALPH fixtures decode to
+  Pillow's arrays, and an animated file raises NotImplementedError naming
   the JAX modules.
 - The encoder is lossless: Pillow decodes its bytes to exactly the input,
   and so does the port, for random, smooth and few-colour planes (its
@@ -200,6 +202,14 @@ def test_decoder_under_hypothesis(height, width, seed, mode, method, quality, ki
                                          exact=exact))
 
 
+def lossy_webp(alpha, shape=(40, 56), quality=60):
+    """Pillow's lossy WebP of a smooth RGB, or RGBA (an ALPH chunk), plane."""
+    pixels = pixels_of("RGBA" if alpha else "RGB", shape, 3, "smooth")
+    if alpha:
+        pixels[::4, :, 3] = 0
+    return pillow_webp(pixels, "RGBA" if alpha else "RGB", lossless=False, quality=quality)
+
+
 def _verdicts_agree(blob):
     """Pillow and the port on the same bytes: both raise, the port with
     Pillow's class (OSError; Pillow's UnidentifiedImageError is one), or
@@ -215,31 +225,38 @@ def _verdicts_agree(blob):
     return False
 
 
-@pytest.mark.parametrize("source", ["pillow-rgb", "pillow-gray-vp8x", "port-rgba"])
+@pytest.mark.parametrize("source", ["pillow-rgb", "pillow-gray-vp8x", "port-rgba", "pillow-lossy",
+                                    "pillow-lossy-alpha"])
 def test_truncated_files_raise_as_pillow(source):
     pixels = pixels_of("RGBA" if source == "port-rgba" else "RGB", (40, 56), 3, "smooth")
     if source == "pillow-rgb":
         blob = pillow_webp(pixels)
     elif source == "pillow-gray-vp8x":
         blob = pillow_webp(pixels[..., 0], "L", exif=chip_smoke.WEBP_EXIF)
+    elif source.startswith("pillow-lossy"):
+        blob = lossy_webp(source.endswith("alpha"))
     else:
         blob = native.webp_encode_native(pixels)
     for cut in range(len(blob)):
         assert _verdicts_agree(blob[:cut]), cut
 
 
-@pytest.mark.parametrize("source", ["pillow-rgb", "pillow-palette", "port-rgb"])
+@pytest.mark.parametrize("source", ["pillow-rgb", "pillow-palette", "port-rgb", "pillow-lossy",
+                                    "pillow-lossy-alpha"])
 def test_corrupted_files_decode_or_raise_as_pillow(source):
     """One or two bytes anywhere overwritten: where Pillow raises the port
     raises OSError, and where Pillow decodes the port gives its array
     (libwebp's checks of the container, the prefix codes, the transforms
-    and the copies)."""
+    and the copies; of a lossy frame its headers, its partitions' ends and
+    the ALPH chunk's)."""
     rng = np.random.default_rng(11)
     pixels = pixels_of("RGB", (24, 33), 9, "smooth")
     if source == "pillow-rgb":
         blob = pillow_webp(pixels)
     elif source == "pillow-palette":
         blob = pillow_webp(pixels // 64 * 64)
+    elif source.startswith("pillow-lossy"):
+        blob = lossy_webp(source.endswith("alpha"), shape=(24, 33))
     else:
         blob = native.webp_encode_native(pixels)
     raised = 0
@@ -251,13 +268,59 @@ def test_corrupted_files_decode_or_raise_as_pillow(source):
     assert raised >= 10
 
 
-@pytest.mark.parametrize("name", sorted(chip_smoke.WEBP_REFUSED))
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(alpha=st.booleans(), quality=st.integers(0, 100), cut=st.floats(0.0, 1.0),
+       edits=st.lists(st.tuples(st.floats(0.0, 1.0), st.integers(0, 255)), max_size=3))
+def test_lossy_mutations_under_hypothesis(alpha, quality, cut, edits):
+    """A lossy file, with an ALPH chunk or without, some bytes overwritten
+    and maybe cut short: the port raises OSError exactly where Pillow
+    raises, and else gives Pillow's array."""
+    blob = bytearray(lossy_webp(alpha, shape=(19, 37), quality=quality))
+    for where, value in edits:
+        blob[min(int(where * len(blob)), len(blob) - 1)] = value
+    if cut < 0.3:
+        blob = blob[: int(len(blob) * (0.7 + cut))]
+    _verdicts_agree(bytes(blob))
+
+
+def test_coefficients_past_their_range_wrap_as_libwebps():
+    """A byte of the token partition overwritten so that a chroma block's
+    coefficients leave the normal range: libwebp's x86-64 inverse
+    transform (Transform_SSE2) wraps in 16 bits there where its C version
+    would not, and the port gives Pillow's array."""
+    blob = bytearray(lossy_webp(False, shape=(70, 90), quality=90))
+    assert len(blob) == 1844 and blob[436] == 74
+    blob[436] = 220
+    assert not _verdicts_agree(bytes(blob))
+
+
+def test_alpha_read_past_its_end_wraps_as_libwebps():
+    """A byte of a colour-indexed ALPH stream overwritten so that its last
+    pixels are read past the stream's end: libwebp's DecodeAlphaData keeps
+    them, read from its bit reader's window wrapped onto the last bytes
+    (not zeros), and the port gives Pillow's array."""
+    rng = np.random.default_rng(7)
+    pixels = rng.integers(0, 256, (48, 64, 4)).astype(np.uint8)
+    pixels[..., 3] = np.where(rng.random((48, 64)) < 0.3, 0, 255)
+    blob = bytearray(pillow_webp(pixels, "RGBA", lossless=False, quality=90,
+                                 method=int(rng.integers(0, 7))))
+    assert blob[308] == 134
+    blob[308] = 54
+    assert not _verdicts_agree(bytes(blob))
+
+
+@pytest.mark.parametrize("name", sorted(list(chip_smoke.WEBP_REFUSED)
+                                        + list(chip_smoke.WEBP_LOSSY_FIXTURES)))
 def test_unported_webp_names_the_jax_modules(name):
-    """A lossy (VP8) file, a lossy one with an ALPH chunk and an animated
-    one: Pillow decodes each; the port raises NotImplementedError naming
-    the JAX modules that do."""
+    """The lossy (VP8) fixture and the lossy one with an ALPH chunk decode
+    to Pillow's arrays; the animated one, which Pillow decodes too, raises
+    NotImplementedError naming the JAX modules that do."""
     blob = fixture_bytes(name)
     assert pillow_read(blob)[0].size
+    if name in chip_smoke.WEBP_LOSSY_FIXTURES:
+        assert_decodes_as_pillow(blob)
+        assert (b"ALPH" in blob) == (chip_smoke.WEBP_LOSSY_FIXTURES[name] == "ALPH")
+        return
     with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/gpkg_raster.py"):
         native.webp_decode_native(blob)
 
@@ -489,12 +552,12 @@ def test_native_counts():
 
 
 def fixture_bytes(name):
-    """What Pillow writes for a fixture of chip_smoke.WEBP_FIXTURES or
-    WEBP_REFUSED."""
+    """What Pillow writes for a fixture of chip_smoke.WEBP_FIXTURES,
+    WEBP_LOSSY_FIXTURES or WEBP_REFUSED."""
     if name in chip_smoke.WEBP_FIXTURES:
         mode, shape, colours, options = chip_smoke.WEBP_FIXTURES[name]
         return pillow_webp(chip_smoke.webp_fixture_array(mode, shape, colours), mode, **options)
-    holds = chip_smoke.WEBP_REFUSED[name]
+    holds = chip_smoke.WEBP_LOSSY_FIXTURES.get(name) or chip_smoke.WEBP_REFUSED[name]
     if holds == "VP8":
         return pillow_webp(chip_smoke.webp_fixture_array("RGB", (32, 48)), lossless=False,
                            quality=60)
@@ -509,12 +572,19 @@ def fixture_bytes(name):
     return buf.getvalue()
 
 
+ALL_FIXTURES = (list(chip_smoke.WEBP_FIXTURES) + list(chip_smoke.WEBP_LOSSY_FIXTURES)
+                + list(chip_smoke.WEBP_REFUSED))
+
+
 def write_fixtures(folder):
     """Rewrite tests/data/torch_webp from Pillow: the files and
-    hashes.json (the SHA-256 of Pillow's decoded arrays)."""
+    hashes.json (the SHA-256 of Pillow's decoded arrays; the lossy ones'
+    with ortho-lossy's chunks by tests/test_torch_webp_lossy.py)."""
+    from tests.test_torch_webp_lossy import write_ortho_lossy
+
     os.makedirs(folder, exist_ok=True)
     decoded = {}
-    for name in list(chip_smoke.WEBP_FIXTURES) + list(chip_smoke.WEBP_REFUSED):
+    for name in ALL_FIXTURES:
         blob = fixture_bytes(name)
         with open(os.path.join(folder, name), "wb") as f:
             f.write(blob)
@@ -524,17 +594,18 @@ def write_fixtures(folder):
     with open(os.path.join(folder, "hashes.json"), "w") as f:
         json.dump({"decoded": decoded}, f, indent=1, sort_keys=True)
         f.write("\n")
+    write_ortho_lossy(folder)
 
 
 def test_chip_smoke_fixtures_are_pillows():
     """Each file of tests/data/torch_webp is what Pillow writes for its
     entry, hashes.json holds Pillow's decoded arrays, the files cover gray,
     RGB and RGBA, methods 0 and 6, palettes of 2, 4, 16 and 200 colours,
-    widths 1, 7 and 257 and a VP8X file, under 200 KB together, and
-    check_webp_fixtures holds the port to them."""
+    widths 1, 7 and 257 and a VP8X file, under 200 KB together (ortho-lossy's
+    chunks apart), and check_webp_fixtures holds the port to them."""
     folder, recorded = chip_smoke.webp_fixture_hashes()
     total = 0
-    for name in list(chip_smoke.WEBP_FIXTURES) + list(chip_smoke.WEBP_REFUSED):
+    for name in ALL_FIXTURES:
         blob = fixture_bytes(name)
         with open(os.path.join(folder, name), "rb") as f:
             assert f.read() == blob, name
@@ -551,26 +622,32 @@ def test_chip_smoke_fixtures_are_pillows():
     assert {1, 7, 257} <= {shape[1] for _, shape, _, _ in specs}
     assert any(_chunks(fixture_bytes(name))[0][0] == b"VP8X" for name in chip_smoke.WEBP_FIXTURES)
     assert sorted(os.listdir(folder)) == sorted(
-        list(chip_smoke.WEBP_FIXTURES) + list(chip_smoke.WEBP_REFUSED) + ["hashes.json"])
-    held, refusals = chip_smoke.check_webp_fixtures("cpu")
-    assert held == len(chip_smoke.WEBP_FIXTURES)
-    assert sorted(refusals) == sorted(list(chip_smoke.WEBP_REFUSED) + ["truncated"])
+        ALL_FIXTURES + ["hashes.json", chip_smoke.ORTHO_LOSSY_DIR])
+    held, refusals, chunks = chip_smoke.check_webp_fixtures("cpu")
+    assert held == len(chip_smoke.WEBP_FIXTURES) + len(chip_smoke.webp_lossy_fixture_names())
+    assert sorted(refusals) == sorted(list(chip_smoke.WEBP_REFUSED)
+                                      + ["truncated", "truncated lossy"])
+    assert sorted(chunks) == sorted(chip_smoke.ORTHO_LOSSY_CHUNKS)
     with open(os.path.join(folder, "hashes.json")) as f:
         assert json.load(f) == recorded
 
 
 def test_pyramid_refusals_tile_is_lossy():
-    """pyramid_refusals' WebP tile is the lossy fixture: Pillow decodes
-    it, so the JAX package reads the file, and the port refuses it."""
-    blob = fixture_bytes("lossy-32x48.webp")
-    assert _chunks(blob)[0][0] == b"VP8 "
-    assert pillow_read(blob)[1] == "RGB"
+    """pyramid_refusals' WebP tile, once the lossy fixture, is the animated
+    one now that the port decodes lossy WebP: Pillow decodes it, so the
+    JAX package reads the file, and the port refuses it."""
+    blob = fixture_bytes("animated-2x16x16.webp")
+    assert [tag for tag, _ in _chunks(blob)][:2] == [b"VP8X", b"ANIM"]
+    assert pillow_read(blob)[1] == "RGBA"  # an animation's canvas
+    with pytest.raises(NotImplementedError, match="dask_geomodeling_tpu/io/gpkg_raster.py"):
+        native.webp_decode_native(blob)
 
 
 def test_the_phase_on_the_cpu(tmp_path, monkeypatch):
     """check_ortho_webp on CPU tensors over a 1024^2 orthophoto, a 512^2
     sub-area, 256^2 tiles in batches of 8, the windowed-read limit
-    lowered: every check of the full run, the files removed."""
+    lowered: every check of the full run, (g)'s lossy file of the committed
+    chunks among them, the files removed."""
     from dask_geomodeling_tpu_torch.ops import cuda_stencils
     from dask_geomodeling_tpu_torch.raster import spatial
 
@@ -591,6 +668,9 @@ def test_the_phase_on_the_cpu(tmp_path, monkeypatch):
     assert numbers["sampled_webp_share"] < numbers["sampled_deflate_share"]
     assert numbers["gaussian_dtype"] == "float64"
     assert set(numbers["pyramids"]) == {"gpkg", "mbtiles"}
+    lossy = numbers["lossy"]
+    assert lossy["chunks"] == 4 and lossy["native_decodes"] >= 4
+    assert lossy["windows_checked"] >= 4 and lossy["gaussian_launches"] >= 1
     assert not list(tmp_path.iterdir())
 
 

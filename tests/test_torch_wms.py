@@ -8,8 +8,9 @@ port ``get_data`` on the CPU (``geomodeling.torch-device`` "cpu").  PNG
 answers are compared as decoded RGBA (Pillow), bitwise: the port writes
 its PNGs with its own encoder, so the bytes need not agree.
 GetFeatureInfo JSON and GetCoverage values are equal, and the
-GetCapabilities XML is the JAX package's but for the GetMap formats: the
-port writes image/png alone, and image/jpeg and image/webp answer 400.
+GetCapabilities XML is the JAX package's.  image/jpeg answers the JAX
+package's bytes; image/webp, lossy quality 80 in the JAX package, answers
+the port's lossless WebP of the image/png answer's pixels.
 Beyond the JAX cases: HillShade's out-of-range nodata, a layer naming a
 class of the JAX package (refused before any import, in a process
 without either), and a device error answered with a 500.
@@ -435,10 +436,6 @@ def capabilities(module, **environ):
     return headers, body
 
 
-#: the GetMap format the JAX package advertises and the port does not
-JAX_FORMATS = b"<Format>image/webp</Format>"
-
-
 def test_named_layers_and_capabilities(views):
     jax_json, port_json = views
     plugin.register_layer("rainfall", Block.from_json(port_json))
@@ -449,10 +446,10 @@ def test_named_layers_and_capabilities(views):
     assert b"tiles.example:8080" in body
     bbox = next(root.iter("LatLonBoundingBox"))
     assert float(bbox.get("minx")) < float(bbox.get("maxx"))
-    # the JAX package's document, but for the GetMap formats
+    # the JAX package's document, its GetMap formats too
     _, jax_body = capabilities(jax_plugin)
-    assert JAX_FORMATS in jax_body
-    assert body == jax_body.replace(JAX_FORMATS, b"")
+    assert b"<Format>image/webp</Format>" in jax_body
+    assert body == jax_body
 
     # GetMap by the registered name, uppercase query keys
     query = {
@@ -483,7 +480,7 @@ def test_capabilities_of_a_file_layer_read_its_footprint(tmp_path):
     _, body = capabilities(plugin)
     _, jax_body = capabilities(jax_plugin)
     assert b"LatLonBoundingBox" in body
-    assert body == jax_body.replace(JAX_FORMATS, b"")
+    assert body == jax_body
 
 
 def test_wms_13_crs_and_axis_order(views):
@@ -666,10 +663,13 @@ def format_params(view_json, **extra):
 
 @pytest.mark.parametrize("image_format, encoder", [("image/jpeg", "JPEG"), ("image/webp", "WebP")])
 def test_jpeg_and_webp_answer_400(views, image_format, encoder):
-    """The JAX package encodes these with Pillow.  JPEG: the port's native
-    encoder writes the JAX package's bytes (the same composited pixels,
-    Pillow's default save), plain and over BGCOLOR.  WebP: the port has no
-    encoder and answers 400 naming it."""
+    """The JAX package encodes these with Pillow; neither answers 400 in
+    the port any more.  JPEG: the port's native encoder writes the JAX
+    package's bytes (the same composited pixels, Pillow's default save),
+    plain and over BGCOLOR.  WebP (the JAX package's lossy quality 80):
+    the port's lossless encoder, whose body Pillow decodes to the pixels of
+    the JAX package's image/png answer to the same request, transparent
+    and flattened, under the same Content-Type."""
     jax_json, port_json = views
     with Image.open(BytesIO(jax_plugin.render_wms_tile(
             format_params(jax_json, format=image_format)))) as img:
@@ -681,9 +681,19 @@ def test_jpeg_and_webp_answer_400(views, image_format, encoder):
                                                               **extra))
             assert ours[:2] == b"\xff\xd8" and ours == theirs
         return
-    with pytest.raises(plugin.WMSError, match="Unsupported format.*no %s encoder" % encoder) as err:
-        plugin.render_wms_tile(format_params(port_json, format=image_format))
-    assert err.value.status == 400
+    for extra in ({}, dict(transparent="false", bgcolor="0x336699", vmin="0", vmax="3")):
+        ours = plugin.render_wms_tile(format_params(port_json, format=image_format, **extra))
+        png = jax_plugin.render_wms_tile(format_params(jax_json, format="image/png", **extra))
+        with Image.open(BytesIO(ours)) as img, Image.open(BytesIO(png)) as want:
+            assert img.format == "WEBP"
+            mode = want.mode
+            assert np.array_equal(np.asarray(img.convert(mode)), np.asarray(want))
+        status, headers, body = wsgi(plugin.wms_app, format_params(port_json, format=image_format,
+                                                                   **extra))
+        _, jax_headers, _ = wsgi(jax_plugin.wms_app, format_params(jax_json, format=image_format,
+                                                                   **extra))
+        assert status.startswith("200") and body == ours
+        assert headers["Content-Type"] == jax_headers["Content-Type"] == "image/webp"
 
 
 def test_unknown_format_400(views):
@@ -734,9 +744,9 @@ def test_wsgi_content_type_echoes_format(views):
 
 def test_capabilities_advertises_formats():
     xml = plugin.get_capabilities_xml()
-    assert "<GetMap><Format>image/png</Format><Format>image/jpeg</Format></GetMap>" in xml
-    assert "image/webp" not in xml
-    assert "<Format>image/jpeg</Format>" in jax_plugin.get_capabilities_xml()
+    assert ("<GetMap><Format>image/png</Format><Format>image/jpeg</Format>"
+            "<Format>image/webp</Format></GetMap>") in xml
+    assert "<Format>image/webp</Format>" in jax_plugin.get_capabilities_xml()
 
 
 # --- GetFeatureInfo ---
